@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels (route (b): ``nvcc`` by hand
+into a shared library with a plain C interface, loaded with ``ctypes``).
+
+Every ``csrc/*.cu`` compiles at first use, one ``nvcc`` process per
+source, all started together, for ``sm_90a`` (``wgmma`` and
+``setmaxnreg`` exist only for the ``a`` target).  A library is named by
+the hash of its source and flags, so an edited source is rebuilt and an
+unchanged one is loaded from ``build/kernels/`` (gitignored) as it is.
+Nothing here runs at import: ``import repro_torch`` needs no compiler.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}      # source stem -> nvcc/ptxas output
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin and PATH): the CUDA kernels "
+                       "cannot be built")
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _lib_path(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source whose library is missing, in parallel;
+    returns stem -> library path.  Raises with nvcc's output on failure."""
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, procs = {}, {}
+    for src in sources():
+        lib = _lib_path(src)
+        out[src.stem] = lib
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[src.stem] = (subprocess.Popen(
+            [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, lib)
+    failed = []
+    for stem, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[stem] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {stem}.cu (nvcc exit {proc.returncode})\n"
+                          f"{log}")
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<stem>.cu`` (builds every
+    source on the first call)."""
+    lib = _LIBS.get(stem)
+    if lib is None:
+        paths = build_all()
+        if stem not in paths:
+            raise KeyError(f"no csrc/{stem}.cu; have {sorted(paths)}")
+        lib = ctypes.CDLL(str(paths[stem]))
+        _LIBS[stem] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise for a nonzero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
+                           f"{err}")
