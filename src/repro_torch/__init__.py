@@ -3,9 +3,11 @@
 The JAX package ``repro`` is the reference; this package keeps its module
 names (``configs``, ``models``, ``kernels``, ``serve``, ``launch``) and its
 stacked ``[L, ...]`` parameter layout with the same ``/``-joined keys, and
-imports nothing of it.  Its two attention kernels are CUDA C++ for
-``sm_90a`` under ``csrc/``, compiled with ``nvcc`` at first use
-(``kernels/_build.py``), so importing the package needs no compiler.
+imports nothing of it.  It serves the dense (GPT-2), SSM (falcon-mamba)
+and hybrid (zamba2) families.  Its kernels (two attention kernels and
+two scans) are CUDA C++ for ``sm_90a`` under ``csrc/``, compiled with
+``nvcc`` at first use (``kernels/_build.py``), so importing the package
+needs no compiler.
 
 Entry points (``Model``, ``Engine``, ``ContinuousEngine``,
 ``launch/serve.py``) default to ``device="cuda"`` and raise when no card

@@ -1,16 +1,28 @@
 """Model configuration for the PyTorch port.
 
-A copy of the fields of ``repro.configs.base.ModelConfig`` that the dense
-family reads, with the same names, defaults and ``reduced()`` rule, so a
-port config and a reference config built the same way compare equal
-field by field.  The other families' sub-configs (MLA, MoE, SSM, the
-encoder and vision extras) are not ported yet.
+A copy of the fields of ``repro.configs.base.ModelConfig`` that the
+dense, SSM and hybrid families read, with the same names, defaults and
+``reduced()`` rule, so a port config and a reference config built the
+same way compare equal field by field.  The other families' sub-configs
+(MLA, MoE, the encoder and vision extras) are not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional
 
-Family = str  # only "dense" is ported
+Family = str  # "dense" | "ssm" | "hybrid" are ported
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    version: int = 1                # 1 => Mamba1 selective scan, 2 => Mamba2/SSD
+    n_heads: int = 0                # Mamba2 heads (0 => d_inner//head_dim)
+    head_dim: int = 64              # Mamba2 head dim
+    chunk: int = 64                 # SSD chunk length
 
 
 @dataclass(frozen=True)
@@ -31,6 +43,9 @@ class ModelConfig:
     activation: str = "silu"        # "silu" (SwiGLU) | "gelu" (plain MLP)
     tie_embeddings: bool = False
     sliding_window: int = 0         # 0 => full causal attention
+    ssm: Optional[SSMConfig] = None
+    # hybrid (zamba2): apply the shared attention block every k-th layer
+    hybrid_attn_every: int = 0      # 0 => no interleaved attention
     dtype: str = "bfloat16"         # compute dtype over fp32 params
     source: str = ""
 
@@ -39,25 +54,54 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense model (biases and norms
-        excluded from the layers, as in the reference's count)."""
-        d, hd = self.d_model, self.head_dim
-        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        per_attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
-            + (self.n_heads * hd) * d
-        per_mlp = (3 if self.activation == "silu" else 2) * d * self.d_ff
-        return emb + self.n_layers * (per_attn + per_mlp + 2 * d) + d
+        """Analytic parameter count, term for term the reference's
+        (biases and most norms excluded)."""
+        c = self
+        d = c.d_model
+        emb = c.vocab_size * d * (1 if c.tie_embeddings else 2)
+        per_attn = per_mlp = per_ssm = 0
+        if c.family != "ssm":
+            hd = c.head_dim
+            per_attn = d * (c.n_heads * hd) + 2 * d * (c.n_kv_heads * hd) \
+                + (c.n_heads * hd) * d
+            per_mlp = (3 if c.activation == "silu" else 2) * d * c.d_ff
+        if c.family in ("ssm", "hybrid"):
+            di, ds = c.ssm.expand * d, c.ssm.d_state
+            per_ssm = 2 * d * di + c.ssm.d_conv * di + di * ds * 2 + di * 2 \
+                + di * d
+            if c.ssm.version == 2:
+                nh = c.ssm.n_heads or di // c.ssm.head_dim
+                per_ssm = 2 * d * di + c.ssm.d_conv * di + di * 2 * ds \
+                    + nh * 2 + di * d
+        if c.family == "ssm":
+            layers = c.n_layers * (per_ssm + 2 * d)
+        elif c.family == "hybrid":
+            n_attn = c.n_layers // c.hybrid_attn_every \
+                if c.hybrid_attn_every else 0
+            shared = per_attn + 3 * d * c.d_ff   # one shared attn+mlp block
+            layers = c.n_layers * (per_ssm + 2 * d) + shared + n_attn * d
+        else:
+            layers = c.n_layers * (per_attn + per_mlp + 2 * d)
+        return emb + layers + d
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model<=256, <=4 heads (head_dim
-        stays d_model // n_heads, so 64 for the GPT-2 configs)."""
+        d_model // n_heads, so 64; the ssm family recomputes it the same
+        way from 4 heads), SSM state 8 and chunk 16, a hybrid group of 2."""
         d = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4) or 4
         kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else n_heads
-        return replace(
-            self, n_layers=2, d_model=d, n_heads=n_heads,
-            n_kv_heads=max(1, kv), d_ff=min(self.d_ff, 512) or 0,
-            vocab_size=min(self.vocab_size, 512), head_dim=d // n_heads,
+        kw = dict(
+            n_layers=2, d_model=d, n_heads=n_heads, n_kv_heads=max(1, kv),
+            d_ff=min(self.d_ff, 512) or 0,
+            vocab_size=min(self.vocab_size, 512),
+            head_dim=d // n_heads if self.family != "ssm" else 0,
             max_seq_len=1024,
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else 0)
+        if self.ssm is not None:
+            kw["ssm"] = replace(self.ssm, d_state=8, n_heads=0, head_dim=32,
+                                chunk=16)
+        if self.hybrid_attn_every:
+            kw["hybrid_attn_every"] = 2
+        return replace(self, **kw)

@@ -6,7 +6,8 @@
 // through its jnp rendering models/attention.chunked_attention.
 //
 // What bounds it on the H100: at the serving path's prefill shapes
-// (gpt2m, head_dim 64, S up to 1024) attention does 4*S*S*D/2 flops per
+// (gpt2m at head_dim 64, zamba2's shared attention at head_dim 80, S up
+// to 1024) attention does 4*S*S*D/2 flops per
 // head against 4*S*D*2 bytes, far above the card's ~295 flop/byte bf16
 // ridge, so it is bound by operations.  This first version does them on
 // the fp32 FMA pipes (67 TFLOP/s peak) rather than the tensor cores, so
@@ -29,20 +30,21 @@
 //    = 0.  Masking uses NEG_INF = -1e30 and the output divides by
 //    max(l, 1e-30), as the reference does;
 //  * q, k, v and o are addressed by strides, so the model's [B, S, H, D]
-//    layout is read and written in place with no transpose.
+//    layout is read and written in place with no transpose;
+//  * the head dim is a template parameter, instantiated for 64 (GPT-2)
+//    and 80 (zamba2); the entry point refuses any other.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int HD = 64;          // head_dim (GPT-2)
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per tile
 constexpr int NT = 2 * BQ;      // two threads per query row
-constexpr int KSTR = HD + 1;    // padded K row stride in shared memory
 constexpr float NEG_INF = -1e30f;
 
+template <int HD>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -54,6 +56,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  long long v_sb, long long v_ss, long long v_sh,
                  long long o_sb, long long o_ss, long long o_sh,
                  float scale, int causal, int window) {
+  constexpr int KSTR = HD + 1;  // padded K row stride in shared memory
   __shared__ float ks[BK * KSTR];
   __shared__ float vs[BK * HD];
 
@@ -179,12 +182,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace
 
-// q: [B, Sq, H, 64], k/v: [B, Sk, KV, 64], o: [B, Sq, H, 64], bf16, with
+// q: [B, Sq, H, D], k/v: [B, Sk, KV, D], o: [B, Sq, H, D], bf16, with
 // element strides for the batch, sequence and head axes (last axis
-// contiguous).  Returns the cudaError_t of the launch.
+// contiguous); D = head_dim is 64 or 80.  Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue for any other head dim).
 extern "C" int flash_attn_fwd_bf16(
     const void* q, const void* k, const void* v, void* o,
-    int B, int H, int KV, int Sq, int Sk,
+    int B, int H, int KV, int Sq, int Sk, int head_dim,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -193,10 +197,18 @@ extern "C" int flash_attn_fwd_bf16(
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, H / KV, Sq, Sk,
-      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-      o_sb, o_ss, o_sh, scale, causal, window);
+#define FLASH_LAUNCH(HDV)                                                   \
+  flash_fwd_kernel<HDV><<<grid, NT, 0, (cudaStream_t)stream>>>(             \
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,                     \
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, H / KV, Sq, Sk,           \
+      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,                 \
+      o_sb, o_ss, o_sh, scale, causal, window)
+  if (head_dim == 64)
+    FLASH_LAUNCH(64);
+  else if (head_dim == 80)
+    FLASH_LAUNCH(80);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef FLASH_LAUNCH
   return (int)cudaGetLastError();
 }

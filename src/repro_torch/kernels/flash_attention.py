@@ -12,8 +12,8 @@ reference's prefill runs.  Two versions of one function, in the model's
     ``NEG_INF`` = -1e30 with a ``max(l, 1e-30)`` guard).  The CPU runs
     it, and ``chip_smoke.py`` holds the kernel against it on the card.
   * ``flash_attention_cuda`` — the CUDA C++ kernel in
-    ``csrc/flash_attn_fwd.cu`` (bf16, head_dim 64, masks by index, which
-    is what arange positions give).  The source says what bounds it on
+    ``csrc/flash_attn_fwd.cu`` (bf16, head_dim 64 or 80, masks by index,
+    which is what arange positions give).  The source says what bounds it on
     the H100 and how its design answers that.
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIM = 64
+HEAD_DIMS = (64, 80)     # the kernel's instantiations: GPT-2, zamba2
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -81,7 +81,7 @@ def _lib():
     fn = lib.flash_attn_fwd_bf16
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, I, I, I, I, I] + [L] * 12 + [
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I] + [L] * 12 + [
             ctypes.c_float, I, I, P]
         fn.restype = ctypes.c_int
     return fn
@@ -92,31 +92,32 @@ def _check_operand(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-    if t.dim() != 4 or t.shape[-1] != HEAD_DIM or t.stride(-1) != 1:
-        raise ValueError(f"{name} must be [B, S, heads, {HEAD_DIM}] with a "
-                         f"contiguous last axis, got {tuple(t.shape)} "
-                         f"strides {t.stride()}")
+    if t.dim() != 4 or t.shape[-1] not in HEAD_DIMS or t.stride(-1) != 1:
+        raise ValueError(f"{name} must be [B, S, heads, D] with D in "
+                         f"{HEAD_DIMS} and a contiguous last axis, got "
+                         f"{tuple(t.shape)} strides {t.stride()}")
     if any(s % 2 for s in t.stride()[:3]) or t.data_ptr() % 4:
         raise ValueError(f"{name} needs even strides and 4-byte alignment "
                          f"for bf16x2 loads")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
-    """Launch kernel A.  q: [B, Sq, H, 64]; k/v: [B, Sk, KV, 64], bf16
-    CUDA tensors; masks by index.  Returns [B, Sq, H, 64] bf16."""
+    """Launch kernel A.  q: [B, Sq, H, D]; k/v: [B, Sk, KV, D], bf16
+    CUDA tensors, D = 64 or 80; masks by index.  Returns [B, Sq, H, D]
+    bf16."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t)
-    B, Sq, H, _ = q.shape
+    B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    if v.shape[:3] != k.shape[:3] or k.shape[0] != B or H % KV:
+    if v.shape != k.shape or k.shape[0] != B or k.shape[-1] != D or H % KV:
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    o = torch.empty((B, Sq, H, HEAD_DIM), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 B, H, KV, Sq, Sk, *q.stride()[:3], *k.stride()[:3],
+                 B, H, KV, Sq, Sk, D, *q.stride()[:3], *k.stride()[:3],
                  *v.stride()[:3], *o.stride()[:3],
-                 1.0 / (HEAD_DIM ** 0.5), int(causal), int(window), stream)
+                 1.0 / (D ** 0.5), int(causal), int(window), stream)
     _build.check(err, "flash_attn_fwd_bf16")
     flash_attention_cuda.launches += 1
     return o

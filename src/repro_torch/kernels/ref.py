@@ -1,6 +1,7 @@
-"""Direct (materialized-score) oracles, port of ``repro/kernels/ref.py``:
-the slow, obviously right versions the kernels' plain versions are held
-against."""
+"""Direct (materialized-score, sequential-recurrence) oracles, port of
+``repro/kernels/ref.py``: the slow, obviously right versions.  The
+attention kernels' plain versions are held against them; the scans'
+plain versions are these recurrences, started from a given state."""
 from __future__ import annotations
 
 import torch
@@ -39,3 +40,40 @@ def int8kv_attention_ref(q, k_q, k_scale, v_q, v_scale, valid):
     s = s.masked_fill(~valid.bool()[:, None, None, :], -1e30)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, v).to(q.dtype)
+
+
+def ssd_ref(xh, dt, b_s, c_s, a, h0=None):
+    """Sequential (per-token) SSD recurrence, the slow trusted path.
+    xh: [B, nh, S, hd]; dt: [B, nh, S]; b_s/c_s: [B, S, ds]; a: [nh];
+    h0: [B, nh, hd, ds] or None (zeros, as the reference's oracle).
+    Returns (y [B, nh, S, hd] fp32, h_last [B, nh, hd, ds] fp32)."""
+    B, nh, S, hd = xh.shape
+    ds = b_s.shape[-1]
+    xh, dt, b_s, c_s = (t.float() for t in (xh, dt, b_s, c_s))
+    h = torch.zeros((B, nh, hd, ds), device=xh.device) if h0 is None \
+        else h0.float().clone()
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, :, t] * a)                     # [B, nh]
+        dx = dt[:, :, t, None] * xh[:, :, t]                   # [B, nh, hd]
+        h = decay[..., None, None] * h \
+            + dx[..., None] * b_s[:, None, t, None, :]
+        ys.append(torch.einsum("bhds,bs->bhd", h, c_s[:, t]))
+    return torch.stack(ys, dim=2), h
+
+
+def mamba1_ref(x, dt, b_s, c_s, A, h0=None):
+    """Sequential mamba1 recurrence.  x/dt: [B, S, di]; b_s/c_s:
+    [B, S, ds]; A: [di, ds]; h0: [B, di, ds] or None (zeros, as the
+    reference's oracle).  Returns (y [B, S, di] fp32, h_last [B, di, ds])."""
+    B, S, di = x.shape
+    ds = b_s.shape[-1]
+    x, dt, b_s, c_s = (t.float() for t in (x, dt, b_s, c_s))
+    h = torch.zeros((B, di, ds), device=x.device) if h0 is None \
+        else h0.float().clone()
+    ys = []
+    for t in range(S):
+        a_t = torch.exp(dt[:, t, :, None] * A)                 # [B, di, ds]
+        h = a_t * h + (dt[:, t] * x[:, t])[..., None] * b_s[:, t, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, c_s[:, t]))
+    return torch.stack(ys, dim=1), h

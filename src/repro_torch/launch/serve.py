@@ -1,13 +1,19 @@
-"""Serving launcher of the port: batched prefill + decode of a GPT-2
-model on one device, fixed-batch by default, continuous batching with
-``--continuous``.  Weights are random, from seed 0.
+"""Serving launcher of the port: batched prefill + decode of a ported
+model (gpt2m/gpt2L/gpt2l, falcon-mamba-7b, zamba2-2.7b) on one device,
+fixed-batch by default, continuous batching with ``--continuous``.
+Weights are random, from seed 0.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 --gen 32
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
         --device cpu --continuous --trace 12x8..32 --batch 3 --gen 8
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch falcon-mamba-7b --reduced --device cpu --batch 2 --gen 8
 """
 import argparse
+
+from repro_torch.configs import ARCH_CONFIGS
 
 
 def parse_trace(spec: str, max_prompt: int):
@@ -35,7 +41,7 @@ def parse_trace(spec: str, max_prompt: int):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="gpt2m")
+    ap.add_argument("--arch", default="gpt2m", choices=sorted(ARCH_CONFIGS))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain PyTorch versions)")
@@ -46,7 +52,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--window", type=int, default=0,
                     help="sliding-window cache (long-context decode)")
     ap.add_argument("--kv-dtype", default="fp32", choices=("fp32", "int8"),
-                    help="int8: quantized KV cache + int8-KV decode kernel")
+                    help="int8: quantized KV cache + int8-KV decode kernel "
+                         "(dense family only)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--continuous", action="store_true",
                     help="slot-based continuous batching "

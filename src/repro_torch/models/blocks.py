@@ -1,14 +1,20 @@
-"""Dense pre-norm block (port of the dense part of
-``repro/models/blocks.py``): init, forward, prefill and decode.
+"""Per-layer blocks (port of the dense, SSM and hybrid parts of
+``repro/models/blocks.py``): init, forward, prefill and decode for the
+dense pre-norm block, the Mamba1 block (falcon-mamba) and the Mamba2
+block (zamba2, whose shared attention block is a dense block).
 
-``init_dense_block`` makes every leaf with a leading ``lead`` shape, so
+Every ``init_*`` makes its leaves with a leading ``lead`` shape, so
 ``lead=(n_layers,)`` gives the stacked ``[L, ...]`` layout the reference
-builds with ``vmap``; the other functions take one layer's slice.
+builds with ``vmap`` (``(G, k)`` for the hybrid's groups); the other
+functions take one layer's slice and ignore the keyword arguments of
+the other families.  Prefill and decode write a layer's new recurrent
+state into its cache slice in place, as attention writes its k/v.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, init_mlp, init_norm,
 )
@@ -53,3 +59,78 @@ def dense_block_decode(x, p, cfg: ModelConfig, *, cache, window: int = 0,
     a, cache = attn.attention_decode(h, p["attn"], cfg, cache=cache,
                                      window=window, use_kernels=use_kernels)
     return _mlp_residual(x + a, p, cfg), cache
+
+
+def _store(cache: ssm_mod.SSMState, new: ssm_mod.SSMState):
+    """Write a layer's new state into its cache slice (in place); returns
+    the slice."""
+    cache.conv.copy_(new.conv)
+    cache.h.copy_(new.h)
+    return cache
+
+
+# --------------------------------------------------------------------- #
+# SSM (falcon-mamba: norm -> mamba1 -> residual)
+# --------------------------------------------------------------------- #
+
+def init_ssm_block(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
+    return {
+        "norm": init_norm(cfg.d_model, cfg.norm, lead=lead, device=device),
+        "mamba": ssm_mod.init_mamba1(generator, cfg, lead=lead,
+                                     device=device),
+    }
+
+
+def ssm_block_forward(x, p, cfg: ModelConfig, *, use_kernels: bool = True,
+                      **_):
+    h = apply_norm(x, p["norm"], cfg.norm, cfg.norm_eps)
+    y, _ = ssm_mod.mamba1_forward(h, p["mamba"], cfg, use_kernels=use_kernels)
+    return x + y
+
+
+def ssm_block_prefill(x, p, cfg: ModelConfig, *, cache,
+                      use_kernels: bool = True, **_):
+    h = apply_norm(x, p["norm"], cfg.norm, cfg.norm_eps)
+    y, new = ssm_mod.mamba1_forward(h, p["mamba"], cfg, state=cache,
+                                    use_kernels=use_kernels)
+    return x + y, _store(cache, new)
+
+
+def ssm_block_decode(x, p, cfg: ModelConfig, *, cache, **_):
+    h = apply_norm(x, p["norm"], cfg.norm, cfg.norm_eps)
+    y, new = ssm_mod.mamba1_decode(h, p["mamba"], cfg, state=cache)
+    return x + y, _store(cache, new)
+
+
+# --------------------------------------------------------------------- #
+# hybrid (zamba2: groups of mamba2 layers + one shared attention block)
+# --------------------------------------------------------------------- #
+
+def init_mamba2_block(generator, cfg: ModelConfig, *, lead=(),
+                      device="cpu"):
+    return {
+        "norm": init_norm(cfg.d_model, cfg.norm, lead=lead, device=device),
+        "mamba": ssm_mod.init_mamba2(generator, cfg, lead=lead,
+                                     device=device),
+    }
+
+
+def mamba2_block_forward(x, p, cfg: ModelConfig, *,
+                         use_kernels: bool = True, **_):
+    h = apply_norm(x, p["norm"], cfg.norm, cfg.norm_eps)
+    y, _ = ssm_mod.mamba2_forward(h, p["mamba"], cfg, use_kernels=use_kernels)
+    return x + y
+
+
+def mamba2_block_prefill(x, p, cfg: ModelConfig, *, cache,
+                         use_kernels: bool = True, **_):
+    h = apply_norm(x, p["norm"], cfg.norm, cfg.norm_eps)
+    y, new = ssm_mod.mamba2_forward(h, p["mamba"], cfg, state=cache,
+                                    use_kernels=use_kernels)
+    return x + y, _store(cache, new)
+
+
+def mamba2_block_decode(x, p, cfg: ModelConfig, *, cache, **_):
+    h = apply_norm(x, p["norm"], cfg.norm, cfg.norm_eps)
+    y, new = ssm_mod.mamba2_decode(h, p["mamba"], cfg, state=cache)
+    return x + y, _store(cache, new)

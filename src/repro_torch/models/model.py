@@ -1,14 +1,20 @@
-"""Model assembly for the dense family (port of ``repro/models/model.py``):
-embeddings -> stacked layers -> head, with forward, prefill and decode.
+"""Model assembly for the dense, SSM and hybrid families (port of
+``repro/models/model.py``): embeddings -> stacked layers -> head, with
+forward, prefill and decode.
 
-Layer parameters and caches keep the reference's stacked ``[L, ...]``
-layout; where the reference scans over the stack, the port runs a Python
-loop over layer slices.  Caches are updated in place (the reference
-donates them to its jitted steps instead).
+Layer parameters and caches keep the reference's stacked layout:
+``[L, ...]``, and for the hybrid family ``layers/blocks`` as ``[G, k,
+...]`` (G groups of k Mamba2 layers), ``layers/gates`` as ``[G]`` and one
+``shared`` dense block applied at the head of every group.  Where the
+reference scans over the stack, the port runs a Python loop over layer
+slices.  Caches are updated in place (the reference donates them to its
+jitted steps instead); a cache is a NamedTuple of tensors, or for the
+hybrid family a dict ``{"ssm": SSMState [G, k, ...], "attn": KVCache
+[G, ...]}``, and ``map_cache`` walks either.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -16,15 +22,29 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_norm, embed, init_embedding, init_learned_positions, init_norm,
     unembed,
 )
 
 Params = Dict[str, Any]
-Cache = Union[attn_mod.KVCache, attn_mod.QuantKVCache]
+Cache = Union[attn_mod.KVCache, attn_mod.QuantKVCache, ssm_mod.SSMState,
+              Dict[str, Any]]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# family -> (init, forward, prefill, decode) of its stacked layer block;
+# the hybrid family's groups also run the dense block as their shared one
+_FORWARD, _PREFILL, _DECODE = 1, 2, 3
+_BLOCKS = {
+    "dense": (blocks.init_dense_block, blocks.dense_block_forward,
+              blocks.dense_block_prefill, blocks.dense_block_decode),
+    "ssm": (blocks.init_ssm_block, blocks.ssm_block_forward,
+            blocks.ssm_block_prefill, blocks.ssm_block_decode),
+    "hybrid": (blocks.init_mamba2_block, blocks.mamba2_block_forward,
+               blocks.mamba2_block_prefill, blocks.mamba2_block_decode),
+}
 
 
 def layer_slice(tree, i: int):
@@ -35,30 +55,67 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def map_cache(fn: Callable, *caches, name: str = ""):
+    """``fn(leaf_name, *leaves)`` over caches of one structure (NamedTuples
+    and dicts of tensors); returns the same structure of its results."""
+    c0 = caches[0]
+    if isinstance(c0, dict):
+        return {k: map_cache(fn, *(c[k] for c in caches), name=k)
+                for k in c0}
+    if isinstance(c0, tuple):
+        return type(c0)(*(map_cache(fn, *(getattr(c, f) for c in caches),
+                                    name=f) for f in c0._fields))
+    return fn(name, *caches)
+
+
+def _cache_layer(cache, i: int):
+    """Layer ``i`` of a stacked cache NamedTuple (views, no copies)."""
+    return type(cache)(*(leaf[i] for leaf in cache))
+
+
+def _restack(cache, layer_caches):
+    """The stacked cache after a pass over its layers.  k/v and recurrent
+    states were written in place; only the per-layer ring indices of an
+    attention cache are new tensors."""
+    if "index" not in cache._fields:
+        return cache
+    return cache._replace(
+        index=torch.stack([c.index for c in layer_caches]))
+
+
 class Model:
-    """Functional dense model around a ModelConfig.
+    """Functional model around a ModelConfig: the dense, ``ssm``
+    (falcon-mamba) and ``hybrid`` (zamba2) families.
 
     ``device`` defaults to "cuda" and raises when no card is present.
-    ``use_kernels=False`` runs the kernels' plain PyTorch versions on
-    the card too (the reference's ``use_pallas`` flag, inverted in
-    default: the port's main path is the kernel path)."""
+    ``use_kernels=False`` runs the kernels' plain PyTorch versions (the
+    reference's jnp algorithms for the scans) on the card too: the
+    reference's ``use_pallas`` flag, inverted in default, since the
+    port's main path is the kernel path."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  use_kernels: bool = True):
-        if cfg.family != "dense":
+        if cfg.family not in _BLOCKS:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP queue "
-                f"1, item 10); the port serves the dense family")
+                f"1, item 10); the port serves {sorted(_BLOCKS)}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_kernels = use_kernels
         self.compute_dtype = _DTYPES[cfg.dtype]
+
+    @property
+    def _groups(self) -> Tuple[int, int]:
+        """(G, k) of the hybrid family: G groups of k Mamba2 layers."""
+        k = self.cfg.hybrid_attn_every
+        return self.cfg.n_layers // k, k
 
     # ----------------------------------------------------------------- #
     def init(self, generator: torch.Generator) -> Params:
         """Fresh fp32 params with the reference's shapes and init laws.
         ``generator`` must live on the model's device type."""
         cfg, dev = self.cfg, self.device
+        init_block = _BLOCKS[cfg.family][0]
         params: Params = {
             "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                     device=dev),
@@ -67,11 +124,21 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = init_embedding(generator, cfg.vocab_size,
                                                cfg.d_model, device=dev)
-        if not cfg.rope_theta:
+        if not cfg.rope_theta and cfg.family != "ssm":
             params["pos_embed"] = init_learned_positions(
                 generator, cfg.max_seq_len, cfg.d_model, device=dev)
-        params["layers"] = blocks.init_dense_block(
-            generator, cfg, lead=(cfg.n_layers,), device=dev)
+        if cfg.family == "hybrid":
+            G, k = self._groups
+            params["layers"] = {                     # [G, k, ...] + [G]
+                "blocks": init_block(generator, cfg, lead=(G, k),
+                                     device=dev),
+                "gates": torch.ones((G,), device=dev),
+            }
+            params["shared"] = blocks.init_dense_block(generator, cfg,
+                                                       device=dev)
+        else:
+            params["layers"] = init_block(generator, cfg,
+                                          lead=(cfg.n_layers,), device=dev)
         return params
 
     # ----------------------------------------------------------------- #
@@ -101,76 +168,120 @@ class Model:
         table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         return unembed(x, table, self.compute_dtype)
 
+    def _run(self, params, x, cache, step: int, kw):
+        """One pass over the layers with the family's block function
+        ``_BLOCKS[family][step]`` (``_FORWARD``, ``_PREFILL`` or
+        ``_DECODE``); a hybrid group first applies the shared dense block
+        and its gate, ``h + gate * (y - h)``.  Returns (x, cache)."""
+        cfg = self.cfg
+        fn = _BLOCKS[cfg.family][step]
+
+        def run_stack(x, stack, n, cache):
+            new = []
+            for i in range(n):
+                p = layer_slice(stack, i)
+                if cache is None:
+                    x = fn(x, p, cfg, **kw)
+                else:
+                    x, c = fn(x, p, cfg, cache=_cache_layer(cache, i), **kw)
+                    new.append(c)
+            return x, (None if cache is None else _restack(cache, new))
+
+        if cfg.family != "hybrid":
+            return run_stack(x, params["layers"], cfg.n_layers, cache)
+        shared_fn = _BLOCKS["dense"][step]
+        G, k = self._groups
+        gates = params["layers"]["gates"]
+        attn_new = []
+        for g in range(G):
+            if cache is None:
+                y = shared_fn(x, params["shared"], cfg, **kw)
+            else:
+                y, c = shared_fn(x, params["shared"], cfg,
+                                 cache=_cache_layer(cache["attn"], g), **kw)
+                attn_new.append(c)
+            x = x + gates[g].to(x.dtype) * (y - x)
+            x, _ = run_stack(x, layer_slice(params["layers"]["blocks"], g), k,
+                             None if cache is None
+                             else _cache_layer(cache["ssm"], g))
+        if cache is None:
+            return x, None
+        return x, {"ssm": cache["ssm"],
+                   "attn": _restack(cache["attn"], attn_new)}
+
     # ----------------------------------------------------------------- #
     def forward(self, params, batch, *, window: int = 0) -> torch.Tensor:
         """Full-sequence logits [B, S, V] (fp32)."""
         x, positions = self._embed_inputs(params, batch)
-        for i in range(self.cfg.n_layers):
-            x = blocks.dense_block_forward(
-                x, layer_slice(params["layers"], i), self.cfg,
-                positions=positions, window=window,
-                use_kernels=self.use_kernels)
+        x, _ = self._run(params, x, None, _FORWARD,
+                         dict(positions=positions, window=window,
+                              use_kernels=self.use_kernels))
         return self._head(params, x)
 
     # ----------------------------------------------------------------- #
     def init_cache(self, batch: int, capacity: int, *, window: int = 0,
                    kv_dtype: str = "fp32") -> Cache:
-        """Decode cache, leaves stacked on the layer axis; index [L].
-        ``kv_dtype='fp32'`` keeps k/v in the compute dtype (the
-        reference's name); 'int8' is the quantized cache decode runs
-        through kernel B."""
-        cfg = self.cfg
+        """Decode cache, leaves stacked on the layer axis (``[G, ...]``
+        and ``[G, k, ...]`` for the hybrid family).  ``kv_dtype='fp32'``
+        keeps k/v in the compute dtype (the reference's name); 'int8' is
+        the quantized cache decode runs through kernel B, for the dense
+        family only, as in the reference."""
+        cfg, dt, dev = self.cfg, self.compute_dtype, self.device
         cap = min(capacity, window) if window else capacity
+        if kv_dtype not in ("fp32", "int8"):
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r}; expected "
+                             f"'fp32' or 'int8'")
+        if kv_dtype == "int8" and cfg.family != "dense":
+            raise ValueError(
+                "kv_dtype='int8' needs a plain-GQA attention cache; "
+                f"family {cfg.family!r} stores no quantizable k/v tensors")
+        if cfg.family == "ssm":
+            return ssm_mod.init_ssm_state(cfg, batch, dt,
+                                          lead=(cfg.n_layers,), device=dev)
+        if cfg.family == "hybrid":
+            G, k = self._groups
+            return {
+                "ssm": ssm_mod.init_ssm_state(cfg, batch, dt, lead=(G, k),
+                                              device=dev),
+                "attn": attn_mod.init_kv_cache(
+                    batch, cap, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim,
+                    dt, lead=(G,), device=dev),
+            }
         lead = (cfg.n_layers,)
         if kv_dtype == "int8":
             return attn_mod.init_quant_kv_cache(
                 batch, cap, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim,
-                lead=lead, device=self.device)
-        if kv_dtype == "fp32":
-            return attn_mod.init_kv_cache(
-                batch, cap, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim,
-                self.compute_dtype, lead=lead, device=self.device)
-        raise ValueError(f"unknown kv_dtype {kv_dtype!r}; expected 'fp32' "
-                         f"or 'int8'")
+                lead=lead, device=dev)
+        return attn_mod.init_kv_cache(
+            batch, cap, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim, dt,
+            lead=lead, device=dev)
 
     def init_slot_cache(self, batch: int, capacity: int, *, window: int = 0,
                         kv_dtype: str = "fp32") -> Cache:
-        """Per-slot cache for continuous batching: ``init_cache`` with the
-        index widened to [L, batch], one fill position per slot."""
+        """Per-slot cache for continuous batching: ``init_cache`` with
+        every ring ``index`` widened by a trailing ``[batch]`` axis, one
+        fill position per slot.  SSM state carries no index."""
         cache = self.init_cache(batch, capacity, window=window,
                                 kv_dtype=kv_dtype)
-        return cache._replace(index=torch.zeros(
-            (self.cfg.n_layers, batch), dtype=torch.int32,
-            device=self.device))
-
-    @staticmethod
-    def _cache_layer(cache: Cache, i: int) -> Cache:
-        return type(cache)(*(leaf[i] for leaf in cache))
-
-    @staticmethod
-    def _restack(cache: Cache, layer_caches) -> Cache:
-        """The stacked cache after a pass: its tensors were written in
-        place; only the per-layer indices are new."""
-        return cache._replace(
-            index=torch.stack([c.index for c in layer_caches]))
+        return map_cache(
+            lambda name, leaf: torch.zeros(
+                leaf.shape + (batch,), dtype=leaf.dtype, device=leaf.device)
+            if name == "index" else leaf, cache)
 
     # ----------------------------------------------------------------- #
     def prefill(self, params, batch, cache: Cache, *, window: int = 0,
                 last_pos=None) -> Tuple[torch.Tensor, Cache]:
         """Returns (logits [B, V] at the last position, or at ``last_pos``
-        for a bucket-padded prompt; filled cache)."""
+        for a bucket-padded prompt; filled cache).  The recurrent layers
+        start from the cache's state ``h``, as the reference's do."""
         x, positions = self._embed_inputs(params, batch)
-        new = []
-        for i in range(self.cfg.n_layers):
-            x, c = blocks.dense_block_prefill(
-                x, layer_slice(params["layers"], i), self.cfg,
-                positions=positions, cache=self._cache_layer(cache, i),
-                window=window, use_kernels=self.use_kernels)
-            new.append(c)
+        x, cache = self._run(params, x, cache, _PREFILL,
+                             dict(positions=positions, window=window,
+                                  use_kernels=self.use_kernels))
         if last_pos is None:
             last_pos = x.shape[1] - 1
         x_last = x[:, last_pos:last_pos + 1]
-        return self._head(params, x_last)[:, 0], self._restack(cache, new)
+        return self._head(params, x_last)[:, 0], cache
 
     def decode_step(self, params, cache: Cache, tokens, *, window: int = 0
                     ) -> Tuple[torch.Tensor, Cache]:
@@ -182,17 +293,18 @@ class Model:
             pe = params["pos_embed"]["table"][
                 torch.clamp(pos, 0, cfg.max_seq_len - 1).long()].to(dt)
             x = x + (pe[None, None] if pos.dim() == 0 else pe[:, None])
-        new = []
-        for i in range(cfg.n_layers):
-            x, c = blocks.dense_block_decode(
-                x, layer_slice(params["layers"], i), cfg,
-                cache=self._cache_layer(cache, i), window=window,
-                use_kernels=self.use_kernels)
-            new.append(c)
-        return self._head(params, x)[:, 0], self._restack(cache, new)
+        x, cache = self._run(params, x, cache, _DECODE,
+                             dict(window=window,
+                                  use_kernels=self.use_kernels))
+        return self._head(params, x)[:, 0], cache
 
-    @staticmethod
-    def _cache_index(cache: Cache) -> torch.Tensor:
-        """Current absolute position: layer 0's index (scalar, or [B] for
-        a per-slot cache)."""
-        return cache.index[0]
+    def _cache_index(self, cache: Cache) -> torch.Tensor:
+        """Current absolute position: the first ring index leaf's layer 0
+        (scalar, or [B] for a per-slot cache); 0 for a cache without one
+        (pure SSM state)."""
+        found = []
+        map_cache(lambda name, leaf: found.append(leaf)
+                  if name == "index" else None, cache)
+        if not found:
+            return torch.zeros((), dtype=torch.int32, device=self.device)
+        return found[0][0]

@@ -3,15 +3,17 @@
   * ``Engine`` — fixed-batch prefill + decode: every request in a batch
     waits for the longest prompt and the longest generation.
   * ``ContinuousEngine`` — slot-based continuous batching: a persistent
-    decode cache of ``slots`` slots, bucketed batch-1 prefill, an insert
+    decode cache of ``slots`` slots, bucketed batch-1 prefill (exact
+    length for the SSM and hybrid families), an insert
     that scatters each new request into a free slot, eviction on EOS or
     budget with immediate backfill, and an ``OutputQueue`` so slow
     consumers never stall the decode step.  Greedy tokens are identical
     to the fixed-batch engine's for the same prompt.
 
 Both default to ``device="cuda"`` and raise when no card is present.
-On the card, prefill attention runs kernel A and int8-KV decode runs
-kernel B (``kernels/ops.py``).
+On the card, prefill attention runs kernel A, int8-KV decode runs kernel
+B, and the prefill scans of the SSM and hybrid families run kernels 4
+and 3 (``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, map_cache
 from repro_torch.serve.steps import (
     decode_slots_step, insert_step, prefill_step, serve_step,
 )
@@ -274,8 +276,10 @@ class ContinuousEngine:
 
     Prompt lengths pad up to a bucket (the causal mask keeps the pad tail
     invisible, and the insert rewinds the slot's index to the true
-    length).  Greedy only: every request's tokens equal the fixed-batch
-    ``Engine``'s for the same prompt."""
+    length).  The SSM and hybrid families prefill at the exact length
+    instead (``exact_prefill``): their recurrences would fold pad tokens
+    into the state.  Greedy only: every request's tokens equal the
+    fixed-batch ``Engine``'s for the same prompt."""
 
     def __init__(self, model: Model, *, slots: int, max_len: int,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
@@ -287,6 +291,7 @@ class ContinuousEngine:
         self.slots, self.max_len = slots, max_len
         self.kv_dtype = kv_dtype
         self.eos_id, self.pad_id = eos_id, pad_id
+        self.exact_prefill = model.cfg.family in ("ssm", "hybrid")
         self.buckets = tuple(sorted(b for b in buckets if b <= max_len))
         self.output_queue = OutputQueue(detokenize)
 
@@ -294,6 +299,8 @@ class ContinuousEngine:
         if n > self.max_len:
             raise ValueError(f"prompt of {n} tokens exceeds max_len "
                              f"{self.max_len}")
+        if self.exact_prefill:
+            return n
         for b in self.buckets:
             if b >= n:
                 return b
@@ -302,6 +309,10 @@ class ContinuousEngine:
     def _prefill_one(self, params, prompt, src_cache):
         """Bucketed batch-1 prefill into ``src_cache`` (in place);
         returns (first token, cache, true length)."""
+        if self.exact_prefill:
+            # the recurrence starts from the cache's state, which holds
+            # the previous request's: every prompt starts from zeros
+            map_cache(lambda _, leaf: leaf.zero_(), src_cache)
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         L = int(prompt.shape[0])
         padded = np.full((1, self._bucket_of(L)), self.pad_id, np.int64)

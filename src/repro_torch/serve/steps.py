@@ -4,13 +4,17 @@
 
 PyTorch runs eagerly, so each step is a plain function rather than a
 compiled one, and the caches the reference donates are updated in place
-here.  Plans and meshes come with the plans item of the ROADMAP.
+here.  A cache is any structure of NamedTuples and dicts of tensors (a
+KV cache, an SSM state, the hybrid family's ``{"ssm", "attn"}`` dict);
+the slot steps walk it with ``map_cache`` and treat the leaves named
+``index`` (ring fill positions) apart.  Plans and meshes come with the
+plans item of the ROADMAP.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.model import Cache, Model
+from repro_torch.models.model import Cache, Model, map_cache
 
 
 @torch.no_grad()
@@ -37,12 +41,14 @@ def serve_step(model: Model, params, cache: Cache, tokens, *,
 def decode_slots_step(model: Model, params, cache: Cache, tokens, live, *,
                       window: int = 0, pad_id: int = 0):
     """One decode step over the persistent slot cache.  Dead slots
-    (``live`` False) emit ``pad_id`` and keep their ring index, so an
-    evicted slot's state cannot drift before the insert that recycles
-    it."""
-    old_index = cache.index
+    (``live`` False) emit ``pad_id`` and keep their ring indices (the
+    leaves named ``index``), so an evicted slot's KV ring cannot move
+    before the insert that recycles it.  Its SSM state may drift, as in
+    the reference: the insert overwrites it."""
     logits, new = model.decode_step(params, cache, tokens, window=window)
-    new = new._replace(index=torch.where(live, new.index, old_index))
+    # decode made new index tensors; ``cache`` still holds the old ones
+    new = map_cache(lambda name, n, o: torch.where(live, n, o)
+                    if name == "index" else n, new, cache)
     next_tok = torch.where(live[:, None],
                            torch.argmax(logits, dim=-1)[:, None],
                            torch.full_like(live[:, None], pad_id,
@@ -54,13 +60,25 @@ def decode_slots_step(model: Model, params, cache: Cache, tokens, live, *,
 def insert_step(dst: Cache, src: Cache, slot: int, length: int) -> Cache:
     """Scatter a freshly prefilled batch-1 cache ``src`` into slot
     ``slot`` of the per-slot cache ``dst``, in place, and set the slot's
-    index to the request's true ``length`` (the prefill cache holds the
-    padded bucket length), so the pad tail stays masked and the next
-    decode append overwrites its first position."""
-    for name in dst._fields:
-        d, s = getattr(dst, name), getattr(src, name)
+    ring indices to the request's true ``length`` (the prefill cache
+    holds the padded bucket length), so the pad tail stays masked and the
+    next decode append overwrites its first position.
+
+    As the reference's ``build_insert_step`` does, a leaf's batch axis is
+    the first axis on which ``dst`` and ``src`` differ in size: 1 for
+    ``[L, B, ...]`` leaves, 2 for the hybrid family's ``[G, k, B, ...]``
+    SSM state.  With one slot the shapes agree and the whole leaf is
+    the slot."""
+    def put(name, d, s):
         if name == "index":
             d[..., slot] = length
-        else:                       # [L, B, ...] <- [L, 1, ...]
-            d[:, slot] = s[:, 0]
-    return dst
+            return d
+        axis = next((i for i, (m, n) in enumerate(zip(d.shape, s.shape))
+                     if m != n), None)
+        if axis is None:
+            d.copy_(s)
+        else:
+            d.select(axis, slot).copy_(s.select(axis, 0))
+        return d
+
+    return map_cache(put, dst, src)

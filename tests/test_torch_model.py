@@ -1,8 +1,8 @@
 """The PyTorch port's dense model against the JAX reference, from the
 reference's own weights (carried across by ``repro_torch.convert``), on
-a reduced gpt2m in fp32: configs, forward and prefill logits, cache
-contents, four decode steps for both KV dtypes, per-slot decode, and
-checkpoint loading."""
+a reduced gpt2m in fp32: configs (the SSM and hybrid ones too), forward
+and prefill logits, cache contents, four decode steps for both KV
+dtypes, per-slot decode, and checkpoint loading."""
 import dataclasses
 
 import numpy as np
@@ -46,16 +46,23 @@ def pair():
     return jm, jp, tm, tp
 
 
-@pytest.mark.parametrize("name", ["gpt2m", "gpt2L", "gpt2l"])
+@pytest.mark.parametrize("name", ["gpt2m", "gpt2L", "gpt2l",
+                                  "falcon-mamba-7b", "zamba2-2.7b"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_configs_match_reference(name, reduced):
     t, j = tconfigs.get_config(name), jconfigs.get_config(name)
     if reduced:
         t, j = t.reduced(), j.reduced()
     for f in dataclasses.fields(t):
-        assert getattr(t, f.name) == getattr(j, f.name), f.name
+        got, want = getattr(t, f.name), getattr(j, f.name)
+        if f.name == "ssm" and got is not None:   # two SSMConfig classes
+            got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        assert got == want, f.name
     assert t.param_count() == j.param_count()
-    assert t.head_dim == 64
+    if name.startswith("gpt2") or reduced:
+        assert t.head_dim == 64
+    if name == "zamba2-2.7b" and not reduced:
+        assert t.head_dim == 80       # the shared attention's: 2560 / 32
 
 
 def test_other_families_raise():
