@@ -17,6 +17,13 @@ it serves three models at full width with random weights from a seed:
     attention block of 32 heads of 80) through both engines: kernels 3
     and A.
 
+Then it calibrates the card as a site of the paper's TACC-TACC cluster
+for gpt2m through ``repro_torch.launch.calibrate`` (kernel micro-bench
+through kernels 5 and A, host ring, least-squares fit, plan search
+before and after), once at the launcher's default sizes and once at
+gpt2m's widths, and checks that the JSON is the reference's
+``Calibration`` schema.
+
 For each model it checks that the kernel path's first-step logits agree
 with the plain path's on the card (and, for the SSM and hybrid models,
 one full-width layer in fp32 over a prompt longer than the scan's
@@ -40,9 +47,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
-# outside the tensor cores (the scan kernels' pipes), HBM3.
+# outside the tensor cores (the scan kernels' pipes), int8 tensor cores,
+# HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain version, both bf16 out of fp32 accumulation: about one
 # bf16 ulp of O(1) outputs (2^-8) plus summation order
@@ -70,6 +79,26 @@ FP32_LOGIT_RTOL = 1e-3
 # order only, relative to the largest value of the output and of h
 LAYER_PROMPT = 100
 FP32_LAYER_RTOL = 1e-4
+
+# kernel 5 vs its plain version: the same exact int32 partials and the
+# same fp32 accumulation order; only FMA contraction of partial * scale
+# into the sum differs, relative to the largest output
+INT8MM_RTOL = 1e-5
+# ...and the reference's gate on the int8 product against fp32: relative
+# Frobenius error (tests/test_quantized.py)
+INT8MM_FROB = 0.02
+# (M, K, N, block): the reference's dequant test; the calibration
+# micro-bench's default and wide sizes at blocks 64; gpt2m's MLP at
+# blocks 128 over 8 sequences of 1024 tokens (up and down projection);
+# a shape that pads on every axis
+INT8MM_SHAPES = ((64, 96, 64, 32), (128, 128, 128, 64), (192, 192, 192, 64),
+                 (1024, 1024, 1024, 64), (4096, 4096, 4096, 64),
+                 (8192, 1024, 4096, 128), (8192, 4096, 1024, 128),
+                 (1000, 1000, 1000, 128))
+CAL_CLUSTER, CAL_MODEL = "TACC-TACC", "gpt2m"
+# the calibration micro-bench's flash sample (calib/microbench.py):
+# (H, KV, D) and (B, S), causal; grouped-query, unlike the models here
+CAL_FLASH_HEADS, CAL_FLASH_BS = (4, 2, 64), (1, 128)
 
 # ~1 ms at the H100's clocks: longer than the host takes to enqueue any
 # one function timed here
@@ -143,40 +172,42 @@ def scan_err(torch, got, want) -> float:
 # kernel phases
 # --------------------------------------------------------------------- #
 
-def check_flash(torch, F, cfg, shapes):
-    """Kernel A against its plain version at a model's prefill shapes
-    ``(B, S)``."""
+def check_flash(torch, F, H, KV, D, shapes):
+    """Kernel A against its plain version, causal, with H query heads over
+    KV key/value heads of D, at prefill shapes ``(B, S)``."""
     from repro_torch.kernels import flash_attention as fa
 
-    H, D = cfg.n_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows, worst = [], 0.0
     for B, S in shapes:
-        q, k, v = (torch.randn((B, S, H, D), generator=g, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
+        q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda")
+                   .to(torch.bfloat16) for h in (H, KV, KV))
         got = fa.flash_attention_cuda(q, k, v, causal=True)
         want = fa.flash_attention_plain(q, k, v, causal=True)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         if not err <= KERNEL_ATOL:
-            fail(f"flash_attn_fwd D={D} B={B} S={S}: max_abs_err {err} > "
-                 f"{KERNEL_ATOL}")
+            fail(f"flash_attn_fwd H={H} KV={KV} D={D} B={B} S={S}: "
+                 f"max_abs_err {err} > {KERNEL_ATOL}")
         worst = max(worst, err)
         qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pairs = S * (S + 1) // 2                 # visible causal pairs
-        b_ms, b_by = bound(4 * B * S * H * D * 2, 4 * D * pairs * B * H)
+        # bf16 q and output at H heads, k and v at KV heads
+        b_ms, b_by = bound(2 * B * S * (2 * H + 2 * KV) * D,
+                           4 * D * pairs * B * H)
         row = {
-            "B": B, "S": S, "H": H, "D": D, "max_abs_err": err,
+            "B": B, "S": S, "H": H, "KV": KV, "D": D, "max_abs_err": err,
             "ms": time_ms(torch, lambda: fa.flash_attention_cuda(
                 q, k, v, causal=True)),
             "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
                 q, k, v, causal=True), iters=5),
             "library_ms": time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    qT, kT, vT, is_causal=True)),
+                    qT, kT, vT, is_causal=True, enable_gqa=KV != H)),
             "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
-        log(f"flash_attn_fwd D={D} B={B:2d} S={S:5d} err={err:.3e} "
+        log(f"flash_attn_fwd H={H} KV={KV} D={D} B={B:2d} S={S:5d} "
+            f"err={err:.3e} "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"sdpa_ms={row['library_ms']:.4f} bound_ms={b_ms:.5f} "
             f"({b_by})")
@@ -354,6 +385,63 @@ def check_ssd(torch, cfg):
         log(f"ssd_scan B={B} S={S:4d} dt<={dt_scale} err={err:.3e} "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"bound_ms={b_ms:.5f} ({b_by})")
+    return rows, worst
+
+
+def check_int8_matmul(torch):
+    """Kernel 5 against its plain version on the same padded, quantized
+    operands, and the product against the fp32 matmul (TF32 off)."""
+    from repro_torch.kernels import quantized as qz
+    from repro_torch.kernels.ops import int8_operands
+    from repro_torch.kernels.ref import matmul_ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows, worst = [], 0.0
+    for M, K, N, blk in INT8MM_SHAPES:
+        x = torch.randn((M, K), generator=g, device="cuda")
+        w = torch.randn((K, N), generator=g, device="cuda")
+        blocks = dict(block_m=blk, block_k=blk, block_n=blk)
+        xq, xs, wq, ws = int8_operands(x, w, **blocks)
+        got = qz.int8_matmul_cuda(xq, xs, wq, ws, **blocks)
+        want = qz.int8_matmul_plain(xq, xs, wq, ws, **blocks)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"int8_matmul {M}x{K}x{N}/{blk}: non-finite output")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= INT8MM_RTOL * scale:
+            fail(f"int8_matmul {M}x{K}x{N}/{blk}: max_abs_err {err} > "
+                 f"{INT8MM_RTOL} * {scale}")
+        worst = max(worst, err)
+        fp32 = matmul_ref(x, w)
+        frob = float(torch.linalg.norm(got[:M, :N] - fp32)
+                     / torch.linalg.norm(fp32))
+        if not frob < INT8MM_FROB:
+            fail(f"int8_matmul {M}x{K}x{N}/{blk}: relative Frobenius error "
+                 f"{frob} against fp32 >= {INT8MM_FROB}")
+        Mp, Kp = xq.shape
+        Np = wq.shape[1]
+        # int8 x and w, fp32 scales, fp32 output, each moved once
+        n_bytes = Mp * Kp + Kp * Np + 4 * (xs.numel() + ws.numel()) \
+            + 4 * Mp * Np
+        b_ms, b_by = bound(n_bytes, 2.0 * Mp * Np * Kp, PEAK_INT8_OPS)
+        row = {"M": M, "K": K, "N": N, "block": blk,
+               "padded": [Mp, Kp, Np], "max_abs_err": err,
+               "max_abs_plain": scale, "frobenius_vs_fp32": frob,
+               "ms": time_ms(torch, lambda: qz.int8_matmul_cuda(
+                   xq, xs, wq, ws, **blocks)),
+               "plain_ms": time_ms(torch, lambda: qz.int8_matmul_plain(
+                   xq, xs, wq, ws, **blocks), iters=5, warmup=1),
+               "library": "torch._int_mm (int8 x int8 -> int32, no "
+                          "per-tile scales)",
+               "library_ms": time_ms(torch, lambda: torch._int_mm(xq, wq)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        log(f"int8_matmul {M}x{K}x{N} block {blk} err={err:.3e} "
+            f"frob={frob:.4f} ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} "
+            f"int_mm_ms*={row['library_ms']:.4f} bound_ms={b_ms:.5f} "
+            f"({b_by})")
     return rows, worst
 
 
@@ -594,6 +682,123 @@ def continuous_phase(torch, np, ops, name, model, params, rng, max_len,
             "launches": counts}
 
 
+def report_fit(name, topo, wl, cal, residual, n_samples):
+    """The fitted site rates, the residual and the plan search's winner
+    before and after the overlay, as lines and as a record."""
+    from repro_torch.core.search import PlanSearch
+
+    before = PlanSearch(wl, topo).best()
+    after = PlanSearch(wl, topo, calibration=cal).best()
+    rec = {"site_tflops": {str(k): v for k, v in cal.site_tflops.items()},
+           "links": [[i, j, r.alpha_s, r.gbps]
+                     for (i, j), r in sorted(cal.links.items())],
+           "residual": residual, "n_samples": n_samples,
+           "winner_before": [before.candidate.key, before.tflops],
+           "winner_after": [after.candidate.key, after.tflops]}
+    log(f"{name}: fitted site TFLOP/s {rec['site_tflops']}")
+    log(f"{name}: fit residual {residual} over {n_samples} samples")
+    log(f"{name}: search winner {before.candidate.key} "
+        f"({before.tflops:.4f} TFLOP/s analytic) -> {after.candidate.key} "
+        f"({after.tflops:.4f} calibrated)")
+    return rec
+
+
+def calibrate_phases(torch, ops, card):
+    """Phase ``calibrate``: the launcher a user runs, at its default
+    micro-bench sizes; its JSON must be the reference's schema and load
+    back through the port's ``Calibration.loads``.  Phase
+    ``calibrate-wide``: the same profile at gpt2m's widths (sizes 1024
+    and 4096), fitted and searched the same way."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    from repro_torch.calib.fit import fit_calibration
+    from repro_torch.calib.microbench import (host_ring_collective_samples,
+                                              kernel_compute_samples)
+    from repro_torch.calib.overlay import Calibration
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import (PAPER_CLUSTERS, as_topology,
+                                            paper_workload)
+    from repro_torch.launch import calibrate
+
+    wl = paper_workload(get_config(CAL_MODEL))
+    topo = as_topology(PAPER_CLUSTERS[CAL_CLUSTER])
+    needs = ["int8_matmul", "flash_attn_fwd"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cal.json")
+        said = io.StringIO()
+
+        def launch():
+            with contextlib.redirect_stdout(said):
+                return calibrate.main(["--cluster", CAL_CLUSTER, "--model",
+                                       CAL_MODEL, "--out", path])
+
+        rc, counts = run_phase(torch, ops, "calibrate", launch, needs)
+        for line in said.getvalue().splitlines():
+            log(f"  calibrate: {line}")
+        if rc != 0:
+            fail(f"phase calibrate: the launcher returned {rc}")
+        with open(path) as f:
+            text = f.read()
+    doc = json.loads(text)
+    if sorted(doc) != ["links", "note", "site_tflops"] \
+            or not all(len(r) == 4 for r in doc["links"]):
+        fail(f"phase calibrate: JSON is not the Calibration schema: {doc}")
+    cal = Calibration.loads(text)
+    if cal.dumps() != text:
+        fail("phase calibrate: the JSON does not round-trip through "
+             "Calibration.loads")
+    rate = cal.site_tflops.get(0)
+    if not (rate is not None and 0 < rate < float("inf")):
+        fail(f"phase calibrate: fitted site 0 rate {rate}")
+    m = re.search(r"fit residual (\S+) over (\d+) samples", said.getvalue())
+    if m is None:
+        fail("phase calibrate: the launcher printed no fit residual")
+    out["calibrate"] = {"json": doc, "launches": counts, "fit": report_fit(
+        "calibrate", topo, wl, cal, float(m.group(1)), int(m.group(2)))}
+
+    def wide():
+        s = kernel_compute_samples(0, sizes=(1024, 4096), device="cuda")
+        return s + host_ring_collective_samples((0, 0))
+
+    samples, counts = run_phase(torch, ops, "calibrate-wide", wide, needs)
+    rows = [{"flops": s.flops, "time_s": s.time_s,
+             "tflops": s.flops / s.time_s / 1e12}
+            for s in samples if s.kind == "compute"]
+    for r, what in zip(rows, ("fp32 matmul 1024", "int8 matmul 1024",
+                              "fp32 matmul 4096", "int8 matmul 4096",
+                              "flash 1x128x4x64 bf16")):
+        r["what"] = what
+        log(f"calibrate-wide sample {what}: {r['time_s'] * 1e6:.2f} us, "
+            f"{r['tflops']:.3f} TFLOP/s on {card}")
+    fr = fit_calibration(topo, samples, note=f"{CAL_CLUSTER} wide fit")
+    out["calibrate_wide"] = {"samples": rows, "launches": counts,
+                             "fit": report_fit(
+                                 "calibrate-wide", topo, wl, fr.calibration,
+                                 fr.residual, fr.n_samples)}
+    # where an int8 sample's time goes: one ops.int8_matmul (pad,
+    # quantize, kernel 5) as the micro-bench calls it, traced after the
+    # counted phases
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for m in (1024, 4096):
+        x = torch.randn((m, m), generator=g, device="cuda")
+        w = torch.randn((m, m), generator=g, device="cuda")
+
+        def call():
+            return ops.int8_matmul(x, w, block_m=64, block_k=64,
+                                   block_n=64)
+
+        call()
+        prof = profile_window(torch, call, OUR_KERNELS)
+        log_profile(f"calibrate-wide, one ops.int8_matmul at {m}^3, "
+                    f"blocks 64", prof)
+        out["calibrate_wide"][f"profile_int8_matmul_{m}"] = prof
+    return out
+
+
 def log_profile(name, prof):
     if prof is None:
         log(f"profile {name}: the trace holds no device events (not "
@@ -610,7 +815,7 @@ def log_profile(name, prof):
 
 
 OUR_KERNELS = ("flash_fwd_kernel", "int8kv_decode_kernel",
-               "mamba1_scan_kernel", "ssd_scan_kernel")
+               "mamba1_scan_kernel", "ssd_scan_kernel", "int8_matmul_kernel")
 
 
 def main() -> None:
@@ -651,14 +856,19 @@ def main() -> None:
     # (B, S): Engine prefill (8 x 64), ContinuousEngine buckets (1 x
     # 16..256), and a ragged and a full-context shape; zamba2's shared
     # attention (head_dim 80) at its Engine prefill and a long prompt
-    flash_rows, flash_err = check_flash(
-        torch, F, cfg, ((8, 64), (1, 16), (1, 256), (4, 128), (1, 257),
-                        (1, 1024)))
-    z_rows, z_err = check_flash(torch, F, zcfg, ((8, 64), (1, 256)))
-    flash_rows, flash_err = flash_rows + z_rows, max(flash_err, z_err)
+    flash_rows, flash_err = [], 0.0
+    for heads, shapes in (
+            ((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+             ((8, 64), (1, 16), (1, 256), (4, 128), (1, 257), (1, 1024))),
+            ((zcfg.n_heads, zcfg.n_kv_heads, zcfg.head_dim),
+             ((8, 64), (1, 256))),
+            (CAL_FLASH_HEADS, (CAL_FLASH_BS,))):
+        rows, err = check_flash(torch, F, *heads, shapes)
+        flash_rows, flash_err = flash_rows + rows, max(flash_err, err)
     int8_rows, int8_err = check_int8kv(torch, F, cfg)
     m1_rows, m1_err = check_mamba1(torch, fcfg)
     ssd_rows, ssd_err = check_ssd(torch, zcfg)
+    mm_rows, mm_err = check_int8_matmul(torch)
 
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
@@ -737,6 +947,11 @@ def main() -> None:
         e2e[f"{tag}_params"] = n_params
         del model, params, eng
         torch.cuda.empty_cache()
+
+    calib = calibrate_phases(torch, ops, card)
+    for key in ("calibrate", "calibrate_wide"):
+        add(calib[key]["launches"])
+    e2e.update(calib)
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
 
     def entry(name, route_src, replaces, rows, worst, at):
@@ -751,7 +966,7 @@ def main() -> None:
     kernels = [
         entry("flash_attn_fwd", "src/repro_torch/csrc/flash_attn_fwd.cu",
               "src/repro/kernels/flash_attention.py:77", flash_rows,
-              flash_err, {"B": 1, "S": 256, "D": 64}),
+              flash_err, {"B": 1, "S": 256, "H": 16, "D": 64}),
         entry("int8kv_decode", "src/repro_torch/csrc/int8kv_attn.cu",
               "src/repro/kernels/quantized.py:145", int8_rows, int8_err,
               {"B": 8, "Sk": 1024, "live_keys": int8_rows[1]["live_keys"]}),
@@ -761,6 +976,9 @@ def main() -> None:
         entry("mamba1_scan", "src/repro_torch/csrc/mamba1_scan.cu",
               "src/repro/kernels/mamba_scan.py:144", m1_rows, m1_err,
               {"B": 8, "S": 64}),
+        entry("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
+              "src/repro/kernels/quantized.py:69", mm_rows, mm_err,
+              {"M": 192, "K": 192, "N": 192, "block": 64}),
     ]
     details = os.environ.get("SMOKE_DETAILS")
     if details:
@@ -770,7 +988,7 @@ def main() -> None:
                        "build_s": build_s,
                        "flash_attn_fwd": flash_rows,
                        "int8kv_decode": int8_rows, "ssd_scan": ssd_rows,
-                       "mamba1_scan": m1_rows,
+                       "mamba1_scan": m1_rows, "int8_matmul": mm_rows,
                        "logits_kernel_vs_plain": logit_err, "e2e": e2e,
                        "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

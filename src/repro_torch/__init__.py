@@ -1,17 +1,20 @@
-"""PyTorch port of the ``repro`` serving path for NVIDIA Hopper.
+"""PyTorch port of the ``repro`` serving and calibration paths for
+NVIDIA Hopper.
 
 The JAX package ``repro`` is the reference; this package keeps its module
-names (``configs``, ``models``, ``kernels``, ``serve``, ``launch``) and its
-stacked ``[L, ...]`` parameter layout with the same ``/``-joined keys, and
-imports nothing of it.  It serves the dense (GPT-2), SSM (falcon-mamba)
-and hybrid (zamba2) families.  Its kernels (two attention kernels and
-two scans) are CUDA C++ for ``sm_90a`` under ``csrc/``, compiled with
-``nvcc`` at first use (``kernels/_build.py``), so importing the package
-needs no compiler.
+names (``configs``, ``models``, ``kernels``, ``serve``, ``core``,
+``calib``, ``launch``) and its stacked ``[L, ...]`` parameter layout with
+the same ``/``-joined keys, and imports nothing of it.  It serves the
+dense (GPT-2), SSM (falcon-mamba) and hybrid (zamba2) families, and
+calibrates the cost model and plan search to a measured card.  Its
+kernels (two attention kernels, two scans and an int8 matmul) are CUDA
+C++ for ``sm_90a`` under ``csrc/``, compiled with ``nvcc`` at first use
+(``kernels/_build.py``), so importing the package needs no compiler.
 
 Entry points (``Model``, ``Engine``, ``ContinuousEngine``,
-``launch/serve.py``) default to ``device="cuda"`` and raise when no card
-is present; pass ``device="cpu"`` to run the plain PyTorch versions.
+``launch/serve.py``, ``launch/calibrate.py``) default to
+``device="cuda"`` and raise when no card is present; pass
+``device="cpu"`` to run the plain PyTorch versions.
 """
 import torch
 

@@ -84,6 +84,16 @@ class ModelConfig:
             layers = c.n_layers * (per_attn + per_mlp + 2 * d)
         return emb + layers + d
 
+    def active_param_count(self) -> int:
+        """Params touched per token: every parameter for the ported
+        (dense, SSM, hybrid) families.  The reference's MoE rule (shared
+        plus top_k experts) waits for the MoE family."""
+        if self.family == "moe":
+            raise NotImplementedError(
+                "active_param_count of a MoE config: the MoE family is not "
+                "ported yet (ROADMAP queue 1, item 10)")
+        return self.param_count()
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model<=256, <=4 heads (head_dim
         d_model // n_heads, so 64; the ssm family recomputes it the same

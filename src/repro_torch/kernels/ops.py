@@ -1,7 +1,8 @@
 """Model-layout wrappers over the port's kernels.
 
 Each wrapper takes the model's layout (``[B, S, heads, D]`` for
-attention, ``[B, S, channels]`` and ``[B, S, heads, hd]`` for the scans).
+attention, ``[B, S, channels]`` and ``[B, S, heads, hd]`` for the scans,
+plain ``[M, K] x [K, N]`` for the int8 matmul).
 A tensor on the CPU takes the kernel's plain PyTorch version; a CUDA
 tensor launches the hand-written kernel or raises.  There is no fallback
 between the two: the wrapper decides by the device of its input alone.
@@ -29,6 +30,7 @@ KERNELS = {
     "int8kv_decode": _q.int8kv_attention_cuda,
     "ssd_scan": _ms.ssd_scan_cuda,
     "mamba1_scan": _ms.mamba1_scan_cuda,
+    "int8_matmul": _q.int8_matmul_cuda,
 }
 
 
@@ -77,6 +79,41 @@ def ssd_scan(xh, dt, b_s, c_s, a, h0, *, chunk: int):
     return _ms.ssd_scan_plain(xh, dt, b_s, c_s, a, h0)
 
 
+def _pad_axis(x, mult: int, axis: int):
+    pad = (-x.shape[axis]) % mult
+    if pad == 0:
+        return x
+    widths = [0, 0] * x.dim()
+    widths[2 * (x.dim() - 1 - axis % x.dim()) + 1] = pad
+    return torch.nn.functional.pad(x, widths)
+
+
+def int8_operands(x, w, *, block_m: int, block_k: int, block_n: int):
+    """Pad fp x [M, K] and w [K, N] to block multiples (zero pads quantize
+    to 0 with scale 1.0 and add nothing) and quantize each per tile.
+    Returns (xq, xs, wq, ws), the operands of kernel 5."""
+    _q.check_blocks(block_m, block_k, block_n)
+    xp = _pad_axis(_pad_axis(x, block_m, 0), block_k, 1)
+    wp = _pad_axis(_pad_axis(w, block_k, 0), block_n, 1)
+    return (*_q.quantize_blocks(xp, block_m, block_k),
+            *_q.quantize_blocks(wp, block_k, block_n))
+
+
+def int8_matmul(x, w, *, block_m: int = 128, block_k: int = 128,
+                block_n: int = 128):
+    """Quantize fp x [M, K] and w [K, N] into per-tile int8 and multiply
+    (int32 partials per K block, dequantized into fp32), then unpad.
+    Returns fp32 [M, N]."""
+    M, N = x.shape[0], w.shape[1]
+    blocks = dict(block_m=block_m, block_k=block_k, block_n=block_n)
+    xq, xs, wq, ws = int8_operands(x, w, **blocks)
+    if _on_card(x):
+        out = _q.int8_matmul_cuda(xq, xs, wq, ws, **blocks)
+    else:
+        out = _q.int8_matmul_plain(xq, xs, wq, ws, **blocks)
+    return out[:M, :N]
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
@@ -87,5 +124,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "dequantize", "flash_attention",
-           "flash_attention_int8kv", "launch_counts", "mamba1_scan",
-           "quantize", "reset_launch_counts", "ssd_scan"]
+           "flash_attention_int8kv", "int8_matmul", "launch_counts",
+           "mamba1_scan", "quantize", "reset_launch_counts", "ssd_scan"]

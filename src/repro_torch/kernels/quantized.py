@@ -1,5 +1,6 @@
-"""Int8 KV: absmax quantization and kernel B, one-token attention over
-an int8 KV cache (serving decode).
+"""Int8 kernels: absmax quantization, kernel B (one-token attention over
+an int8 KV cache, serving decode) and kernel 5 (the blocked int8 matrix
+product the calibration micro-bench times).
 
 ``quantize`` / ``dequantize`` port ``repro.kernels.ops.quantize`` /
 ``dequantize`` exactly (jnp code in the reference, not Pallas):
@@ -19,6 +20,21 @@ versions of one function, in the model's layout:
     ``csrc/int8kv_attn.cu``, built for one query row (Sq = 1), bf16 q,
     head_dim 64.  The source says what bounds it (bytes) and how its
     design answers that.
+
+Kernel 5 replaces the TPU kernel ``src/repro/kernels/quantized.py``
+(``int8_matmul_blocked``, ``pallas_call`` at line 81).  ``quantize_blocks``
+ports the reference's per-2-D-tile quantization bit for bit; then two
+versions of one function on operands already padded to block multiples:
+
+  * ``int8_matmul_plain`` — PyTorch: per K block the exact partial
+    product of the int8 tiles (in fp32, exact below 2^24), times the
+    tile's scale product ``xs * ws``, added to an fp32 accumulator in K
+    order, as the reference's kernel does.  The CPU runs it, and
+    ``chip_smoke.py`` holds the kernel against it on the card.
+  * ``int8_matmul_cuda`` — the CUDA C++ kernel in
+    ``csrc/int8_matmul.cu`` (``mma.sync`` m16n8k32 on int8, int32
+    partials dequantized at every K-block boundary).  Block sizes are
+    multiples of 32 up to 128.
 """
 from __future__ import annotations
 
@@ -134,3 +150,99 @@ def int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale, valid):
 
 
 int8kv_attention_cuda.launches = 0
+
+
+# ------------------------------------------------------------------ #
+# kernel 5: blocked int8 matmul with per-tile absmax scales
+
+BLOCKS = (32, 64, 96, 128)
+
+
+def check_blocks(block_m: int, block_k: int, block_n: int) -> None:
+    for name, b in (("block_m", block_m), ("block_k", block_k),
+                    ("block_n", block_n)):
+        if b not in BLOCKS:
+            raise ValueError(f"{name}={b}: the int8 matmul takes blocks "
+                             f"in {BLOCKS}")
+
+
+def quantize_blocks(x, block_rows: int, block_cols: int):
+    """Per-2-D-tile absmax int8 quantization of a [M, K] fp tensor (M, K
+    already padded to block multiples).  Returns (q int8 [M, K], scale
+    fp32 [M // block_rows, K // block_cols])."""
+    M, K = x.shape
+    nm, nk = M // block_rows, K // block_cols
+    t = x.float().reshape(nm, block_rows, nk, block_cols)
+    absmax = t.abs().amax(dim=(1, 3))                          # [nm, nk]
+    # the reference divides eagerly, and a lone division is not folded
+    # into a reciprocal product, so the division keeps it bit-equal
+    scale = torch.where(absmax > 0, absmax / 127.0,
+                        torch.ones_like(absmax))
+    q = torch.clamp(torch.round(t / scale[:, None, :, None]), -127, 127)
+    return q.to(torch.int8).reshape(M, K), scale
+
+
+def int8_matmul_plain(xq, xs, wq, ws, *, block_m: int, block_k: int,
+                      block_n: int):
+    """xq: [M, K] int8 with xs: [M/bm, K/bk] fp32; wq: [K, N] int8 with
+    ws: [K/bk, N/bn] fp32; block multiples.  Returns fp32 [M, N]."""
+    M, K = xq.shape
+    N = wq.shape[1]
+    xf, wf = xq.float(), wq.float()
+    xs_rows = torch.repeat_interleave(xs, block_m, dim=0)      # [M, nk]
+    ws_cols = torch.repeat_interleave(ws, block_n, dim=1)      # [nk, N]
+    acc = torch.zeros((M, N), dtype=torch.float32, device=xq.device)
+    for kb in range(K // block_k):
+        ks = slice(kb * block_k, (kb + 1) * block_k)
+        # |partial| <= 127 * 127 * 128 < 2^24: every fp32 sum is exact
+        partial = xf[:, ks] @ wf[ks, :]
+        acc = acc + partial * (xs_rows[:, kb, None] * ws_cols[None, kb, :])
+    return acc
+
+
+def _mm_lib():
+    lib = _build.library("int8_matmul")
+    fn = lib.int8_matmul_s8
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 5 + [I] * 6 + [P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def int8_matmul_cuda(xq, xs, wq, ws, *, block_m: int, block_k: int,
+                     block_n: int):
+    """Launch kernel 5.  xq: [M, K] int8, xs: [M/bm, K/bk] fp32, wq:
+    [K, N] int8, ws: [K/bk, N/bn] fp32, contiguous CUDA tensors whose
+    shapes are block multiples.  Returns fp32 [M, N]."""
+    check_blocks(block_m, block_k, block_n)
+    M, K = xq.shape
+    N = wq.shape[1]
+    want = {"xq": ((M, K), torch.int8),
+            "xs": ((M // block_m, K // block_k), torch.float32),
+            "wq": ((K, N), torch.int8),
+            "ws": ((K // block_k, N // block_n), torch.float32)}
+    for name, t in (("xq", xq), ("xs", xs), ("wq", wq), ("ws", ws)):
+        shape, dtype = want[name]
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if tuple(t.shape) != shape or t.dtype != dtype \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if M % block_m or K % block_k or N % block_n:
+        raise ValueError(f"[{M}, {K}] x [{K}, {N}] is not a multiple of "
+                         f"the blocks ({block_m}, {block_k}, {block_n})")
+    if xq.data_ptr() % 16 or wq.data_ptr() % 4:
+        raise ValueError("xq must be 16-byte and wq 4-byte aligned")
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    err = _mm_lib()(xq.data_ptr(), xs.data_ptr(), wq.data_ptr(),
+                    ws.data_ptr(), out.data_ptr(), M, N, K, block_m,
+                    block_k, block_n, stream)
+    _build.check(err, "int8_matmul_s8")
+    int8_matmul_cuda.launches += 1
+    return out
+
+
+int8_matmul_cuda.launches = 0

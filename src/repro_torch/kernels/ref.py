@@ -1,7 +1,8 @@
 """Direct (materialized-score, sequential-recurrence) oracles, port of
 ``repro/kernels/ref.py``: the slow, obviously right versions.  The
 attention kernels' plain versions are held against them; the scans'
-plain versions are these recurrences, started from a given state."""
+plain versions are these recurrences, started from a given state; the
+int8 matmul is held to the fp32 product."""
 from __future__ import annotations
 
 import torch
@@ -77,3 +78,9 @@ def mamba1_ref(x, dt, b_s, c_s, A, h0=None):
         h = a_t * h + (dt[:, t] * x[:, t])[..., None] * b_s[:, t, None, :]
         ys.append(torch.einsum("bds,bs->bd", h, c_s[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+def matmul_ref(x, w):
+    """fp32 reference matmul: the accuracy oracle for the int8 blocked
+    matmul (kernel 5)."""
+    return torch.matmul(x.float(), w.float())

@@ -156,6 +156,44 @@ def test_int8kv_kernel_matches_plain(cuda_device, H, KV, Sk):
                                atol=BF16_ATOL)
 
 
+# kernel 5 vs its plain version: the same exact int32 partials and fp32
+# accumulation order; only FMA contraction differs, relative to the
+# largest output.  Shapes: the reference's dequant test, the micro-bench's
+# blocks, a ragged shape, gpt2m's down projection (K = 4096) at 1 sequence
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,blk", [
+    (64, 96, 64, 32), (128, 128, 128, 64), (70, 100, 50, 32),
+    (192, 192, 192, 64), (1000, 1000, 1000, 128), (1024, 4096, 1024, 128),
+    (96, 160, 224, 96)])
+def test_int8_matmul_kernel_matches_plain(cuda_device, M, K, N, blk):
+    g = torch.Generator(device=cuda_device).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=cuda_device)
+    w = torch.randn((K, N), generator=g, device=cuda_device)
+    x[:blk, :blk] = 0.0                      # an all-zero tile, scale 1.0
+    blocks = dict(block_m=blk, block_k=blk, block_n=blk)
+    before = tq.int8_matmul_cuda.launches
+    got = ops.int8_matmul(x, w, **blocks)
+    torch.cuda.synchronize()
+    assert tq.int8_matmul_cuda.launches == before + 1
+    xq, xs, wq, ws = ops.int8_operands(x, w, **blocks)
+    want = tq.int8_matmul_plain(xq, xs, wq, ws, **blocks)[:M, :N]
+    assert got.shape == (M, N)
+    tol = 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    fp32 = x.double() @ w.double()
+    assert float(torch.linalg.norm(got.double() - fp32)
+                 / torch.linalg.norm(fp32)) < 0.02
+
+
+@pytest.mark.cuda
+def test_int8_matmul_kernel_refuses_bad_blocks(cuda_device):
+    xq = torch.zeros((64, 64), dtype=torch.int8, device=cuda_device)
+    s = torch.ones((2, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="blocks in"):
+        tq.int8_matmul_cuda(xq, s, xq, s, block_m=32, block_k=48,
+                            block_n=32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
 def test_model_kernel_path_matches_plain_path(cuda_device, kv_dtype):

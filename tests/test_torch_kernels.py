@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import quantized as jq  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models.attention import chunked_attention as j_chunked  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
@@ -111,7 +112,7 @@ def test_ops_flash_on_cpu_is_the_plain_version():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     counts = tops.launch_counts()
     assert set(counts) == {"flash_attn_fwd", "int8kv_decode", "ssd_scan",
-                           "mamba1_scan"}
+                           "mamba1_scan", "int8_matmul"}
     assert not any(counts.values())
 
 
@@ -183,3 +184,84 @@ def test_int8kv_plain_matches_reference(H, KV):
         got.numpy()[2, 0, :2],
         (vq[2, 0, :KV].astype(np.float32)
          * vs[2, 0, :KV, None]).repeat(H // KV, axis=0)[:2], atol=ATOL)
+
+
+# ------------------------------------------------------------------ #
+# kernel 5: the blocked int8 matmul
+@pytest.mark.parametrize("M,K,br,bc", [(64, 96, 32, 32), (128, 256, 64, 128),
+                                       (192, 128, 96, 32)])
+def test_quantize_blocks_bit_equal(M, K, br, bc):
+    """Payloads and scales bit-equal to the reference's
+    ``quantize_blocks``, with an all-zero tile (scale 1.0), round-half
+    ties and magnitudes far from 1."""
+    rng = np.random.default_rng(M + K)
+    x = _rand(rng, (M, K)) * np.float32(10.0 ** rng.uniform(-3, 3))
+    x[:br, :bc] = 0.0
+    x[br, :8] = np.float32(0.5) * np.arange(8)
+    jqx, jsx = jq.quantize_blocks(jnp.asarray(x), br, bc)
+    tqx, tsx = tq.quantize_blocks(_t(x), br, bc)
+    assert tqx.dtype == torch.int8 and tsx.dtype == torch.float32
+    np.testing.assert_array_equal(tqx.numpy(), np.asarray(jqx))
+    np.testing.assert_array_equal(tsx.numpy(), np.asarray(jsx))
+    assert tsx[0, 0] == 1.0
+
+
+# (M, K, N, block): the reference's dequant test, the micro-bench's
+# blocks, and a ragged shape whose every axis pads
+MM_CASES = [(64, 96, 64, 32), (128, 128, 128, 64), (70, 100, 50, 32)]
+
+
+@pytest.mark.parametrize("M,K,N,blk", MM_CASES)
+def test_int8_matmul_matches_reference(M, K, N, blk):
+    """``ops.int8_matmul`` on CPU tensors (the plain version) against the
+    reference's Pallas kernel in interpret mode, within the reference's
+    own envelope, and within its 2% Frobenius gate of the fp32 product."""
+    rng = np.random.default_rng(2 + M)
+    x, w = _rand(rng, (M, K)), _rand(rng, (K, N))
+    blocks = dict(block_m=blk, block_k=blk, block_n=blk)
+    want = np.asarray(jops.int8_matmul(jnp.asarray(x), jnp.asarray(w),
+                                       interpret=True, **blocks))
+    tops.reset_launch_counts()
+    got = tops.int8_matmul(_t(x), _t(w), **blocks)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, N)
+    assert tops.launch_counts()["int8_matmul"] == 0
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)
+    fp32 = tref.matmul_ref(_t(x), _t(w)).numpy()
+    assert np.linalg.norm(got.numpy() - fp32) / np.linalg.norm(fp32) < 0.02
+
+
+def test_int8_matmul_plain_dequantizes_per_k_block():
+    """The plain version equals the quantized operands dequantized tile
+    by tile and multiplied in fp32: scales apply per K block, not once
+    at the end (the reference's explicit-dequant test)."""
+    rng = np.random.default_rng(3)
+    x, w = _t(_rand(rng, (64, 96))), _t(_rand(rng, (96, 64)))
+    xq, xs = tq.quantize_blocks(x, 32, 32)
+    wq, ws = tq.quantize_blocks(w, 32, 32)
+    got = tq.int8_matmul_plain(xq, xs, wq, ws, block_m=32, block_k=32,
+                               block_n=32)
+    xd = xq.float().reshape(2, 32, 3, 32) * xs[:, None, :, None]
+    wd = wq.float().reshape(3, 32, 2, 32) * ws[:, None, :, None]
+    want = xd.reshape(64, 96) @ wd.reshape(96, 64)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("blocks", [dict(block_m=16), dict(block_k=48),
+                                    dict(block_n=256), dict(block_m=0)])
+def test_int8_matmul_rejects_other_blocks(blocks):
+    x = torch.zeros((64, 64))
+    with pytest.raises(ValueError, match="blocks in"):
+        tops.int8_matmul(x, x, **blocks)
+    with pytest.raises(ValueError, match="blocks in"):
+        tq.int8_matmul_cuda(x.to(torch.int8), x, x.to(torch.int8), x,
+                            **{"block_m": 32, "block_k": 32, "block_n": 32,
+                               **blocks})
+
+
+def test_int8_matmul_cuda_refuses_cpu_tensors():
+    xq = torch.zeros((32, 32), dtype=torch.int8)
+    s = torch.ones((1, 1))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tq.int8_matmul_cuda(xq, s, xq, s, block_m=32, block_k=32,
+                            block_n=32)
