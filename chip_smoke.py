@@ -24,6 +24,16 @@ before and after), once at the launcher's default sizes and once at
 gpt2m's widths, and checks that the JSON is the reference's
 ``Calibration`` schema.
 
+Then it pretrains gpt2m at full width and depth (batch 8 of 1024
+tokens, ``TrainConfig`` defaults: remat, bf16 compute over fp32 params)
+for six steps of ``repro_torch.train.train`` on the synthetic corpus,
+through kernel A and its backward (``train-gpt2m``); holds one step's
+loss and every gradient leaf through the kernels against the plain
+attention, with the fp32 plain path as a control (``train-parity``); and
+restores the checkpoint of step 4 and reruns steps 4 and 5
+(``train-resume``).  Kernel A's backward is held against its plain
+version beforehand, at the training shape and three others.
+
 For each model it checks that the kernel path's first-step logits agree
 with the plain path's on the card (and, for the SSM and hybrid models,
 one full-width layer in fp32 over a prompt longer than the scan's
@@ -96,6 +106,34 @@ INT8MM_SHAPES = ((64, 96, 64, 32), (128, 128, 128, 64), (192, 192, 192, 64),
                  (8192, 1024, 4096, 128), (8192, 4096, 1024, 128),
                  (1000, 1000, 1000, 128))
 CAL_CLUSTER, CAL_MODEL = "TACC-TACC", "gpt2m"
+# kernel A's backward vs its plain version on the same bf16 inputs and
+# lse: both accumulate in fp32 and round dq, dk, dv once to bf16 (2^-8
+# of the value); relative to the largest gradient, since dk and dv sum
+# over up to 1024 queries and the group's heads
+BWD_RTOL = 1e-2
+# kernel A's logsumexp vs the plain one, fp32 from the same bf16 inputs
+LSE_ATOL = 1e-4
+# (B, S, H, KV, D), causal: gpt2m training; ragged; grouped-query;
+# zamba2's head dim
+BWD_SHAPES = ((8, 1024, 16, 16, 64), (1, 257, 16, 16, 64),
+              (1, 128, 4, 2, 64), (1, 256, 32, 32, 80))
+# training: gpt2m at full width and depth, batch 8 of max_seq_len (1024)
+# tokens, six steps with a checkpoint at step 4; enough synthetic
+# documents (~200 tokens each) for 48 distinct windows of 1025 tokens
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_DOCS = 8, 6, 4, 400
+# train-parity, kernel path vs plain path in bf16: the loss directly
+# within 1e-2 relative (a few bf16 ulps); against the fp32 plain path
+# (the control's truth), the kernel path's loss, global gradient norm
+# and each leaf's 1 - cosine may stray at most NOISE_FACTOR times as far
+# as the bf16 plain path's do, plus a floor for a control that is near 0
+# by luck (1e-3 relative for loss and norm, 1e-4 for 1 - cosine)
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_NORM_FLOOR, TRAIN_COS_FLOOR = 1e-3, 1e-4
+# train-resume: the rerun of steps 4 and 5 from the restored checkpoint;
+# nothing on the path sums with atomics (F.embedding's backward and the
+# kernels are ordered), so the losses are expected equal; 1e-5 relative
+# leaves room for a library that is not
+RESUME_RTOL = 1e-5
 # the calibration micro-bench's flash sample (calib/microbench.py):
 # (H, KV, D) and (B, S), causal; grouped-query, unlike the models here
 CAL_FLASH_HEADS, CAL_FLASH_BS = (4, 2, 64), (1, 128)
@@ -210,6 +248,73 @@ def check_flash(torch, F, H, KV, D, shapes):
             f"err={err:.3e} "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"sdpa_ms={row['library_ms']:.4f} bound_ms={b_ms:.5f} "
+            f"({b_by})")
+    return rows, worst
+
+
+def check_flash_bwd(torch, F):
+    """Kernel A's backward against its plain version on the same bf16
+    inputs and the forward kernel's lse, causal, at ``BWD_SHAPES``; the
+    forward's lse against the plain logsumexp; SDPA's backward (same
+    mask) as the yardstick."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows, worst = [], 0.0
+    for B, S, H, KV, D in BWD_SHAPES:
+        q, k, v, do = (torch.randn((B, S, h, D), generator=g, device="cuda")
+                       .to(torch.bfloat16) for h in (H, KV, KV, H))
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=True,
+                                         return_lse=True)
+        _, lse_plain = fa.flash_attention_plain(q, k, v, causal=True,
+                                                return_lse=True)
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse)
+        torch.cuda.synchronize()
+        what = f"flash_attn_bwd B={B} S={S} H={H} KV={KV} D={D}"
+        lse_err = float((lse - lse_plain).abs().max())
+        if not lse_err <= LSE_ATOL:
+            fail(f"{what}: lse max_abs_err {lse_err} > {LSE_ATOL}")
+        err, rel = 0.0, {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(a).all():
+                fail(f"{what}: non-finite {name}")
+            e = float((a.float() - b.float()).abs().max())
+            scale = float(b.float().abs().max())
+            if not e <= BWD_RTOL * scale:
+                fail(f"{what}: {name} max_abs_err {e} > {BWD_RTOL} * "
+                     f"{scale}")
+            err, rel[name] = max(err, e), e / scale
+        worst = max(worst, err)
+        qT, kT, vT = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qT, kT, vT, is_causal=True,
+                                             enable_gqa=KV != H)
+        doT = do.transpose(1, 2).contiguous()
+        pairs = S * (S + 1) // 2                 # visible causal pairs
+        # bf16 q, o, dO and dq at H heads, k, v, dk, dv at KV heads, fp32
+        # lse; five causal products (S, dP, dV, dK, dQ) of 2 D flops a pair
+        n_bytes = 2 * B * S * D * (4 * H + 4 * KV) + 4 * B * H * S
+        b_ms, b_by = bound(n_bytes, 10 * D * pairs * B * H)
+        row = {
+            "B": B, "S": S, "H": H, "KV": KV, "D": D, "max_abs_err": err,
+            "rel_err": rel, "lse_max_abs_err": lse_err,
+            "ms": time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, o, do, lse)),
+            "plain_ms": time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, do, lse), iters=3, warmup=1),
+            "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                out, (qT, kT, vT), doT, retain_graph=True)),
+            "fwd_lse_ms": time_ms(torch, lambda: fa.flash_attention_cuda(
+                q, k, v, causal=True, return_lse=True)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        log(f"{what} err={err:.3e} rel dq/dk/dv="
+            f"{rel['dq']:.2e}/{rel['dk']:.2e}/{rel['dv']:.2e} "
+            f"lse_err={lse_err:.2e} ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} "
+            f"sdpa_bwd_ms={row['library_ms']:.4f} "
+            f"fwd_with_lse_ms={row['fwd_lse_ms']:.4f} bound_ms={b_ms:.5f} "
             f"({b_by})")
     return rows, worst
 
@@ -799,6 +904,211 @@ def calibrate_phases(torch, ops, card):
     return out
 
 
+def _cosine(a, b) -> float:
+    a, b = a.double().ravel(), b.double().ravel()
+    den = float(a.norm() * b.norm())
+    return float(a @ b) / den if den > 0 else 1.0
+
+
+def check_train_parity(grads, losses):
+    """Loss, global gradient norm and each leaf's cosine of the kernel
+    path against the fp32 plain path, held to ``NOISE_FACTOR`` times the
+    bf16 plain path's distance from it (the control); the loss also
+    directly against the bf16 plain path."""
+    k, p, f = (losses[n] for n in ("kernel", "plain", "fp32"))
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), (k, p, f))):
+        fail(f"train-parity: non-finite loss {losses}")
+    if not abs(k - p) <= TRAIN_LOSS_RTOL * abs(p):
+        fail(f"train-parity: loss {k} vs plain {p}, beyond {TRAIN_LOSS_RTOL} "
+             f"relative")
+    if not abs(k - f) <= NOISE_FACTOR * abs(p - f) + TRAIN_NORM_FLOOR * abs(f):
+        fail(f"train-parity: loss {k} is {abs(k - f)} from fp32 {f}; the "
+             f"bf16 plain path is {abs(p - f)} from it")
+    norms = {n: float(sum(g.double().square().sum()
+                          for g in grads[n].values()) ** 0.5)
+             for n in grads}
+    nk, np_, nf = norms["kernel"], norms["plain"], norms["fp32"]
+    if not abs(nk - nf) <= NOISE_FACTOR * abs(np_ - nf) \
+            + TRAIN_NORM_FLOOR * nf:
+        fail(f"train-parity: grad norm {nk} is {abs(nk - nf)} from fp32 "
+             f"{nf}; the bf16 plain path is {abs(np_ - nf)} from it")
+    leaves, worst = {}, 0.0
+    for key, gf in grads["fp32"].items():
+        ck = _cosine(grads["kernel"][key], gf)
+        cp = _cosine(grads["plain"][key], gf)
+        ckp = _cosine(grads["kernel"][key], grads["plain"][key])
+        leaves[key] = {"cos_kernel_fp32": ck, "cos_plain_fp32": cp,
+                       "cos_kernel_plain": ckp,
+                       "norm_fp32": float(gf.double().norm())}
+        allowed = NOISE_FACTOR * (1 - cp) + TRAIN_COS_FLOOR
+        worst = max(worst, (1 - ck) / allowed)
+        if not 1 - ck <= allowed:
+            fail(f"train-parity {key}: 1 - cos(kernel, fp32) = {1 - ck} > "
+                 f"{NOISE_FACTOR} x (1 - cos(plain, fp32) = {1 - cp}) + "
+                 f"{TRAIN_COS_FLOOR}")
+    log(f"train-parity: loss kernel {k:.6f} plain {p:.6f} fp32 {f:.6f}; "
+        f"grad norm kernel {nk:.6f} plain {np_:.6f} fp32 {nf:.6f}")
+    for key, r in leaves.items():
+        log(f"  {key}: cos(kernel, fp32) {r['cos_kernel_fp32']:.6f} "
+            f"cos(plain, fp32) {r['cos_plain_fp32']:.6f} cos(kernel, plain) "
+            f"{r['cos_kernel_plain']:.6f}")
+    log(f"train-parity: worst leaf uses {worst:.3f} of its allowance")
+    return {"losses": losses, "grad_norms": norms, "leaves": leaves,
+            "worst_leaf_share_of_allowance": worst}
+
+
+def train_phases(torch, np, ops, card):
+    """Phases ``train-gpt2m``, ``train-parity`` and ``train-resume``:
+    gpt2m pretraining at full width and depth on one card."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.convert import flatten
+    from repro_torch.core.steps import build_train_step, value_and_grad
+    from repro_torch.data import (Loader, Tokenizer, build_dataset,
+                                  synthetic_wikipedia)
+    from repro_torch.models import Model
+    from repro_torch.optim import init_adamw
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train import (model_flops_per_step, restore_checkpoint,
+                                   train)
+
+    cfg = get_config("gpt2m")
+    S, L = cfg.max_seq_len, cfg.n_layers
+    t0 = time.perf_counter()
+    texts = list(synthetic_wikipedia(TRAIN_DOCS, seed=SEED))
+    tok = Tokenizer.train(texts, cfg.vocab_size)
+    ds = build_dataset(texts, tok, seq_len=S)
+    if not tok.vocab_size <= cfg.vocab_size:
+        fail(f"tokenizer ids reach {tok.vocab_size} > {cfg.vocab_size}")
+    if len(ds) < TRAIN_BATCH * TRAIN_STEPS:
+        fail(f"{len(ds)} windows of {S + 1} tokens < "
+             f"{TRAIN_BATCH * TRAIN_STEPS}")
+    loader = Loader(ds, global_batch=TRAIN_BATCH, seed=SEED)
+    log(f"train data: {TRAIN_DOCS} documents, tokenizer of "
+        f"{tok.vocab_size} ids (model vocab {cfg.vocab_size}), "
+        f"{len(ds)} windows of {S + 1}, in {time.perf_counter() - t0:.1f}s")
+    model = Model(cfg, device="cuda")
+    tcfg = TrainConfig()
+    needs = ["flash_attn_fwd", "flash_attn_bwd"]
+    per_step = {"flash_attn_fwd": 2 * L, "flash_attn_bwd": L}
+
+    def expect(name, counts, steps):
+        for kname, n in per_step.items():
+            if counts[kname] != n * steps:
+                fail(f"phase {name}: {counts[kname]} {kname} launches, want "
+                     f"{n} a step (remat runs each layer's forward twice)")
+
+    out = {}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        torch.cuda.reset_peak_memory_stats()
+        res, counts = run_phase(
+            torch, ops, "train-gpt2m",
+            lambda: train(model, tcfg, loader, steps=TRAIN_STEPS,
+                          log_every=1, ckpt_dir=ckpt_dir,
+                          ckpt_every=TRAIN_CKPT_AT,
+                          log_fn=lambda m: log(f"  train-gpt2m: {m}")),
+            needs)
+        peak = torch.cuda.max_memory_allocated()
+        expect("train-gpt2m", counts, TRAIN_STEPS)
+        if not all(np.isfinite(res.losses)):
+            fail(f"train-gpt2m: non-finite losses {res.losses}")
+        tokens = TRAIN_BATCH * S
+        flops = model_flops_per_step(cfg, tokens)
+        step_s = res.avg_step_time
+        rate = flops / step_s / 1e12
+        out["train_gpt2m"] = {
+            "batch": TRAIN_BATCH, "seq": S, "steps": TRAIN_STEPS,
+            "params": cfg.param_count(), "losses": res.losses,
+            "step_s": res.step_times, "avg_step_s_steps_2_to_6": step_s,
+            "tokens_per_s": tokens / step_s, "model_tflops": rate,
+            "share_of_bf16_peak": rate * 1e12 / PEAK_BF16_FLOPS,
+            "peak_bytes": peak, "launches": counts,
+            "metrics_last": res.metrics_last}
+        log(f"train-gpt2m: losses {[round(x, 4) for x in res.losses]}")
+        log(f"train-gpt2m: step {step_s * 1e3:.1f} ms (steps 2 to "
+            f"{TRAIN_STEPS}), {tokens / step_s:.0f} tokens/s, 6ND "
+            f"{rate:.2f} TFLOP/s = {rate * 1e12 / PEAK_BF16_FLOPS:.4f} of "
+            f"989, peak memory {peak / 2**30:.2f} GiB, on {card}")
+
+        # where a step's time goes: one more step from the final state,
+        # traced after the counted phase
+        step_fn = build_train_step(model, tcfg)
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in loader.batch_at(TRAIN_STEPS).items()}
+        prof = profile_window(
+            torch, lambda: step_fn(res.params, res.opt_state, batch),
+            OUR_KERNELS)
+        log_profile("train-gpt2m, one step", prof)
+        out["profile_train_gpt2m"] = prof
+
+        # train-resume: restore step 4, rerun steps 4 and 5
+        like = tree_map(torch.empty_like, res.params)
+        opt_like = init_adamw(like)
+        path = os.path.join(ckpt_dir, f"step_{TRAIN_STEPS:08d}")
+        p_end, o_end, _ = restore_checkpoint(path, like, opt_like)
+        for a, b in zip(tree_leaves(p_end) + tree_leaves(o_end.m)
+                        + tree_leaves(o_end.v),
+                        tree_leaves(res.params) + tree_leaves(res.opt_state.m)
+                        + tree_leaves(res.opt_state.v)):
+            if not torch.equal(a, b):
+                fail("train-resume: the restored final checkpoint is not "
+                     "bit-equal to the trained state")
+        del p_end, o_end
+        path = os.path.join(ckpt_dir, f"step_{TRAIN_CKPT_AT:08d}")
+        p4, o4, step = restore_checkpoint(path, like, opt_like)
+        if step != TRAIN_CKPT_AT or int(o4.step) != TRAIN_CKPT_AT:
+            fail(f"train-resume: restored step {step} / {int(o4.step)}")
+    again, counts = run_phase(
+        torch, ops, "train-resume",
+        lambda: train(model, tcfg, loader, steps=TRAIN_STEPS, params=p4,
+                      opt_state=o4, start_step=TRAIN_CKPT_AT, log_every=0),
+        needs)
+    expect("train-resume", counts, TRAIN_STEPS - TRAIN_CKPT_AT)
+    first = res.losses[TRAIN_CKPT_AT:]
+    rel = [abs(a - b) / abs(b) for a, b in zip(again.losses, first)]
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(again.params),
+                                                 tree_leaves(res.params)))
+    log(f"train-resume: steps {TRAIN_CKPT_AT}..{TRAIN_STEPS - 1} losses "
+        f"{again.losses} vs {first}, relative differences {rel}; final "
+        f"params bit-equal: {same}")
+    if not max(rel) <= RESUME_RTOL:
+        fail(f"train-resume: losses {again.losses} vs {first} differ by "
+             f"{max(rel)} > {RESUME_RTOL} relative")
+    out["train_resume"] = {"losses": again.losses, "original": first,
+                           "relative_diff": rel, "params_bit_equal": same,
+                           "launches": counts}
+    del res, again, p4, o4, like, opt_like, step_fn
+    torch.cuda.empty_cache()
+
+    # train-parity: one step's loss and gradients, fresh params, batch 0
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in loader.batch_at(0).items()}
+    paths = {"kernel": model,
+             "plain": Model(cfg, device="cuda", use_kernels=False),
+             "fp32": Model(dataclasses.replace(cfg, dtype="float32"),
+                           device="cuda", use_kernels=False)}
+    grads, losses = {}, {}
+    for name, m in paths.items():
+        def vg(m=m):
+            return value_and_grad(lambda p, b: m.loss(p, b), params, batch)
+        if name == "kernel":
+            (loss, _, g), counts = run_phase(torch, ops, "train-parity", vg,
+                                             needs)
+            expect("train-parity", counts, 1)
+            out["train_parity_launches"] = counts
+        else:
+            loss, _, g = vg()
+        losses[name], grads[name] = float(loss), flatten(g)
+        del g
+    out["train_parity"] = check_train_parity(grads, losses)
+    del grads, params, model, paths
+    torch.cuda.empty_cache()
+    return out
+
+
 def log_profile(name, prof):
     if prof is None:
         log(f"profile {name}: the trace holds no device events (not "
@@ -814,8 +1124,9 @@ def log_profile(name, prof):
             f"{r['name']}")
 
 
-OUR_KERNELS = ("flash_fwd_kernel", "int8kv_decode_kernel",
-               "mamba1_scan_kernel", "ssd_scan_kernel", "int8_matmul_kernel")
+OUR_KERNELS = ("flash_fwd_kernel", "bwd_delta_kernel", "bwd_dkdv_kernel",
+               "bwd_dq_kernel", "int8kv_decode_kernel", "mamba1_scan_kernel",
+               "ssd_scan_kernel", "int8_matmul_kernel")
 
 
 def main() -> None:
@@ -859,12 +1170,14 @@ def main() -> None:
     flash_rows, flash_err = [], 0.0
     for heads, shapes in (
             ((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
-             ((8, 64), (1, 16), (1, 256), (4, 128), (1, 257), (1, 1024))),
+             ((8, 64), (1, 16), (1, 256), (4, 128), (1, 257), (1, 1024),
+              (8, 1024))),
             ((zcfg.n_heads, zcfg.n_kv_heads, zcfg.head_dim),
              ((8, 64), (1, 256))),
             (CAL_FLASH_HEADS, (CAL_FLASH_BS,))):
         rows, err = check_flash(torch, F, *heads, shapes)
         flash_rows, flash_err = flash_rows + rows, max(flash_err, err)
+    bwd_rows, bwd_err = check_flash_bwd(torch, F)
     int8_rows, int8_err = check_int8kv(torch, F, cfg)
     m1_rows, m1_err = check_mamba1(torch, fcfg)
     ssd_rows, ssd_err = check_ssd(torch, zcfg)
@@ -952,21 +1265,30 @@ def main() -> None:
     for key in ("calibrate", "calibrate_wide"):
         add(calib[key]["launches"])
     e2e.update(calib)
+    training = train_phases(torch, np, ops, card)
+    for key in ("train_gpt2m", "train_resume"):
+        add(training[key]["launches"])
+    add(training["train_parity_launches"])
+    e2e.update(training)
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
 
-    def entry(name, route_src, replaces, rows, worst, at):
+    def entry(name, route_src, replaces, rows, worst, at, **extra):
         row = next(r for r in rows if all(r[k] == v for k, v in at.items()))
         return {"name": name, "route": "cuda", "source": route_src,
                 "replaces": replaces, "launches": totals[name],
                 "max_abs_err": worst, "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "at": at}
+                "library_ms": row["library_ms"], "at": at, **extra}
 
     kernels = [
         entry("flash_attn_fwd", "src/repro_torch/csrc/flash_attn_fwd.cu",
               "src/repro/kernels/flash_attention.py:77", flash_rows,
               flash_err, {"B": 1, "S": 256, "H": 16, "D": 64}),
+        entry("flash_attn_bwd", "src/repro_torch/csrc/flash_attn_bwd.cu",
+              "src/repro/kernels/flash_attention.py:77", bwd_rows, bwd_err,
+              {"B": 8, "S": 1024, "H": 16, "D": 64},
+              differentiates="src/repro/models/attention.py:36"),
         entry("int8kv_decode", "src/repro_torch/csrc/int8kv_attn.cu",
               "src/repro/kernels/quantized.py:145", int8_rows, int8_err,
               {"B": 8, "Sk": 1024, "live_keys": int8_rows[1]["live_keys"]}),
@@ -987,6 +1309,7 @@ def main() -> None:
             json.dump({"card": card, "torch": torch.__version__,
                        "build_s": build_s,
                        "flash_attn_fwd": flash_rows,
+                       "flash_attn_bwd": bwd_rows,
                        "int8kv_decode": int8_rows, "ssd_scan": ssd_rows,
                        "mamba1_scan": m1_rows, "int8_matmul": mm_rows,
                        "logits_kernel_vs_plain": logit_err, "e2e": e2e,

@@ -5,7 +5,7 @@ The reference registry also holds MoE, MLA, encoder-decoder and vision
 architectures; those families are ROADMAP queue 1, item 10 ("the other
 model families") and raise here until they are ported.
 """
-from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.configs.base import ModelConfig, SSMConfig, TrainConfig
 from repro_torch.configs.falcon_mamba_7b import CONFIG as FALCON_MAMBA_7B
 from repro_torch.configs.gpt2 import (
     GPT2_LARGE, GPT2_LARGE_REDUCED, GPT2_MEDIUM,
@@ -35,4 +35,5 @@ def get_config(arch_id: str) -> ModelConfig:
                    f"{sorted(ARCH_CONFIGS)}")
 
 
-__all__ = ["ARCH_CONFIGS", "ModelConfig", "SSMConfig", "get_config"]
+__all__ = ["ARCH_CONFIGS", "ModelConfig", "SSMConfig", "TrainConfig",
+           "get_config"]

@@ -1,10 +1,11 @@
-"""Model configuration for the PyTorch port.
+"""Model and training configuration for the PyTorch port.
 
 A copy of the fields of ``repro.configs.base.ModelConfig`` that the
 dense, SSM and hybrid families read, with the same names, defaults and
 ``reduced()`` rule, so a port config and a reference config built the
-same way compare equal field by field.  The other families' sub-configs
-(MLA, MoE, the encoder and vision extras) are not ported yet.
+same way compare equal field by field; and of ``TrainConfig``, field for
+field.  The other families' sub-configs (MLA, MoE, the encoder and
+vision extras) are not ported yet.
 """
 from __future__ import annotations
 
@@ -115,3 +116,22 @@ class ModelConfig:
         if self.hybrid_attn_every:
             kw["hybrid_attn_every"] = 2
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    schedule: str = "cosine"        # "cosine" | "linear" | "constant"
+    seed: int = 0
+    microbatches: int = 4           # pipeline microbatches (pipeshard)
+    remat: bool = True              # per-layer activation checkpointing
+    zero_opt_state: bool = False    # shard optimizer state over data axes
+    grad_accum: int = 1             # sequential microbatches per step (cuts
+    #   activation memory ~grad_accum x at zero extra collective volume)

@@ -12,25 +12,12 @@ Either way the result is the port's nested dict of fp32 tensors.
 """
 from __future__ import annotations
 
-import hashlib
-import json
-import os
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-
-def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
-    """Nested dicts -> {"a/b/c": leaf}."""
-    flat = {}
-    for k, v in tree.items():
-        key = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, Mapping):
-            flat.update(flatten(v, key))
-        else:
-            flat[key] = v
-    return flat
+from repro_torch.train.checkpoint import flatten, load_manifest, read_flat
 
 
 def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
@@ -60,37 +47,15 @@ def params_from_numpy(tree: Mapping[str, Any], *, device="cpu",
     return unflatten(out)
 
 
-def _sha256(path: str) -> str:
-    h = hashlib.sha256()
-    with open(path, "rb") as f:
-        for block in iter(lambda: f.read(1 << 20), b""):
-            h.update(block)
-    return h.hexdigest()
-
-
 def load_checkpoint(path: str, *, device="cpu", verify: bool = True
                     ) -> Dict[str, Any]:
-    """Params of a reference checkpoint directory (``step_XXXXXXXX``).
+    """Params of a reference checkpoint directory (``step_XXXXXXXX``),
+    read through ``train/checkpoint.py``.
 
     Raises:
         ValueError: no manifest, a shard is missing, or a shard's sha256
             disagrees with the manifest.
     """
-    mpath = os.path.join(path, "manifest.json")
-    if not os.path.isfile(mpath):
-        raise ValueError(f"{path}: no manifest.json (not a complete "
-                         f"checkpoint)")
-    with open(mpath) as f:
-        manifest = json.load(f)
-    sums = manifest.get("checksums", {})
-    flat = {}
-    for fname in manifest["files"]["params"]:
-        shard = os.path.join(path, fname)
-        if not os.path.isfile(shard):
-            raise ValueError(f"{path}: shard {fname} is missing")
-        if verify and fname in sums and _sha256(shard) != sums[fname]:
-            raise ValueError(f"{path}: shard {fname} fails its sha256 "
-                             f"check (truncated or corrupt)")
-        with np.load(shard) as z:
-            flat.update({k: z[k] for k in z.files})
-    return params_from_numpy(flat, device=device)
+    manifest = load_manifest(path, verify=verify)
+    return params_from_numpy(read_flat(path, manifest, "params"),
+                             device=device)

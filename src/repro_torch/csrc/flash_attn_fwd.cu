@@ -32,7 +32,11 @@
 //  * q, k, v and o are addressed by strides, so the model's [B, S, H, D]
 //    layout is read and written in place with no transpose;
 //  * the head dim is a template parameter, instantiated for 64 (GPT-2)
-//    and 80 (zamba2); the entry point refuses any other.
+//    and 80 (zamba2); the entry point refuses any other;
+//  * for training, an optional fp32 lse [B, H, Sq] receives each row's
+//    logsumexp m + log(max(l, 1e-30)) of the scaled scores, which the
+//    backward kernels (flash_attn_bwd.cu) recompute P from; serving
+//    passes null and writes nothing more than before.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,7 +59,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  long long k_sb, long long k_ss, long long k_sh,
                  long long v_sb, long long v_ss, long long v_sh,
                  long long o_sb, long long o_ss, long long o_sh,
-                 float scale, int causal, int window) {
+                 float scale, int causal, int window,
+                 float* __restrict__ lse) {
   constexpr int KSTR = HD + 1;  // padded K row stride in shared memory
   __shared__ float ks[BK * KSTR];
   __shared__ float vs[BK * HD];
@@ -177,6 +182,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int dd = 0; dd < HD / 2; ++dd)
       op[2 * dd + half] = __float2bfloat16(acc[dd] / den);
+    if (lse != nullptr && half == 0)
+      lse[((long long)b * gridDim.y + h) * Sq + qpos] = m + logf(den);
   }
 }
 
@@ -184,8 +191,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
 // q: [B, Sq, H, D], k/v: [B, Sk, KV, D], o: [B, Sq, H, D], bf16, with
 // element strides for the batch, sequence and head axes (last axis
-// contiguous); D = head_dim is 64 or 80.  Returns the cudaError_t of the
-// launch (cudaErrorInvalidValue for any other head dim).
+// contiguous); D = head_dim is 64 or 80.  lse is null (serving) or an
+// fp32 [B, H, Sq] contiguous buffer for each row's logsumexp (training).
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for any
+// other head dim).
 extern "C" int flash_attn_fwd_bf16(
     const void* q, const void* k, const void* v, void* o,
     int B, int H, int KV, int Sq, int Sk, int head_dim,
@@ -193,7 +202,7 @@ extern "C" int flash_attn_fwd_bf16(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, float* lse, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
@@ -202,7 +211,7 @@ extern "C" int flash_attn_fwd_bf16(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,                     \
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, H / KV, Sq, Sk,           \
       q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,                 \
-      o_sb, o_ss, o_sh, scale, causal, window)
+      o_sb, o_ss, o_sh, scale, causal, window, lse)
   if (head_dim == 64)
     FLASH_LAUNCH(64);
   else if (head_dim == 80)

@@ -10,6 +10,12 @@ The reference's padding (head_dim to 128, S to the chunk, both TPU tile
 artifacts) is gone: the kernels take the shapes as they are.  Unlike the
 reference's scan adapters, both scans take the initial state ``h0``.
 
+Attention that needs a gradient goes through ``FlashAttention``, the
+autograd Function over kernel A's forward (with its logsumexp) and its
+backward kernel, which counts its own launches; without a gradient
+(serving, ``torch.no_grad``) the forward kernel runs alone and writes no
+logsumexp.
+
 ``launch_counts`` reads how often each kernel was launched, and
 ``reset_launch_counts`` sets the counts to 0, so a run can show that its
 main path went through the kernels.
@@ -27,6 +33,7 @@ from repro_torch.kernels.quantized import dequantize, quantize
 
 KERNELS = {
     "flash_attn_fwd": _fa.flash_attention_cuda,
+    "flash_attn_bwd": _fa.flash_attention_bwd_cuda,
     "int8kv_decode": _q.int8kv_attention_cuda,
     "ssd_scan": _ms.ssd_scan_cuda,
     "mamba1_scan": _ms.mamba1_scan_cuda,
@@ -44,8 +51,13 @@ def _on_card(x: torch.Tensor) -> bool:
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Causal / windowed GQA attention by index.  q: [B, Sq, H, D];
-    k/v: [B, Sk, KV, D].  Returns [B, Sq, H, D] in q.dtype."""
-    if _on_card(q):
+    k/v: [B, Sk, KV, D].  Returns [B, Sq, H, D] in q.dtype,
+    differentiable through kernel A's backward."""
+    on_card = _on_card(q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _fa.FlashAttention.apply(q, k, v, causal, window)
+    if on_card:
         return _fa.flash_attention_cuda(q, k, v, causal=causal,
                                         window=window)
     return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -9,10 +9,12 @@ the port writes into the cache's tensors in place (``_append_token``,
 new ``index`` tensor.
 
 Kernels: on a CUDA tensor, full-sequence causal attention goes through
-kernel A (``kernels/flash_attention.py``) and int8-KV decode through
-kernel B (``kernels/quantized.py``).  ``use_kernels=False`` runs their
-plain PyTorch versions instead (the on-card parity check of
-``chip_smoke.py``); on the CPU the plain versions always run.
+kernel A (``kernels/flash_attention.py``), forward and, when a gradient
+is taken, backward, and int8-KV decode through kernel B
+(``kernels/quantized.py``).  ``use_kernels=False`` runs their plain
+PyTorch versions instead, with autograd through the plain attention (the
+on-card parity checks of ``chip_smoke.py``); on the CPU the plain
+versions always run, through the same autograd Function as the kernels.
 """
 from __future__ import annotations
 
@@ -40,19 +42,22 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: [B, Sq, H, Dk]; k/v: [B, Sk, KV, D]; H % KV == 0.  Returns
     [B, Sq, H, Dv].
 
-    On the CPU (or with ``use_kernels=False``) this is the reference's
-    chunked online-softmax path with its position masks.  On a CUDA
-    tensor it is kernel A, which masks by index: explicit positions
-    raise there instead of being dropped, as the reference's kernel path
-    drops them (``repro/models/attention.py:52-55``)."""
-    if use_kernels and q.is_cuda:
-        if q_positions is not None or kv_positions is not None:
-            raise ValueError(
-                "flash kernel A masks by sequence index; explicit "
-                "positions are not supported on the kernel path (pass "
-                "use_kernels=False to attend by position)")
+    With ``use_kernels`` and no positions (arange, the index masks) it
+    is ``ops.flash_attention``: kernel A on a CUDA tensor, its plain
+    version on a CPU one, through the autograd Function when a gradient
+    is taken.  Otherwise it is the reference's chunked online-softmax
+    path with its position masks, differentiated by autograd.  On a CUDA
+    tensor explicit positions raise on the kernel path instead of being
+    dropped, as the reference's kernel path drops them
+    (``repro/models/attention.py:52-55``)."""
+    if use_kernels and q_positions is None and kv_positions is None:
         return kernel_ops.flash_attention(q, k, v, causal=causal,
                                           window=window)
+    if use_kernels and q.is_cuda:
+        raise ValueError(
+            "flash kernel A masks by sequence index; explicit "
+            "positions are not supported on the kernel path (pass "
+            "use_kernels=False to attend by position)")
     return flash_attention_plain(q, k, v, causal=causal, window=window,
                                  q_positions=q_positions,
                                  kv_positions=kv_positions,

@@ -136,8 +136,10 @@ def init_embedding(generator, vocab: int, d: int, *, device="cpu"):
 
 def embed(tokens, params, dtype):
     # gather, then cast: the same values as the reference's cast-then-
-    # gather without converting the whole table every step
-    return params["table"][tokens].to(dtype)
+    # gather without converting the whole table every step.  F.embedding's
+    # backward sums repeated tokens in a fixed order on the card (indexing
+    # would scatter-add with atomics), so a rerun repeats its gradients.
+    return F.embedding(tokens, params["table"]).to(dtype)
 
 
 def unembed(x, params, dtype):

@@ -29,6 +29,20 @@ BF16_ATOL = 2e-2
 # O(1) values, rtol for the larger ones.  (Kernel 3 keeps its log-decay
 # cumsum in fp64, so large dt |A| costs it no extra error.)
 SCAN_ATOL, SCAN_RTOL = 1e-4, 1e-3
+# kernel A's backward against its plain version on the same bf16 inputs
+# and the same lse: both accumulate in fp32 (in other orders) and round
+# dq, dk and dv once to bf16, one ulp of 2^-8 of the value; relative to
+# the largest gradient, since dk and dv sum over up to 1024 queries and
+# the group's heads
+BWD_RTOL = 1e-2
+# the logsumexp, fp32 from the same bf16 inputs in both versions
+LSE_ATOL = 1e-4
+# one reduced-gpt2m train step in bf16, kernel path vs plain path: the
+# two round attention outputs and gradients to bf16 at other places; the
+# loss to 1e-2 relative, each leaf to a relative L2 error of 0.05 with a
+# floor of 1e-3 of the largest gradient (the key bias's gradient is 0 in
+# exact arithmetic, so both hold rounding noise there)
+TRAIN_LOSS_RTOL, TRAIN_LEAF_REL, TRAIN_LEAF_FLOOR = 1e-2, 0.05, 1e-3
 
 
 @pytest.fixture
@@ -263,3 +277,110 @@ def test_ssm_model_kernel_path_matches_plain_path(cuda_device, arch,
         assert counts[k] > 0, counts
     torch.testing.assert_close(logits["fast"], logits["plain"], rtol=0,
                                atol=5e-2)
+
+
+def _bwd_inputs(device, B, S, H, KV, D, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((B, S, h, D), generator=g, device=device)
+            .to(torch.bfloat16) for h in (H, KV, KV, H)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
+    (1, 37, 4, 4, 64, True, 0), (2, 257, 4, 2, 64, True, 0),
+    (1, 257, 4, 4, 80, True, 0), (1, 37, 4, 2, 80, True, 16),
+    (1, 257, 2, 2, 64, True, 64), (2, 37, 4, 2, 64, False, 0),
+    (8, 1024, 16, 16, 64, True, 0)])
+def test_flash_backward_kernel_matches_plain(cuda_device, B, S, H, KV, D,
+                                             causal, window):
+    q, k, v, do = _bwd_inputs(cuda_device, B, S, H, KV, D, seed=S + D)
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    before = tfa.flash_attention_bwd_cuda.launches
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                       window=window)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_cuda.launches == before + 1
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= BWD_RTOL * float(b.float().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (1, 257, 4, 2, 64, 0), (2, 130, 32, 32, 80, 0), (1, 300, 4, 4, 64, 64)])
+def test_flash_kernel_lse_matches_plain(cuda_device, B, S, H, KV, D,
+                                        window):
+    q, k, v, _ = _bwd_inputs(cuda_device, B, S, H, KV, D, seed=B * S)
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal=True, window=window,
+                                      return_lse=True)
+    o_serving = tfa.flash_attention_cuda(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    # asking for the logsumexp changes nothing in the output
+    torch.testing.assert_close(o, o_serving, rtol=0, atol=0)
+    _, want = tfa.flash_attention_plain(q, k, v, causal=True, window=window,
+                                        return_lse=True)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, rtol=0, atol=LSE_ATOL)
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernel_refuses_bad_operands(cuda_device):
+    q, k, v, do = _bwd_inputs(cuda_device, 1, 16, 2, 2, 64, seed=1)
+    o, lse = tfa.flash_attention_cuda(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="D in"):
+        z = torch.zeros((1, 16, 2, 96), dtype=torch.bfloat16,
+                        device=cuda_device)
+        tfa.flash_attention_bwd_cuda(z, z, z, z, z, lse)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfa.flash_attention_bwd_cuda(q.float(), k, v, o, do, lse)
+    with pytest.raises(ValueError, match="lse"):
+        tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse[:, :, :8])
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd_cuda(q.cpu(), k, v, o, do, lse)
+
+
+@pytest.mark.cuda
+def test_train_step_kernel_path_matches_plain_path(cuda_device):
+    """One reduced-gpt2m train step in bf16 (its loss and launches, then
+    every gradient leaf) through kernel A and its backward, against
+    ``use_kernels=False`` (autograd through the plain attention)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.convert import flatten
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.optim import init_adamw
+
+    cfg = get_config("gpt2m").reduced()
+    fast = Model(cfg, device=cuda_device)
+    plain = Model(cfg, device=cuda_device, use_kernels=False)
+    params = fast.init(torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(4, cfg.vocab_size, (4, 128)),
+             "labels": rng.integers(4, cfg.vocab_size, (4, 128))}
+    out = {}
+    ops.reset_launch_counts()
+    for name, m in (("fast", fast), ("plain", plain)):
+        step = build_train_step(m, TrainConfig())
+        _, _, metrics = step(params, init_adamw(params), batch)
+        out[name] = float(metrics["loss"])
+        if name == "fast":
+            counts = ops.launch_counts()
+            # remat: each layer's forward runs twice, its backward once
+            assert counts["flash_attn_fwd"] == 2 * cfg.n_layers, counts
+            assert counts["flash_attn_bwd"] == cfg.n_layers, counts
+    assert abs(out["fast"] - out["plain"]) \
+        <= TRAIN_LOSS_RTOL * abs(out["plain"])
+    from repro_torch.core.steps import value_and_grad
+    grads = {name: flatten(value_and_grad(lambda p, b: m.loss(p, b), params,
+                                          batch)[2])
+             for name, m in (("fast", fast), ("plain", plain))}
+    top = max(float(g.abs().max()) for g in grads["plain"].values())
+    for key, want in grads["plain"].items():
+        got = grads["fast"][key]
+        norm = max(float(want.norm()),
+                   TRAIN_LEAF_FLOOR * top * want.numel() ** 0.5)
+        assert float((got - want).norm()) / norm < TRAIN_LEAF_REL, key

@@ -111,8 +111,9 @@ def test_ops_flash_on_cpu_is_the_plain_version():
     want = tfa.flash_attention_plain(q, k, v)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     counts = tops.launch_counts()
-    assert set(counts) == {"flash_attn_fwd", "int8kv_decode", "ssd_scan",
-                           "mamba1_scan", "int8_matmul"}
+    assert set(counts) == {"flash_attn_fwd", "flash_attn_bwd",
+                           "int8kv_decode", "ssd_scan", "mamba1_scan",
+                           "int8_matmul"}
     assert not any(counts.values())
 
 

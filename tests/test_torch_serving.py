@@ -180,6 +180,12 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    scanned = {f.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for f in files[:-1]}
+    assert {"data/pipeline.py", "data/tokenizer.py", "data/corpus.py",
+            "optim/adamw.py", "optim/schedule.py", "core/steps.py",
+            "train/loop.py", "train/checkpoint.py", "train/evaluate.py",
+            "launch/train.py"} <= scanned
     for f in files:
         bad = {r for r in _imported_roots(f)
                if r in ("jax", "jaxlib", "repro", "flax")}
