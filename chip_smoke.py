@@ -7,15 +7,21 @@ holds each against its plain PyTorch version at the serving shapes of
 the models below (scans from a non-zero state, and one SSD case whose
 unmasked exp would overflow), and times kernel, plain version and, where
 one exists, a PyTorch library yardstick beside the card's bound.  Then
-it serves three models at full width with random weights from a seed:
+it serves five models at full width with random weights from a seed:
 
   * gpt2m (24 layers, d_model 1024) through ``Engine`` (fp32 and int8
     KV) and ``ContinuousEngine`` (int8 KV): kernels A and B;
+  * llama3.2-3b (28 layers, d_model 3072, 24 heads of 128 over 8 KV
+    heads) through ``Engine`` (bf16 and int8 KV) and ``ContinuousEngine``
+    (int8 KV): kernels 6 (RMSNorm), A and B at head_dim 128;
+  * phi3.5-moe-42b-a6.6b (d_model 4096, 32 heads of 128 over 8, 16
+    experts of d_ff 6400, top-2) cut to 8 of its 32 layers, through both
+    engines (int8 KV): kernels 6, A and B at head_dim 128;
   * falcon-mamba-7b (64 Mamba1 layers, d_model 4096) through both
-    engines: kernel 4;
+    engines: kernels 4 and 6;
   * zamba2-2.7b (54 Mamba2 layers in 9 groups, each behind a shared
-    attention block of 32 heads of 80) through both engines: kernels 3
-    and A.
+    attention block of 32 heads of 80) through both engines: kernels 3,
+    A and 6.
 
 Then it calibrates the card as a site of the paper's TACC-TACC cluster
 for gpt2m through ``repro_torch.launch.calibrate`` (kernel micro-bench
@@ -35,10 +41,12 @@ restores the checkpoint of step 4 and reruns steps 4 and 5
 version beforehand, at the training shape and three others.
 
 For each model it checks that the kernel path's first-step logits agree
-with the plain path's on the card (and, for the SSM and hybrid models,
-one full-width layer in fp32 over a prompt longer than the scan's
-chunk), that every kernel of each phase was launched, and that the
-outputs are well formed.
+with the plain path's on the card (the MoE model's against the fp32
+plain path, no farther than a bf16 control; for the SSM and hybrid
+models also one full-width layer in fp32 over a prompt longer than the
+scan's chunk), that every kernel of each phase was launched, and that
+the outputs are well formed; it prints each phase's launches and peak
+device memory.
 
 The second-to-last line of stdout is the ``kernels`` JSON, the last the
 device JSON.  Exits non-zero, printing neither, when anything fails or
@@ -138,6 +146,21 @@ RESUME_RTOL = 1e-5
 # (H, KV, D) and (B, S), causal; grouped-query, unlike the models here
 CAL_FLASH_HEADS, CAL_FLASH_BS = (4, 2, 64), (1, 128)
 
+# kernel 6 (RMSNorm) against its plain version: fp32 within 1e-5 of the
+# largest output (the mean of squares sums in another order; rsqrtf is
+# within 2 ulps); bf16 within one ulp of each value (the output's
+# rounding may fall either side of an fp32 difference).  Shapes: the
+# widths of zamba2 (2560), llama3.2 (3072) and phi3.5-MoE and
+# falcon-mamba (4096), at decode (8 rows), a ragged prefill and the
+# Engine prefill (8 x 64)
+RMS_FP32_RTOL = 1e-5
+RMS_DS, RMS_ROWS = (2560, 3072, 4096), (8, 257, 512)
+# the slice-5 models: llama3.2-3b at full width and depth; phi3.5-MoE at
+# full width, cut to MOE_LAYERS of its 32 layers (10.7 B parameters, 43
+# GB in fp32; all 32 would need ~167 GB in fp32, 84 GB in bf16)
+LLAMA, MOE, MOE_LAYERS = "llama3.2-3b", "phi3.5-moe-42b-a6.6b", 8
+NORM_ATTN = ("rmsnorm", "flash_attn_fwd")
+
 # ~1 ms at the H100's clocks: longer than the host takes to enqueue any
 # one function timed here
 SLEEP_CYCLES = 2_000_000
@@ -145,8 +168,9 @@ SEED = 0
 ENGINE_BATCH, ENGINE_PROMPT, ENGINE_GEN = 8, 64, 32
 CONT_SLOTS, CONT_REQUESTS, CONT_LENS, CONT_GEN = 8, 16, (16, 256), 32
 # the SSM and hybrid phases: (tag, arch, kernels each phase must launch)
-SSM_MODELS = (("ssm", "falcon-mamba-7b", ("mamba1_scan",)),
-              ("hybrid", "zamba2-2.7b", ("ssd_scan", "flash_attn_fwd")))
+SSM_MODELS = (("ssm", "falcon-mamba-7b", ("mamba1_scan", "rmsnorm")),
+              ("hybrid", "zamba2-2.7b", ("ssd_scan", "flash_attn_fwd",
+                                         "rmsnorm")))
 
 
 def log(*a):
@@ -319,16 +343,15 @@ def check_flash_bwd(torch, F):
     return rows, worst
 
 
-def check_int8kv(torch, F, cfg):
-    """Kernel B against its plain version at gpt2m decode shapes."""
+def check_int8kv(torch, F, H, KV, D, cases, seed):
+    """Kernel B against its plain version with H query heads over KV
+    key/value heads of D, at decode shapes ``(B, Sk, fills)``: B rows of
+    an Sk-slot cache filled from ``fills[0]`` to ``fills[1]`` keys."""
     from repro_torch.kernels import quantized as qz
 
-    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     rows, worst = [], 0.0
-    # (B, Sk, fills): the engines' decode caches, rows partly filled
-    for B, Sk, fills in ((8, 104, (65, 96)), (8, 1024, (17, 290)),
-                         (8, 1024, (1, 1024))):
+    for B, Sk, fills in cases:
         q = torch.randn((B, 1, H, D), generator=g,
                         device="cuda").to(torch.bfloat16)
         kq, ks = qz.quantize(torch.randn((B, Sk, KV, D), generator=g,
@@ -345,8 +368,8 @@ def check_int8kv(torch, F, cfg):
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         if not err <= KERNEL_ATOL:
-            fail(f"int8kv_decode B={B} Sk={Sk}: max_abs_err {err} > "
-                 f"{KERNEL_ATOL}")
+            fail(f"int8kv_decode H={H} KV={KV} D={D} B={B} Sk={Sk}: "
+                 f"max_abs_err {err} > {KERNEL_ATOL}")
         worst = max(worst, err)
         live = int(valid.sum())                  # keys this data needs
         n_bytes = live * KV * (2 * D + 2 * 4) + B * Sk \
@@ -359,21 +382,83 @@ def check_int8kv(torch, F, cfg):
         qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, kd, vd))
         mask = valid[:, None, None, :]
         row = {
-            "B": B, "Sk": Sk, "live_keys": live, "max_abs_err": err,
+            "B": B, "Sk": Sk, "H": H, "KV": KV, "D": D, "live_keys": live,
+            "max_abs_err": err,
             "ms": time_ms(torch, lambda: qz.int8kv_attention_cuda(*args)),
             "plain_ms": time_ms(torch, lambda: qz.int8kv_attention_plain(
                 *args)),
             "library_ms": None,
             "sdpa_dequant_ms": time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    qT, kT, vT, attn_mask=mask)),
+                    qT, kT, vT, attn_mask=mask, enable_gqa=KV != H)),
             "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
-        log(f"int8kv_decode B={B} Sk={Sk:5d} live={live:5d} err={err:.3e} "
+        log(f"int8kv_decode H={H} KV={KV} D={D} B={B} Sk={Sk:5d} "
+            f"live={live:5d} err={err:.3e} "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"sdpa_on_dequantized_ms={row['sdpa_dequant_ms']:.4f} "
             f"bound_ms={b_ms:.5f} ({b_by})")
     return rows, worst
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp of each entry of an fp32 tensor (8 significant
+    bits)."""
+    _, e = torch.frexp(x.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def check_rmsnorm(torch, F):
+    """Kernel 6 against its plain version at the RMSNorm models' widths,
+    in bf16 (the served models) and fp32; the yardstick is
+    ``F.rms_norm`` with the weight in x's dtype (its fused path wants
+    one dtype)."""
+    from repro_torch.kernels import rmsnorm as rn
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    rows_out, worst = [], 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in RMS_DS:
+            for rows in RMS_ROWS:
+                x = (torch.randn((rows, d), generator=g, device="cuda") * 3
+                     + 0.5).to(dtype)
+                w = 1 + 0.1 * torch.randn((d,), generator=g, device="cuda")
+                got = rn.rmsnorm_cuda(x, w, eps=1e-5)
+                want = rn.rmsnorm_plain(x, w, 1e-5)
+                torch.cuda.synchronize()
+                what = f"rmsnorm {str(dtype)[6:]} rows={rows} d={d}"
+                if not torch.isfinite(got).all():
+                    fail(f"{what}: non-finite output")
+                diff = (got.float() - want.float()).abs()
+                err = float(diff.max())
+                if dtype == torch.float32:
+                    ok = err <= RMS_FP32_RTOL * float(want.abs().max())
+                else:
+                    ok = bool((diff <= bf16_ulp(torch, want.float())).all())
+                if not ok:
+                    fail(f"{what}: max_abs_err {err} beyond the tolerance")
+                worst = max(worst, err)
+                esz = x.element_size()
+                # x read once, y written once, the fp32 weight; per
+                # element a square-add, and two products
+                b_ms, b_by = bound(2 * rows * d * esz + 4 * d, 4 * rows * d,
+                                   PEAK_FP32_FLOPS)
+                wl = w.to(dtype)
+                row = {"rows": rows, "d": d, "dtype": str(dtype)[6:],
+                       "max_abs_err": err,
+                       "ms": time_ms(torch, lambda: rn.rmsnorm_cuda(
+                           x, w, eps=1e-5)),
+                       "plain_ms": time_ms(torch, lambda: rn.rmsnorm_plain(
+                           x, w, 1e-5)),
+                       "library_ms": time_ms(torch, lambda: F.rms_norm(
+                           x, (d,), wl, eps=1e-5)),
+                       "bound_ms": b_ms, "bound_by": b_by}
+                rows_out.append(row)
+                log(f"{what} err={err:.3e} ms={row['ms']:.4f} "
+                    f"plain_ms={row['plain_ms']:.4f} "
+                    f"rms_norm_ms={row['library_ms']:.4f} "
+                    f"bound_ms={b_ms:.5f} ({b_by})")
+    return rows_out, worst
 
 
 def check_mamba1(torch, cfg):
@@ -562,19 +647,27 @@ def check_tokens(np, tokens, shape, vocab, what):
         fail(f"{what}: token ids outside [0, {vocab})")
 
 
+PHASES = {}      # phase -> wall time, launches, peak device memory
+
+
 def run_phase(torch, ops, name, fn, needs):
     """Drive one main-path phase with the launch counts set to 0 just
     before and read just after; every kernel in ``needs`` must launch."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    PHASES[name] = {"wall_s": wall, "launches": counts,
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
     missing = [k for k in needs if counts[k] == 0]
     if missing:
         fail(f"phase {name}: kernels {missing} never launched ({counts})")
-    log(f"phase {name}: {wall:.2f}s launches {counts}")
+    log(f"phase {name}: {wall:.2f}s, peak memory "
+        f"{PHASES[name]['peak_bytes'] / 2**30:.2f} GiB, launches {counts}")
     return out, counts
 
 
@@ -626,20 +719,22 @@ def first_step(torch, m, params, batch, kv_dtype, tok=None):
 
 def compare_logits(torch, what, got, want, share):
     """Max |got - want| of the prefill and decode logits, which must stay
-    within ``share`` of the largest |want| logit."""
+    within ``share`` (one number, or one a step) of the largest |want|
+    logit."""
     out = {}
     for i, step in enumerate(("prefill", "decode")):
+        share_i = share[step] if isinstance(share, dict) else share
         a, b = got[i].float(), want[i].float()
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             fail(f"{what}: non-finite {step} logits")
         err = float((a - b).abs().max())
         scale = float(b.abs().max())
         out[step] = {"max_abs_err": err, "max_abs_logit": scale,
-                     "tolerance_share": share}
+                     "tolerance_share": share_i}
         log(f"{what} {step}: max_abs_err {err:.4e} (max |logit| "
-            f"{scale:.3f}, tolerance {share:.4g} x that)")
-        if not err <= share * scale:
-            fail(f"{what} {step} logits disagree: {err} > {share:.4g} * "
+            f"{scale:.3f}, tolerance {share_i:.4g} x that)")
+        if not err <= share_i * scale:
+            fail(f"{what} {step} logits disagree: {err} > {share_i:.4g} * "
                  f"{scale}")
     return out
 
@@ -687,6 +782,111 @@ def check_ssm_logits(torch, Model, cfg, params, batch):
             torch, f"{cfg.name} fp32 logits kernel vs plain", k, p,
             FP32_LOGIT_RTOL)
     return out
+
+
+def check_moe_logits(torch, Model, cfg, params, batch):
+    """First-step logits of the MoE model (int8 KV), kernel path against
+    the fp32 plain path on the card.  Two correct bf16 paths may route a
+    near-tie token to different experts, so the kernel path is held to a
+    control: it may be no farther from the fp32 plain path than
+    ``NOISE_FACTOR`` times the bf16 plain path is (as ``train-parity``
+    holds its gradients)."""
+    import dataclasses
+
+    k = first_step(torch, Model(cfg, device="cuda"), params, batch, "int8")
+    p = first_step(torch, Model(cfg, device="cuda", use_kernels=False),
+                   params, batch, "int8", k[2])
+    f = first_step(torch, Model(dataclasses.replace(cfg, dtype="float32"),
+                                device="cuda", use_kernels=False),
+                   params, batch, "int8", k[2])
+    control = compare_logits(torch, f"{cfg.name} control: bf16 plain vs "
+                             f"fp32 plain", p, f, 1.0)
+    share = {step: NOISE_FACTOR * v["max_abs_err"] / v["max_abs_logit"]
+             for step, v in control.items()}
+    return {"bf16_control": control, "kernel_vs_fp32": compare_logits(
+        torch, f"{cfg.name} logits kernel (bf16) vs fp32 plain", k, f,
+        share)}
+
+
+def slice5_phases(torch, np, ops, card):
+    """Phases ``llama-engine`` (bf16 KV), ``llama-int8``,
+    ``llama-continuous``, ``moe-engine`` and ``moe-continuous`` (int8
+    KV): llama3.2-3b at full width and depth, phi3.5-MoE at full width
+    and ``MOE_LAYERS`` layers, one model on the card at a time.  Every
+    Engine phase must launch kernel 6 2L + 1 times a forward pass, A L
+    times (its prefill) and B L times a decode step (int8 KV).  Returns
+    (records, first-step logit checks)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import flatten
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+
+    rng = np.random.default_rng(SEED + 5)
+    out, logits = {}, {}
+    for tag, arch in (("llama", LLAMA), ("moe", MOE)):
+        mcfg = get_config(arch)
+        if tag == "moe":
+            log(f"{arch}: depth cut to {MOE_LAYERS} of {mcfg.n_layers} "
+                f"layers (all {mcfg.n_layers} hold "
+                f"{mcfg.param_count() / 1e9:.1f} B parameters, "
+                f"{4 * mcfg.param_count() / 1e9:.0f} GB in fp32: more than "
+                f"one card); width unchanged")
+            mcfg = dataclasses.replace(mcfg, n_layers=MOE_LAYERS)
+        L = mcfg.n_layers
+        model = Model(mcfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        n_params = sum(t.numel() for t in flatten(params).values())
+        log(f"{arch}: {L} layers, {n_params / 1e9:.3f} B parameters, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        batch = {"tokens": rng.integers(4, mcfg.vocab_size,
+                                        (ENGINE_BATCH, ENGINE_PROMPT),
+                                        dtype=np.int64)}
+        if tag == "llama":
+            k = first_step(torch, model, params, batch, "int8")
+            p = first_step(torch, Model(mcfg, device="cuda",
+                                        use_kernels=False),
+                           params, batch, "int8", k[2])
+            logits[arch] = compare_logits(
+                torch, f"{arch} logits kernel vs plain", k, p, LOGIT_RTOL)
+            del k, p
+        else:
+            logits[arch] = check_moe_logits(torch, Model, mcfg, params,
+                                            batch)
+        kvs = (("engine", "fp32"), ("int8", "int8")) if tag == "llama" \
+            else (("engine", "int8"),)
+        for phase, kv in kvs:
+            name = f"{tag}-{phase}"
+            needs = NORM_ATTN + (("int8kv_decode",) if kv == "int8" else ())
+            rec = engine_phase(torch, np, ops, name, model, params, batch,
+                               needs, card, kv_dtype=kv)
+            want = {"rmsnorm": (2 * L + 1) * ENGINE_GEN,
+                    "flash_attn_fwd": L,
+                    "int8kv_decode": L * (ENGINE_GEN - 1)
+                    if kv == "int8" else 0}
+            for kname, n in want.items():
+                if rec["launches"][kname] != n:
+                    fail(f"phase {name}: {rec['launches'][kname]} {kname} "
+                         f"launches, want {n}")
+            out[f"{tag}_{phase}"] = rec
+        eng = Engine(model, batch_size=ENGINE_BATCH,
+                     max_len=ENGINE_PROMPT + ENGINE_GEN + 8,
+                     kv_dtype="int8")
+        prof = profile_window(
+            torch, lambda: eng.generate(params, batch, n_tokens=8,
+                                        timing=False), OUR_KERNELS)
+        log_profile(f"{tag}-int8 engine, prefill + 7 decode steps", prof)
+        out[f"profile_{tag}_engine_int8"] = prof
+        out[f"{tag}_continuous"] = continuous_phase(
+            torch, np, ops, f"{tag}-continuous", model, params, rng,
+            CONT_LENS[1] + CONT_GEN + 8, NORM_ATTN + ("int8kv_decode",),
+            card, kv_dtype="int8")
+        out[f"{tag}_params"] = n_params
+        out[f"{tag}_layers"] = L
+        del model, params, eng
+        torch.cuda.empty_cache()
+    return out, logits
 
 
 def check_ssm_layer(torch, cfg, params):
@@ -1126,7 +1326,7 @@ def log_profile(name, prof):
 
 OUR_KERNELS = ("flash_fwd_kernel", "bwd_delta_kernel", "bwd_dkdv_kernel",
                "bwd_dq_kernel", "int8kv_decode_kernel", "mamba1_scan_kernel",
-               "ssd_scan_kernel", "int8_matmul_kernel")
+               "ssd_scan_kernel", "int8_matmul_kernel", "rmsnorm_kernel")
 
 
 def main() -> None:
@@ -1152,11 +1352,19 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    stages = {}
+
+    def stage(name):
+        """Seconds since the start at the end of a stage of the run."""
+        stages[name] = time.perf_counter() - t_start
+        log(f"[{stages[name]:.1f}s] {name} done")
 
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"built {sorted(libs)} in {build_s:.1f}s")
+    log(f"built {sorted(libs)} in {build_s:.1f}s; each nvcc: " + ", ".join(
+        f"{k} {v:.1f}s" for k, v in sorted(_build.BUILD_SECONDS.items(),
+                                            key=lambda kv: -kv[1])))
     for stem, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1164,6 +1372,7 @@ def main() -> None:
 
     cfg = get_config("gpt2m")
     fcfg, zcfg = get_config("falcon-mamba-7b"), get_config("zamba2-2.7b")
+    lcfg, mcfg = get_config(LLAMA), get_config(MOE)
     # (B, S): Engine prefill (8 x 64), ContinuousEngine buckets (1 x
     # 16..256), and a ragged and a full-context shape; zamba2's shared
     # attention (head_dim 80) at its Engine prefill and a long prompt
@@ -1174,14 +1383,32 @@ def main() -> None:
               (8, 1024))),
             ((zcfg.n_heads, zcfg.n_kv_heads, zcfg.head_dim),
              ((8, 64), (1, 256))),
-            (CAL_FLASH_HEADS, (CAL_FLASH_BS,))):
+            (CAL_FLASH_HEADS, (CAL_FLASH_BS,)),
+            # head_dim 128: llama3.2 (group 3) and phi3.5-MoE (group 4) at
+            # their Engine prefill and a ragged continuous prefill
+            ((lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim),
+             ((8, 64), (1, 257))),
+            ((mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim),
+             ((8, 64), (1, 257)))):
         rows, err = check_flash(torch, F, *heads, shapes)
         flash_rows, flash_err = flash_rows + rows, max(flash_err, err)
     bwd_rows, bwd_err = check_flash_bwd(torch, F)
-    int8_rows, int8_err = check_int8kv(torch, F, cfg)
+    # (B, Sk, fills): the engines' decode caches, rows partly filled;
+    # at head_dim 128 the llama3.2 and phi3.5-MoE heads over 1024 slots
+    int8_rows, int8_err = check_int8kv(
+        torch, F, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        ((8, 104, (65, 96)), (8, 1024, (17, 290)), (8, 1024, (1, 1024))),
+        SEED + 1)
+    for c in (lcfg, mcfg):
+        rows, err = check_int8kv(torch, F, c.n_heads, c.n_kv_heads,
+                                 c.head_dim, ((8, 1024, (17, 290)),),
+                                 SEED + 9)
+        int8_rows, int8_err = int8_rows + rows, max(int8_err, err)
+    rms_rows, rms_err = check_rmsnorm(torch, F)
     m1_rows, m1_err = check_mamba1(torch, fcfg)
     ssd_rows, ssd_err = check_ssd(torch, zcfg)
     mm_rows, mm_err = check_int8_matmul(torch)
+    stage("kernel checks")
 
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
@@ -1227,6 +1454,7 @@ def main() -> None:
     add(e2e["continuous_int8"]["launches"])
     del model, params, eng
     torch.cuda.empty_cache()
+    stage("gpt2m serving")
 
     # the SSM and hybrid families at full width, one model on the card at
     # a time (falcon-mamba-7b holds ~29 GB of fp32 parameters)
@@ -1261,19 +1489,45 @@ def main() -> None:
         del model, params, eng
         torch.cuda.empty_cache()
 
+    stage("falcon-mamba and zamba2 serving")
+    slice5, logits5 = slice5_phases(torch, np, ops, card)
+    stage("llama3.2 and phi3.5-MoE serving")
+    logit_err.update(logits5)
+    at128 = {"flash_attn_fwd": 0, "int8kv_decode": 0}
+    for key, rec in slice5.items():
+        if isinstance(rec, dict) and "launches" in rec:
+            add(rec["launches"])
+            for k in at128:
+                at128[k] += rec["launches"][k]
+    e2e.update(slice5)
+
     calib = calibrate_phases(torch, ops, card)
     for key in ("calibrate", "calibrate_wide"):
         add(calib[key]["launches"])
     e2e.update(calib)
+    stage("calibration")
     training = train_phases(torch, np, ops, card)
+    stage("training")
     for key in ("train_gpt2m", "train_resume"):
         add(training[key]["launches"])
     add(training["train_parity_launches"])
     e2e.update(training)
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
 
+    def pick(rows, at):
+        return next(r for r in rows if all(r[k] == v for k, v in at.items()))
+
+    def at_head_dim(rows, at, launches, **extra):
+        """The row of a kernel at head_dim 128 and its launches in the
+        slice-5 phases (the only ones at that head dim)."""
+        row = pick(rows, at)
+        return {"128": {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")}
+                | {"launches": launches, "at": at, **extra}}
+
     def entry(name, route_src, replaces, rows, worst, at, **extra):
-        row = next(r for r in rows if all(r[k] == v for k, v in at.items()))
+        row = pick(rows, at)
         return {"name": name, "route": "cuda", "source": route_src,
                 "replaces": replaces, "launches": totals[name],
                 "max_abs_err": worst, "ms": row["ms"],
@@ -1282,16 +1536,24 @@ def main() -> None:
                 "library_ms": row["library_ms"], "at": at, **extra}
 
     kernels = [
-        entry("flash_attn_fwd", "src/repro_torch/csrc/flash_attn_fwd.cu",
+        entry("flash_attn_fwd", "src/repro_torch/csrc/flash_attn_fwd.cuh",
               "src/repro/kernels/flash_attention.py:77", flash_rows,
-              flash_err, {"B": 1, "S": 256, "H": 16, "D": 64}),
+              flash_err, {"B": 1, "S": 256, "H": 16, "D": 64},
+              by_head_dim=at_head_dim(
+                  flash_rows, {"B": 8, "S": 64, "H": 24, "D": 128},
+                  at128["flash_attn_fwd"],
+                  source="src/repro_torch/csrc/flash_attn_fwd_d128.cu")),
         entry("flash_attn_bwd", "src/repro_torch/csrc/flash_attn_bwd.cu",
               "src/repro/kernels/flash_attention.py:77", bwd_rows, bwd_err,
               {"B": 8, "S": 1024, "H": 16, "D": 64},
               differentiates="src/repro/models/attention.py:36"),
         entry("int8kv_decode", "src/repro_torch/csrc/int8kv_attn.cu",
               "src/repro/kernels/quantized.py:145", int8_rows, int8_err,
-              {"B": 8, "Sk": 1024, "live_keys": int8_rows[1]["live_keys"]}),
+              {"B": 8, "Sk": 1024, "D": 64,
+               "live_keys": int8_rows[1]["live_keys"]},
+              by_head_dim=at_head_dim(
+                  int8_rows, {"B": 8, "Sk": 1024, "H": 24, "D": 128},
+                  at128["int8kv_decode"])),
         entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/mamba_scan.py:72", ssd_rows, ssd_err,
               {"B": 8, "S": 64}),
@@ -1301,6 +1563,9 @@ def main() -> None:
         entry("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
               "src/repro/kernels/quantized.py:69", mm_rows, mm_err,
               {"M": 192, "K": 192, "N": 192, "block": 64}),
+        entry("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
+              "src/repro/kernels/rmsnorm.py:27", rms_rows, rms_err,
+              {"rows": 512, "d": 3072, "dtype": "bfloat16"}),
     ]
     details = os.environ.get("SMOKE_DETAILS")
     if details:
@@ -1312,6 +1577,9 @@ def main() -> None:
                        "flash_attn_bwd": bwd_rows,
                        "int8kv_decode": int8_rows, "ssd_scan": ssd_rows,
                        "mamba1_scan": m1_rows, "int8_matmul": mm_rows,
+                       "rmsnorm": rms_rows, "phases": PHASES,
+                       "stages_s": stages,
+                       "build_s_each": _build.BUILD_SECONDS,
                        "logits_kernel_vs_plain": logit_err, "e2e": e2e,
                        "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,11 +5,13 @@ The JAX package ``repro`` is the reference; this package keeps its module
 names (``configs``, ``models``, ``kernels``, ``serve``, ``core``,
 ``calib``, ``launch``) and its stacked ``[L, ...]`` parameter layout with
 the same ``/``-joined keys, and imports nothing of it.  It serves the
-dense (GPT-2), SSM (falcon-mamba) and hybrid (zamba2) families, and
-calibrates the cost model and plan search to a measured card.  Its
-kernels (two attention kernels, two scans and an int8 matmul) are CUDA
-C++ for ``sm_90a`` under ``csrc/``, compiled with ``nvcc`` at first use
-(``kernels/_build.py``), so importing the package needs no compiler.
+dense (GPT-2, llama3.2), MoE (phi3.5-MoE), SSM (falcon-mamba) and hybrid
+(zamba2) families, pretrains GPT-2 on one card, and calibrates the cost
+model and plan search to a measured card.  Its kernels (attention
+forward and backward, int8-KV decode, two scans, an int8 matmul and the
+RMSNorm) are CUDA C++ for ``sm_90a`` under ``csrc/``, compiled with
+``nvcc`` at first use (``kernels/_build.py``), so importing the package
+needs no compiler.
 
 Entry points (``Model``, ``Engine``, ``ContinuousEngine``,
 ``launch/serve.py``, ``launch/calibrate.py``) default to

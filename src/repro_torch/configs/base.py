@@ -1,18 +1,30 @@
 """Model and training configuration for the PyTorch port.
 
 A copy of the fields of ``repro.configs.base.ModelConfig`` that the
-dense, SSM and hybrid families read, with the same names, defaults and
-``reduced()`` rule, so a port config and a reference config built the
-same way compare equal field by field; and of ``TrainConfig``, field for
-field.  The other families' sub-configs (MLA, MoE, the encoder and
-vision extras) are not ported yet.
+dense, MoE, SSM and hybrid families read, with the same names, defaults
+and ``reduced()`` rule, so a port config and a reference config built
+the same way compare equal field by field; and of ``TrainConfig``, field
+for field.  The other families' sub-configs (MLA, the encoder and vision
+extras) and the plans' runtime fields (``moe_dispatch_axes``,
+``moe_expert_axis``) are not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Optional
 
-Family = str  # "dense" | "ssm" | "hybrid" are ported
+Family = str  # "dense" | "moe" | "ssm" | "hybrid" are ported
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    n_shared_experts: int = 0       # always-on experts (DeepSeek style)
+    expert_d_ff: int = 0            # 0 => use model d_ff
+    router_aux_coef: float = 0.01   # load-balance loss coefficient
+    router_jitter: float = 0.0
+    capacity_factor: float = 1.25   # >= n_experts/top_k => never drops
 
 
 @dataclass(frozen=True)
@@ -44,6 +56,7 @@ class ModelConfig:
     activation: str = "silu"        # "silu" (SwiGLU) | "gelu" (plain MLP)
     tie_embeddings: bool = False
     sliding_window: int = 0         # 0 => full causal attention
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2): apply the shared attention block every k-th layer
     hybrid_attn_every: int = 0      # 0 => no interleaved attention
@@ -66,6 +79,12 @@ class ModelConfig:
             per_attn = d * (c.n_heads * hd) + 2 * d * (c.n_kv_heads * hd) \
                 + (c.n_heads * hd) * d
             per_mlp = (3 if c.activation == "silu" else 2) * d * c.d_ff
+        if c.family == "moe":
+            if c.moe is None:
+                raise ValueError("family 'moe' needs a MoEConfig")
+            eff = c.moe.expert_d_ff or c.d_ff
+            n_e = c.moe.n_experts + c.moe.n_shared_experts
+            per_mlp = n_e * 3 * d * eff + d * c.moe.n_experts  # + router
         if c.family in ("ssm", "hybrid"):
             di, ds = c.ssm.expand * d, c.ssm.d_state
             per_ssm = 2 * d * di + c.ssm.d_conv * di + di * ds * 2 + di * 2 \
@@ -86,19 +105,21 @@ class ModelConfig:
         return emb + layers + d
 
     def active_param_count(self) -> int:
-        """Params touched per token: every parameter for the ported
-        (dense, SSM, hybrid) families.  The reference's MoE rule (shared
-        plus top_k experts) waits for the MoE family."""
-        if self.family == "moe":
-            raise NotImplementedError(
-                "active_param_count of a MoE config: the MoE family is not "
-                "ported yet (ROADMAP queue 1, item 10)")
-        return self.param_count()
+        """Params touched per token (MoE: shared + top_k experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        c, m = self, self.moe
+        total = self.param_count()
+        eff = m.expert_d_ff or c.d_ff
+        inactive = (m.n_experts - m.top_k) * 3 * c.d_model * eff * c.n_layers
+        return total - inactive
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model<=256, <=4 heads (head_dim
         d_model // n_heads, so 64; the ssm family recomputes it the same
-        way from 4 heads), SSM state 8 and chunk 16, a hybrid group of 2."""
+        way from 4 heads), SSM state 8 and chunk 16, a hybrid group of 2,
+        and for MoE 4 experts, top-2, expert d_ff <= 256 and a capacity
+        factor of 2.0 (no drops, so forward, prefill and decode agree)."""
         d = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4) or 4
         kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else n_heads
@@ -110,6 +131,13 @@ class ModelConfig:
             max_seq_len=1024,
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else 0)
+        if self.moe is not None:
+            kw["moe"] = replace(self.moe, n_experts=4, top_k=2,
+                                n_shared_experts=min(
+                                    self.moe.n_shared_experts, 1),
+                                expert_d_ff=min(
+                                    self.moe.expert_d_ff or 256, 256),
+                                capacity_factor=2.0)
         if self.ssm is not None:
             kw["ssm"] = replace(self.ssm, d_state=8, n_heads=0, head_dim=32,
                                 chunk=16)

@@ -1,5 +1,5 @@
 // Flash attention backward for Hopper (sm_90a), bf16 in and out, fp32
-// accumulation: dQ, dK, dV of kernel A (flash_attn_fwd.cu), recomputed
+// accumulation: dQ, dK, dV of kernel A (flash_attn_fwd.cuh), recomputed
 // from the forward's per-row logsumexp.
 //
 // Replaces the gradient of the TPU kernel

@@ -10,20 +10,22 @@
 // What bounds it on the H100: with one query row per head it does
 // ~4*D flops per key against 2*D + 8 bytes of cache, ~2 flop/byte, far
 // below the ~295 flop/byte ridge, so it is bound by bytes: the least
-// time is B*Sk*KV*(2*64 + 2*4) bytes (plus the mask) over 3.35 TB/s.
+// time is B*Sk*KV*(2*D + 2*4) bytes (plus the mask) over 3.35 TB/s.
 //
 // Design:
 //  * built for Sq = 1 (no block_q padding of the TPU version): one block
 //    of 4 warps per (head, batch row); the warps take interleaved
 //    32-key chunks and each keeps its own online softmax (max, sum and
-//    a 2-dim slice of the accumulator per lane), merged through shared
-//    memory at the end;
-//  * scores: a lane owns one key and reads its 64-byte int8 row with
-//    four 16-byte loads, so every byte fetched is used; the per-token
-//    scale multiplies the int8 dot product once;
-//  * P.V: the warp walks its chunk's 32 keys, each lane reading two
-//    int8 values of the row (the warp reads the 64-byte row at once)
-//    and the key's probability and scale by shuffle;
+//    a D/32-dim slice of the accumulator per lane), merged through
+//    shared memory at the end;
+//  * the head dim D is a template parameter, instantiated for 64 (GPT-2)
+//    and 128 (llama3.2-3b, phi3.5-MoE);
+//  * scores: a lane owns one key and reads its D-byte int8 row with D/16
+//    16-byte loads (four at 64, eight at 128), so every byte fetched is
+//    used; the per-token scale multiplies the int8 dot product once;
+//  * P.V: the warp walks its chunk's 32 keys, each lane reading D/32
+//    int8 values of the row (the warp reads the whole row at once) and
+//    the key's probability and scale by shuffle;
 //  * masked keys score NEG_INF = -1e30 as in the reference, so a row
 //    with no live key averages the values as a plain softmax does; the
 //    output divides by max(l, 1e-30).
@@ -33,11 +35,11 @@
 
 namespace {
 
-constexpr int HD = 64;
 constexpr int NW = 4;
 constexpr int NT = NW * 32;
 constexpr float NEG_INF = -1e30f;
 
+template <int HD>
 __global__ void __launch_bounds__(NT)
 int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
                      const int8_t* __restrict__ kq,
@@ -49,6 +51,7 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
                      int group, int KV, int Sk,
                      long long q_sb, long long q_sh,
                      long long o_sb, long long o_sh, float scale) {
+  constexpr int DPL = HD / 32;  // accumulator dims per lane
   __shared__ float sm_m[NW];
   __shared__ float sm_l[NW];
   __shared__ float sm_acc[NW][HD];
@@ -73,7 +76,10 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
   // token j of this (batch row, kv head): element offset of its row
   const long long row0 = (long long)b * Sk * KV + kvh;
-  float m = NEG_INF, l = 0.f, acc0 = 0.f, acc1 = 0.f;
+  float m = NEG_INF, l = 0.f;
+  float acc[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
 
   for (int c0 = warp * 32; c0 < Sk; c0 += NW * 32) {
     const int j = c0 + lane;
@@ -85,7 +91,7 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
       const int4* kr = reinterpret_cast<const int4*>(kq + tok * HD);
       float dot = 0.f;
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
+      for (int t = 0; t < HD / 16; ++t) {
         const int4 w = kr[t];
         const int words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
@@ -113,18 +119,26 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
       psum += __shfl_xor_sync(0xffffffffu, psum, off);
     l = l * corr + psum;
     m = m_new;
-    acc0 *= corr;
-    acc1 *= corr;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[i] *= corr;
 
     const int n_keys = min(32, Sk - c0);
     for (int jj = 0; jj < n_keys; ++jj) {
       const float pj = __shfl_sync(0xffffffffu, p, jj);
       const float sj = __shfl_sync(0xffffffffu, vsc, jj);
       const long long tok = row0 + (long long)(c0 + jj) * KV;
-      const char2 vv =
-          *reinterpret_cast<const char2*>(vq + tok * HD + 2 * lane);
-      acc0 = fmaf(pj, (float)vv.x * sj, acc0);
-      acc1 = fmaf(pj, (float)vv.y * sj, acc1);
+      const int8_t* vr = vq + tok * HD + DPL * lane;
+      if constexpr (DPL == 2) {
+        const char2 vv = *reinterpret_cast<const char2*>(vr);
+        acc[0] = fmaf(pj, (float)vv.x * sj, acc[0]);
+        acc[1] = fmaf(pj, (float)vv.y * sj, acc[1]);
+      } else {
+        const char4 vv = *reinterpret_cast<const char4*>(vr);
+        acc[0] = fmaf(pj, (float)vv.x * sj, acc[0]);
+        acc[1] = fmaf(pj, (float)vv.y * sj, acc[1]);
+        acc[2] = fmaf(pj, (float)vv.z * sj, acc[2]);
+        acc[3] = fmaf(pj, (float)vv.w * sj, acc[3]);
+      }
     }
   }
 
@@ -132,45 +146,58 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
     sm_m[warp] = m;
     sm_l[warp] = l;
   }
-  sm_acc[warp][2 * lane] = acc0;
-  sm_acc[warp][2 * lane + 1] = acc1;
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) sm_acc[warp][DPL * lane + i] = acc[i];
   __syncthreads();
   if (warp == 0) {
     float mt = sm_m[0];
 #pragma unroll
     for (int w = 1; w < NW; ++w) mt = fmaxf(mt, sm_m[w]);
-    float lt = 0.f, a0 = 0.f, a1 = 0.f;
+    float lt = 0.f, a[DPL];
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) a[i] = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
       const float f = expf(sm_m[w] - mt);
       lt += sm_l[w] * f;
-      a0 += sm_acc[w][2 * lane] * f;
-      a1 += sm_acc[w][2 * lane + 1] * f;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) a[i] += sm_acc[w][DPL * lane + i] * f;
     }
     const float den = fmaxf(lt, 1e-30f);
     __nv_bfloat16* op = o + b * o_sb + h * o_sh;
-    op[2 * lane] = __float2bfloat16(a0 / den);
-    op[2 * lane + 1] = __float2bfloat16(a1 / den);
+#pragma unroll
+    for (int i = 0; i < DPL; ++i)
+      op[DPL * lane + i] = __float2bfloat16(a[i] / den);
   }
 }
 
 }  // namespace
 
-// q: [B, 1, H, 64] bf16 (batch and head strides given); kq/vq:
-// [B, Sk, KV, 64] int8 and ks/vs: [B, Sk, KV] fp32, contiguous; valid:
-// [B, Sk] bool; o: [B, 1, H, 64] bf16.  Returns the launch's cudaError_t.
+// q: [B, 1, H, D] bf16 (batch and head strides given); kq/vq:
+// [B, Sk, KV, D] int8 and ks/vs: [B, Sk, KV] fp32, contiguous; valid:
+// [B, Sk] bool; o: [B, 1, H, D] bf16; D = head_dim is 64 or 128.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for any other
+// head dim).
 extern "C" int int8kv_decode_bf16(
     const void* q, const void* kq, const void* ks, const void* vq,
     const void* vs, const void* valid, void* o,
-    int B, int H, int KV, int Sk,
+    int B, int H, int KV, int Sk, int head_dim,
     long long q_sb, long long q_sh, long long o_sb, long long o_sh,
     float scale, void* stream) {
   if (B <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   dim3 grid(H, B);
-  int8kv_decode_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const int8_t*)kq, (const float*)ks,
-      (const int8_t*)vq, (const float*)vs, (const uint8_t*)valid,
-      (__nv_bfloat16*)o, H / KV, KV, Sk, q_sb, q_sh, o_sb, o_sh, scale);
+#define INT8KV_LAUNCH(HDV)                                                  \
+  int8kv_decode_kernel<HDV><<<grid, NT, 0, (cudaStream_t)stream>>>(         \
+      (const __nv_bfloat16*)q, (const int8_t*)kq, (const float*)ks,         \
+      (const int8_t*)vq, (const float*)vs, (const uint8_t*)valid,           \
+      (__nv_bfloat16*)o, H / KV, KV, Sk, q_sb, q_sh, o_sb, o_sh, scale)
+  if (head_dim == 64)
+    INT8KV_LAUNCH(64);
+  else if (head_dim == 128)
+    INT8KV_LAUNCH(128);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef INT8KV_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -3,9 +3,11 @@ into a shared library with a plain C interface, loaded with ``ctypes``).
 
 Every ``csrc/*.cu`` compiles at first use, one ``nvcc`` process per
 source, all started together, for ``sm_90a`` (``wgmma`` and
-``setmaxnreg`` exist only for the ``a`` target).  A library is named by
-the hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is loaded from ``build/kernels/`` (gitignored) as it is.
+``setmaxnreg`` exist only for the ``a`` target); ``csrc/*.cuh`` are
+headers the sources include.  A library is named by the hash of its
+source, the headers and the flags, so an edited source is rebuilt and
+an unchanged one is loaded from ``build/kernels/`` (gitignored) as it
+is.
 Nothing here runs at import: ``import repro_torch`` needs no compiler.
 """
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -26,6 +29,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}      # source stem -> nvcc/ptxas output
+BUILD_SECONDS: Dict[str, float] = {}  # source stem -> its nvcc's wall time
 
 
 def nvcc_path() -> str:
@@ -44,6 +48,8 @@ def sources() -> List[Path]:
 
 def _lib_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # what sources include
+        h.update(header.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
@@ -54,23 +60,35 @@ def build_all() -> Dict[str, Path]:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, procs = {}, {}
+    t0 = time.perf_counter()
     for src in sources():
         lib = _lib_path(src)
         out[src.stem] = lib
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        procs[src.stem] = (subprocess.Popen(
-            [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, lib)
+        log_path = lib.with_suffix(f".{os.getpid()}.log")
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=log, stderr=subprocess.STDOUT)
+        procs[src.stem] = (proc, tmp, lib, log_path)
     failed = []
-    for stem, (proc, tmp, lib) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[stem] = log
+    # poll, so that each source's wall time is its own; the output goes to
+    # a file, so no full pipe can stall a compiler that is not being read
+    pending = dict(procs)
+    while pending:
+        for stem in [s for s, (p, *_) in pending.items()
+                     if p.poll() is not None]:
+            BUILD_SECONDS[stem] = time.perf_counter() - t0
+            del pending[stem]
+        time.sleep(0.05)
+    for stem, (proc, tmp, lib, log_path) in procs.items():
+        BUILD_LOG[stem] = log_path.read_text()
+        log_path.unlink()
         if proc.returncode != 0:
             failed.append(f"--- {stem}.cu (nvcc exit {proc.returncode})\n"
-                          f"{log}")
+                          f"{BUILD_LOG[stem]}")
             continue
         os.replace(tmp, lib)
     if failed:

@@ -15,13 +15,17 @@ function, in the model's ``[B, S, H, D]`` layout:
     ``return_lse`` also each row's logsumexp.  The CPU runs it, and
     ``chip_smoke.py`` holds the kernel against it on the card.
   * ``flash_attention_cuda`` — the CUDA C++ kernel in
-    ``csrc/flash_attn_fwd.cu`` (bf16, head_dim 64 or 80, masks by index,
-    which is what arange positions give; the logsumexp on request).
+    ``csrc/flash_attn_fwd.cuh`` (bf16; head_dim 64 or 80 built from
+    ``flash_attn_fwd.cu``, 128 from ``flash_attn_fwd_d128.cu``; masks by
+    index, which is what arange positions give; the logsumexp on
+    request).
   * ``flash_attention_bwd_plain`` — the recompute backward in PyTorch:
     ``P = exp(S * scale - lse)``, ``dV = P^T dO``, ``dS = P * (dO V^T -
     D)`` with ``D = rowsum(dO * O)``, ``dQ = dS K * scale``, ``dK = dS^T
     Q * scale``, the group's heads summed into ``dK``/``dV``.
-  * ``flash_attention_bwd_cuda`` — the same in ``csrc/flash_attn_bwd.cu``.
+  * ``flash_attention_bwd_cuda`` — the same in ``csrc/flash_attn_bwd.cu``
+    (head_dim 64 or 80; 128, which llama3.2-3b and phi3.5-MoE need, is
+    refused until ROADMAP queue 2, item 7 brings it).
 
 ``FlashAttention`` is the ``torch.autograd.Function`` over them: its
 forward keeps the logsumexp and its backward recomputes from it, by the
@@ -38,7 +42,11 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 80)     # the kernel's instantiations: GPT-2, zamba2
+# the kernels' instantiations: GPT-2, zamba2 and, forward only, llama3.2
+# and phi3.5-MoE
+FWD_HEAD_DIMS = (64, 80, 128)
+BWD_HEAD_DIMS = (64, 80)
+NO_BACKWARD_AT = "ROADMAP queue 2, item 7"
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -140,9 +148,12 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
             dv.to(v.dtype))
 
 
-def _lib():
-    lib = _build.library("flash_attn_fwd")
-    fn = lib.flash_attn_fwd_bf16
+def _lib(head_dim: int):
+    """Kernel A's forward entry for ``head_dim``: 128 is a library of its
+    own (``csrc/flash_attn_fwd_d128.cu``), built in parallel with the
+    others."""
+    stem = "flash_attn_fwd_d128" if head_dim == 128 else "flash_attn_fwd"
+    fn = _build.library(stem).flash_attn_fwd_bf16
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [P, P, P, P, I, I, I, I, I, I] + [L] * 12 + [
@@ -162,14 +173,24 @@ def _bwd_lib():
     return fn
 
 
+def check_backward_head_dim(D: int) -> None:
+    """Raise for a head dim the backward kernel was not built for."""
+    if D not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"kernel A's backward is built for head_dim in {BWD_HEAD_DIMS}, "
+            f"not {D}: training at this head dim waits for {NO_BACKWARD_AT}"
+            f" (use_kernels=False trains through the plain attention)")
+
+
 def _check_operand(name: str, t: torch.Tensor) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-    if t.dim() != 4 or t.shape[-1] not in HEAD_DIMS or t.stride(-1) != 1:
+    if t.dim() != 4 or t.shape[-1] not in FWD_HEAD_DIMS \
+            or t.stride(-1) != 1:
         raise ValueError(f"{name} must be [B, S, heads, D] with D in "
-                         f"{HEAD_DIMS} and a contiguous last axis, got "
+                         f"{FWD_HEAD_DIMS} and a contiguous last axis, got "
                          f"{tuple(t.shape)} strides {t.stride()}")
     if any(s % 2 for s in t.stride()[:3]) or t.data_ptr() % 4:
         raise ValueError(f"{name} needs even strides and 4-byte alignment "
@@ -189,7 +210,7 @@ def _check_qkv(q, k, v):
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          return_lse: bool = False):
     """Launch kernel A.  q: [B, Sq, H, D]; k/v: [B, Sk, KV, D], bf16
-    CUDA tensors, D = 64 or 80; masks by index.  Returns [B, Sq, H, D]
+    CUDA tensors, D = 64, 80 or 128; masks by index.  Returns [B, Sq, H, D]
     bf16, and with ``return_lse`` also the fp32 logsumexp [B, H, Sq]
     (serving asks for none, and the kernel then writes none)."""
     _check_qkv(q, k, v)
@@ -199,7 +220,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    err = _lib(D)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  B, H, KV, Sq, Sk, D, *q.stride()[:3], *k.stride()[:3],
                  *v.stride()[:3], *o.stride()[:3],
                  1.0 / (D ** 0.5), int(causal), int(window),
@@ -219,6 +240,7 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     D = 64 or 80; lse: the forward's fp32 [B, H, Sq].  Returns (dq, dk,
     dv) bf16, contiguous."""
     _check_qkv(q, k, v)
+    check_backward_head_dim(q.shape[-1])
     for name, t in (("o", o), ("do", do)):
         _check_operand(name, t)
         if t.shape != q.shape:
@@ -258,6 +280,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
+        if q.is_cuda:     # refuse before the forward, not in the backward
+            check_backward_head_dim(q.shape[-1])
         fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
         o, lse = fwd(q, k, v, causal=causal, window=window, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)

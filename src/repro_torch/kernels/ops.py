@@ -2,7 +2,8 @@
 
 Each wrapper takes the model's layout (``[B, S, heads, D]`` for
 attention, ``[B, S, channels]`` and ``[B, S, heads, hd]`` for the scans,
-plain ``[M, K] x [K, N]`` for the int8 matmul).
+plain ``[M, K] x [K, N]`` for the int8 matmul, ``[..., d]`` for the
+RMSNorm).
 A tensor on the CPU takes the kernel's plain PyTorch version; a CUDA
 tensor launches the hand-written kernel or raises.  There is no fallback
 between the two: the wrapper decides by the device of its input alone.
@@ -15,6 +16,14 @@ autograd Function over kernel A's forward (with its logsumexp) and its
 backward kernel, which counts its own launches; without a gradient
 (serving, ``torch.no_grad``) the forward kernel runs alone and writes no
 logsumexp.
+
+Only kernel A has a backward kernel.  On a CUDA tensor every other
+wrapper (kernels B, 3, 4, 5 and 6) refuses to run when a gradient is
+being taken of any of its inputs: its output is a fresh tensor with no
+``grad_fn``, so autograd would treat it as a constant and quietly give
+every parameter before it no gradient through it.  The error names the
+ROADMAP item that brings the backward.  On the CPU the plain versions
+stay differentiable by autograd.
 
 ``launch_counts`` reads how often each kernel was launched, and
 ``reset_launch_counts`` sets the counts to 0, so a run can show that its
@@ -29,6 +38,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import quantized as _q
+from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels.quantized import dequantize, quantize
 
 KERNELS = {
@@ -38,6 +48,7 @@ KERNELS = {
     "ssd_scan": _ms.ssd_scan_cuda,
     "mamba1_scan": _ms.mamba1_scan_cuda,
     "int8_matmul": _q.int8_matmul_cuda,
+    "rmsnorm": _rn.rmsnorm_cuda,
 }
 
 
@@ -47,6 +58,18 @@ def _on_card(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def _refuse_grad(name: str, *tensors) -> None:
+    """On the card: raise when a gradient is being taken of any input of
+    a kernel that has no backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and its output would "
+            f"carry no gradient to its inputs; run it under torch.no_grad(),"
+            f" or take the plain path (use_kernels=False) to train through "
+            f"it until the backward kernel lands ({_fa.NO_BACKWARD_AT})")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -68,6 +91,7 @@ def flash_attention_int8kv(q, k_q, k_scale, v_q, v_scale, valid):
     validity mask (the ring fill state).  q: [B, Sq, H, D] (Sq = 1 on
     the card).  Returns [B, Sq, H, D] in q.dtype."""
     if _on_card(q):
+        _refuse_grad("flash_attention_int8kv", q, k_q, k_scale, v_q, v_scale)
         return _q.int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale,
                                         valid)
     return _q.int8kv_attention_plain(q, k_q, k_scale, v_q, v_scale, valid)
@@ -78,6 +102,7 @@ def mamba1_scan(x, dt, b_s, c_s, A, h0):
     [B, S, ds]; A: [di, ds]; h0: [B, di, ds]; fp32.  Returns (y
     [B, S, di], h_last [B, di, ds]) fp32."""
     if _on_card(x):
+        _refuse_grad("mamba1_scan", x, dt, b_s, c_s, A, h0)
         return _ms.mamba1_scan_cuda(x, dt, b_s, c_s, A, h0)
     return _ms.mamba1_scan_plain(x, dt, b_s, c_s, A, h0)
 
@@ -87,6 +112,7 @@ def ssd_scan(xh, dt, b_s, c_s, a, h0, *, chunk: int):
     b_s/c_s: [B, S, ds]; a: [nh]; h0: [B, nh, hd, ds]; fp32.  Returns
     (y [B, S, nh, hd], h_last [B, nh, hd, ds]) fp32."""
     if _on_card(xh):
+        _refuse_grad("ssd_scan", xh, dt, b_s, c_s, a, h0)
         return _ms.ssd_scan_cuda(xh, dt, b_s, c_s, a, h0, chunk=chunk)
     return _ms.ssd_scan_plain(xh, dt, b_s, c_s, a, h0)
 
@@ -118,12 +144,24 @@ def int8_matmul(x, w, *, block_m: int = 128, block_k: int = 128,
     Returns fp32 [M, N]."""
     M, N = x.shape[0], w.shape[1]
     blocks = dict(block_m=block_m, block_k=block_k, block_n=block_n)
+    on_card = _on_card(x)
+    if on_card:
+        _refuse_grad("int8_matmul", x, w)
     xq, xs, wq, ws = int8_operands(x, w, **blocks)
-    if _on_card(x):
+    if on_card:
         out = _q.int8_matmul_cuda(xq, xs, wq, ws, **blocks)
     else:
         out = _q.int8_matmul_plain(xq, xs, wq, ws, **blocks)
     return out[:M, :N]
+
+
+def rmsnorm(x, weight, *, eps: float = 1e-5):
+    """Row RMSNorm over the last axis: fp32 mean of squares, rsqrt, times
+    the fp32 weight [d], in x's dtype.  Kernel 6 on a CUDA tensor."""
+    if _on_card(x):
+        _refuse_grad("rmsnorm", x, weight)
+        return _rn.rmsnorm_cuda(x, weight, eps=eps)
+    return _rn.rmsnorm_plain(x, weight, eps)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -137,4 +175,5 @@ def reset_launch_counts() -> None:
 
 __all__ = ["KERNELS", "dequantize", "flash_attention",
            "flash_attention_int8kv", "int8_matmul", "launch_counts",
-           "mamba1_scan", "quantize", "reset_launch_counts", "ssd_scan"]
+           "mamba1_scan", "quantize", "reset_launch_counts", "rmsnorm",
+           "ssd_scan"]

@@ -18,8 +18,8 @@ versions of one function, in the model's layout:
     ``chip_smoke.py`` holds the kernel against it on the card.
   * ``int8kv_attention_cuda`` — the CUDA C++ kernel in
     ``csrc/int8kv_attn.cu``, built for one query row (Sq = 1), bf16 q,
-    head_dim 64.  The source says what bounds it (bytes) and how its
-    design answers that.
+    head_dim 64 (GPT-2) or 128 (llama3.2-3b, phi3.5-MoE).  The source
+    says what bounds it (bytes) and how its design answers that.
 
 Kernel 5 replaces the TPU kernel ``src/repro/kernels/quantized.py``
 (``int8_matmul_blocked``, ``pallas_call`` at line 81).  ``quantize_blocks``
@@ -45,7 +45,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)    # kernel B's instantiations
 
 
 def quantize(x, *, block: int = 128, axis: int = -1):
@@ -102,30 +102,31 @@ def _lib():
     fn = lib.int8kv_decode_bf16
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 7 + [I] * 4 + [L] * 4 + [ctypes.c_float, P]
+        fn.argtypes = [P] * 7 + [I] * 5 + [L] * 4 + [ctypes.c_float, P]
         fn.restype = ctypes.c_int
     return fn
 
 
 def int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale, valid):
-    """Launch kernel B.  q: [B, 1, H, 64] bf16; k_q/v_q: [B, Sk, KV, 64]
+    """Launch kernel B.  q: [B, 1, H, D] bf16; k_q/v_q: [B, Sk, KV, D]
     int8, k_scale/v_scale: [B, Sk, KV] fp32 and valid: [B, Sk] bool, all
-    contiguous CUDA tensors.  Returns [B, 1, H, 64] bf16."""
+    contiguous CUDA tensors; D = 64 or 128.  Returns [B, 1, H, D] bf16."""
     tensors = (("q", q), ("k_q", k_q), ("k_scale", k_scale), ("v_q", v_q),
                ("v_scale", v_scale), ("valid", valid))
     for name, t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if q.dtype != torch.bfloat16 or q.dim() != 4 or q.shape[1] != 1 \
-            or q.shape[-1] != HEAD_DIM or q.stride(-1) != 1 \
+            or q.shape[-1] not in HEAD_DIMS or q.stride(-1) != 1 \
             or q.stride(0) % 2 or q.stride(2) % 2:
-        raise ValueError(f"q must be bf16 [B, 1, H, {HEAD_DIM}] with a "
-                         f"contiguous, even-aligned last axis; got "
-                         f"{q.dtype} {tuple(q.shape)} {q.stride()}")
-    B, _, H, _ = q.shape
+        raise ValueError(f"q must be bf16 [B, 1, H, D] with D in "
+                         f"{HEAD_DIMS} and a contiguous, even-aligned last "
+                         f"axis; got {q.dtype} {tuple(q.shape)} "
+                         f"{q.stride()}")
+    B, _, H, D = q.shape
     Sk, KV = k_q.shape[1], k_q.shape[2]
-    want = {"k_q": ((B, Sk, KV, HEAD_DIM), torch.int8),
-            "v_q": ((B, Sk, KV, HEAD_DIM), torch.int8),
+    want = {"k_q": ((B, Sk, KV, D), torch.int8),
+            "v_q": ((B, Sk, KV, D), torch.int8),
             "k_scale": ((B, Sk, KV), torch.float32),
             "v_scale": ((B, Sk, KV), torch.float32),
             "valid": ((B, Sk), torch.bool)}
@@ -135,15 +136,15 @@ def int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale, valid):
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dtype} {shape}, "
                              f"got {t.dtype} {tuple(t.shape)}")
-    if H % KV or k_q.data_ptr() % 16 or v_q.data_ptr() % 2:
-        raise ValueError("H must be a multiple of KV and the int8 caches "
-                         "16-byte aligned")
-    o = torch.empty((B, 1, H, HEAD_DIM), dtype=q.dtype, device=q.device)
+    if H % KV or k_q.data_ptr() % 16 or v_q.data_ptr() % (D // 32):
+        raise ValueError("H must be a multiple of KV, k_q 16-byte and v_q "
+                         "D/32-byte aligned")
+    o = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
                  v_q.data_ptr(), v_scale.data_ptr(), valid.data_ptr(),
-                 o.data_ptr(), B, H, KV, Sk, q.stride(0), q.stride(2),
-                 o.stride(0), o.stride(2), 1.0 / (HEAD_DIM ** 0.5), stream)
+                 o.data_ptr(), B, H, KV, Sk, D, q.stride(0), q.stride(2),
+                 o.stride(0), o.stride(2), 1.0 / (D ** 0.5), stream)
     _build.check(err, "int8kv_decode_bf16")
     int8kv_attention_cuda.launches += 1
     return o

@@ -2,7 +2,8 @@
 ``repro/kernels/ref.py``: the slow, obviously right versions.  The
 attention kernels' plain versions are held against them; the scans'
 plain versions are these recurrences, started from a given state; the
-int8 matmul is held to the fp32 product."""
+int8 matmul is held to the fp32 product; the RMSNorm is its own
+oracle, as in the reference."""
 from __future__ import annotations
 
 import torch
@@ -78,6 +79,14 @@ def mamba1_ref(x, dt, b_s, c_s, A, h0=None):
         h = a_t * h + (dt[:, t] * x[:, t])[..., None] * b_s[:, t, None, :]
         ys.append(torch.einsum("bds,bs->bd", h, c_s[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+def rmsnorm_ref(x, weight, *, eps: float = 1e-5):
+    """Reference RMSNorm (the same math as ``models/layers.rmsnorm``):
+    the oracle of kernel 6."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
 def matmul_ref(x, w):

@@ -1,0 +1,83 @@
+"""Kernel 6: the fused row RMSNorm.
+
+Replaces the TPU kernel ``src/repro/kernels/rmsnorm.py`` (``rmsnorm``,
+``pallas_call`` at line 44), which computes the same function as the
+jnp ``models/layers.py::rmsnorm`` that the reference's models run.  Two
+versions of one function over ``[..., d]``:
+
+  * ``rmsnorm_plain`` — PyTorch: fp32 mean of squares, ``rsqrt``, times
+    the fp32 weight, cast to x's dtype.  It is the port's
+    ``models/layers.rmsnorm``; the CPU runs it, and ``chip_smoke.py``
+    holds the kernel against it on the card.
+  * ``rmsnorm_cuda`` — the CUDA C++ kernel in ``csrc/rmsnorm.cu`` (one
+    block per row, any row count, x bf16 or fp32, weight fp32).  The
+    source says what bounds it (bytes) and how its design answers that.
+
+The kernel has no backward: ``ops.rmsnorm`` refuses a gradient on the
+card (ROADMAP queue 2, item 7).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+# fp32 rows staged in dynamic shared memory: 227 KB a block on the H100
+MAX_D = 232448 // 4
+
+
+def rmsnorm_plain(x, weight, eps: float = 1e-5):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def _lib():
+    lib = _build.library("rmsnorm")
+    fn = lib.rmsnorm_fwd
+    if fn.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P, P, P, I, I, L, L, ctypes.c_float, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def rmsnorm_cuda(x, weight, *, eps: float = 1e-5):
+    """Launch kernel 6.  x: [..., d] bf16 or fp32 CUDA tensor whose
+    leading axes flatten to rows with one stride and whose last axis is
+    contiguous; weight: [d] fp32, contiguous, on the same card.  Returns
+    y with x's shape and dtype, contiguous."""
+    if not (x.is_cuda and weight.is_cuda) or weight.device != x.device:
+        raise ValueError(f"x and weight must be CUDA tensors on one card, "
+                         f"got {x.device} and {weight.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
+    d = x.shape[-1]
+    if weight.dtype != torch.float32 or tuple(weight.shape) != (d,) \
+            or not weight.is_contiguous():
+        raise ValueError(f"weight must be a contiguous fp32 [{d}], got "
+                         f"{weight.dtype} {tuple(weight.shape)}")
+    if not 0 < d <= MAX_D or x.stride(-1) != 1:
+        raise ValueError(f"x must have 0 < d <= {MAX_D} and a contiguous "
+                         f"last axis, got {tuple(x.shape)} {x.stride()}")
+    rows = x.numel() // d
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if rows == 0:
+        return y
+    try:
+        x2 = x.view(rows, d)       # one row stride, no copy
+    except RuntimeError:
+        raise ValueError(f"x's leading axes do not flatten to rows of one "
+                         f"stride: {tuple(x.shape)} {x.stride()}") from None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib()(x2.data_ptr(), weight.data_ptr(), y.data_ptr(), rows, d,
+                 x2.stride(0), d, float(eps),
+                 int(x.dtype == torch.bfloat16), stream)
+    _build.check(err, "rmsnorm_fwd")
+    rmsnorm_cuda.launches += 1
+    return y
+
+
+rmsnorm_cuda.launches = 0

@@ -1,7 +1,8 @@
 """Serving launcher of the port: batched prefill + decode of a ported
-model (gpt2m/gpt2L/gpt2l, falcon-mamba-7b, zamba2-2.7b) on one device,
-fixed-batch by default, continuous batching with ``--continuous``.
-Weights are random, from seed 0.
+model (gpt2m/gpt2L/gpt2l, llama3.2-3b, phi3.5-moe-42b-a6.6b,
+falcon-mamba-7b, zamba2-2.7b) on one device, fixed-batch by default,
+continuous batching with ``--continuous``.  Weights are random, from
+seed 0.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 --gen 32
 
@@ -10,6 +11,9 @@ Weights are random, from seed 0.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch falcon-mamba-7b --reduced --device cpu --batch 2 --gen 8
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi3.5-moe-42b-a6.6b --reduced --device cpu --kv-dtype int8
 """
 import argparse
 
@@ -53,7 +57,7 @@ def main(argv=None) -> dict:
                     help="sliding-window cache (long-context decode)")
     ap.add_argument("--kv-dtype", default="fp32", choices=("fp32", "int8"),
                     help="int8: quantized KV cache + int8-KV decode kernel "
-                         "(dense family only)")
+                         "(dense and MoE families)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--continuous", action="store_true",
                     help="slot-based continuous batching "

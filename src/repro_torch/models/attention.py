@@ -1,7 +1,7 @@
-"""Attention of the dense family and of the hybrid family's shared block
-(port of the non-MLA part of ``repro/models/attention.py``):
-full-sequence attention, decode over ring-buffered KV caches (fp32/bf16
-or int8), and the GPT-2 biases.
+"""Attention of the dense and MoE families and of the hybrid family's
+shared block (port of the non-MLA part of
+``repro/models/attention.py``): full-sequence attention, decode over
+ring-buffered KV caches (fp32/bf16 or int8), and the GPT-2 biases.
 
 Where the reference's jitted steps donate a cache and return a new one,
 the port writes into the cache's tensors in place (``_append_token``,

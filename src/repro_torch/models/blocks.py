@@ -1,19 +1,25 @@
-"""Per-layer blocks (port of the dense, SSM and hybrid parts of
+"""Per-layer blocks (port of the dense, MoE, SSM and hybrid parts of
 ``repro/models/blocks.py``): init, forward, prefill and decode for the
-dense pre-norm block, the Mamba1 block (falcon-mamba) and the Mamba2
-block (zamba2, whose shared attention block is a dense block).
+dense pre-norm block, the MoE block (phi3.5-MoE: attention, then the
+routed experts in place of the MLP), the Mamba1 block (falcon-mamba) and
+the Mamba2 block (zamba2, whose shared attention block is a dense
+block).  ``use_kernels`` reaches every norm (kernel 6 for RMSNorm on the
+card), attention and scan.
 
 Every ``init_*`` makes its leaves with a leading ``lead`` shape, so
 ``lead=(n_layers,)`` gives the stacked ``[L, ...]`` layout the reference
 builds with ``vmap`` (``(G, k)`` for the hybrid's groups); the other
 functions take one layer's slice and ignore the keyword arguments of
 the other families.  Prefill and decode write a layer's new recurrent
-state into its cache slice in place, as attention writes its k/v.
+state into its cache slice in place, as attention writes its k/v.  The
+MoE block's forward returns ``(x, aux)``, its load-balance loss; its
+prefill and decode drop the aux, as serving ignores it.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, init_mlp, init_norm,
@@ -31,34 +37,85 @@ def init_dense_block(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
     }
 
 
-def _mlp_residual(x, p, cfg: ModelConfig):
-    h = apply_norm(x, p["norm2"], cfg.norm, cfg.norm_eps)
+def _norm(x, p, cfg: ModelConfig, use_kernels: bool):
+    return apply_norm(x, p, cfg.norm, cfg.norm_eps, use_kernels=use_kernels)
+
+
+def _mlp_residual(x, p, cfg: ModelConfig, use_kernels: bool):
+    h = _norm(x, p["norm2"], cfg, use_kernels)
     return x + apply_mlp(h, p["mlp"], cfg.activation)
 
 
 def dense_block_forward(x, p, cfg: ModelConfig, *, positions=None,
                         window: int = 0, use_kernels: bool = True):
-    h = apply_norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
+    h = _norm(x, p["norm1"], cfg, use_kernels)
     x = x + attn.attention_forward(h, p["attn"], cfg, positions=positions,
                                    window=window, use_kernels=use_kernels)
-    return _mlp_residual(x, p, cfg)
+    return _mlp_residual(x, p, cfg, use_kernels)
 
 
 def dense_block_prefill(x, p, cfg: ModelConfig, *, positions=None, cache,
                         window: int = 0, use_kernels: bool = True):
-    h = apply_norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
+    h = _norm(x, p["norm1"], cfg, use_kernels)
     a, cache = attn.attention_prefill(h, p["attn"], cfg, positions=positions,
                                       cache=cache, window=window,
                                       use_kernels=use_kernels)
-    return _mlp_residual(x + a, p, cfg), cache
+    return _mlp_residual(x + a, p, cfg, use_kernels), cache
 
 
 def dense_block_decode(x, p, cfg: ModelConfig, *, cache, window: int = 0,
                        use_kernels: bool = True):
-    h = apply_norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
+    h = _norm(x, p["norm1"], cfg, use_kernels)
     a, cache = attn.attention_decode(h, p["attn"], cfg, cache=cache,
                                      window=window, use_kernels=use_kernels)
-    return _mlp_residual(x + a, p, cfg), cache
+    return _mlp_residual(x + a, p, cfg, use_kernels), cache
+
+
+# --------------------------------------------------------------------- #
+# MoE (phi3.5-moe: norm -> attention -> residual, norm -> experts ->
+# residual)
+# --------------------------------------------------------------------- #
+
+def init_moe_block(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
+    kw = dict(lead=lead, device=device)
+    return {
+        "norm1": init_norm(cfg.d_model, cfg.norm, **kw),
+        "norm2": init_norm(cfg.d_model, cfg.norm, **kw),
+        "moe": moe_mod.init_moe(generator, cfg, **kw),
+        "attn": attn.init_attention(generator, cfg, **kw),
+    }
+
+
+def _moe_residual(x, p, cfg: ModelConfig, use_kernels: bool):
+    h = _norm(x, p["norm2"], cfg, use_kernels)
+    m, aux = moe_mod.moe_forward(h, p["moe"], cfg)
+    return x + m, aux
+
+
+def moe_block_forward(x, p, cfg: ModelConfig, *, positions=None,
+                      window: int = 0, use_kernels: bool = True):
+    """Returns (x, aux)."""
+    h = _norm(x, p["norm1"], cfg, use_kernels)
+    x = x + attn.attention_forward(h, p["attn"], cfg, positions=positions,
+                                   window=window, use_kernels=use_kernels)
+    return _moe_residual(x, p, cfg, use_kernels)
+
+
+def moe_block_prefill(x, p, cfg: ModelConfig, *, positions=None, cache,
+                      window: int = 0, use_kernels: bool = True):
+    h = _norm(x, p["norm1"], cfg, use_kernels)
+    a, cache = attn.attention_prefill(h, p["attn"], cfg, positions=positions,
+                                      cache=cache, window=window,
+                                      use_kernels=use_kernels)
+    return _moe_residual(x + a, p, cfg, use_kernels)[0], cache
+
+
+def moe_block_decode(x, p, cfg: ModelConfig, *, cache, window: int = 0,
+                     use_kernels: bool = True):
+    h = _norm(x, p["norm1"], cfg, use_kernels)
+    a, cache = attn.attention_decode(h, p["attn"], cfg, cache=cache,
+                                     window=window, use_kernels=use_kernels)
+    return _moe_residual(x + a, p, cfg, use_kernels)[0], cache
 
 
 def _store(cache: ssm_mod.SSMState, new: ssm_mod.SSMState):
@@ -83,21 +140,22 @@ def init_ssm_block(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
 
 def ssm_block_forward(x, p, cfg: ModelConfig, *, use_kernels: bool = True,
                       **_):
-    h = apply_norm(x, p["norm"], cfg.norm, cfg.norm_eps)
+    h = _norm(x, p["norm"], cfg, use_kernels)
     y, _ = ssm_mod.mamba1_forward(h, p["mamba"], cfg, use_kernels=use_kernels)
     return x + y
 
 
 def ssm_block_prefill(x, p, cfg: ModelConfig, *, cache,
                       use_kernels: bool = True, **_):
-    h = apply_norm(x, p["norm"], cfg.norm, cfg.norm_eps)
+    h = _norm(x, p["norm"], cfg, use_kernels)
     y, new = ssm_mod.mamba1_forward(h, p["mamba"], cfg, state=cache,
                                     use_kernels=use_kernels)
     return x + y, _store(cache, new)
 
 
-def ssm_block_decode(x, p, cfg: ModelConfig, *, cache, **_):
-    h = apply_norm(x, p["norm"], cfg.norm, cfg.norm_eps)
+def ssm_block_decode(x, p, cfg: ModelConfig, *, cache,
+                     use_kernels: bool = True, **_):
+    h = _norm(x, p["norm"], cfg, use_kernels)
     y, new = ssm_mod.mamba1_decode(h, p["mamba"], cfg, state=cache)
     return x + y, _store(cache, new)
 
@@ -117,20 +175,21 @@ def init_mamba2_block(generator, cfg: ModelConfig, *, lead=(),
 
 def mamba2_block_forward(x, p, cfg: ModelConfig, *,
                          use_kernels: bool = True, **_):
-    h = apply_norm(x, p["norm"], cfg.norm, cfg.norm_eps)
+    h = _norm(x, p["norm"], cfg, use_kernels)
     y, _ = ssm_mod.mamba2_forward(h, p["mamba"], cfg, use_kernels=use_kernels)
     return x + y
 
 
 def mamba2_block_prefill(x, p, cfg: ModelConfig, *, cache,
                          use_kernels: bool = True, **_):
-    h = apply_norm(x, p["norm"], cfg.norm, cfg.norm_eps)
+    h = _norm(x, p["norm"], cfg, use_kernels)
     y, new = ssm_mod.mamba2_forward(h, p["mamba"], cfg, state=cache,
                                     use_kernels=use_kernels)
     return x + y, _store(cache, new)
 
 
-def mamba2_block_decode(x, p, cfg: ModelConfig, *, cache, **_):
-    h = apply_norm(x, p["norm"], cfg.norm, cfg.norm_eps)
+def mamba2_block_decode(x, p, cfg: ModelConfig, *, cache,
+                        use_kernels: bool = True, **_):
+    h = _norm(x, p["norm"], cfg, use_kernels)
     y, new = ssm_mod.mamba2_decode(h, p["mamba"], cfg, state=cache)
     return x + y, _store(cache, new)

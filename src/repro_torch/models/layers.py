@@ -13,6 +13,9 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.rmsnorm import rmsnorm_plain
+
 # --------------------------------------------------------------------- #
 # init helpers: same shapes and laws as the reference, not the same
 # numbers (a torch.Generator is not a jax key)
@@ -43,10 +46,8 @@ def embed_init(generator, shape, *, lead=(), device="cpu"):
 # normalization
 # --------------------------------------------------------------------- #
 
-def rmsnorm(x, weight, eps: float = 1e-5):
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+# fp32 mean of squares, rsqrt, times the weight: kernel 6's plain twin
+rmsnorm = rmsnorm_plain
 
 
 def layernorm(x, weight, bias, eps: float = 1e-5):
@@ -65,8 +66,14 @@ def init_norm(d: int, kind: str, *, lead=(), device="cpu"):
             "bias": torch.zeros(shape, device=device)}
 
 
-def apply_norm(x, params, kind: str, eps: float):
+def apply_norm(x, params, kind: str, eps: float, *,
+               use_kernels: bool = False):
+    """``use_kernels`` sends RMSNorm through ``ops.rmsnorm``: kernel 6 on
+    a CUDA tensor, the plain ``rmsnorm`` on a CPU one.  LayerNorm has no
+    kernel."""
     if kind == "rmsnorm":
+        if use_kernels:
+            return kernel_ops.rmsnorm(x, params["scale"], eps=eps)
         return rmsnorm(x, params["scale"], eps)
     return layernorm(x, params["scale"], params["bias"], eps)
 

@@ -1,6 +1,8 @@
-"""Model assembly for the dense, SSM and hybrid families (port of
+"""Model assembly for the dense, MoE, SSM and hybrid families (port of
 ``repro/models/model.py``): embeddings -> stacked layers -> head, with
-forward, loss, prefill and decode.
+forward, loss, prefill and decode.  The MoE family's per-layer
+load-balance losses are summed over the stack into ``Model.loss``, as
+the reference's ``run_stack`` sums them; serving ignores them.
 
 Layer parameters and caches keep the reference's stacked layout:
 ``[L, ...]``, and for the hybrid family ``layers/blocks`` as ``[G, k,
@@ -44,6 +46,8 @@ _FORWARD, _PREFILL, _DECODE = 1, 2, 3
 _BLOCKS = {
     "dense": (blocks.init_dense_block, blocks.dense_block_forward,
               blocks.dense_block_prefill, blocks.dense_block_decode),
+    "moe": (blocks.init_moe_block, blocks.moe_block_forward,
+            blocks.moe_block_prefill, blocks.moe_block_decode),
     "ssm": (blocks.init_ssm_block, blocks.ssm_block_forward,
             blocks.ssm_block_prefill, blocks.ssm_block_decode),
     "hybrid": (blocks.init_mamba2_block, blocks.mamba2_block_forward,
@@ -93,8 +97,9 @@ def _restack(cache, layer_caches):
 
 
 class Model:
-    """Functional model around a ModelConfig: the dense, ``ssm``
-    (falcon-mamba) and ``hybrid`` (zamba2) families.
+    """Functional model around a ModelConfig: the dense (GPT-2, llama),
+    ``moe`` (phi3.5-MoE), ``ssm`` (falcon-mamba) and ``hybrid`` (zamba2)
+    families.
 
     ``device`` defaults to "cuda" and raises when no card is present.
     ``use_kernels=False`` runs the kernels' plain PyTorch versions (the
@@ -173,7 +178,8 @@ class Model:
 
     def _head(self, params, x) -> torch.Tensor:
         cfg = self.cfg
-        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps,
+                       use_kernels=self.use_kernels)
         table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         return unembed(x, table, self.compute_dtype)
 
@@ -183,9 +189,12 @@ class Model:
         ``_DECODE``); a hybrid group first applies the shared dense block
         and its gate, ``h + gate * (y - h)``.  ``remat`` recomputes each
         block's activations in the backward instead of keeping them.
-        Returns (x, cache)."""
+        Returns (x, cache, aux): aux is the sum of the MoE blocks'
+        load-balance losses over a forward pass, else 0."""
         cfg = self.cfg
         fn = _BLOCKS[cfg.family][step]
+        with_aux = cfg.family == "moe" and step == _FORWARD
+        auxs = []
         shared_fn = _BLOCKS["dense"][step]
         if remat:
             fn = partial(checkpoint, fn, use_reentrant=False)
@@ -194,7 +203,10 @@ class Model:
         def run_stack(x, stack, cache):
             new = []
             for i, p in enumerate(unstack(stack)):
-                if cache is None:
+                if with_aux:
+                    x, aux = fn(x, p, cfg, **kw)
+                    auxs.append(aux)
+                elif cache is None:
                     x = fn(x, p, cfg, **kw)
                 else:
                     x, c = fn(x, p, cfg, cache=_cache_layer(cache, i), **kw)
@@ -202,7 +214,10 @@ class Model:
             return x, (None if cache is None else _restack(cache, new))
 
         if cfg.family != "hybrid":
-            return run_stack(x, params["layers"], cache)
+            x, cache = run_stack(x, params["layers"], cache)
+            aux = torch.stack(auxs).sum() if auxs \
+                else torch.zeros((), device=x.device)
+            return x, cache, aux
         gates = params["layers"]["gates"].unbind(0)
         attn_new = []
         for g, group in enumerate(unstack(params["layers"]["blocks"])):
@@ -215,37 +230,44 @@ class Model:
             x = x + gates[g].to(x.dtype) * (y - x)
             x, _ = run_stack(x, group, None if cache is None
                              else _cache_layer(cache["ssm"], g))
+        aux = torch.zeros((), device=x.device)
         if cache is None:
-            return x, None
+            return x, None, aux
         return x, {"ssm": cache["ssm"],
-                   "attn": _restack(cache["attn"], attn_new)}
+                   "attn": _restack(cache["attn"], attn_new)}, aux
 
     # ----------------------------------------------------------------- #
+    def _forward(self, params, batch, *, window: int = 0,
+                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits [B, S, V] fp32, aux loss): the reference's
+        ``forward``."""
+        x, positions = self._embed_inputs(params, batch)
+        x, _, aux = self._run(params, x, None, _FORWARD,
+                              dict(positions=positions, window=window,
+                                   use_kernels=self.use_kernels),
+                              remat=remat)
+        return self._head(params, x), aux
+
     def forward(self, params, batch, *, window: int = 0,
                 remat: bool = False) -> torch.Tensor:
         """Full-sequence logits [B, S, V] (fp32)."""
-        x, positions = self._embed_inputs(params, batch)
-        x, _ = self._run(params, x, None, _FORWARD,
-                         dict(positions=positions, window=window,
-                              use_kernels=self.use_kernels), remat=remat)
-        return self._head(params, x)
+        return self._forward(params, batch, window=window, remat=remat)[0]
 
     def hidden(self, params, batch) -> torch.Tensor:
         """Final hidden states [B, S, d] before the final norm (the
         reference's ``run_stack`` output)."""
         x, positions = self._embed_inputs(params, batch)
-        x, _ = self._run(params, x, None, _FORWARD,
-                         dict(positions=positions, window=0,
-                              use_kernels=self.use_kernels))
+        x, _, _ = self._run(params, x, None, _FORWARD,
+                            dict(positions=positions, window=0,
+                                 use_kernels=self.use_kernels))
         return x
 
     def loss(self, params, batch, *, remat: bool = True
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, metrics) of a batch with ``tokens`` and ``labels``: the
-        reference's ``Model.loss``.  The ported families have no
-        auxiliary loss, so ``aux`` is 0."""
-        logits = self.forward(params, batch, remat=remat)
-        aux = torch.zeros((), device=logits.device)
+        reference's ``Model.loss``, with the MoE family's load-balance
+        loss summed over the layers (0 for the other families)."""
+        logits, aux = self._forward(params, batch, remat=remat)
         return lm_loss(self.cfg, logits, batch, aux)
 
     # ----------------------------------------------------------------- #
@@ -255,13 +277,13 @@ class Model:
         and ``[G, k, ...]`` for the hybrid family).  ``kv_dtype='fp32'``
         keeps k/v in the compute dtype (the reference's name); 'int8' is
         the quantized cache decode runs through kernel B, for the dense
-        family only, as in the reference."""
+        and MoE families only, as in the reference."""
         cfg, dt, dev = self.cfg, self.compute_dtype, self.device
         cap = min(capacity, window) if window else capacity
         if kv_dtype not in ("fp32", "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}; expected "
                              f"'fp32' or 'int8'")
-        if kv_dtype == "int8" and cfg.family != "dense":
+        if kv_dtype == "int8" and cfg.family not in ("dense", "moe"):
             raise ValueError(
                 "kv_dtype='int8' needs a plain-GQA attention cache; "
                 f"family {cfg.family!r} stores no quantizable k/v tensors")
@@ -305,9 +327,9 @@ class Model:
         for a bucket-padded prompt; filled cache).  The recurrent layers
         start from the cache's state ``h``, as the reference's do."""
         x, positions = self._embed_inputs(params, batch)
-        x, cache = self._run(params, x, cache, _PREFILL,
-                             dict(positions=positions, window=window,
-                                  use_kernels=self.use_kernels))
+        x, cache, _ = self._run(params, x, cache, _PREFILL,
+                                dict(positions=positions, window=window,
+                                     use_kernels=self.use_kernels))
         if last_pos is None:
             last_pos = x.shape[1] - 1
         x_last = x[:, last_pos:last_pos + 1]
@@ -323,9 +345,9 @@ class Model:
             pe = params["pos_embed"]["table"][
                 torch.clamp(pos, 0, cfg.max_seq_len - 1).long()].to(dt)
             x = x + (pe[None, None] if pos.dim() == 0 else pe[:, None])
-        x, cache = self._run(params, x, cache, _DECODE,
-                             dict(window=window,
-                                  use_kernels=self.use_kernels))
+        x, cache, _ = self._run(params, x, cache, _DECODE,
+                                dict(window=window,
+                                     use_kernels=self.use_kernels))
         return self._head(params, x)[:, 0], cache
 
     def _cache_index(self, cache: Cache) -> torch.Tensor:

@@ -12,8 +12,8 @@
 
 Both default to ``device="cuda"`` and raise when no card is present.
 On the card, prefill attention runs kernel A, int8-KV decode runs kernel
-B, and the prefill scans of the SSM and hybrid families run kernels 4
-and 3 (``kernels/ops.py``).
+B, every RMSNorm runs kernel 6, and the prefill scans of the SSM and
+hybrid families run kernels 4 and 3 (``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -276,7 +276,9 @@ class ContinuousEngine:
 
     Prompt lengths pad up to a bucket (the causal mask keeps the pad tail
     invisible, and the insert rewinds the slot's index to the true
-    length).  The SSM and hybrid families prefill at the exact length
+    length).  For the MoE family the pad tokens also take part in routing
+    and capacity, as in the reference, whose buckets are the same.  The
+    SSM and hybrid families prefill at the exact length
     instead (``exact_prefill``): their recurrences would fold pad tokens
     into the state.  Greedy only: every request's tokens equal the
     fixed-batch ``Engine``'s for the same prompt."""

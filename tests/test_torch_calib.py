@@ -116,10 +116,17 @@ def test_workload_and_param_count_equal(arch):
 
 
 def test_moe_active_params_not_ported():
+    """The MoE family is ported: a MoE family needs its MoEConfig (the
+    reference asserts one), and phi3.5-MoE's active count equals the
+    reference's (its shared-plus-top-k rule)."""
     import dataclasses
     moe = dataclasses.replace(t_config("gpt2m"), family="moe")
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(ValueError, match="MoEConfig"):
         moe.active_param_count()
+    arch = "phi3.5-moe-42b-a6.6b"
+    assert t_config(arch).active_param_count() \
+        == j_config(arch).active_param_count() \
+        < t_config(arch).param_count()
 
 
 @pytest.mark.parametrize("where", ["TACC-TACC", "BRIS-STAR", "edge3"])

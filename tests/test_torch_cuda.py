@@ -384,3 +384,183 @@ def test_train_step_kernel_path_matches_plain_path(cuda_device):
         norm = max(float(want.norm()),
                    TRAIN_LEAF_FLOOR * top * want.numel() ** 0.5)
         assert float((got - want).norm()) / norm < TRAIN_LEAF_REL, key
+
+
+# ------------------------------------------------------------------ #
+# slice 5: kernel 6 (RMSNorm), kernels A and B at head_dim 128, the
+# gradient guard, and reduced llama3.2 and phi3.5-MoE through the kernels
+
+def _bf16_ulp(x):
+    """One bf16 ulp of each entry of an fp32 tensor (8 significant
+    bits)."""
+    _, e = torch.frexp(x.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d", [(8, 3072), (257, 4096), (512, 2560),
+                                    (5, 64), (3, 100)])
+def test_rmsnorm_kernel_matches_plain(cuda_device, rows, d, dtype):
+    """Kernel 6 against its plain version on the same inputs: fp32 within
+    1e-5 relative to the output's scale (the mean of squares sums in
+    another order, rsqrtf is within 2 ulps); bf16 within one ulp of the
+    value (the output's rounding may fall either side).  d = 100 takes
+    the element-load path."""
+    from repro_torch.kernels import rmsnorm as trn
+
+    g = torch.Generator(device=cuda_device).manual_seed(rows + d)
+    x = (torch.randn((rows, d), generator=g, device=cuda_device) * 3
+         + 0.5).to(dtype)
+    w = 1 + 0.1 * torch.randn((d,), generator=g, device=cuda_device)
+    before = trn.rmsnorm_cuda.launches
+    got = trn.rmsnorm_cuda(x, w, eps=1e-5)
+    torch.cuda.synchronize()
+    assert trn.rmsnorm_cuda.launches == before + 1
+    want = trn.rmsnorm_plain(x, w, 1e-5)
+    assert got.dtype == dtype and got.shape == x.shape
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 * float(want.abs().max())
+    else:
+        assert bool((err <= _bf16_ulp(want.float())).all())
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_takes_a_strided_row_view(cuda_device):
+    """The head normalises ``x[:, last:last + 1]`` of a [B, S, d] tensor:
+    rows one stride apart, read in place."""
+    from repro_torch.kernels import rmsnorm as trn
+
+    x = torch.randn((4, 9, 3072), device=cuda_device).to(torch.bfloat16)
+    w = torch.rand((3072,), device=cuda_device) + 0.5
+    sl = x[:, 6:7]
+    got = trn.rmsnorm_cuda(sl, w)
+    torch.cuda.synchronize()
+    want = trn.rmsnorm_plain(sl, w)
+    assert bool(((got.float() - want.float()).abs()
+                 <= _bf16_ulp(want.float())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV", [(8, 64, 24, 8), (1, 257, 24, 8),
+                                      (8, 64, 32, 8), (1, 257, 32, 8),
+                                      (2, 100, 4, 4)])
+def test_flash_kernel_head_dim_128(cuda_device, B, S, H, KV):
+    """llama3.2-3b (24 heads over 8, group 3) and phi3.5-MoE (32 over 8,
+    group 4) at head_dim 128: kernel A's forward against its plain
+    version, and its logsumexp."""
+    g = torch.Generator(device=cuda_device).manual_seed(B * S + H)
+    q, k, v = (torch.randn((B, S, h, 128), generator=g, device=cuda_device)
+               .to(torch.bfloat16) for h in (H, KV, KV))
+    got, lse = tfa.flash_attention_cuda(q, k, v, causal=True,
+                                        return_lse=True)
+    torch.cuda.synchronize()
+    want, wlse = tfa.flash_attention_plain(q, k, v, causal=True,
+                                           return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=BF16_ATOL)
+    torch.testing.assert_close(lse, wlse, rtol=0, atol=LSE_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,Sk", [(24, 8, 1024), (32, 8, 1024),
+                                     (4, 1, 77)])
+def test_int8kv_kernel_head_dim_128(cuda_device, H, KV, Sk):
+    g = torch.Generator(device=cuda_device).manual_seed(Sk + H)
+    B = 8
+    q = torch.randn((B, 1, H, 128), generator=g, device=cuda_device)
+    kq, ks = tq.quantize(torch.randn((B, Sk, KV, 128), generator=g,
+                                     device=cuda_device), block=128)
+    vq, vs = tq.quantize(torch.randn((B, Sk, KV, 128), generator=g,
+                                     device=cuda_device), block=128)
+    fill = torch.as_tensor(np.linspace(1, Sk, B).astype(int),
+                           device=cuda_device)
+    valid = torch.arange(Sk, device=cuda_device)[None] < fill[:, None]
+    args = (q.to(torch.bfloat16), kq, ks[..., 0].contiguous(), vq,
+            vs[..., 0].contiguous(), valid)
+    got = tq.int8kv_attention_cuda(*args)
+    torch.cuda.synchronize()
+    want = tq.int8kv_attention_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=BF16_ATOL)
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_refuse_gradients(cuda_device):
+    """On real CUDA tensors: every wrapper whose kernel has no backward
+    raises when a gradient is being taken, and runs under no_grad;
+    kernel A refuses training at head_dim 128."""
+    dev = cuda_device
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device=dev).to(dtype).requires_grad_(True)
+
+    kq = torch.zeros((1, 4, 1, 64), dtype=torch.int8, device=dev)
+    sc = torch.ones((1, 4, 1), device=dev)
+    valid = torch.ones((1, 4), dtype=torch.bool, device=dev)
+    calls = {
+        "rmsnorm": lambda: ops.rmsnorm(r(3, 64),
+                                       torch.ones(64, device=dev)),
+        "flash_attention_int8kv": lambda: ops.flash_attention_int8kv(
+            r(1, 1, 2, 64, dtype=torch.bfloat16), kq, sc, kq, sc, valid),
+        "mamba1_scan": lambda: ops.mamba1_scan(
+            r(1, 4, 8), torch.rand(1, 4, 8, device=dev),
+            torch.randn(1, 4, 8, device=dev), torch.randn(1, 4, 8, device=dev),
+            -torch.ones(8, 8, device=dev), torch.zeros(1, 8, 8, device=dev)),
+        "int8_matmul": lambda: ops.int8_matmul(
+            r(32, 32), torch.randn(32, 32, device=dev), block_m=32,
+            block_k=32, block_n=32),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}.*ROADMAP"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+    q = r(1, 16, 2, 128, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.flash_attention(q, q, q)
+
+
+def _slice5_cfg(arch):
+    """Reduced llama3.2 (6 heads over 2: group 3) or phi3.5-MoE (4 heads
+    over 1: group 4), at the full models' head_dim of 128."""
+    cfg = get_config(arch).reduced()
+    heads = (6, 2) if cfg.family == "dense" else (4, 1)
+    return dataclasses.replace(cfg, n_heads=heads[0], n_kv_heads=heads[1],
+                               head_dim=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_slice5_model_kernel_path_matches_plain_path(cuda_device, arch,
+                                                     kv_dtype):
+    """Reduced llama3.2 and phi3.5-MoE in bf16 at head_dim 128: prefill +
+    two decode steps through kernels 6, A and (int8 KV) B against the
+    same model with ``use_kernels=False``."""
+    cfg = _slice5_cfg(arch)
+    fast = Model(cfg, device=cuda_device)
+    plain = Model(cfg, device=cuda_device, use_kernels=False)
+    params = fast.init(torch.Generator(device=cuda_device).manual_seed(0))
+    tokens = torch.randint(4, 400, (3, 21), device=cuda_device)
+    ops.reset_launch_counts()
+    logits, fed = {}, []
+    for name, m in (("fast", fast), ("plain", plain)):
+        cache = m.init_cache(3, 32, kv_dtype=kv_dtype)
+        out, cache = m.prefill(params, {"tokens": tokens}, cache)
+        steps = [out]
+        for i in range(2):
+            if name == "fast":
+                fed.append(out.argmax(-1)[:, None])
+            out, cache = m.decode_step(params, cache, fed[i])
+            steps.append(out)
+        logits[name] = torch.stack(steps)
+    counts = ops.launch_counts()
+    L = cfg.n_layers
+    assert counts["flash_attn_fwd"] == L
+    assert counts["rmsnorm"] == 3 * (2 * L + 1)
+    assert counts["int8kv_decode"] == (2 * L if kv_dtype == "int8" else 0)
+    torch.testing.assert_close(logits["fast"], logits["plain"], rtol=0,
+                               atol=5e-2)

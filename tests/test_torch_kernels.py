@@ -19,8 +19,11 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.models.attention import chunked_attention as j_chunked  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import mamba_scan as tms  # noqa: E402
 from repro_torch.kernels import quantized as tq  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import rmsnorm as trn  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
 
 # fp32 on both sides; the sums run in other orders (chunked online
 # softmax vs materialized scores), so agreement is to fp32 rounding of
@@ -113,7 +116,7 @@ def test_ops_flash_on_cpu_is_the_plain_version():
     counts = tops.launch_counts()
     assert set(counts) == {"flash_attn_fwd", "flash_attn_bwd",
                            "int8kv_decode", "ssd_scan", "mamba1_scan",
-                           "int8_matmul"}
+                           "int8_matmul", "rmsnorm"}
     assert not any(counts.values())
 
 
@@ -266,3 +269,153 @@ def test_int8_matmul_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tq.int8_matmul_cuda(xq, s, xq, s, block_m=32, block_k=32,
                             block_n=32)
+
+
+# ------------------------------------------------------------------ #
+# kernel 6: the row RMSNorm
+
+def _bf16_ulp(x):
+    """One bf16 ulp of each entry of an fp32 array (8 significant bits;
+    zero and subnormals take the smallest normal's ulp)."""
+    _, e = np.frexp(np.maximum(np.abs(x), np.float32(2.0 ** -126)))
+    return np.ldexp(np.float32(1.0), e - 8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(257, 64), (257, 3072), (3, 64)])
+def test_rmsnorm_plain_matches_reference(rows, d, dtype):
+    """The port's ``rmsnorm`` (``models/layers.rmsnorm``, kernel 6's plain
+    twin) and ``ops.rmsnorm`` on CPU tensors against the reference's
+    Pallas kernel in interpret mode (257 rows: not a multiple of its
+    256-row blocks, so it pads) and ``ref.rmsnorm_ref``, from the same
+    inputs: within 1e-5 in fp32 (the mean of squares sums in other
+    orders), within one bf16 ulp of the value in bf16 (the rounding of
+    the output can fall on either side of an fp32 difference)."""
+    rng = np.random.default_rng(rows + d)
+    x = (_rand(rng, (rows, d)) * 3.0 + 0.5).astype(np.float32)
+    w = (1.0 + 0.1 * _rand(rng, (d,))).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    tx = _t(x).to(getattr(torch, dtype))
+    want = {"pallas": jops.rmsnorm(jx, jnp.asarray(w), eps=1e-5,
+                                   interpret=True),
+            "ref": jref.rmsnorm_ref(jx, jnp.asarray(w), eps=1e-5)}
+    tops.reset_launch_counts()
+    got = {"plain": tlayers.rmsnorm(tx, _t(w), 1e-5),
+           "ops": tops.rmsnorm(tx, _t(w), eps=1e-5),
+           "port ref": tref.rmsnorm_ref(tx, _t(w), eps=1e-5)}
+    assert tops.launch_counts()["rmsnorm"] == 0
+    assert tlayers.rmsnorm is trn.rmsnorm_plain
+    for gname, g in got.items():
+        assert g.dtype == tx.dtype and g.shape == tx.shape, gname
+        gf = g.float().numpy()
+        for wname, wv in want.items():
+            wf = np.asarray(wv.astype(jnp.float32))
+            tol = 1e-5 if dtype == "float32" else _bf16_ulp(wf)
+            assert np.all(np.abs(gf - wf) <= tol), (gname, wname)
+
+
+def test_apply_norm_routes_rmsnorm_through_ops():
+    """``use_kernels`` sends RMSNorm through ``ops.rmsnorm`` (on the CPU,
+    the plain version: the same values); LayerNorm keeps its own path."""
+    rng = np.random.default_rng(11)
+    x = _t(_rand(rng, (2, 5, 64)))
+    p = {"scale": _t(1.0 + _rand(rng, (64,))), "bias": _t(_rand(rng, (64,)))}
+    calls = []
+    orig = tops.rmsnorm
+
+    def spy(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    tops.rmsnorm = spy
+    try:
+        got = tlayers.apply_norm(x, p, "rmsnorm", 1e-5, use_kernels=True)
+        plain = tlayers.apply_norm(x, p, "rmsnorm", 1e-5)
+        ln = tlayers.apply_norm(x, p, "layernorm", 1e-5, use_kernels=True)
+    finally:
+        tops.rmsnorm = orig
+    assert len(calls) == 1
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    torch.testing.assert_close(
+        ln, tlayers.layernorm(x, p["scale"], p["bias"]), rtol=0, atol=0)
+
+
+def test_rmsnorm_cuda_refuses_cpu_tensors():
+    x = torch.zeros((4, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        trn.rmsnorm_cuda(x, torch.ones(64))
+
+
+# ------------------------------------------------------------------ #
+# kernels without a backward refuse a gradient on the card
+
+def _no_backward_calls():
+    """(name, stub target, call) for every wrapper whose CUDA kernel has
+    no backward, at tiny shapes; each call is made with grad-requiring
+    inputs."""
+    def r(*shape):
+        return torch.randn(*shape, requires_grad=True)
+    kq = torch.zeros((1, 4, 1, 64), dtype=torch.int8)
+    sc = torch.ones((1, 4, 1))
+    valid = torch.ones((1, 4), dtype=torch.bool)
+    return [
+        ("rmsnorm", (trn, "rmsnorm_cuda"),
+         lambda: tops.rmsnorm(r(3, 64), torch.ones(64))),
+        ("rmsnorm", (trn, "rmsnorm_cuda"),
+         lambda: tops.rmsnorm(torch.randn(3, 64), r(64))),
+        ("flash_attention_int8kv", (tq, "int8kv_attention_cuda"),
+         lambda: tops.flash_attention_int8kv(r(1, 1, 2, 64), kq, sc, kq, sc,
+                                             valid)),
+        ("mamba1_scan", (tms, "mamba1_scan_cuda"),
+         lambda: tops.mamba1_scan(r(1, 4, 8), torch.rand(1, 4, 8),
+                                  torch.randn(1, 4, 2), torch.randn(1, 4, 2),
+                                  -torch.ones(8, 2), torch.zeros(1, 8, 2))),
+        ("ssd_scan", (tms, "ssd_scan_cuda"),
+         lambda: tops.ssd_scan(torch.randn(1, 4, 2, 8), r(1, 4, 2),
+                               torch.randn(1, 4, 2), torch.randn(1, 4, 2),
+                               -torch.ones(2), torch.zeros(1, 2, 8, 2),
+                               chunk=4)),
+        ("int8_matmul", (tq, "int8_matmul_cuda"),
+         lambda: tops.int8_matmul(r(32, 32), torch.randn(32, 32),
+                                  block_m=32, block_k=32, block_n=32)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_kernels_without_backward_refuse_gradients_on_card(monkeypatch,
+                                                           case):
+    """On the card, a wrapper whose kernel has no backward raises when a
+    gradient is being taken of any of its inputs (the kernel's output
+    would carry none: the scans' would quietly cut every gradient through
+    an SSM layer), naming the ROADMAP item; under ``no_grad`` it launches.
+    Shown on the CPU by taking the card's branch (``_on_card`` patched
+    to True) with the kernel replaced by a stub."""
+    name, (mod, attr), call = _no_backward_calls()[case]
+    launched = []
+
+    def stub(*a, **k):
+        launched.append(attr)
+        return torch.zeros((64, 64))
+
+    monkeypatch.setattr(tops, "_on_card", lambda x: True)
+    monkeypatch.setattr(mod, attr, stub)
+    with pytest.raises(RuntimeError, match=f"{name}.*ROADMAP queue 2, "
+                                           f"item 7"):
+        call()
+    assert not launched
+    with torch.no_grad():
+        call()
+    assert launched == [attr]
+
+
+def test_flash_backward_refuses_head_dim_128():
+    """Kernel A's forward is built for head_dim 128, its backward is not:
+    a training run at 128 on the card is refused before the forward,
+    naming the ROADMAP item, instead of reaching a template that was
+    never instantiated."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 7"):
+        tfa.check_backward_head_dim(128)
+    for D in tfa.BWD_HEAD_DIMS:
+        tfa.check_backward_head_dim(D)
+    assert set(tfa.BWD_HEAD_DIMS) < set(tfa.FWD_HEAD_DIMS)
+    assert 128 in tfa.FWD_HEAD_DIMS and 128 in tq.HEAD_DIMS
