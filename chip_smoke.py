@@ -26,9 +26,10 @@ it serves five models at full width with random weights from a seed:
 Then it calibrates the card as a site of the paper's TACC-TACC cluster
 for gpt2m through ``repro_torch.launch.calibrate`` (kernel micro-bench
 through kernels 5 and A, host ring, least-squares fit, plan search
-before and after), once at the launcher's default sizes and once at
-gpt2m's widths, and checks that the JSON is the reference's
-``Calibration`` schema.
+before and after), once through the launcher at its default sizes (on
+the card, the model's widths) and once by calling the micro-bench at
+gpt2m's widths, checks that the JSON is the reference's ``Calibration``
+schema and that both pick the same plan.
 
 Then it pretrains gpt2m at full width and depth (batch 8 of 1024
 tokens, ``TrainConfig`` defaults: remat, bf16 compute over fp32 params)
@@ -224,6 +225,15 @@ def bound(n_bytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def add_rates(row, flops):
+    """Kernel A's achieved TFLOP/s and its time over SDPA's and over the
+    bound, into ``row``."""
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+    row["x_library"] = row["ms"] / row["library_ms"]
+    row["x_bound"] = row["ms"] / row["bound_ms"]
+    return row
+
+
 def scan_err(torch, got, want) -> float:
     """Largest |got - want| in units of the scan tolerance (<= 1 passes)."""
     tol = SCAN_ATOL + SCAN_RTOL * want.abs()
@@ -254,9 +264,9 @@ def check_flash(torch, F, H, KV, D, shapes):
         worst = max(worst, err)
         qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pairs = S * (S + 1) // 2                 # visible causal pairs
+        flops = 4 * D * pairs * B * H
         # bf16 q and output at H heads, k and v at KV heads
-        b_ms, b_by = bound(2 * B * S * (2 * H + 2 * KV) * D,
-                           4 * D * pairs * B * H)
+        b_ms, b_by = bound(2 * B * S * (2 * H + 2 * KV) * D, flops)
         row = {
             "B": B, "S": S, "H": H, "KV": KV, "D": D, "max_abs_err": err,
             "ms": time_ms(torch, lambda: fa.flash_attention_cuda(
@@ -267,12 +277,13 @@ def check_flash(torch, F, H, KV, D, shapes):
                 torch, lambda: F.scaled_dot_product_attention(
                     qT, kT, vT, is_causal=True, enable_gqa=KV != H)),
             "bound_ms": b_ms, "bound_by": b_by}
-        rows.append(row)
+        rows.append(add_rates(row, flops))
         log(f"flash_attn_fwd H={H} KV={KV} D={D} B={B:2d} S={S:5d} "
             f"err={err:.3e} "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"sdpa_ms={row['library_ms']:.4f} bound_ms={b_ms:.5f} "
-            f"({b_by})")
+            f"({b_by}) {row['tflops']:.1f} TFLOP/s, "
+            f"{row['x_library']:.2f}x SDPA, {row['x_bound']:.1f}x bound")
     return rows, worst
 
 
@@ -319,7 +330,8 @@ def check_flash_bwd(torch, F):
         # bf16 q, o, dO and dq at H heads, k, v, dk, dv at KV heads, fp32
         # lse; five causal products (S, dP, dV, dK, dQ) of 2 D flops a pair
         n_bytes = 2 * B * S * D * (4 * H + 4 * KV) + 4 * B * H * S
-        b_ms, b_by = bound(n_bytes, 10 * D * pairs * B * H)
+        flops = 10 * D * pairs * B * H
+        b_ms, b_by = bound(n_bytes, flops)
         row = {
             "B": B, "S": S, "H": H, "KV": KV, "D": D, "max_abs_err": err,
             "rel_err": rel, "lse_max_abs_err": lse_err,
@@ -332,14 +344,16 @@ def check_flash_bwd(torch, F):
             "fwd_lse_ms": time_ms(torch, lambda: fa.flash_attention_cuda(
                 q, k, v, causal=True, return_lse=True)),
             "bound_ms": b_ms, "bound_by": b_by}
-        rows.append(row)
+        rows.append(add_rates(row, flops))
         log(f"{what} err={err:.3e} rel dq/dk/dv="
             f"{rel['dq']:.2e}/{rel['dk']:.2e}/{rel['dv']:.2e} "
             f"lse_err={lse_err:.2e} ms={row['ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} "
             f"sdpa_bwd_ms={row['library_ms']:.4f} "
             f"fwd_with_lse_ms={row['fwd_lse_ms']:.4f} bound_ms={b_ms:.5f} "
-            f"({b_by})")
+            f"({b_by}) {row['tflops']:.1f} TFLOP/s of the five products, "
+            f"{row['x_library']:.2f}x SDPA's backward, "
+            f"{row['x_bound']:.1f}x bound")
     return rows, worst
 
 
@@ -1010,10 +1024,11 @@ def report_fit(name, topo, wl, cal, residual, n_samples):
 
 def calibrate_phases(torch, ops, card):
     """Phase ``calibrate``: the launcher a user runs, at its default
-    micro-bench sizes; its JSON must be the reference's schema and load
-    back through the port's ``Calibration.loads``.  Phase
-    ``calibrate-wide``: the same profile at gpt2m's widths (sizes 1024
-    and 4096), fitted and searched the same way."""
+    micro-bench sizes (on the card, the model's widths); its JSON must be
+    the reference's schema and load back through the port's
+    ``Calibration.loads``.  Phase ``calibrate-wide``: the same profile
+    called directly at gpt2m's widths (sizes 1024 and 4096), fitted and
+    searched the same way; the two must pick the same winner."""
     import contextlib
     import io
     import re
@@ -1084,6 +1099,12 @@ def calibrate_phases(torch, ops, card):
                              "fit": report_fit(
                                  "calibrate-wide", topo, wl, fr.calibration,
                                  fr.residual, fr.n_samples)}
+    winners = [out[k]["fit"]["winner_after"][0]
+               for k in ("calibrate", "calibrate_wide")]
+    if winners[0] != winners[1]:
+        fail(f"phase calibrate picked {winners[0]}, calibrate-wide "
+             f"{winners[1]}: the launcher's default sizes do not measure "
+             f"what the model's widths do")
     # where an int8 sample's time goes: one ops.int8_matmul (pad,
     # quantize, kernel 5) as the micro-bench calls it, traced after the
     # counted phases
@@ -1242,6 +1263,20 @@ def train_phases(torch, np, ops, card):
             OUR_KERNELS)
         log_profile("train-gpt2m, one step", prof)
         out["profile_train_gpt2m"] = prof
+        if prof is not None:
+            shares = {part: sum(r["us"] for r in prof["ours"]
+                                if any(n in r["name"] for n in names))
+                      / prof["device_busy_us"]
+                      for part, names in (("flash_attn_fwd",
+                                           ("flash_fwd_kernel",)),
+                                          ("flash_attn_bwd",
+                                           ("bwd_delta_kernel",
+                                            "bwd_dkdv_kernel",
+                                            "bwd_dq_kernel")))}
+            out["train_gpt2m"]["kernel_a_share_of_device_time"] = shares
+            log(f"train-gpt2m: kernel A's share of the traced step's "
+                f"device time: forward {shares['flash_attn_fwd']:.4f}, "
+                f"backward {shares['flash_attn_bwd']:.4f}")
 
         # train-resume: restore step 4, rerun steps 4 and 5
         like = tree_map(torch.empty_like, res.params)
@@ -1324,6 +1359,9 @@ def log_profile(name, prof):
             f"{r['name']}")
 
 
+# kernel A's rates and ratios (add_rates), and the training shape
+RATES = ("tflops", "x_library", "x_bound")
+TRAIN_AT = {"B": 8, "S": 1024, "H": 16, "D": 64}
 OUR_KERNELS = ("flash_fwd_kernel", "bwd_delta_kernel", "bwd_dkdv_kernel",
                "bwd_dq_kernel", "int8kv_decode_kernel", "mamba1_scan_kernel",
                "ssd_scan_kernel", "int8_matmul_kernel", "rmsnorm_kernel")
@@ -1385,9 +1423,10 @@ def main() -> None:
              ((8, 64), (1, 256))),
             (CAL_FLASH_HEADS, (CAL_FLASH_BS,)),
             # head_dim 128: llama3.2 (group 3) and phi3.5-MoE (group 4) at
-            # their Engine prefill and a ragged continuous prefill
+            # their Engine prefill and a ragged continuous prefill; llama3.2
+            # also at gpt2m's training batch and length
             ((lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim),
-             ((8, 64), (1, 257))),
+             ((8, 64), (1, 257), (8, 1024))),
             ((mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim),
              ((8, 64), (1, 257)))):
         rows, err = check_flash(torch, F, *heads, shapes)
@@ -1517,14 +1556,17 @@ def main() -> None:
     def pick(rows, at):
         return next(r for r in rows if all(r[k] == v for k, v in at.items()))
 
-    def at_head_dim(rows, at, launches, **extra):
+    def summary(rows, at):
+        """A kernel's numbers at one shape (with kernel A's rates)."""
+        row = pick(rows, at)
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms") + RATES
+        return {k: row[k] for k in keys if k in row} | {"at": at}
+
+    def at_head_dim(rows, at, launches):
         """The row of a kernel at head_dim 128 and its launches in the
         slice-5 phases (the only ones at that head dim)."""
-        row = pick(rows, at)
-        return {"128": {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                            "bound_ms", "bound_by",
-                                            "library_ms")}
-                | {"launches": launches, "at": at, **extra}}
+        return {"128": summary(rows, at) | {"launches": launches}}
 
     def entry(name, route_src, replaces, rows, worst, at, **extra):
         row = pick(rows, at)
@@ -1533,20 +1575,20 @@ def main() -> None:
                 "max_abs_err": worst, "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "at": at, **extra}
+                "library_ms": row["library_ms"], "at": at,
+                **{k: row[k] for k in RATES if k in row}, **extra}
 
     kernels = [
-        entry("flash_attn_fwd", "src/repro_torch/csrc/flash_attn_fwd.cuh",
+        entry("flash_attn_fwd", "src/repro_torch/csrc/flash_attn_fwd.cu",
               "src/repro/kernels/flash_attention.py:77", flash_rows,
               flash_err, {"B": 1, "S": 256, "H": 16, "D": 64},
+              train_shape=summary(flash_rows, TRAIN_AT),
               by_head_dim=at_head_dim(
                   flash_rows, {"B": 8, "S": 64, "H": 24, "D": 128},
-                  at128["flash_attn_fwd"],
-                  source="src/repro_torch/csrc/flash_attn_fwd_d128.cu")),
+                  at128["flash_attn_fwd"])),
         entry("flash_attn_bwd", "src/repro_torch/csrc/flash_attn_bwd.cu",
               "src/repro/kernels/flash_attention.py:77", bwd_rows, bwd_err,
-              {"B": 8, "S": 1024, "H": 16, "D": 64},
-              differentiates="src/repro/models/attention.py:36"),
+              TRAIN_AT, differentiates="src/repro/models/attention.py:36"),
         entry("int8kv_decode", "src/repro_torch/csrc/int8kv_attn.cu",
               "src/repro/kernels/quantized.py:145", int8_rows, int8_err,
               {"B": 8, "Sk": 1024, "D": 64,

@@ -15,17 +15,17 @@ function, in the model's ``[B, S, H, D]`` layout:
     ``return_lse`` also each row's logsumexp.  The CPU runs it, and
     ``chip_smoke.py`` holds the kernel against it on the card.
   * ``flash_attention_cuda`` — the CUDA C++ kernel in
-    ``csrc/flash_attn_fwd.cuh`` (bf16; head_dim 64 or 80 built from
-    ``flash_attn_fwd.cu``, 128 from ``flash_attn_fwd_d128.cu``; masks by
-    index, which is what arange positions give; the logsumexp on
-    request).
+    ``csrc/flash_attn_fwd.cu`` (bf16 on the tensor cores; head_dim 64,
+    80 or 128; masks by index, which is what arange positions give; the
+    logsumexp on request).
   * ``flash_attention_bwd_plain`` — the recompute backward in PyTorch:
     ``P = exp(S * scale - lse)``, ``dV = P^T dO``, ``dS = P * (dO V^T -
     D)`` with ``D = rowsum(dO * O)``, ``dQ = dS K * scale``, ``dK = dS^T
     Q * scale``, the group's heads summed into ``dK``/``dV``.
   * ``flash_attention_bwd_cuda`` — the same in ``csrc/flash_attn_bwd.cu``
-    (head_dim 64 or 80; 128, which llama3.2-3b and phi3.5-MoE need, is
-    refused until ROADMAP queue 2, item 7 brings it).
+    (bf16 on the tensor cores, no atomics; head_dim 64 or 80; 128,
+    which llama3.2-3b and phi3.5-MoE need, is refused until ROADMAP
+    queue 2, item 7 brings it).
 
 ``FlashAttention`` is the ``torch.autograd.Function`` over them: its
 forward keeps the logsumexp and its backward recomputes from it, by the
@@ -148,12 +148,8 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
             dv.to(v.dtype))
 
 
-def _lib(head_dim: int):
-    """Kernel A's forward entry for ``head_dim``: 128 is a library of its
-    own (``csrc/flash_attn_fwd_d128.cu``), built in parallel with the
-    others."""
-    stem = "flash_attn_fwd_d128" if head_dim == 128 else "flash_attn_fwd"
-    fn = _build.library(stem).flash_attn_fwd_bf16
+def _lib():
+    fn = _build.library("flash_attn_fwd").flash_attn_fwd_bf16
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [P, P, P, P, I, I, I, I, I, I] + [L] * 12 + [
@@ -192,9 +188,10 @@ def _check_operand(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be [B, S, heads, D] with D in "
                          f"{FWD_HEAD_DIMS} and a contiguous last axis, got "
                          f"{tuple(t.shape)} strides {t.stride()}")
-    if any(s % 2 for s in t.stride()[:3]) or t.data_ptr() % 4:
-        raise ValueError(f"{name} needs even strides and 4-byte alignment "
-                         f"for bf16x2 loads")
+    if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{name} needs strides in multiples of 8 elements "
+                         f"and 16-byte alignment for 16-byte row copies, "
+                         f"got strides {t.stride()}")
 
 
 def _check_qkv(q, k, v):
@@ -220,7 +217,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib(D)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  B, H, KV, Sq, Sk, D, *q.stride()[:3], *k.stride()[:3],
                  *v.stride()[:3], *o.stride()[:3],
                  1.0 / (D ** 0.5), int(causal), int(window),

@@ -8,8 +8,13 @@ and write it as JSON the search can load (docs/calibration.md §3).
         --iters 1 --out calibration.json
 
 The micro-bench runs on the card (``--device cuda``, the default, which
-raises without one); ``--device cpu`` times the kernels' plain PyTorch
-versions instead.  The JSON is the reference's ``Calibration`` schema:
+raises without one) at the model's widths (``d_model`` and ``d_ff``:
+1024 and 4096 for gpt2m); ``--device cpu`` times the kernels' plain
+PyTorch versions instead, at sizes 128 and 192.  ``--sizes`` sets them
+for either.  At 128 and 192 a kernel on the card runs for microseconds,
+so the host's launch and synchronisation time dominate the sample and
+the fitted rate falls far below what the model's products reach.  The
+JSON is the reference's ``Calibration`` schema:
 ``repro.calib.overlay.Calibration.loads`` reads it too.
 
 Measurement protocol per host (each site runs the same command with its
@@ -34,6 +39,32 @@ profile→fit→search loop runs end-to-end on any machine, with no device
 import argparse
 import json
 import sys
+from typing import Tuple
+
+# the micro-bench's matmul sizes on the CPU, where the plain versions
+# are slow at a model's widths (the reference's defaults)
+CPU_SIZES = (128, 192)
+
+
+def default_sizes(model: str, device: str) -> Tuple[int, ...]:
+    """The micro-bench's square matmul sizes for ``model`` on ``device``:
+    the model's widths on the card, ``CPU_SIZES`` on the CPU."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    if torch.device(device).type != "cuda":
+        return CPU_SIZES
+    cfg = get_config(model)
+    return tuple(dict.fromkeys(w for w in (cfg.d_model, cfg.d_ff) if w > 0))
+
+
+def _sizes(text: str) -> Tuple[int, ...]:
+    sizes = tuple(int(x) for x in text.split(",") if x.strip())
+    if not sizes or min(sizes) <= 0:
+        raise argparse.ArgumentTypeError(f"--sizes wants positive "
+                                         f"integers, got {text!r}")
+    return sizes
 
 
 def main(argv=None) -> int:
@@ -62,6 +93,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain PyTorch versions) "
                          "for the kernel micro-bench")
+    ap.add_argument("--sizes", type=_sizes, default=None, metavar="M,M",
+                    help="square matmul sizes of the kernel micro-bench, "
+                         "comma-separated (default: the model's d_model "
+                         "and d_ff on the card, 128,192 on the CPU)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -96,12 +131,15 @@ def main(argv=None) -> int:
         print(f"synthetic harness: {len(samples)} samples at "
               f"noise={args.synthetic}")
     else:
+        sizes = args.sizes or default_sizes(args.model, args.device)
         samples = kernel_compute_samples(args.site, iters=args.iters,
-                                         seed=args.seed, device=args.device)
+                                         sizes=sizes, seed=args.seed,
+                                         device=args.device)
         samples += host_ring_collective_samples(
             (args.site, args.site), iters=args.iters)
         print(f"profiled site {args.site}: {len(samples)} samples "
-              "(kernel compute + host-ring collective)")
+              f"(kernel compute at sizes {','.join(map(str, sizes))} + "
+              f"host-ring collective)")
         if args.probe_steps:
             rec = RecordingProber(CostModelProber(wl, topo), wl)
             PlanSearch(wl, topo, probe_fn=rec.probe).search()

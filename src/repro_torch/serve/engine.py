@@ -85,7 +85,13 @@ class ServeStats:
 
 
 class Engine:
-    """Fixed-batch prefill + decode for one model on one device."""
+    """Fixed-batch prefill + decode for one model on one device.
+
+    For the MoE family a token's output depends on the batch it is routed
+    with: an expert takes at most its capacity (``capacity_factor`` of
+    the batch's fair share) and drops the rest.  So a request's tokens
+    equal ``ContinuousEngine``'s for the same prompt only while no expert
+    overflows, in either engine's batches."""
 
     def __init__(self, model: Model, *, batch_size: int, max_len: int,
                  window: int = 0, temperature: float = 0.0, top_k: int = 0,
@@ -281,7 +287,11 @@ class ContinuousEngine:
     SSM and hybrid families prefill at the exact length
     instead (``exact_prefill``): their recurrences would fold pad tokens
     into the state.  Greedy only: every request's tokens equal the
-    fixed-batch ``Engine``'s for the same prompt."""
+    fixed-batch ``Engine``'s for the same prompt, except for the MoE
+    family when an expert overflows its capacity in either engine's
+    batches (prefill batches differ: one padded request here, the whole
+    batch there), where a dropped token changes what follows; they equal
+    the reference ``ContinuousEngine``'s in that case too."""
 
     def __init__(self, model: Model, *, slots: int, max_len: int,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,

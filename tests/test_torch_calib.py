@@ -261,3 +261,34 @@ def test_kernel_compute_samples_on_cpu():
     assert [r.flops for r in rows] == [2.0 * 64 ** 3] * 2 + [
         4.0 * 128 * 128 * 4 * 64]
     assert all(r.site == 1 and r.time_s > 0 for r in rows)
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--device", "cuda"], (1024, 4096)),
+    (["--device", "cuda", "--model", "gpt2L"], (1280, 5120)),
+    (["--device", "cpu"], (128, 192)),
+    (["--device", "cpu", "--sizes", "64,96"], (64, 96)),
+    (["--device", "cuda", "--sizes", "256"], (256,))])
+def test_calibrate_sizes_option_and_defaults(monkeypatch, capsys, argv,
+                                             want):
+    """``--sizes`` reaches the micro-bench; without it the card times the
+    model's widths (gpt2m: d_model 1024, d_ff 4096, where its kernels run
+    long enough to show their rate) and the CPU keeps the reference's 128
+    and 192.  The micro-bench is stubbed by its CPU run at size 64, so no
+    card is needed."""
+    seen = []
+    real = tmb.kernel_compute_samples
+
+    def stub(site, *, iters, sizes, seed, device):
+        seen.append((tuple(sizes), device))
+        return real(site, iters=1, sizes=(64,), seed=seed, device="cpu")
+
+    monkeypatch.setattr(tmb, "kernel_compute_samples", stub)
+    assert t_calibrate.main(argv + ["--iters", "1"]) == 0
+    assert seen == [(want, argv[1])]
+    assert f"at sizes {','.join(map(str, want))}" in capsys.readouterr().out
+
+
+def test_calibrate_refuses_bad_sizes():
+    with pytest.raises(SystemExit):
+        t_calibrate.main(["--device", "cpu", "--sizes", "0,128"])

@@ -564,3 +564,98 @@ def test_slice5_model_kernel_path_matches_plain_path(cuda_device, arch,
     assert counts["int8kv_decode"] == (2 * L if kv_dtype == "int8" else 0)
     torch.testing.assert_close(logits["fast"], logits["plain"], rtol=0,
                                atol=5e-2)
+
+
+# Kernel A on the tensor cores: the shapes of the training and serving
+# paths, ragged and windowed masks, views of a fused projection, and the
+# backward's reruns.  The kernels round P (and, in the backward, dS) to
+# bf16 for the products, within the same BF16_ATOL and BWD_RTOL as above.
+
+def _flash_check(q, k, v, causal, window):
+    got, lse = tfa.flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+    torch.cuda.synchronize()
+    want, wlse = tfa.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=BF16_ATOL)
+    torch.testing.assert_close(lse, wlse, rtol=0, atol=LSE_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
+    pytest.param(8, 1024, 16, 16, 64, True, 0, id="gpt2m-train"),
+    pytest.param(2, 1024, 24, 8, 128, True, 0, id="d128-s1024"),
+    pytest.param(3, 77, 4, 2, 64, True, 0, id="ragged77"),
+    pytest.param(1, 257, 8, 8, 80, True, 0, id="ragged257-d80"),
+    pytest.param(1, 257, 6, 2, 128, True, 64, id="ragged257-d128-window64"),
+    pytest.param(2, 300, 4, 4, 64, True, 64, id="window64"),
+    pytest.param(2, 77, 4, 2, 64, False, 0, id="noncausal77"),
+    pytest.param(1, 257, 8, 8, 80, False, 0, id="noncausal257-d80"),
+    pytest.param(1, 130, 6, 2, 128, False, 0, id="noncausal130-d128")])
+def test_flash_kernel_tensor_core_shapes(cuda_device, B, S, H, KV, D, causal,
+                                         window):
+    g = torch.Generator(device=cuda_device).manual_seed(S * D + H)
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=cuda_device)
+               .to(torch.bfloat16) for h in (H, KV, KV))
+    _flash_check(q, k, v, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_kernel_reads_views_of_a_fused_projection(cuda_device, D):
+    """q, k and v as strided views of one [B, S, 3, H, D] tensor, read in
+    place: the kernel's output equals that of contiguous copies."""
+    B, S, H = 2, 200, 4
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    qkv = torch.randn((B, S, 3, H, D), generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    _flash_check(q, k, v, True, 0)
+    got = tfa.flash_attention_cuda(q, k, v, causal=True)
+    same = tfa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_unaligned_views(cuda_device):
+    x = torch.zeros((1, 8, 2, 68), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfa.flash_attention_cuda(*(x[..., 4:] for _ in range(3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,window", [(2, 257, 32, 8, 0),
+                                             (1, 300, 8, 2, 64)])
+def test_flash_backward_kernel_head_dim_80_gqa(cuda_device, B, S, H, KV,
+                                               window):
+    """The backward at zamba2's head_dim 80 with grouped-query heads
+    (groups of 4): dK and dV sum the group's query heads."""
+    q, k, v, do = _bwd_inputs(cuda_device, B, S, H, KV, 80, seed=S + H)
+    o, lse = tfa.flash_attention_cuda(q, k, v, window=window,
+                                      return_lse=True)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, window=window)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, do, lse, window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= BWD_RTOL * float(b.float().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D", [(8, 1024, 16, 16, 64),
+                                        (1, 257, 8, 2, 80)])
+def test_flash_backward_kernel_reruns_bit_equal(cuda_device, B, S, H, KV, D):
+    """No atomics: two runs on the same inputs give the same bits."""
+    q, k, v, do = _bwd_inputs(cuda_device, B, S, H, KV, D, seed=3)
+    o, lse = tfa.flash_attention_cuda(q, k, v, return_lse=True)
+    first = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    second = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name

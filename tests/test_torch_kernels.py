@@ -6,6 +6,8 @@ interpret mode), its direct oracles and its jnp ``chunked_attention``,
 on the same numpy inputs, in fp32.  ``test_torch_cuda.py`` holds the
 CUDA kernels to these plain versions on a card.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -17,6 +19,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import quantized as jq  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models.attention import chunked_attention as j_chunked  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import mamba_scan as tms  # noqa: E402
@@ -419,3 +422,45 @@ def test_flash_backward_refuses_head_dim_128():
         tfa.check_backward_head_dim(D)
     assert set(tfa.BWD_HEAD_DIMS) < set(tfa.FWD_HEAD_DIMS)
     assert 128 in tfa.FWD_HEAD_DIMS and 128 in tq.HEAD_DIMS
+
+
+# Kernel A's CUDA sources cannot be compiled here; these read them.
+BF16_MMA = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
+
+
+def _source_with_headers(name):
+    """The text of ``csrc/<name>`` and of the local headers it includes."""
+    text = (_build.CSRC / name).read_text()
+    for header in re.findall(r'#include "([^"]+)"', text):
+        text += (_build.CSRC / header).read_text()
+    return text
+
+
+def _calls_in_kernel(text, kernel):
+    """The body of ``__global__`` function ``kernel`` in ``text``."""
+    start = text.index(f"\n{kernel}(")
+    end = text.find("__global__", start)
+    return text[start:end if end > 0 else len(text)]
+
+
+def test_flash_backward_source_has_no_atomics():
+    """Kernel A's backward sums without atomics, so reruns give the same
+    bits; the shared header adds none either."""
+    text = _source_with_headers("flash_attn_bwd.cu")
+    assert "atomicAdd" not in text and "atom." not in text
+
+
+@pytest.mark.parametrize("source,kernel,products", [
+    ("flash_attn_fwd.cu", "flash_fwd_kernel", 6),
+    ("flash_attn_bwd.cu", "bwd_dkdv_kernel", 10),
+    ("flash_attn_bwd.cu", "bwd_dq_kernel", 6)])
+def test_flash_sources_multiply_on_tensor_cores(source, kernel, products):
+    """Every product of kernel A (forward: Q K^T and P V, the latter with
+    P as a hi + lo pair; dK/dV: K Q^T, V dO^T, P^T dO, and dS^T Q with
+    dS as a hi + lo pair; dQ: Q K^T, dO V^T, dS K) is a bf16 mma.sync
+    with fp32 accumulators, two 8-wide tiles a call site, and no fp32
+    fmaf loop is left in those kernels."""
+    assert BF16_MMA in _source_with_headers(source)
+    body = _calls_in_kernel((_build.CSRC / source).read_text(), kernel)
+    assert body.count("mma_bf16(") == products
+    assert "fmaf(" not in body

@@ -236,3 +236,61 @@ def test_moe_engines_match_reference_greedy_tokens(pair, kv_dtype):
         np.testing.assert_array_equal(tres["outputs"][i],
                                       jres["outputs"][i],
                                       err_msg=f"continuous, request {i}")
+
+
+CAPACITY = 1.25                 # phi3.5-MoE's own; the reduced config's 2.0
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_moe_continuous_matches_reference_when_experts_drop(pair, kv_dtype,
+                                                            monkeypatch):
+    """At capacity factor 1.25 a prefill of 32 or 64 tokens of
+    repetitive text (a few tokens repeated, which route alike) overflows
+    an expert, and the prompts' own tokens are dropped, not only a pad
+    tail (the stable sort keeps the earliest tokens, so dropping pads
+    alone could change nothing); the port's ``ContinuousEngine`` still
+    gives the reference ``ContinuousEngine``'s greedy tokens.  (Which
+    tokens drop depends on the batch a token shares, so neither engine
+    promises ``Engine``'s tokens here.)"""
+    from repro.core.plans import get_plan
+    from repro.launch.mesh import make_host_mesh
+    from repro.serve import ContinuousEngine as JContinuous
+    from repro.serve import Request as JRequest
+
+    jm, jp, tm, tp = pair
+    jcfg = dataclasses.replace(jm.cfg, moe=dataclasses.replace(
+        jm.cfg.moe, capacity_factor=CAPACITY))
+    tcfg = dataclasses.replace(tm.cfg, moe=dataclasses.replace(
+        tm.cfg.moe, capacity_factor=CAPACITY))
+    overflowed = []
+    real_route = tmoe.route
+
+    def route(xf, params, cfg):
+        probs, gates, choices = real_route(xf, params, cfg)
+        m, T = cfg.moe, xf.shape[0]
+        cap = min(max(int(m.capacity_factor * T * m.top_k / m.n_experts)
+                      + 1, min(T, 16)), T)
+        if T > 16:                  # a prefill, all of it prompt tokens
+            load = torch.bincount(choices.reshape(-1),
+                                  minlength=m.n_experts)
+            overflowed.append(int(load.max()) > cap)
+        return probs, gates, choices
+
+    monkeypatch.setattr(tmoe, "route", route)
+    rng = np.random.default_rng(11)
+    # lengths equal to the buckets, so no pad token takes part
+    prompts = [np.resize(rng.integers(4, 400, (period,)), n).astype(np.int32)
+               for period, n in ((1, 64), (2, 32), (3, 64), (5, 32))]
+    kw = dict(slots=2, max_len=72, buckets=(32, 64), kv_dtype=kv_dtype)
+    jres = JContinuous(JModel(jcfg), get_plan("data"),
+                       make_host_mesh((1, 1), ("data", "model")), **kw).run(
+        jp, [JRequest(i, p) for i, p in enumerate(prompts)],
+        max_new=MAX_NEW)
+    tres = ContinuousEngine(TModel(tcfg, device="cpu"), device="cpu",
+                            **kw).run(
+        tp, [Request(i, p) for i, p in enumerate(prompts)], max_new=MAX_NEW)
+    assert any(overflowed), "no expert overflowed: the test sees no drop"
+    for i in range(len(prompts)):
+        np.testing.assert_array_equal(tres["outputs"][i],
+                                      jres["outputs"][i],
+                                      err_msg=f"request {i}")
