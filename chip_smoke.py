@@ -5,8 +5,11 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
 holds each against its plain PyTorch version at the serving shapes of
 the models below (scans from a non-zero state, and one SSD case whose
-unmasked exp would overflow), and times kernel, plain version and, where
-one exists, a PyTorch library yardstick beside the card's bound.  Then
+unmasked exp would overflow; kernel B at the engines' caches, with a
+row that has no live key and random non-prefix masks; kernels B and 6
+rerun for the same bits), and times kernel, plain version and, where
+one exists, a PyTorch library yardstick beside the card's bound and a
+minimal launch.  Then
 it serves five models at full width with random weights from a seed:
 
   * gpt2m (24 layers, d_model 1024) through ``Engine`` (fp32 and int8
@@ -165,6 +168,9 @@ NORM_ATTN = ("rmsnorm", "flash_attn_fwd")
 # ~1 ms at the H100's clocks: longer than the host takes to enqueue any
 # one function timed here
 SLEEP_CYCLES = 2_000_000
+# the minimal launch timed beside the decode kernels: a sleep of a few
+# cycles
+FLOOR_CYCLES = 10
 SEED = 0
 ENGINE_BATCH, ENGINE_PROMPT, ENGINE_GEN = 8, 64, 32
 CONT_SLOTS, CONT_REQUESTS, CONT_LENS, CONT_GEN = 8, 16, (16, 256), 32
@@ -357,13 +363,28 @@ def check_flash_bwd(torch, F):
     return rows, worst
 
 
+def decode_mask(torch, g, B, Sk, fills):
+    """[B, Sk] key validity of a decode cache: ``(lo, hi)`` fills row
+    prefixes from lo to hi keys; ``"mixed"`` gives row 0 no live key and
+    the other rows random non-prefix masks of rising density."""
+    if fills == "mixed":
+        dens = torch.linspace(0.05, 0.9, B, device="cuda")[:, None]
+        valid = torch.rand((B, Sk), generator=g, device="cuda") < dens
+        valid[0] = False
+        return valid
+    fill = torch.linspace(fills[0], fills[1], B,
+                          device="cuda").round().long()
+    return torch.arange(Sk, device="cuda")[None] < fill[:, None]
+
+
 def check_int8kv(torch, F, H, KV, D, cases, seed):
     """Kernel B against its plain version with H query heads over KV
-    key/value heads of D, at decode shapes ``(B, Sk, fills)``: B rows of
-    an Sk-slot cache filled from ``fills[0]`` to ``fills[1]`` keys."""
+    key/value heads of D, at decode shapes ``(B, Sk, fills)`` (masks as
+    ``decode_mask`` makes them); a rerun must give the same bits."""
     from repro_torch.kernels import quantized as qz
 
     g = torch.Generator(device="cuda").manual_seed(seed)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows, worst = [], 0.0
     for B, Sk, fills in cases:
         q = torch.randn((B, 1, H, D), generator=g,
@@ -373,22 +394,28 @@ def check_int8kv(torch, F, H, KV, D, cases, seed):
         vq, vs = qz.quantize(torch.randn((B, Sk, KV, D), generator=g,
                                          device="cuda"), block=D)
         ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
-        fill = torch.linspace(fills[0], fills[1], B,
-                              device="cuda").round().long()
-        valid = torch.arange(Sk, device="cuda")[None] < fill[:, None]
+        valid = decode_mask(torch, g, B, Sk, fills)
         args = (q, kq, ks, vq, vs, valid)
         got = qz.int8kv_attention_cuda(*args)
+        again = qz.int8kv_attention_cuda(*args)
         want = qz.int8kv_attention_plain(*args)
         torch.cuda.synchronize()
+        what = (f"int8kv_decode H={H} KV={KV} D={D} B={B} Sk={Sk} "
+                f"fills={fills}")
         err = float((got.float() - want.float()).abs().max())
         if not err <= KERNEL_ATOL:
-            fail(f"int8kv_decode H={H} KV={KV} D={D} B={B} Sk={Sk}: "
-                 f"max_abs_err {err} > {KERNEL_ATOL}")
+            fail(f"{what}: max_abs_err {err} > {KERNEL_ATOL}")
+        if not torch.equal(got, again):
+            fail(f"{what}: a rerun gave other bits")
         worst = max(worst, err)
-        live = int(valid.sum())                  # keys this data needs
-        n_bytes = live * KV * (2 * D + 2 * 4) + B * Sk \
-            + 2 * B * H * D * 2
-        b_ms, b_by = bound(n_bytes, 4 * D * live * H)
+        # what this data needs: K, V and both scales of each live key; a
+        # row with no live key averages all its values (V and v scale);
+        # the mask, q and the output
+        live = int(valid.sum())
+        dead = int((valid.sum(1) == 0).sum())
+        n_bytes = live * KV * (2 * D + 2 * 4) + dead * Sk * KV * (D + 4) \
+            + B * Sk + 2 * B * H * D * 2
+        b_ms, b_by = bound(n_bytes, 4 * D * live * H + 2 * D * dead * Sk * H)
         # yardstick: SDPA over K/V already dequantized to bf16 with the
         # same mask (no PyTorch call takes the int8 cache itself)
         kd = (kq.float() * ks[..., None]).to(torch.bfloat16)
@@ -397,7 +424,8 @@ def check_int8kv(torch, F, H, KV, D, cases, seed):
         mask = valid[:, None, None, :]
         row = {
             "B": B, "Sk": Sk, "H": H, "KV": KV, "D": D, "live_keys": live,
-            "max_abs_err": err,
+            "fills": fills, "max_abs_err": err, "rerun_bit_equal": True,
+            "splits": qz.int8kv_splits(B, KV, Sk, n_sm),
             "ms": time_ms(torch, lambda: qz.int8kv_attention_cuda(*args)),
             "plain_ms": time_ms(torch, lambda: qz.int8kv_attention_plain(
                 *args)),
@@ -407,8 +435,7 @@ def check_int8kv(torch, F, H, KV, D, cases, seed):
                     qT, kT, vT, attn_mask=mask, enable_gqa=KV != H)),
             "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
-        log(f"int8kv_decode H={H} KV={KV} D={D} B={B} Sk={Sk:5d} "
-            f"live={live:5d} err={err:.3e} "
+        log(f"{what} live={live:5d} splits={row['splits']} err={err:.3e} "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"sdpa_on_dequantized_ms={row['sdpa_dequant_ms']:.4f} "
             f"bound_ms={b_ms:.5f} ({b_by})")
@@ -422,56 +449,70 @@ def bf16_ulp(torch, x):
     return torch.ldexp(torch.ones_like(x), e - 8)
 
 
-def check_rmsnorm(torch, F):
+def launch_floor_ms(torch) -> float:
+    """Device time of a minimal launch (``torch.cuda._sleep`` of a few
+    cycles), timed as every kernel here is: the floor under the tiny
+    decode kernels' times."""
+    return time_ms(torch, lambda: torch.cuda._sleep(FLOOR_CYCLES))
+
+
+def check_rmsnorm(torch, F, floor_ms):
     """Kernel 6 against its plain version at the RMSNorm models' widths,
-    in bf16 (the served models) and fp32; the yardstick is
-    ``F.rms_norm`` with the weight in x's dtype (its fused path wants
-    one dtype)."""
+    in bf16 (the served models) and fp32; a rerun must give the same
+    bits.  The yardstick is ``F.rms_norm`` with the weight in x's dtype
+    (its fused path wants one dtype)."""
     from repro_torch.kernels import rmsnorm as rn
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows_out, worst = [], 0.0
+    shapes = [(rows, d) for d in RMS_DS for rows in RMS_ROWS]
     for dtype in (torch.bfloat16, torch.float32):
-        for d in RMS_DS:
-            for rows in RMS_ROWS:
-                x = (torch.randn((rows, d), generator=g, device="cuda") * 3
-                     + 0.5).to(dtype)
-                w = 1 + 0.1 * torch.randn((d,), generator=g, device="cuda")
-                got = rn.rmsnorm_cuda(x, w, eps=1e-5)
-                want = rn.rmsnorm_plain(x, w, 1e-5)
-                torch.cuda.synchronize()
-                what = f"rmsnorm {str(dtype)[6:]} rows={rows} d={d}"
-                if not torch.isfinite(got).all():
-                    fail(f"{what}: non-finite output")
-                diff = (got.float() - want.float()).abs()
-                err = float(diff.max())
-                if dtype == torch.float32:
-                    ok = err <= RMS_FP32_RTOL * float(want.abs().max())
-                else:
-                    ok = bool((diff <= bf16_ulp(torch, want.float())).all())
-                if not ok:
-                    fail(f"{what}: max_abs_err {err} beyond the tolerance")
-                worst = max(worst, err)
-                esz = x.element_size()
-                # x read once, y written once, the fp32 weight; per
-                # element a square-add, and two products
-                b_ms, b_by = bound(2 * rows * d * esz + 4 * d, 4 * rows * d,
-                                   PEAK_FP32_FLOPS)
-                wl = w.to(dtype)
-                row = {"rows": rows, "d": d, "dtype": str(dtype)[6:],
-                       "max_abs_err": err,
-                       "ms": time_ms(torch, lambda: rn.rmsnorm_cuda(
-                           x, w, eps=1e-5)),
-                       "plain_ms": time_ms(torch, lambda: rn.rmsnorm_plain(
-                           x, w, 1e-5)),
-                       "library_ms": time_ms(torch, lambda: F.rms_norm(
-                           x, (d,), wl, eps=1e-5)),
-                       "bound_ms": b_ms, "bound_by": b_by}
-                rows_out.append(row)
-                log(f"{what} err={err:.3e} ms={row['ms']:.4f} "
-                    f"plain_ms={row['plain_ms']:.4f} "
-                    f"rms_norm_ms={row['library_ms']:.4f} "
-                    f"bound_ms={b_ms:.5f} ({b_by})")
+        for rows, d in shapes:
+            x = (torch.randn((rows, d), generator=g, device="cuda") * 3
+                 + 0.5).to(dtype)
+            w = 1 + 0.1 * torch.randn((d,), generator=g, device="cuda")
+            got = rn.rmsnorm_cuda(x, w, eps=1e-5)
+            again = rn.rmsnorm_cuda(x, w, eps=1e-5)
+            want = rn.rmsnorm_plain(x, w, 1e-5)
+            torch.cuda.synchronize()
+            what = f"rmsnorm {str(dtype)[6:]} rows={rows} d={d}"
+            if not torch.isfinite(got).all():
+                fail(f"{what}: non-finite output")
+            if not torch.equal(got, again):
+                fail(f"{what}: a rerun gave other bits")
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if dtype == torch.float32:
+                ok = err <= RMS_FP32_RTOL * float(want.abs().max())
+            else:
+                ok = bool((diff <= bf16_ulp(torch, want.float())).all())
+            if not ok:
+                fail(f"{what}: max_abs_err {err} beyond the tolerance")
+            worst = max(worst, err)
+            esz = x.element_size()
+            # x read once, y written once, the fp32 weight; per
+            # element a square-add, and two products
+            b_ms, b_by = bound(2 * rows * d * esz + 4 * d, 4 * rows * d,
+                               PEAK_FP32_FLOPS)
+            wl = w.to(dtype)
+            row = {"rows": rows, "d": d, "dtype": str(dtype)[6:],
+                   "max_abs_err": err, "rerun_bit_equal": True,
+                   "plan": list(rn.rmsnorm_plan(rows, d, n_sm)),
+                   "launch_floor_ms": floor_ms,
+                   "ms": time_ms(torch, lambda: rn.rmsnorm_cuda(
+                       x, w, eps=1e-5)),
+                   "plain_ms": time_ms(torch, lambda: rn.rmsnorm_plain(
+                       x, w, 1e-5)),
+                   "library_ms": time_ms(torch, lambda: F.rms_norm(
+                       x, (d,), wl, eps=1e-5)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows_out.append(row)
+            log(f"{what} plan={row['plan']} err={err:.3e} "
+                f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"rms_norm_ms={row['library_ms']:.4f} "
+                f"bound_ms={b_ms:.5f} ({b_by}) "
+                f"launch_floor_ms={floor_ms:.4f}")
     return rows_out, worst
 
 
@@ -708,13 +749,29 @@ def profile_window(torch, fn, ours):
         return None
     busy_us = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    mine = {k: v for k, v in by_name.items() if any(o in k for o in ours)}
+    mine = {k: v for k, v in by_name.items() if kernel_of(k, ours)}
+    per_kernel = {}
+    for k, (t, n) in mine.items():
+        rec = per_kernel.setdefault(kernel_of(k, ours),
+                                    {"us": 0.0, "count": 0})
+        rec["us"] += t
+        rec["count"] += n
+    for rec in per_kernel.values():
+        rec["share"] = rec["us"] / busy_us
     return {"wall_us": wall_us, "device_busy_us": busy_us,
             "idle_share": 1.0 - busy_us / wall_us,
             "top": [{"name": k[:80], "us": t, "count": n}
                     for k, (t, n) in top],
             "ours": [{"name": k[:80], "us": t, "count": n}
-                     for k, (t, n) in mine.items()]}
+                     for k, (t, n) in mine.items()],
+            "per_kernel": per_kernel}
+
+
+def kernel_of(event_name, ours):
+    """The port's kernel (``ours``: CUDA function name -> kernel) that a
+    trace event of that name belongs to, or None."""
+    return next((kern for fn, kern in ours.items() if fn in event_name),
+                None)
 
 
 def first_step(torch, m, params, batch, kv_dtype, tok=None):
@@ -1357,14 +1414,27 @@ def log_profile(name, prof):
     for r in prof["ours"]:
         log(f"  ours: {r['us'] / 1e3:9.3f} ms  x{r['count']:5d}  "
             f"{r['name']}")
+    for kern, r in sorted(prof["per_kernel"].items()):
+        log(f"  kernel {kern}: {r['us'] / 1e3:.3f} ms of device time in "
+            f"{r['count']} launches, share {r['share']:.4f}")
 
 
 # kernel A's rates and ratios (add_rates), and the training shape
 RATES = ("tflops", "x_library", "x_bound")
 TRAIN_AT = {"B": 8, "S": 1024, "H": 16, "D": 64}
-OUR_KERNELS = ("flash_fwd_kernel", "bwd_delta_kernel", "bwd_dkdv_kernel",
-               "bwd_dq_kernel", "int8kv_decode_kernel", "mamba1_scan_kernel",
-               "ssd_scan_kernel", "int8_matmul_kernel", "rmsnorm_kernel")
+# the port's CUDA functions in a trace, by the kernel they belong to (a
+# call of kernel B launches int8kv_combine_kernel after the split kernel
+# when Sk is cut into more than one split)
+OUR_KERNELS = {"flash_fwd_kernel": "flash_attn_fwd",
+               "bwd_delta_kernel": "flash_attn_bwd",
+               "bwd_dkdv_kernel": "flash_attn_bwd",
+               "bwd_dq_kernel": "flash_attn_bwd",
+               "int8kv_decode_kernel": "int8kv_decode",
+               "int8kv_combine_kernel": "int8kv_decode",
+               "mamba1_scan_kernel": "mamba1_scan",
+               "ssd_scan_kernel": "ssd_scan",
+               "int8_matmul_kernel": "int8_matmul",
+               "rmsnorm_kernel": "rmsnorm"}
 
 
 def main() -> None:
@@ -1432,18 +1502,26 @@ def main() -> None:
         rows, err = check_flash(torch, F, *heads, shapes)
         flash_rows, flash_err = flash_rows + rows, max(flash_err, err)
     bwd_rows, bwd_err = check_flash_bwd(torch, F)
-    # (B, Sk, fills): the engines' decode caches, rows partly filled;
-    # at head_dim 128 the llama3.2 and phi3.5-MoE heads over 1024 slots
+    # (B, Sk, fills): the engines' decode caches, rows partly filled
+    # (Engine: 104 slots, ContinuousEngine: 296 at head_dim 128), 1024
+    # slots, and "mixed" masks (a row with no live key, random non-prefix
+    # rows); at head_dim 128 the llama3.2 and phi3.5-MoE heads
     int8_rows, int8_err = check_int8kv(
         torch, F, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-        ((8, 104, (65, 96)), (8, 1024, (17, 290)), (8, 1024, (1, 1024))),
+        ((8, 104, (65, 96)), (8, 1024, (17, 290)), (8, 1024, (1, 1024)),
+         (8, 1024, "mixed")),
         SEED + 1)
     for c in (lcfg, mcfg):
         rows, err = check_int8kv(torch, F, c.n_heads, c.n_kv_heads,
-                                 c.head_dim, ((8, 1024, (17, 290)),),
+                                 c.head_dim,
+                                 ((8, 1024, (17, 290)), (8, 104, (65, 96)),
+                                  (8, 296, (17, 288)), (8, 296, "mixed")),
                                  SEED + 9)
         int8_rows, int8_err = int8_rows + rows, max(int8_err, err)
-    rms_rows, rms_err = check_rmsnorm(torch, F)
+    floor_ms = launch_floor_ms(torch)
+    log(f"minimal launch (torch.cuda._sleep({FLOOR_CYCLES})): "
+        f"{floor_ms:.4f} ms")
+    rms_rows, rms_err = check_rmsnorm(torch, F, floor_ms)
     m1_rows, m1_err = check_mamba1(torch, fcfg)
     ssd_rows, ssd_err = check_ssd(torch, zcfg)
     mm_rows, mm_err = check_int8_matmul(torch)
@@ -1595,7 +1673,8 @@ def main() -> None:
                "live_keys": int8_rows[1]["live_keys"]},
               by_head_dim=at_head_dim(
                   int8_rows, {"B": 8, "Sk": 1024, "H": 24, "D": 128},
-                  at128["int8kv_decode"])),
+                  at128["int8kv_decode"]),
+              launch_floor_ms=floor_ms),
         entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/mamba_scan.py:72", ssd_rows, ssd_err,
               {"B": 8, "S": 64}),
@@ -1607,7 +1686,10 @@ def main() -> None:
               {"M": 192, "K": 192, "N": 192, "block": 64}),
         entry("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
               "src/repro/kernels/rmsnorm.py:27", rms_rows, rms_err,
-              {"rows": 512, "d": 3072, "dtype": "bfloat16"}),
+              {"rows": 512, "d": 3072, "dtype": "bfloat16"},
+              decode=summary(rms_rows, {"rows": 8, "d": 3072,
+                                        "dtype": "bfloat16"}),
+              launch_floor_ms=floor_ms),
     ]
     details = os.environ.get("SMOKE_DETAILS")
     if details:
@@ -1619,7 +1701,8 @@ def main() -> None:
                        "flash_attn_bwd": bwd_rows,
                        "int8kv_decode": int8_rows, "ssd_scan": ssd_rows,
                        "mamba1_scan": m1_rows, "int8_matmul": mm_rows,
-                       "rmsnorm": rms_rows, "phases": PHASES,
+                       "rmsnorm": rms_rows, "launch_floor_ms": floor_ms,
+                       "phases": PHASES,
                        "stages_s": stages,
                        "build_s_each": _build.BUILD_SECONDS,
                        "logits_kernel_vs_plain": logit_err, "e2e": e2e,

@@ -9,119 +9,229 @@
 // What bounds it on the H100: ~4 flops per element against 2 * sizeof(x)
 // bytes (read x, write y), far below the ~295 flop/byte ridge, so it is
 // bound by bytes: rows * d * 2 * sizeof(x) + 4 * d over 3.35 TB/s.  At
-// serving's decode shapes (8 rows) the launch itself dominates.
+// serving's decode shapes (8 rows) that is tens of nanoseconds, so the
+// time is the launch and the memory round trips.
 //
-// Design:
-//  * one block of 256 threads per row (any row count; no padding to a
-//    block multiple as on the TPU); the grid walks rows;
-//  * the row is read from device memory once, with 16-byte loads where
-//    d, the row stride and the pointers allow it (8 bf16 or 4 fp32 a
-//    load) and element loads otherwise, and kept in shared memory as
-//    fp32 (d floats of dynamic shared memory, 16 KB at d = 4096);
-//  * each thread sums the squares of its elements in fp32, warps reduce
-//    by shuffles and the 8 warp sums meet in shared memory;
-//  * rsqrtf(sum / d + eps), then y = (x * r) * w in the order of the
-//    plain version, rounded once to x's dtype.
+// Design: the row lives in registers, never in shared memory.  A thread
+// holds at most EPT = 8 elements of x and the matching 8 of w; thread t
+// of a row's `nthr` takes the 16-byte vectors t, t + nthr, ... (8 bf16
+// or 4 fp32 a vector; single elements where d, the row stride or a
+// pointer do not allow vectors).  x and w are loaded together, before
+// any reduction, so a row costs one memory round trip, then the sum of
+// squares, rsqrtf(sum / d + eps), and y = (x * r) * w in the plain
+// version's order, rounded once to x's dtype.  At these sizes the time
+// is latency, and the shorter each thread's chain of loads and stores,
+// the sooner a row is done, so the host (rmsnorm.rmsnorm_plan) gives a
+// row one thread per 8 elements: one CTA per row (up to 1024 threads,
+// so d <= 8192), on a grid sized to the SMs that walks the rows (each
+// thread's slice of w is loaded once and reused across its rows); warp
+// sums meet in shared memory, double-buffered by row parity, so one
+// __syncthreads a row.  (A thread-block cluster per row, which would
+// spread a decode row over more SMs, measured slower on the H100 than
+// one CTA at every served width, 2560 to 4096, so it is not used.)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;
-constexpr int NW = NT / 32;
+constexpr int EPT = 8;            // most elements of x a thread holds
+constexpr int MAX_THREADS = 1024;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void from_f(float v, float* p) { *p = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) {
-  *p = __float2bfloat16(v);
-}
+// V consecutive elements of x as fp32, and back
+template <typename T, int V>
+struct Vec;
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
-               T* __restrict__ y, int d, long long x_rs, long long y_rs,
-               float eps, int vec) {
-  extern __shared__ float row[];
-  __shared__ float wsum[NW];
-  constexpr int V = 16 / sizeof(T);  // elements in one 16-byte load
-  const T* xr = x + blockIdx.x * x_rs;
-  T* yr = y + blockIdx.x * y_rs;
-  const int tid = threadIdx.x;
-
-  float ss = 0.f;
-  if (vec) {
-    for (int i = tid * V; i < d; i += NT * V) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(xr + i);
-      const T* e = reinterpret_cast<const T*>(&raw);
+template <>
+struct Vec<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* f) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float f = to_f(e[j]);
-        row[i + j] = f;
-        ss = fmaf(f, f, ss);
-      }
-    }
-  } else {
-    for (int i = tid; i < d; i += NT) {
-      const float f = to_f(xr[i]);
-      row[i] = f;
-      ss = fmaf(f, f, ss);
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
     }
   }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* f) {
+    uint4 raw;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&v);
+    }
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+};
+
+template <>
+struct Vec<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float* f) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* f) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* f) {
+    f[0] = __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* f) {
+    *p = __float2bfloat16(f[0]);
+  }
+};
+
+template <>
+struct Vec<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float* f) {
+    f[0] = *p;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* f) {
+    *p = f[0];
+  }
+};
+
+// w's elements of vector vi (fp32, 16-byte aligned on the vector path)
+template <int V>
+__device__ __forceinline__ void load_w(const float* w, int vi, float* f) {
+  if constexpr (V == 1) {
+    f[0] = w[vi];
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(w + vi * V + i);
+      f[i] = v.x; f[i + 1] = v.y; f[i + 2] = v.z; f[i + 3] = v.w;
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  if ((tid & 31) == 0) wsum[tid >> 5] = ss;
-  __syncthreads();  // also orders every row[] write before the reads
-  float total = 0.f;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) total += wsum[i];
-  const float r = rsqrtf(total / (float)d + eps);
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
 
-  if (vec) {
-    for (int i = tid * V; i < d; i += NT * V) {
-      uint4 raw;
-      T* e = reinterpret_cast<T*>(&raw);
+// One row's slice of this thread, at most EPT elements: load x (and,
+// once, w) into registers, and the sum of squares of x.
+template <typename T, int V>
+struct Slice {
+  static constexpr int NV = EPT / V;
+  float x[NV][V];
+  float w[NV][V];
+
+  __device__ __forceinline__ void load_weight(const float* wp, int t,
+                                              int nthr, int nvec) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) from_f(row[i + j] * r * w[i + j], e + j);
-      *reinterpret_cast<uint4*>(yr + i) = raw;
+    for (int k = 0; k < NV; ++k) {
+      const int vi = t + k * nthr;
+      if (vi < nvec) load_w<V>(wp, vi, w[k]);
     }
-  } else {
-    for (int i = tid; i < d; i += NT) from_f(row[i] * r * w[i], yr + i);
+  }
+  __device__ __forceinline__ float load_x(const T* xr, int t, int nthr,
+                                          int nvec) {
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int vi = t + k * nthr;
+      if (vi < nvec) {
+        Vec<T, V>::load(xr + vi * V, x[k]);
+#pragma unroll
+        for (int i = 0; i < V; ++i) ss = fmaf(x[k][i], x[k][i], ss);
+      }
+    }
+    return ss;
+  }
+  __device__ __forceinline__ void store(T* yr, float r, int t, int nthr,
+                                        int nvec) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int vi = t + k * nthr;
+      if (vi < nvec) {
+        float f[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) f[i] = x[k][i] * r * w[k][i];
+        Vec<T, V>::store(yr + vi * V, f);
+      }
+    }
+  }
+};
+
+// one CTA per row at a time, rows strided by the grid
+template <typename T, int V>
+__global__ void __launch_bounds__(MAX_THREADS)
+rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
+               T* __restrict__ y, int rows, int d, long long x_rs,
+               long long y_rs, float eps) {
+  __shared__ float wsum[2][MAX_THREADS / 32];
+  const int nthr = blockDim.x, t = threadIdx.x, nvec = d / V;
+  const int nwarps = nthr >> 5;
+  Slice<T, V> sl;
+  sl.load_weight(w, t, nthr, nvec);
+  int parity = 0;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x, parity ^= 1) {
+    const float ss = warp_sum(sl.load_x(x + row * x_rs, t, nthr, nvec));
+    if ((t & 31) == 0) wsum[parity][t >> 5] = ss;
+    __syncthreads();
+    float total = 0.f;
+    for (int i = 0; i < nwarps; ++i) total += wsum[parity][i];
+    sl.store(y + row * y_rs, rsqrtf(total / (float)d + eps), t, nthr, nvec);
   }
 }
 
-template <typename T>
+template <typename T, int V>
 int launch(const void* x, const void* w, void* y, int rows, int d,
-           long long x_rs, long long y_rs, float eps, void* stream) {
-  constexpr int V = 16 / sizeof(T);
-  const size_t smem = (size_t)d * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        rmsnorm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int vec = d % V == 0 && x_rs % V == 0 && y_rs % V == 0 &&
-                  (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0;
-  rmsnorm_kernel<T><<<rows, NT, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const float*)w, (T*)y, d, x_rs, y_rs, eps, vec);
+           long long x_rs, long long y_rs, float eps, int threads, int grid,
+           cudaStream_t stream) {
+  rmsnorm_kernel<T, V><<<grid, threads, 0, stream>>>(
+      (const T*)x, (const float*)w, (T*)y, rows, d, x_rs, y_rs, eps);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* x, const void* w, void* y, int rows, int d,
+             long long x_rs, long long y_rs, float eps, int threads,
+             int grid, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);  // elements in one 16-byte load
+  const bool vec = d % V == 0 && x_rs % V == 0 && y_rs % V == 0 &&
+                   (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0 &&
+                   (uintptr_t)w % 16 == 0;
+  if (vec)
+    return launch<T, V>(x, w, y, rows, d, x_rs, y_rs, eps, threads, grid,
+                        stream);
+  return launch<T, 1>(x, w, y, rows, d, x_rs, y_rs, eps, threads, grid,
+                      stream);
 }
 
 }  // namespace
 
 // x: [rows, d] with row stride x_rs elements (last axis contiguous), bf16
 // (is_bf16 = 1) or fp32; w: [d] fp32, contiguous; y: [rows, d] in x's
-// dtype with row stride y_rs.  Returns the launch's cudaError_t.
+// dtype with row stride y_rs.  The launch shape (rmsnorm.rmsnorm_plan):
+// `grid` CTAs of `threads` threads walk the rows, one CTA a row at a
+// time; threads * EPT >= d.  Returns the launch's cudaError_t.
 extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y, int rows,
                            int d, long long x_rs, long long y_rs, float eps,
-                           int is_bf16, void* stream) {
-  if (rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+                           int is_bf16, int threads, int grid,
+                           void* stream) {
+  if (rows <= 0 || d <= 0 || threads < 32 || threads > MAX_THREADS ||
+      threads % 32 != 0 || (long long)threads * EPT < d || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, w, y, rows, d, x_rs, y_rs, eps, stream);
-  return launch<float>(x, w, y, rows, d, x_rs, y_rs, eps, stream);
+    return dispatch<__nv_bfloat16>(x, w, y, rows, d, x_rs, y_rs, eps,
+                                   threads, grid, st);
+  return dispatch<float>(x, w, y, rows, d, x_rs, y_rs, eps, threads, grid,
+                         st);
 }

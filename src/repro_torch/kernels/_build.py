@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -107,6 +109,19 @@ def library(stem: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(paths[stem]))
         _LIBS[stem] = lib
     return lib
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (the launch planners' input), read once."""
+    i = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if i not in _SM_COUNT:
+        props = torch.cuda.get_device_properties(i)
+        _SM_COUNT[i] = props.multi_processor_count
+    return _SM_COUNT[i]
 
 
 def check(err: int, what: str) -> None:

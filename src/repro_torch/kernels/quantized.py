@@ -18,8 +18,11 @@ versions of one function, in the model's layout:
     ``chip_smoke.py`` holds the kernel against it on the card.
   * ``int8kv_attention_cuda`` — the CUDA C++ kernel in
     ``csrc/int8kv_attn.cu``, built for one query row (Sq = 1), bf16 q,
-    head_dim 64 (GPT-2) or 128 (llama3.2-3b, phi3.5-MoE).  The source
-    says what bounds it (bytes) and how its design answers that.
+    head_dim 64 (GPT-2) or 128 (llama3.2-3b, phi3.5-MoE): one CTA per
+    (kv head, batch row, split of Sk) over the whole GQA group, tiles
+    with no live key skipped, the splits merged in order by a second
+    small kernel.  ``int8kv_splits`` picks the splits.  The source says
+    what bounds it (bytes) and how its design answers that.
 
 Kernel 5 replaces the TPU kernel ``src/repro/kernels/quantized.py``
 (``int8_matmul_blocked``, ``pallas_call`` at line 81).  ``quantize_blocks``
@@ -97,12 +100,43 @@ def int8kv_attention_plain(q, k_q, k_scale, v_q, v_scale, valid):
     return o.reshape(B, Sq, H, -1).to(q.dtype)
 
 
+# kernel B's split of Sk (TILE and MAX_TILES in csrc/int8kv_attn.cu):
+# whole tiles of KEY_TILE keys, at most MAX_SPLIT_TILES a split; up to
+# one CTA per SM where Sk allows, but at least MIN_SPLIT_TILES tiles a
+# split.  Measured on an H100 (tools/decode_kernels.py --sweep): a
+# 64-key tile costs ~1.7 us of one CTA's time and a split 1.5 to 3.6 us
+# (the merge's launch, more CTAs); with dead tiles skipped, a partly
+# filled cache (17 to 290 live keys of 296 or 1024) is done fastest in
+# one split, a full 1024-slot cache in 2 to 4 (0.0269 ms at 2 against
+# 0.0368 at 1, D = 128).  The split cannot see the fill, so a cache of
+# fewer than 16 tiles (1024 keys) is not split, and the floor keeps a
+# split at 8 tiles or more.
+KEY_TILE = 64
+MAX_SPLIT_TILES = 32
+MIN_SPLIT_TILES = 8
+
+
+def int8kv_splits(B: int, KV: int, Sk: int, n_sm: int):
+    """(splits, keys_per_split) of kernel B for a [B, Sk, KV, D] cache
+    on a card of ``n_sm`` SMs.  Split s takes keys [s * keys_per_split,
+    min((s + 1) * keys_per_split, Sk)); every split holds at least one
+    key, and keys_per_split is a whole number of tiles."""
+    if min(B, KV, Sk, n_sm) <= 0:
+        raise ValueError(f"int8kv_splits: B={B}, KV={KV}, Sk={Sk}, "
+                         f"n_sm={n_sm} must be positive")
+    tiles = -(-Sk // KEY_TILE)
+    want = min(-(-n_sm // (B * KV)), tiles // MIN_SPLIT_TILES)
+    splits = max(1, -(-tiles // MAX_SPLIT_TILES), want)
+    per = -(-tiles // splits)
+    return -(-tiles // per), per * KEY_TILE
+
+
 def _lib():
     lib = _build.library("int8kv_attn")
     fn = lib.int8kv_decode_bf16
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 7 + [I] * 5 + [L] * 4 + [ctypes.c_float, P]
+        fn.argtypes = [P] * 9 + [I] * 7 + [L] * 4 + [ctypes.c_float, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -136,15 +170,24 @@ def int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale, valid):
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dtype} {shape}, "
                              f"got {t.dtype} {tuple(t.shape)}")
-    if H % KV or k_q.data_ptr() % 16 or v_q.data_ptr() % (D // 32):
-        raise ValueError("H must be a multiple of KV, k_q 16-byte and v_q "
-                         "D/32-byte aligned")
+    if H % KV or k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
+        raise ValueError("H must be a multiple of KV, and k_q and v_q "
+                         "16-byte aligned")
+    splits, kps = int8kv_splits(B, KV, Sk, _build.sm_count(q.device))
     o = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    scratch = ()
+    if splits > 1:       # each split's (max, sum) and accumulator, fp32
+        scratch = (torch.empty((B, H, splits, 2), dtype=torch.float32,
+                               device=q.device),
+                   torch.empty((B, H, splits, D), dtype=torch.float32,
+                               device=q.device))
+    ptrs = [t.data_ptr() for t in scratch] or [None] * 2
     err = _lib()(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
                  v_q.data_ptr(), v_scale.data_ptr(), valid.data_ptr(),
-                 o.data_ptr(), B, H, KV, Sk, D, q.stride(0), q.stride(2),
-                 o.stride(0), o.stride(2), 1.0 / (D ** 0.5), stream)
+                 o.data_ptr(), *ptrs, B, H, KV, Sk, D, splits, kps,
+                 q.stride(0), q.stride(2), o.stride(0), o.stride(2),
+                 1.0 / (D ** 0.5), stream)
     _build.check(err, "int8kv_decode_bf16")
     int8kv_attention_cuda.launches += 1
     return o

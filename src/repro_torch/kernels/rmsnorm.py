@@ -9,9 +9,11 @@ versions of one function over ``[..., d]``:
     the fp32 weight, cast to x's dtype.  It is the port's
     ``models/layers.rmsnorm``; the CPU runs it, and ``chip_smoke.py``
     holds the kernel against it on the card.
-  * ``rmsnorm_cuda`` — the CUDA C++ kernel in ``csrc/rmsnorm.cu`` (one
-    block per row, any row count, x bf16 or fp32, weight fp32).  The
-    source says what bounds it (bytes) and how its design answers that.
+  * ``rmsnorm_cuda`` — the CUDA C++ kernel in ``csrc/rmsnorm.cu`` (the
+    row in registers, x and w loaded together; a CTA per row on a grid
+    sized to the SMs; x bf16 or fp32, weight fp32).
+    ``rmsnorm_plan`` picks the launch shape.  The source
+    says what bounds it (bytes) and how its design answers that.
 
 The kernel has no backward: ``ops.rmsnorm`` refuses a gradient on the
 card (ROADMAP queue 2, item 7).
@@ -19,13 +21,37 @@ card (ROADMAP queue 2, item 7).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-# fp32 rows staged in dynamic shared memory: 227 KB a block on the H100
-MAX_D = 232448 // 4
+# the launch shape (EPT and MAX_THREADS in csrc/rmsnorm.cu): a row takes
+# one thread per EPT elements (one bf16 vector, two fp32 ones), held in
+# registers, so that each thread's chain of loads and stores is short;
+# a CTA, one row at a time, has at most MAX_THREADS threads
+EPT, MAX_THREADS = 8, 1024
+MAX_D = EPT * MAX_THREADS
+# the grid holds this many threads an SM; its CTAs walk the rows
+ROWS_THREADS_PER_SM = 2048
+
+
+class RmsPlan(NamedTuple):
+    threads: int     # threads a CTA, a multiple of 32
+    grid: int        # CTAs that walk the rows
+
+
+def rmsnorm_plan(rows: int, d: int, n_sm: int) -> RmsPlan:
+    """Kernel 6's launch shape for ``rows`` rows of ``d`` on a card of
+    ``n_sm`` SMs: one CTA per row at a time, thread t taking the row's
+    vectors t, t + threads, ... (at most ``EPT`` elements)."""
+    if not (rows > 0 and 0 < d <= MAX_D and n_sm > 0):
+        raise ValueError(f"rmsnorm_plan: rows={rows}, d={d}, n_sm={n_sm} "
+                         f"(need rows, n_sm > 0 and 0 < d <= {MAX_D})")
+    threads = 32 * -(-d // (32 * EPT))
+    per_sm = max(1, ROWS_THREADS_PER_SM // threads)
+    return RmsPlan(threads, min(rows, n_sm * per_sm))
 
 
 def rmsnorm_plain(x, weight, eps: float = 1e-5):
@@ -39,7 +65,7 @@ def _lib():
     fn = lib.rmsnorm_fwd
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, I, I, L, L, ctypes.c_float, I, P]
+        fn.argtypes = [P, P, P, I, I, L, L, ctypes.c_float, I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -71,10 +97,11 @@ def rmsnorm_cuda(x, weight, *, eps: float = 1e-5):
     except RuntimeError:
         raise ValueError(f"x's leading axes do not flatten to rows of one "
                          f"stride: {tuple(x.shape)} {x.stride()}") from None
+    plan = rmsnorm_plan(rows, d, _build.sm_count(x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib()(x2.data_ptr(), weight.data_ptr(), y.data_ptr(), rows, d,
                  x2.stride(0), d, float(eps),
-                 int(x.dtype == torch.bfloat16), stream)
+                 int(x.dtype == torch.bfloat16), *plan, stream)
     _build.check(err, "rmsnorm_fwd")
     rmsnorm_cuda.launches += 1
     return y

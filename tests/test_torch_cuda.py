@@ -659,3 +659,166 @@ def test_flash_backward_kernel_reruns_bit_equal(cuda_device, B, S, H, KV, D):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+# kernel B as flash-decoding over whole GQA groups (splits of Sk, tiles
+# with no live key skipped, splits merged in order) and kernel 6 with the
+# row in registers (a CTA per row)
+
+def _decode_mask(kind, B, Sk, g, device):
+    """[B, Sk] key validity: ``dead`` (no row has a live key), ``last``
+    (each row's last slot alone), ``random`` (non-prefix rows of rising
+    density; row 0 has no live key when B > 1)."""
+    if kind == "random":
+        dens = torch.linspace(0.1, 0.9, B, device=device)[:, None]
+        valid = torch.rand((B, Sk), generator=g, device=device) < dens
+        if B > 1:
+            valid[0] = False
+        return valid
+    valid = torch.zeros((B, Sk), dtype=torch.bool, device=device)
+    if kind == "last":
+        valid[:, -1] = True
+    return valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["dead", "last", "random"])
+@pytest.mark.parametrize("Sk", [1, 77, 104, 296, 1024])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("group", [1, 3, 4])
+def test_int8kv_kernel_split_k_masks(cuda_device, group, D, B, Sk, mask):
+    """Kernel B against its plain version at GQA groups 1 (gpt2m), 3
+    (llama3.2) and 4 (phi3.5-MoE), over 2 kv heads, at the engines'
+    cache sizes and 1024 slots (cut in 2 splits on an H100), with rows
+    that have no live key (the plain version averages their values), a
+    lone live slot at the end, and random non-prefix masks; a rerun gives
+    the same bits."""
+    KV = 2
+    H = group * KV
+    g = torch.Generator(device=cuda_device).manual_seed(Sk * 7 + B + group)
+    q = torch.randn((B, 1, H, D), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    kq, ks = tq.quantize(torch.randn((B, Sk, KV, D), generator=g,
+                                     device=cuda_device), block=D)
+    vq, vs = tq.quantize(torch.randn((B, Sk, KV, D), generator=g,
+                                     device=cuda_device), block=D)
+    args = (q, kq, ks[..., 0].contiguous(), vq, vs[..., 0].contiguous(),
+            _decode_mask(mask, B, Sk, g, cuda_device))
+    before = tq.int8kv_attention_cuda.launches
+    got = tq.int8kv_attention_cuda(*args)
+    again = tq.int8kv_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert tq.int8kv_attention_cuda.launches == before + 2
+    want = tq.int8kv_attention_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=BF16_ATOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["prefix", "dead", "random"])
+@pytest.mark.parametrize("tiles_a_split", [1, 2, 3])
+def test_int8kv_kernel_forced_splits(cuda_device, monkeypatch, tiles_a_split,
+                                     mask):
+    """Kernel B with Sk = 1024 forced into splits of 1, 2 or 3 tiles (16,
+    8 and 6 splits, the last shorter): most splits of a partly filled
+    row hold no live key and must add nothing in the merge, and a row
+    with no live key must still average all its values across splits."""
+    B, KV, H, D, Sk = 4, 8, 24, 128, 1024
+    kps = tiles_a_split * tq.KEY_TILE
+    monkeypatch.setattr(tq, "int8kv_splits",
+                        lambda *_: (-(-Sk // kps), kps))
+    g = torch.Generator(device=cuda_device).manual_seed(tiles_a_split)
+    q = torch.randn((B, 1, H, D), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    kq, ks = tq.quantize(torch.randn((B, Sk, KV, D), generator=g,
+                                     device=cuda_device), block=D)
+    vq, vs = tq.quantize(torch.randn((B, Sk, KV, D), generator=g,
+                                     device=cuda_device), block=D)
+    if mask == "prefix":
+        fill = torch.tensor([17, 100, 290, 1024], device=cuda_device)
+        valid = torch.arange(Sk, device=cuda_device)[None] < fill[:, None]
+    else:
+        valid = _decode_mask("random", B, Sk, g, cuda_device)
+        if mask == "dead":
+            valid[:] = False
+    args = (q, kq, ks[..., 0].contiguous(), vq, vs[..., 0].contiguous(),
+            valid)
+    got = tq.int8kv_attention_cuda(*args)
+    again = tq.int8kv_attention_cuda(*args)
+    torch.cuda.synchronize()
+    want = tq.int8kv_attention_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=BF16_ATOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [2560, 3072, 4096])
+@pytest.mark.parametrize("rows", [1, 8, 33, 257, 512, 4096])
+def test_rmsnorm_kernel_row_counts(cuda_device, rows, d, dtype):
+    """Kernel 6 at decode row counts (1, 8, 33) and prefill ones (257,
+    512, 4096; at 4096 rows an H100's grid holds fewer CTAs than rows,
+    which then walk the rows), at the served widths: fp32 within 1e-5 of
+    the largest output, bf16 within one ulp; a rerun gives the same
+    bits."""
+    from repro_torch.kernels import rmsnorm as trn
+
+    g = torch.Generator(device=cuda_device).manual_seed(rows * 3 + d)
+    x = (torch.randn((rows, d), generator=g, device=cuda_device) * 3
+         + 0.5).to(dtype)
+    w = 1 + 0.1 * torch.randn((d,), generator=g, device=cuda_device)
+    got = trn.rmsnorm_cuda(x, w, eps=1e-5)
+    again = trn.rmsnorm_cuda(x, w, eps=1e-5)
+    torch.cuda.synchronize()
+    want = trn.rmsnorm_plain(x, w, 1e-5)
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 * float(want.abs().max())
+    else:
+        assert bool((err <= _bf16_ulp(want.float())).all())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 300])
+@pytest.mark.parametrize("d", [3072, 8192])
+def test_rmsnorm_kernel_strided_rows(cuda_device, rows, d):
+    """Rows two widths apart (``x[:, 1]`` of [rows, 2, d]), read in place
+    at 8 and 300 rows, at llama3.2's width and at the widest a CTA holds
+    (where an H100's grid holds 264 CTAs, so 300 rows are walked)."""
+    from repro_torch.kernels import rmsnorm as trn
+
+    x = torch.randn((rows, 2, d), device=cuda_device).to(torch.bfloat16)
+    w = torch.rand((d,), device=cuda_device) + 0.5
+    sl = x[:, 1]
+    got = trn.rmsnorm_cuda(sl, w)
+    torch.cuda.synchronize()
+    want = trn.rmsnorm_plain(sl, w)
+    assert bool(((got.float() - want.float()).abs()
+                 <= _bf16_ulp(want.float())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [6144, 8192])
+@pytest.mark.parametrize("rows", [1, 8, 300])
+def test_rmsnorm_kernel_wide_rows(cuda_device, rows, d, dtype):
+    """Rows past the served widths, up to MAX_D (8192): CTAs of 768 and
+    1024 threads, 8 elements each; the same gates."""
+    from repro_torch.kernels import rmsnorm as trn
+
+    g = torch.Generator(device=cuda_device).manual_seed(rows + d)
+    x = (torch.randn((rows, d), generator=g, device=cuda_device) * 3
+         + 0.5).to(dtype)
+    w = 1 + 0.1 * torch.randn((d,), generator=g, device=cuda_device)
+    got = trn.rmsnorm_cuda(x, w, eps=1e-5)
+    torch.cuda.synchronize()
+    want = trn.rmsnorm_plain(x, w, 1e-5)
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 * float(want.abs().max())
+    else:
+        assert bool((err <= _bf16_ulp(want.float())).all())
