@@ -75,6 +75,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# TF32 tensor cores (kernel 3's products, three a 3xTF32 product), and
+# the special-function units' exponentials: 16 a clock an SM (the clock
+# read from nvidia-smi's clocks.max.sm)
+PEAK_TF32_FLOPS = 495e12
+SFU_PER_SM_CLK = 16
 # kernel vs plain version, both bf16 out of fp32 accumulation: about one
 # bf16 ulp of O(1) outputs (2^-8) plus summation order
 KERNEL_ATOL = 2e-2
@@ -174,6 +179,13 @@ FLOOR_CYCLES = 10
 SEED = 0
 ENGINE_BATCH, ENGINE_PROMPT, ENGINE_GEN = 8, 64, 32
 CONT_SLOTS, CONT_REQUESTS, CONT_LENS, CONT_GEN = 8, 16, (16, 256), 32
+# the scans' shapes: Engine prefill (8 x 64), ContinuousEngine's one
+# request at a time at its prompt's length (1 x 16 to 256), a ragged
+# 257; for kernel 3 also dt up to 4 with A down to -16, which sums to
+# ~ -2000 over a chunk of 64
+MAMBA1_CASES = ((8, 64), (1, 257), (1, 16), (1, 64), (1, 136), (1, 256))
+SSD_CASES = ((8, 64, 0.1), (1, 257, 0.1), (1, 128, 4.0), (1, 16, 0.1),
+             (1, 64, 0.1), (1, 136, 0.1), (1, 256, 0.1))
 # the SSM and hybrid phases: (tag, arch, kernels each phase must launch)
 SSM_MODELS = (("ssm", "falcon-mamba-7b", ("mamba1_scan", "rmsnorm")),
               ("hybrid", "zamba2-2.7b", ("ssd_scan", "flash_attn_fwd",
@@ -225,10 +237,26 @@ def time_ms(torch, fn, *, iters: int = 20, warmup: int = 3) -> float:
     return total / iters
 
 
-def bound(n_bytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / peak_flops
+def bound(n_bytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS,
+          also=()):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate, the flops over ``peak_flops`` and each further
+    ``(operations, rate)`` of ``also`` (units that run side by side:
+    tensor cores, fp32 pipes, special functions)."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = max([flops / peak_flops] + [n / rate for n, rate in also])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), in
+    Hz: the special-function units' rate in the scans' bounds."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def add_rates(row, flops):
@@ -516,75 +544,123 @@ def check_rmsnorm(torch, F, floor_ms):
     return rows_out, worst
 
 
-def check_mamba1(torch, cfg):
+def mamba1_inputs(torch, cfg, g, B, S):
+    """Kernel 4's operands at falcon-mamba's widths, from a non-zero
+    state, with B and C as strided slices of one projection, as an fp32
+    model hands them (the served bf16 model's ``.float()`` hands
+    contiguous copies)."""
+    di, ds = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+    x = torch.randn((B, S, di), generator=g, device="cuda")
+    dt = torch.rand((B, S, di), generator=g, device="cuda") * 0.1
+    bc = torch.randn((B, S, 2 * ds), generator=g, device="cuda")
+    A = -torch.arange(1, ds + 1, device="cuda",
+                      dtype=torch.float32).expand(di, ds).contiguous()
+    h0 = torch.randn((B, di, ds), generator=g, device="cuda")
+    return x, dt, bc[..., :ds], bc[..., ds:], A, h0
+
+
+def mamba1_bound(B, S, di, ds, sfu):
+    """Kernel 4's bound: x, dt, y, B, C, A, h0 and h_last moved once (fp32);
+    per (t, c, s) dt a, an FMA for h and one for y (5 fp32 flops) at 67
+    TFLOP/s, and its exp on the special-function units (``sfu``
+    exponentials a second: 16 a clock an SM)."""
+    n_bytes = 4 * (3 * B * S * di + 2 * B * S * ds + di * ds
+                   + 2 * B * di * ds)
+    return bound(n_bytes, B * S * di * (5 * ds + 1), PEAK_FP32_FLOPS,
+                 also=[(B * S * di * ds, sfu)])
+
+
+def check_mamba1(torch, cfg, sfu):
     """Kernel 4 against its plain version at falcon-mamba's prefill
-    shapes, from a non-zero state, with B and C as strided slices of one
-    projection, as an fp32 model hands them (the served bf16 model's
-    ``.float()`` hands contiguous copies)."""
+    shapes (``MAMBA1_CASES``); a rerun must give the same bits."""
     from repro_torch.kernels import mamba_scan as ms
 
     di, ds = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows, worst = [], 0.0
-    # (B, S): Engine prefill (8 x 64); a ragged continuous prefill
-    for B, S in ((8, 64), (1, 257)):
-        x = torch.randn((B, S, di), generator=g, device="cuda")
-        dt = torch.rand((B, S, di), generator=g, device="cuda") * 0.1
-        bc = torch.randn((B, S, 2 * ds), generator=g, device="cuda")
-        b_s, c_s = bc[..., :ds], bc[..., ds:]
-        A = -torch.arange(1, ds + 1, device="cuda",
-                          dtype=torch.float32).expand(di, ds).contiguous()
-        h0 = torch.randn((B, di, ds), generator=g, device="cuda")
-        args = (x, dt, b_s, c_s, A, h0)
+    for B, S in MAMBA1_CASES:
+        args = mamba1_inputs(torch, cfg, g, B, S)
         y, h = ms.mamba1_scan_cuda(*args)
+        y2, h2 = ms.mamba1_scan_cuda(*args)
         wy, wh = ms.mamba1_scan_plain(*args)
         torch.cuda.synchronize()
+        what = f"mamba1_scan B={B} S={S}"
         err = max(float((y - wy).abs().max()), float((h - wh).abs().max()))
         rel = max(scan_err(torch, y, wy), scan_err(torch, h, wh))
         if not rel <= 1.0:
-            fail(f"mamba1_scan B={B} S={S}: max_abs_err {err} beyond "
-                 f"atol {SCAN_ATOL} + rtol {SCAN_RTOL}")
+            fail(f"{what}: max_abs_err {err} beyond atol {SCAN_ATOL} + "
+                 f"rtol {SCAN_RTOL}")
+        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+            fail(f"{what}: a rerun gave other bits")
         worst = max(worst, err)
-        # x, dt, y; B and C; A; h0 and h_last, all fp32.  Per (t, c, s):
-        # dt a, exp, times h, + dt x B (FMA), + h C (FMA): 7 flops
-        n_bytes = 4 * (3 * B * S * di + 2 * B * S * ds + di * ds
-                       + 2 * B * di * ds)
-        b_ms, b_by = bound(n_bytes, B * S * di * (7 * ds + 1),
-                           PEAK_FP32_FLOPS)
+        b_ms, b_by = mamba1_bound(B, S, di, ds, sfu)
         row = {"B": B, "S": S, "di": di, "ds": ds, "max_abs_err": err,
+               "rerun_bit_equal": True,
+               "lanes": ms.mamba1_plan(B, di, ds, n_sm),
                "ms": time_ms(torch, lambda: ms.mamba1_scan_cuda(*args)),
                "plain_ms": time_ms(torch, lambda: ms.mamba1_scan_plain(
                    *args), iters=3, warmup=1),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
-        log(f"mamba1_scan B={B} S={S:4d} err={err:.3e} ms={row['ms']:.4f} "
-            f"plain_ms={row['plain_ms']:.4f} bound_ms={b_ms:.5f} ({b_by})")
+        log(f"{what:24s} lanes={row['lanes']} err={err:.3e} "
+            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by})")
     return rows, worst
 
 
-def ssd_flops(B, S, nh, hd, ds, K) -> float:
-    """fp32 operations the SSD scan needs for these inputs.  Per chunk of
-    kc rows and batch row: the kc(kc+1)/2 visible C.B scores, once (B and
-    C are shared by the heads).  Per head besides: each visible M entry's
-    exp and two products, M X over them, exp(s) C.h, and the state update
-    (w_j x_j once per (j, d), an FMA per (j, d, s), then the decay)."""
-    total = 0
+def ssd_work(B, S, nh, hd, ds, K):
+    """(tensor-core flops, fp32 flops, exps) the SSD scan needs for these
+    inputs.  Per chunk of kc rows and batch row: the kc(kc+1)/2 visible
+    C.B scores, once (B and C are shared by the heads).  Per head
+    besides: M X over the visible entries, C h^T and X^T diag(w) B, on
+    the tensor cores, three TF32 products each (3xTF32); each visible M
+    entry's exp and two products, exp(s_i) C_i, w_j x_j and the decay in
+    fp32; the exps of M, exp(s_i), w_j and the decay."""
+    tc = fp = ex = 0
     for c0 in range(0, S, K):
         kc = min(K, S - c0)
         tri = kc * (kc + 1) // 2
-        per_head = (tri * 3 + tri * 2 * hd + kc * hd * (2 * ds + 2)
-                    + kc * hd + hd * ds * (2 * kc + 2))
-        total += tri * 2 * ds + nh * per_head
-    return float(total * B)
+        tc += 3 * (2 * tri * ds + nh * 2 * (tri * hd + 2 * kc * hd * ds))
+        fp += nh * (3 * tri + kc * ds + kc * hd + 2 * kc + hd * ds)
+        ex += nh * (tri + 2 * kc + 1)
+    return float(tc * B), float(fp * B), float(ex * B)
 
 
-def check_ssd(torch, cfg):
-    """Kernel 3 against its plain version at zamba2's prefill shapes,
-    from a non-zero state, with x, B and C as strided views of one conv
-    output, as an fp32 model hands them (the served bf16 model's
-    ``.float()`` hands contiguous copies); one case with in-chunk
-    log-decays of thousands, where an exp before the mask would
-    overflow."""
+def ssd_inputs(torch, cfg, g, B, S, dt_scale):
+    """Kernel 3's operands at zamba2's widths, from a non-zero state,
+    with x, B and C as strided views of one conv output, as an fp32 model
+    hands them (the served bf16 model's ``.float()`` hands contiguous
+    copies)."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    hd, ds = s.head_dim, s.d_state
+    nh = di // hd
+    xbc = torch.randn((B, S, di + 2 * ds), generator=g, device="cuda")
+    xh = xbc[..., :di].reshape(B, S, nh, hd)
+    b_s, c_s = xbc[..., di:di + ds], xbc[..., di + ds:]
+    dt = torch.rand((B, S, nh), generator=g, device="cuda") * dt_scale
+    a = -torch.linspace(1.0, 16.0, nh, device="cuda")
+    h0 = torch.randn((B, nh, hd, ds), generator=g, device="cuda")
+    return xh, dt, b_s, c_s, a, h0
+
+
+def ssd_bound(B, S, nh, hd, ds, K, sfu):
+    """Kernel 3's bound: x and y, dt, B and C, a, h0 and h_last moved once
+    (fp32); ``ssd_work``'s products on the TF32 tensor cores, its other
+    flops at the fp32 rate, its exps on the special-function units."""
+    tc, fp, ex = ssd_work(B, S, nh, hd, ds, K)
+    n_bytes = 4 * (2 * B * S * nh * hd + B * S * nh + 2 * B * S * ds + nh
+                   + 2 * B * nh * hd * ds)
+    return bound(n_bytes, tc, PEAK_TF32_FLOPS,
+                 also=[(fp, PEAK_FP32_FLOPS), (ex, sfu)])
+
+
+def check_ssd(torch, cfg, sfu):
+    """Kernel 3 against its plain version at zamba2's prefill shapes
+    (``SSD_CASES``), one with in-chunk log-decays of thousands, where an
+    exp before the mask would overflow; a rerun must give the same
+    bits."""
     from repro_torch.kernels import mamba_scan as ms
 
     s = cfg.ssm
@@ -592,42 +668,37 @@ def check_ssd(torch, cfg):
     hd, ds, K = s.head_dim, s.d_state, s.chunk
     nh = di // hd
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows, worst = [], 0.0
-    # (B, S, dt scale): Engine prefill; a ragged continuous prefill; dt up
-    # to 4 with A down to -16 sums to ~ -2000 over a chunk of 64
-    for B, S, dt_scale in ((8, 64, 0.1), (1, 257, 0.1), (1, 128, 4.0)):
-        xbc = torch.randn((B, S, di + 2 * ds), generator=g, device="cuda")
-        xh = xbc[..., :di].reshape(B, S, nh, hd)
-        b_s, c_s = xbc[..., di:di + ds], xbc[..., di + ds:]
-        dt = torch.rand((B, S, nh), generator=g, device="cuda") * dt_scale
-        a = -torch.linspace(1.0, 16.0, nh, device="cuda")
-        h0 = torch.randn((B, nh, hd, ds), generator=g, device="cuda")
-        args = (xh, dt, b_s, c_s, a, h0)
+    for B, S, dt_scale in SSD_CASES:
+        args = ssd_inputs(torch, cfg, g, B, S, dt_scale)
         y, h = ms.ssd_scan_cuda(*args, chunk=K)
+        y2, h2 = ms.ssd_scan_cuda(*args, chunk=K)
         wy, wh = ms.ssd_scan_plain(*args)
         torch.cuda.synchronize()
+        what = f"ssd_scan B={B} S={S} dt_scale={dt_scale}"
         if not (torch.isfinite(y).all() and torch.isfinite(h).all()):
-            fail(f"ssd_scan B={B} S={S} dt_scale={dt_scale}: non-finite")
+            fail(f"{what}: non-finite")
         err = max(float((y - wy).abs().max()), float((h - wh).abs().max()))
         rel = max(scan_err(torch, y, wy), scan_err(torch, h, wh))
         if not rel <= 1.0:
-            fail(f"ssd_scan B={B} S={S} dt_scale={dt_scale}: max_abs_err "
-                 f"{err} beyond atol {SCAN_ATOL} + rtol {SCAN_RTOL}")
+            fail(f"{what}: max_abs_err {err} beyond atol {SCAN_ATOL} + "
+                 f"rtol {SCAN_RTOL}")
+        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+            fail(f"{what}: a rerun gave other bits")
         worst = max(worst, err)
-        # x and y; dt; B and C; a; h0 and h_last, all fp32
-        n_bytes = 4 * (2 * B * S * di + B * S * nh + 2 * B * S * ds + nh
-                       + 2 * B * nh * hd * ds)
-        b_ms, b_by = bound(n_bytes, ssd_flops(B, S, nh, hd, ds, K),
-                           PEAK_FP32_FLOPS)
+        b_ms, b_by = ssd_bound(B, S, nh, hd, ds, K, sfu)
         row = {"B": B, "S": S, "nh": nh, "hd": hd, "ds": ds, "chunk": K,
                "dt_scale": dt_scale, "max_abs_err": err,
+               "rerun_bit_equal": True,
+               "stages": ms.ssd_plan(B, nh, n_sm, -(-S // K)),
                "ms": time_ms(torch, lambda: ms.ssd_scan_cuda(*args,
                                                                chunk=K)),
                "plain_ms": time_ms(torch, lambda: ms.ssd_scan_plain(*args),
                                    iters=3, warmup=1),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
-        log(f"ssd_scan B={B} S={S:4d} dt<={dt_scale} err={err:.3e} "
+        log(f"{what:36s} stages={row['stages']} err={err:.3e} "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"bound_ms={b_ms:.5f} ({b_by})")
     return rows, worst
@@ -1433,6 +1504,7 @@ OUR_KERNELS = {"flash_fwd_kernel": "flash_attn_fwd",
                "int8kv_combine_kernel": "int8kv_decode",
                "mamba1_scan_kernel": "mamba1_scan",
                "ssd_scan_kernel": "ssd_scan",
+               "ssd_scores_kernel": "ssd_scan",
                "int8_matmul_kernel": "int8_matmul",
                "rmsnorm_kernel": "rmsnorm"}
 
@@ -1522,8 +1594,13 @@ def main() -> None:
     log(f"minimal launch (torch.cuda._sleep({FLOOR_CYCLES})): "
         f"{floor_ms:.4f} ms")
     rms_rows, rms_err = check_rmsnorm(torch, F, floor_ms)
-    m1_rows, m1_err = check_mamba1(torch, fcfg)
-    ssd_rows, ssd_err = check_ssd(torch, zcfg)
+    sm_hz = sm_clock_hz()
+    sfu = SFU_PER_SM_CLK * sm_hz * \
+        torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"highest SM clock (clocks.max.sm): {sm_hz / 1e6:.0f} MHz; "
+        f"exps {sfu / 1e12:.3f} T/s")
+    m1_rows, m1_err = check_mamba1(torch, fcfg, sfu)
+    ssd_rows, ssd_err = check_ssd(torch, zcfg, sfu)
     mm_rows, mm_err = check_int8_matmul(torch)
     stage("kernel checks")
 
@@ -1677,10 +1754,12 @@ def main() -> None:
               launch_floor_ms=floor_ms),
         entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/mamba_scan.py:72", ssd_rows, ssd_err,
-              {"B": 8, "S": 64}),
+              {"B": 8, "S": 64},
+              batch1=summary(ssd_rows, {"B": 1, "S": 256})),
         entry("mamba1_scan", "src/repro_torch/csrc/mamba1_scan.cu",
               "src/repro/kernels/mamba_scan.py:144", m1_rows, m1_err,
-              {"B": 8, "S": 64}),
+              {"B": 8, "S": 64},
+              batch1=summary(m1_rows, {"B": 1, "S": 256})),
         entry("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
               "src/repro/kernels/quantized.py:69", mm_rows, mm_err,
               {"M": 192, "K": 192, "N": 192, "block": 64}),

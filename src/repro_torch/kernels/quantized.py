@@ -103,14 +103,14 @@ def int8kv_attention_plain(q, k_q, k_scale, v_q, v_scale, valid):
 # kernel B's split of Sk (TILE and MAX_TILES in csrc/int8kv_attn.cu):
 # whole tiles of KEY_TILE keys, at most MAX_SPLIT_TILES a split; up to
 # one CTA per SM where Sk allows, but at least MIN_SPLIT_TILES tiles a
-# split.  Measured on an H100 (tools/decode_kernels.py --sweep): a
-# 64-key tile costs ~1.7 us of one CTA's time and a split 1.5 to 3.6 us
-# (the merge's launch, more CTAs); with dead tiles skipped, a partly
-# filled cache (17 to 290 live keys of 296 or 1024) is done fastest in
-# one split, a full 1024-slot cache in 2 to 4 (0.0269 ms at 2 against
-# 0.0368 at 1, D = 128).  The split cannot see the fill, so a cache of
-# fewer than 16 tiles (1024 keys) is not split, and the floor keeps a
-# split at 8 tiles or more.
+# split.  Measured on an H100 (tools/kernel_times.py --group decode
+# --sweep): a 64-key tile costs ~1.7 us of one CTA's time and a split 1.5
+# to 3.6 us (the merge's launch, more CTAs); with dead tiles skipped, a
+# partly filled cache (17 to 290 live keys of 296 or 1024) is done
+# fastest in one split, a full 1024-slot cache in 2 to 4 (0.0269 ms at 2
+# against 0.0368 at 1, D = 128).  The split cannot see the fill, so a
+# cache of fewer than 16 tiles (1024 keys) is not split, and the floor
+# keeps a split at 8 tiles or more.
 KEY_TILE = 64
 MAX_SPLIT_TILES = 32
 MIN_SPLIT_TILES = 8

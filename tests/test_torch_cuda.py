@@ -822,3 +822,137 @@ def test_rmsnorm_kernel_wide_rows(cuda_device, rows, d, dtype):
         assert float(err.max()) <= 1e-5 * float(want.abs().max())
     else:
         assert bool((err <= _bf16_ulp(want.float())).all())
+
+
+def _ssd_inputs(B, S, nh, dt_scale, seed, dev):
+    """zamba2's SSM head (64 columns, 64 states) from a non-zero h0, x, B
+    and C as strided views of one conv output."""
+    hd = ds = 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xbc = torch.randn((B, S, nh * hd + 2 * ds), generator=g, device=dev)
+    xh = xbc[..., :nh * hd].reshape(B, S, nh, hd)
+    b_s, c_s = xbc[..., nh * hd:nh * hd + ds], xbc[..., nh * hd + ds:]
+    dt = torch.rand((B, S, nh), generator=g, device=dev) * dt_scale
+    a = -torch.linspace(1.0, 16.0, nh, device=dev)
+    h0 = torch.randn((B, nh, hd, ds), generator=g, device=dev)
+    return xh, dt, b_s, c_s, a, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("S", [1, 16, 63, 65, 136, 257])
+@pytest.mark.parametrize("B", [1, 8])
+def test_ssd_kernel_forced_plans(cuda_device, monkeypatch, B, S, chunk,
+                                 stages):
+    """Kernel 3 at zamba2's 80 heads with each of ``ssd_plan``'s choices,
+    one or two stages, forced, over whole, partial and single-row chunks
+    of 16 and 64; within the scan tolerance of the plain version, finite,
+    and a rerun gives the same bits."""
+    nh = 80
+    monkeypatch.setattr(tms, "ssd_plan", lambda *_: stages)
+    args = _ssd_inputs(B, S, nh, 0.1, S * 3 + B, cuda_device)
+    y, h = tms.ssd_scan_cuda(*args, chunk=chunk)
+    y2, h2 = tms.ssd_scan_cuda(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    wy, wh = tms.ssd_scan_plain(*args)
+    _scan_close(y, wy)
+    _scan_close(h, wh)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [1, 2])
+def test_ssd_kernel_large_decays_each_staging(cuda_device, monkeypatch,
+                                              stages):
+    """dt up to 4 with A down to -16 (in-chunk log-decays of thousands)
+    over two chunks, staged in one or two stages: masked before the
+    exponential, s in fp64."""
+    B, S, nh = 1, 128, 80
+    monkeypatch.setattr(tms, "ssd_plan", lambda *_: stages)
+    args = _ssd_inputs(B, S, nh, 4.0, 16 * stages, cuda_device)
+    y, h = tms.ssd_scan_cuda(*args, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    wy, wh = tms.ssd_scan_plain(*args)
+    _scan_close(y, wy)
+    _scan_close(h, wh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", tms.MAMBA1_LANES)
+@pytest.mark.parametrize("di", [300, 8192])
+@pytest.mark.parametrize("ds", [8, 16])
+@pytest.mark.parametrize("S", [1, 16, 257])
+@pytest.mark.parametrize("B", [1, 8])
+def test_mamba1_kernel_forced_lanes(cuda_device, monkeypatch, B, S, ds, di,
+                                    lanes):
+    """Kernel 4 with each of ``mamba1_plan``'s lanes a channel forced
+    (tiles of 32 or 64 steps; a partial channel block at di = 300), from
+    a non-zero h0 with B and C as strided slices of one projection;
+    within the scan tolerance of the plain version, and a rerun gives the
+    same bits."""
+    monkeypatch.setattr(tms, "mamba1_plan", lambda *_: lanes)
+    g = torch.Generator(device=cuda_device).manual_seed(S + di + lanes)
+    dev = cuda_device
+    x = torch.randn((B, S, di), generator=g, device=dev)
+    dt = torch.rand((B, S, di), generator=g, device=dev) * 0.5
+    bc = torch.randn((B, S, 2 * ds + 3), generator=g, device=dev)
+    b_s, c_s = bc[..., 3:3 + ds], bc[..., 3 + ds:]
+    A = -torch.exp(torch.randn((di, ds), generator=g, device=dev) * 0.5)
+    h0 = torch.randn((B, di, ds), generator=g, device=dev)
+    args = (x, dt, b_s, c_s, A, h0)
+    y, h = tms.mamba1_scan_cuda(*args)
+    y2, h2 = tms.mamba1_scan_cuda(*args)
+    torch.cuda.synchronize()
+    wy, wh = tms.mamba1_scan_plain(*args)
+    _scan_close(y, wy)
+    _scan_close(h, wh)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.cuda
+def test_mamba1_kernel_unaligned_rows(cuda_device):
+    """x and dt views that start one float past a 16-byte boundary: the
+    wrapper copies them for the kernel's 16-byte copies, with the same
+    results."""
+    B, S, di, ds = 2, 40, 256, 16
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((B * S * di + 1,), generator=g, device=dev)[1:] \
+        .view(B, S, di)
+    dt = (torch.rand((B * S * di + 1,), generator=g, device=dev)[1:] * 0.3) \
+        .view(B, S, di)
+    b_s = torch.randn((B, S, ds), generator=g, device=dev)
+    c_s = torch.randn((B, S, ds), generator=g, device=dev)
+    A = -torch.exp(torch.randn((di, ds), generator=g, device=dev) * 0.5)
+    h0 = torch.randn((B, di, ds), generator=g, device=dev)
+    y, h = tms.mamba1_scan_cuda(x, dt, b_s, c_s, A, h0)
+    torch.cuda.synchronize()
+    wy, wh = tms.mamba1_scan_plain(x, dt, b_s, c_s, A, h0)
+    _scan_close(y, wy)
+    _scan_close(h, wh)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_unaligned_views(cuda_device):
+    """x, B and C views whose rows are off 16-byte boundaries (one float
+    in, odd row strides): the wrapper copies them for the kernel's bulk
+    row copies, with the same results."""
+    B, S, nh, hd, ds = 2, 70, 4, 64, 64
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(11)
+    xbc = torch.randn((B, S, 1 + nh * hd + 2 * ds + 1), generator=g,
+                      device=dev)
+    xh = xbc[..., 1:1 + nh * hd].reshape(B, S, nh, hd)
+    b_s = xbc[..., 1 + nh * hd:1 + nh * hd + ds]
+    c_s = xbc[..., 1 + nh * hd + ds:1 + nh * hd + 2 * ds]
+    dt = torch.rand((B, S, nh), generator=g, device=dev) * 0.3
+    a = -torch.linspace(1.0, 16.0, nh, device=dev)
+    h0 = torch.randn((B, nh, hd, ds), generator=g, device=dev)
+    y, h = tms.ssd_scan_cuda(xh, dt, b_s, c_s, a, h0, chunk=64)
+    torch.cuda.synchronize()
+    wy, wh = tms.ssd_scan_plain(xh, dt, b_s, c_s, a, h0)
+    _scan_close(y, wy)
+    _scan_close(h, wh)
