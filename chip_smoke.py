@@ -80,6 +80,10 @@ PEAK_BYTES = 3.35e12
 # read from nvidia-smi's clocks.max.sm)
 PEAK_TF32_FLOPS = 495e12
 SFU_PER_SM_CLK = 16
+# kernel 5's promotion of each K block's int32 partial: two fp32
+# instructions, an add and an FMA, at 128 a clock an SM (its one integer
+# add, at 64 or more a clock an SM, never takes longer than these two)
+FP32_PER_SM_CLK = 128
 # kernel vs plain version, both bf16 out of fp32 accumulation: about one
 # bf16 ulp of O(1) outputs (2^-8) plus summation order
 KERNEL_ATOL = 2e-2
@@ -247,6 +251,19 @@ def bound(n_bytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS,
     t_ops = max([flops / peak_flops] + [n / rate for n, rate in also])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8mm_bound(Mp, Kp, Np, bk, n_scales, sm_hz, n_sm):
+    """(ms, "bytes" or "operations") of kernel 5 on padded [Mp, Kp] x
+    [Kp, Np] int8 operands with K blocks of ``bk``: int8 x and w,
+    ``n_scales`` fp32 scales and the fp32 output each moved once; the
+    tensor cores' 2 M N K operations beside the promotion's 2 M N K/bk
+    fp32 instructions at ``sm_hz`` on ``n_sm`` SMs."""
+    n_bytes = Mp * Kp + Kp * Np + 4 * n_scales + 4 * Mp * Np
+    promotions = Mp * Np * (Kp // bk)
+    clk = sm_hz * n_sm
+    return bound(n_bytes, 2.0 * Mp * Np * Kp, PEAK_INT8_OPS,
+                 also=[(2 * promotions, FP32_PER_SM_CLK * clk)])
 
 
 def sm_clock_hz() -> float:
@@ -704,9 +721,11 @@ def check_ssd(torch, cfg, sfu):
     return rows, worst
 
 
-def check_int8_matmul(torch):
+def check_int8_matmul(torch, sm_hz):
     """Kernel 5 against its plain version on the same padded, quantized
-    operands, and the product against the fp32 matmul (TF32 off)."""
+    operands, a rerun to the same bits, and the product against the fp32
+    matmul (TF32 off); timed beside ``torch._int_mm`` with w row-major
+    and column-major (cuBLASLt's preferred layout)."""
     from repro_torch.kernels import quantized as qz
     from repro_torch.kernels.ops import int8_operands
     from repro_torch.kernels.ref import matmul_ref
@@ -719,10 +738,13 @@ def check_int8_matmul(torch):
         blocks = dict(block_m=blk, block_k=blk, block_n=blk)
         xq, xs, wq, ws = int8_operands(x, w, **blocks)
         got = qz.int8_matmul_cuda(xq, xs, wq, ws, **blocks)
+        again = qz.int8_matmul_cuda(xq, xs, wq, ws, **blocks)
         want = qz.int8_matmul_plain(xq, xs, wq, ws, **blocks)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             fail(f"int8_matmul {M}x{K}x{N}/{blk}: non-finite output")
+        if not torch.equal(got, again):
+            fail(f"int8_matmul {M}x{K}x{N}/{blk}: a rerun gave other bits")
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         if not err <= INT8MM_RTOL * scale:
@@ -737,10 +759,10 @@ def check_int8_matmul(torch):
                  f"{frob} against fp32 >= {INT8MM_FROB}")
         Mp, Kp = xq.shape
         Np = wq.shape[1]
-        # int8 x and w, fp32 scales, fp32 output, each moved once
-        n_bytes = Mp * Kp + Kp * Np + 4 * (xs.numel() + ws.numel()) \
-            + 4 * Mp * Np
-        b_ms, b_by = bound(n_bytes, 2.0 * Mp * Np * Kp, PEAK_INT8_OPS)
+        b_ms, b_by = int8mm_bound(
+            Mp, Kp, Np, blk, xs.numel() + ws.numel(), sm_hz,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        w_cols = wq.t().contiguous().t()
         row = {"M": M, "K": K, "N": N, "block": blk,
                "padded": [Mp, Kp, Np], "max_abs_err": err,
                "max_abs_plain": scale, "frobenius_vs_fp32": frob,
@@ -749,14 +771,18 @@ def check_int8_matmul(torch):
                "plain_ms": time_ms(torch, lambda: qz.int8_matmul_plain(
                    xq, xs, wq, ws, **blocks), iters=5, warmup=1),
                "library": "torch._int_mm (int8 x int8 -> int32, no "
-                          "per-tile scales)",
-               "library_ms": time_ms(torch, lambda: torch._int_mm(xq, wq)),
+                          "per-tile scales), w column-major",
+               "library_ms": time_ms(torch,
+                                     lambda: torch._int_mm(xq, w_cols)),
+               "library_row_major_ms": time_ms(
+                   torch, lambda: torch._int_mm(xq, wq)),
                "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
         log(f"int8_matmul {M}x{K}x{N} block {blk} err={err:.3e} "
             f"frob={frob:.4f} ms={row['ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} "
-            f"int_mm_ms*={row['library_ms']:.4f} bound_ms={b_ms:.5f} "
+            f"int_mm_ms*={row['library_ms']:.4f} (w row-major "
+            f"{row['library_row_major_ms']:.4f}) bound_ms={b_ms:.5f} "
             f"({b_by})")
     return rows, worst
 
@@ -1490,8 +1516,9 @@ def log_profile(name, prof):
             f"{r['count']} launches, share {r['share']:.4f}")
 
 
-# kernel A's rates and ratios (add_rates), and the training shape
-RATES = ("tflops", "x_library", "x_bound")
+# keys a kernel row may add: kernel A's rates and ratios (add_rates),
+# kernel 5's row-major library time; and the training shape
+EXTRAS = ("tflops", "x_library", "x_bound", "library_row_major_ms")
 TRAIN_AT = {"B": 8, "S": 1024, "H": 16, "D": 64}
 # the port's CUDA functions in a trace, by the kernel they belong to (a
 # call of kernel B launches int8kv_combine_kernel after the split kernel
@@ -1549,6 +1576,11 @@ def main() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {stem}: {line.strip()}")
+    mm_log = _build.BUILD_LOG.get("int8_matmul")
+    if not mm_log:
+        fail("no ptxas log for kernel 5: cannot check its wgmma")
+    if "serialized" in mm_log:
+        fail("ptxas serialized kernel 5's wgmma: " + mm_log)
 
     cfg = get_config("gpt2m")
     fcfg, zcfg = get_config("falcon-mamba-7b"), get_config("zamba2-2.7b")
@@ -1601,7 +1633,7 @@ def main() -> None:
         f"exps {sfu / 1e12:.3f} T/s")
     m1_rows, m1_err = check_mamba1(torch, fcfg, sfu)
     ssd_rows, ssd_err = check_ssd(torch, zcfg, sfu)
-    mm_rows, mm_err = check_int8_matmul(torch)
+    mm_rows, mm_err = check_int8_matmul(torch, sm_hz)
     stage("kernel checks")
 
     model = Model(cfg, device="cuda")
@@ -1715,7 +1747,7 @@ def main() -> None:
         """A kernel's numbers at one shape (with kernel A's rates)."""
         row = pick(rows, at)
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms") + RATES
+                "library_ms") + EXTRAS
         return {k: row[k] for k in keys if k in row} | {"at": at}
 
     def at_head_dim(rows, at, launches):
@@ -1731,7 +1763,7 @@ def main() -> None:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"], "at": at,
-                **{k: row[k] for k in RATES if k in row}, **extra}
+                **{k: row[k] for k in EXTRAS if k in row}, **extra}
 
     kernels = [
         entry("flash_attn_fwd", "src/repro_torch/csrc/flash_attn_fwd.cu",
@@ -1762,7 +1794,9 @@ def main() -> None:
               batch1=summary(m1_rows, {"B": 1, "S": 256})),
         entry("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
               "src/repro/kernels/quantized.py:69", mm_rows, mm_err,
-              {"M": 192, "K": 192, "N": 192, "block": 64}),
+              {"M": 4096, "K": 4096, "N": 4096, "block": 64},
+              at_1024=summary(mm_rows, {"M": 1024, "K": 1024, "N": 1024,
+                                        "block": 64})),
         entry("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
               "src/repro/kernels/rmsnorm.py:27", rms_rows, rms_err,
               {"rows": 512, "d": 3072, "dtype": "bfloat16"},

@@ -7,7 +7,9 @@ source, all started together, for ``sm_90a`` (``wgmma`` and
 headers the sources include.  A library is named by the hash of its
 source, the headers and the flags, so an edited source is rebuilt and
 an unchanged one is loaded from ``build/kernels/`` (gitignored) as it
-is.
+is.  nvcc's output (ptxas's register counts and warnings) is kept beside
+each library as ``<library>.log`` and read back into ``BUILD_LOG`` when
+the library is loaded from there.
 Nothing here runs at import: ``import repro_torch`` needs no compiler.
 """
 from __future__ import annotations
@@ -66,7 +68,9 @@ def build_all() -> Dict[str, Path]:
     for src in sources():
         lib = _lib_path(src)
         out[src.stem] = lib
-        if lib.exists():
+        kept_log = lib.with_suffix(".log")
+        if lib.exists() and kept_log.exists():
+            BUILD_LOG[src.stem] = kept_log.read_text()
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         log_path = lib.with_suffix(f".{os.getpid()}.log")
@@ -87,11 +91,12 @@ def build_all() -> Dict[str, Path]:
         time.sleep(0.05)
     for stem, (proc, tmp, lib, log_path) in procs.items():
         BUILD_LOG[stem] = log_path.read_text()
-        log_path.unlink()
         if proc.returncode != 0:
+            log_path.unlink()
             failed.append(f"--- {stem}.cu (nvcc exit {proc.returncode})\n"
                           f"{BUILD_LOG[stem]}")
             continue
+        os.replace(log_path, lib.with_suffix(".log"))
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

@@ -249,7 +249,7 @@ def _mm_lib():
     fn = lib.int8_matmul_s8
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 5 + [I] * 6 + [P]
+        fn.argtypes = [P] * 6 + [I] * 7 + [P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -258,7 +258,9 @@ def int8_matmul_cuda(xq, xs, wq, ws, *, block_m: int, block_k: int,
                      block_n: int):
     """Launch kernel 5.  xq: [M, K] int8, xs: [M/bm, K/bk] fp32, wq:
     [K, N] int8, ws: [K/bk, N/bn] fp32, contiguous CUDA tensors whose
-    shapes are block multiples.  Returns fp32 [M, N]."""
+    shapes are block multiples.  Returns fp32 [M, N].  The kernel first
+    writes w transposed into a scratch this allocates (K * N bytes), then
+    runs the products; a rerun gives the same bits."""
     check_blocks(block_m, block_k, block_n)
     M, K = xq.shape
     N = wq.shape[1]
@@ -277,13 +279,17 @@ def int8_matmul_cuda(xq, xs, wq, ws, *, block_m: int, block_k: int,
     if M % block_m or K % block_k or N % block_n:
         raise ValueError(f"[{M}, {K}] x [{K}, {N}] is not a multiple of "
                          f"the blocks ({block_m}, {block_k}, {block_n})")
-    if xq.data_ptr() % 16 or wq.data_ptr() % 4:
-        raise ValueError("xq must be 16-byte and wq 4-byte aligned")
+    if xq.data_ptr() % 16 or wq.data_ptr() % 16:
+        raise ValueError("xq and wq must be 16-byte aligned (TMA)")
+    # the kernel writes w transposed here first: 8-bit wgmma reads both
+    # operands K-major
+    wt = torch.empty((N, K), dtype=torch.int8, device=xq.device)
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     err = _mm_lib()(xq.data_ptr(), xs.data_ptr(), wq.data_ptr(),
-                    ws.data_ptr(), out.data_ptr(), M, N, K, block_m,
-                    block_k, block_n, stream)
+                    ws.data_ptr(), wt.data_ptr(), out.data_ptr(), M, N, K,
+                    block_m, block_k, block_n, _build.sm_count(xq.device),
+                    stream)
     _build.check(err, "int8_matmul_s8")
     int8_matmul_cuda.launches += 1
     return out

@@ -172,13 +172,18 @@ def test_int8kv_kernel_matches_plain(cuda_device, H, KV, Sk):
 
 # kernel 5 vs its plain version: the same exact int32 partials and fp32
 # accumulation order; only FMA contraction differs, relative to the
-# largest output.  Shapes: the reference's dequant test, the micro-bench's
-# blocks, a ragged shape, gpt2m's down projection (K = 4096) at 1 sequence
+# largest output; a rerun gives the same bits (no split-K, no atomics).
+# Shapes: the reference's dequant test, the micro-bench's blocks, a
+# ragged shape, gpt2m's down projection (K = 4096) at 1 sequence, the
+# micro-bench's wide size, and N = 288 and 160, not multiples of the
+# kernel's 128-column tile (at blocks 96, a 96-deep K block inside its
+# 128-deep stages)
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N,blk", [
     (64, 96, 64, 32), (128, 128, 128, 64), (70, 100, 50, 32),
     (192, 192, 192, 64), (1000, 1000, 1000, 128), (1024, 4096, 1024, 128),
-    (96, 160, 224, 96)])
+    (96, 160, 224, 96), (4096, 4096, 4096, 64), (384, 480, 288, 96),
+    (256, 256, 160, 32)])
 def test_int8_matmul_kernel_matches_plain(cuda_device, M, K, N, blk):
     g = torch.Generator(device=cuda_device).manual_seed(M + K + N)
     x = torch.randn((M, K), generator=g, device=cuda_device)
@@ -192,6 +197,7 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, M, K, N, blk):
     xq, xs, wq, ws = ops.int8_operands(x, w, **blocks)
     want = tq.int8_matmul_plain(xq, xs, wq, ws, **blocks)[:M, :N]
     assert got.shape == (M, N)
+    assert torch.equal(ops.int8_matmul(x, w, **blocks), got)
     tol = 1e-5 * float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
     fp32 = x.double() @ w.double()

@@ -274,6 +274,29 @@ def test_int8_matmul_cuda_refuses_cpu_tensors():
                             block_n=32)
 
 
+def test_int8_matmul_promotion_identity_is_exact():
+    """Kernel 5 turns each K block's int32 partial v into fp32 with an
+    integer add and an fp32 add, not a conversion:
+    ``__int_as_float(v + 0x4B400000) - 12582912.0f``.  For every v a
+    partial can take, |v| <= 127 * 127 * 128 (blocks of up to 128), that
+    is v as fp32 bit for bit; just past |v| = 2^22 it is not.  The two
+    constants are read from the kernel's source."""
+    src = (_build.CSRC / "int8_matmul.cu").read_text()
+    magic_i = int(re.search(r"MAGIC_I = (0x[0-9A-Fa-f]+);", src).group(1), 16)
+    magic_f = float(re.search(r"MAGIC_F = ([0-9.]+)f;", src).group(1))
+
+    def promote(v):
+        bits = (v + magic_i).to(torch.int32)
+        return bits.view(torch.float32) - torch.tensor(magic_f)
+
+    lim = 127 * 127 * 128
+    v = torch.arange(-lim, lim + 1, dtype=torch.int32)
+    got = promote(v)
+    assert torch.equal(got.view(torch.int32), v.float().view(torch.int32))
+    past = torch.tensor([2 ** 22 + 1, -(2 ** 22) - 1], dtype=torch.int32)
+    assert not (promote(past) == past.float()).any()
+
+
 # ------------------------------------------------------------------ #
 # kernel 6: the row RMSNorm
 

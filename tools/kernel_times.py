@@ -8,8 +8,9 @@ pointed at, so that two versions of the port compare on one card:
     python tools/kernel_times.py --compare FILE [FILE ...]
 
 GROUP is ``decode`` (kernel B, int8-KV decode attention, and kernel 6,
-RMSNorm) or ``scan`` (kernel 3, the SSD chunked scan, and kernel 4, the
-Mamba1 selective scan).  ``--src`` is the ``src`` directory of a checkout
+RMSNorm), ``scan`` (kernel 3, the SSD chunked scan, and kernel 4, the
+Mamba1 selective scan) or ``int8mm`` (kernel 5, the blocked int8
+matmul).  ``--src`` is the ``src`` directory of a checkout
 (default: this one's); its wrappers build its own kernels into that
 checkout's ``build/``.  To compare a commit with the one before it,
 unpack the parent into a directory that git ignores and run the two in
@@ -25,13 +26,16 @@ then compare:
 A run records, each printed as it goes:
   * every shape ``chip_smoke.py`` holds the group's kernels at (and 1 and
     33 RMSNorm rows): the device time of one call (``chip_smoke.time_ms``:
-    CUDA events, cold L2), beside chip_smoke's bound for the scans, each
-    result first held to its plain version (the scans within the scan
-    tolerance, and a rerun to the same bits); for ``decode`` a minimal
-    launch timed the same way;
+    CUDA events, cold L2), beside chip_smoke's bound for the scans and
+    kernel 5, each result first held to its plain version (the scans
+    within the scan tolerance, kernel 5 within ``INT8MM_RTOL``, and a
+    rerun to the same bits); for ``decode`` a minimal launch timed the
+    same way; for ``int8mm`` also ``torch._int_mm`` on the same int8
+    operands, w row-major and column-major, and ``wq.t().contiguous()``;
   * with ``--sweep``, each choice of the group's planners forced: kernel
     B cut into 1 to 32 splits of whole tiles; kernel 3's one or two
-    stages, kernel 4's lanes a channel;
+    stages, kernel 4's lanes a channel; kernel 5 at 4096^3 with blocks
+    of 32, 64, 96 and 128 (as many promotions as M N K / block);
   * unless ``--no-trace``, the group's models at full size (random
     weights, seed 0) under ``torch.profiler`` (each kernel's device ms
     and share of the busy time): for ``decode`` a llama3.2-3b ``Engine``
@@ -39,7 +43,9 @@ A run records, each printed as it goes:
     tokens by the kernel and the plain paths (``use_kernels=False``),
     keeping each step's tokens and the gap between its two largest
     logits; for ``scan`` one ``Engine`` prefill (8 prompts of 64 tokens)
-    of falcon-mamba-7b and one of zamba2-2.7b.
+    of falcon-mamba-7b and one of zamba2-2.7b; for ``int8mm`` one
+    ``ops.int8_matmul`` (pad, quantize, kernel 5) at 1024^3 and 4096^3,
+    blocks of 64, as the calibration micro-bench calls it.
 ``--compare`` prints each shape's mean time per label, each traced
 kernel's device time, and where two greedy decodes first part (kernel
 against plain path in every run, and each label's kernel path against
@@ -357,8 +363,101 @@ def scan_traces(torch, np, smoke):
     return {"traces": traces}
 
 
+# ------------------------------------------------------------------ #
+# int8mm: kernel 5
+
+def int8mm_held(torch, smoke, want):
+    """A check: the result within ``INT8MM_RTOL`` of the largest plain
+    output from ``want``, and a rerun giving the same bits."""
+    def check(fn):
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= smoke.INT8MM_RTOL * float(want.abs().max()):
+            return f"{err} from the plain version"
+        return None if torch.equal(got, again) else "a rerun gave other bits"
+    return check
+
+
+def int8mm_cases(torch, smoke, shapes):
+    """Each (M, K, N, block) of ``shapes``, on operands made as
+    ``chip_smoke.py`` makes them: kernel 5 with its bound,
+    ``torch._int_mm`` on the same int8 operands (no per-tile scales)
+    with w row-major and column-major, and PyTorch's transpose of wq
+    (what kernel 5's phase 1 does instead)."""
+    from repro_torch.kernels import quantized as qz
+    from repro_torch.kernels.ops import int8_operands
+
+    sm_hz = smoke.sm_clock_hz()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(smoke.SEED + 5)
+    out = []
+    for M, K, N, blk in shapes:
+        x = torch.randn((M, K), generator=g, device="cuda")
+        w = torch.randn((K, N), generator=g, device="cuda")
+        blocks = dict(block_m=blk, block_k=blk, block_n=blk)
+        a = int8_operands(x, w, **blocks)
+        xq, xs, wq, ws = a
+        w_cols = wq.t().contiguous().t()
+        bound_ms = smoke.int8mm_bound(*xq.shape, wq.shape[1], blk,
+                                      xs.numel() + ws.numel(), sm_hz,
+                                      n_sm)[0]
+        key = f"{M}x{K}x{N} block {blk}"
+        out += [(f"int8_matmul {key}",
+                 lambda a=a, b=blocks: qz.int8_matmul_cuda(*a, **b),
+                 int8mm_held(torch, smoke,
+                             qz.int8_matmul_plain(*a, **blocks)),
+                 bound_ms),
+                (f"torch._int_mm {key}, w row-major",
+                 lambda xq=xq, wq=wq: torch._int_mm(xq, wq),
+                 lambda fn: None, None),
+                (f"torch._int_mm {key}, w column-major",
+                 lambda xq=xq, wc=w_cols: torch._int_mm(xq, wc),
+                 lambda fn: None, None),
+                (f"wq.t().contiguous() {key}",
+                 lambda wq=wq: wq.t().contiguous(), lambda fn: None, None)]
+    return out
+
+
+def int8mm_times(torch, smoke):
+    return time_cases(torch, smoke,
+                      int8mm_cases(torch, smoke, smoke.INT8MM_SHAPES))
+
+
+def int8mm_sweep(torch, smoke):
+    """Kernel 5 has one tile shape; its promotions number M N K / block,
+    so 4096^3 at each block size shows what they cost."""
+    return time_cases(torch, smoke, [c for c in int8mm_cases(
+        torch, smoke, [(4096, 4096, 4096, b) for b in (32, 64, 96, 128)])
+        if c[0].startswith("int8_matmul")], " (sweep)")
+
+
+def int8mm_traces(torch, np, smoke):
+    """One traced ``ops.int8_matmul`` (pad, quantize both operands,
+    kernel 5) at 1024^3 and 4096^3, blocks of 64, as the calibration
+    micro-bench calls it."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cuda").manual_seed(smoke.SEED + 6)
+    traces = {}
+    for m in (1024, 4096):
+        x = torch.randn((m, m), generator=g, device="cuda")
+        w = torch.randn((m, m), generator=g, device="cuda")
+
+        def call():
+            return ops.int8_matmul(x, w, block_m=64, block_k=64,
+                                   block_n=64)
+
+        call()                                     # warm
+        name = f"ops.int8_matmul {m}^3 blocks 64"
+        traces[name] = smoke.profile_window(torch, call, smoke.OUR_KERNELS)
+        smoke.log_profile(name, traces[name])
+    return {"traces": traces}
+
+
 GROUPS = {"decode": (decode_times, decode_sweep, decode_traces),
-          "scan": (scan_times, scan_sweep, scan_traces)}
+          "scan": (scan_times, scan_sweep, scan_traces),
+          "int8mm": (int8mm_times, int8mm_sweep, int8mm_traces)}
 
 
 def run(args) -> None:
