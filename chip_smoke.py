@@ -44,6 +44,17 @@ restores the checkpoint of step 4 and reruns steps 4 and 5
 (``train-resume``).  Kernel A's backward is held against its plain
 version beforehand, at the training shape and three others.
 
+Then it trains gpt2L (the paper's second model: 30 layers, d_model
+1280, 20 heads of 64, vocab 50257) at full width and depth, batch 8 of
+1024 tokens, three steps of ``train()`` on one device (``train-gpt2L``)
+and under each of the paper's flat plans, data, zero2, shard and
+shard_zero, on a mesh of one rank over NCCL (``plan-data``, ...): the
+real collectives on the card and the plan code end to end, through
+kernel A and its backward; each plan's losses are held to the
+one-device run's, data's and zero2's params bit-equal; it prints each
+plan's step time, tokens/s, 6·N·D TFLOP/s, peak memory and the calls
+and bytes of each collective kind a step.
+
 For each model it checks that the kernel path's first-step logits agree
 with the plain path's on the card (the MoE model's against the fp32
 plain path, no farther than a bf16 control; for the SSM and hybrid
@@ -155,6 +166,18 @@ TRAIN_NORM_FLOOR, TRAIN_COS_FLOOR = 1e-3, 1e-4
 # kernels are ordered), so the losses are expected equal; 1e-5 relative
 # leaves room for a library that is not
 RESUME_RTOL = 1e-5
+# the plan phases: gpt2L at full width and depth, three steps of batch 8
+# of 1024 tokens on one device and under each flat plan over NCCL at a
+# world of one.  Under shard and shard_zero the loss's logsumexp and the
+# embedding lookups run their vocab-parallel forms (the same operations
+# as one device's on a model axis of one rank, but a bf16 rounding that
+# fell apart would grow through AdamW), so their losses are held to 1e-5
+# relative and their bit-equality is reported; data and zero2 do the
+# same operations as one device, and their params must be bit-equal
+# after the three steps.
+PLAN_ARCH, PLAN_STEPS, PLAN_DOCS = "gpt2L", 3, 3 * TRAIN_BATCH
+PLAN_NAMES = ("data", "zero2", "shard", "shard_zero")
+PLAN_LOSS_RTOL = 1e-5
 # the calibration micro-bench's flash sample (calib/microbench.py):
 # (H, KV, D) and (B, S), causal; grouped-query, unlike the models here
 CAL_FLASH_HEADS, CAL_FLASH_BS = (4, 2, 64), (1, 128)
@@ -1498,6 +1521,115 @@ def train_phases(torch, np, ops, card):
     return out
 
 
+def plan_phases(torch, np, ops, card):
+    """Phases ``train-gpt2L`` and ``plan-<name>`` for each flat plan:
+    gpt2L trains ``PLAN_STEPS`` steps through ``train()`` on one device
+    and under each plan on a mesh of one rank over NCCL.  One more step
+    of the one device and of shard_zero (the plan with the most layout
+    work) is traced after its counted phase."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import sharding
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.data import Loader, PackedDataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import model_flops_per_step, train
+
+    cfg = get_config(PLAN_ARCH)
+    S, L = cfg.max_seq_len, cfg.n_layers
+    rng = np.random.default_rng(SEED + 2)
+    ds = PackedDataset(rng.integers(0, cfg.vocab_size, (PLAN_DOCS, S + 1))
+                       .astype(np.int32), S)
+    loader = Loader(ds, global_batch=TRAIN_BATCH, seed=SEED)
+    tcfg = TrainConfig()
+    needs = ["flash_attn_fwd", "flash_attn_bwd"]
+    per_step = {"flash_attn_fwd": 2 * L, "flash_attn_bwd": L}
+    tokens = TRAIN_BATCH * S
+    flops = model_flops_per_step(cfg, tokens)
+    out = {}
+
+    def run(name, plan=None, mesh=None, trace=False):
+        model = Model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        sharding.reset_collective_counts()
+        res, counts = run_phase(
+            torch, ops, name,
+            lambda: train(model, tcfg, loader, steps=PLAN_STEPS,
+                          params=params, log_every=0, plan=plan, mesh=mesh),
+            needs)
+        coll = {k: {"calls": v["calls"] / PLAN_STEPS,
+                    "bytes": v["bytes"] / PLAN_STEPS}
+                for k, v in sharding.collective_counts().items()}
+        for kname, n in per_step.items():
+            if counts[kname] != n * PLAN_STEPS:
+                fail(f"phase {name}: {counts[kname]} {kname} launches, want "
+                     f"{n} a step (remat runs each layer's forward twice)")
+        if not all(np.isfinite(res.losses)):
+            fail(f"phase {name}: non-finite losses {res.losses}")
+        step_s = res.avg_step_time
+        rate = flops / step_s / 1e12
+        rec = {"losses": res.losses, "step_s": res.step_times,
+               "avg_step_s_steps_2_to_3": step_s,
+               "tokens_per_s": tokens / step_s, "model_tflops": rate,
+               "peak_bytes": PHASES[name]["peak_bytes"], "launches": counts,
+               "collectives_a_step": coll}
+        log(f"{name}: losses {res.losses}; step {step_s * 1e3:.1f} ms "
+            f"(steps 2 to {PLAN_STEPS}), {tokens / step_s:.0f} tokens/s, "
+            f"6ND {rate:.2f} TFLOP/s, peak memory "
+            f"{rec['peak_bytes'] / 2**30:.2f} GiB, on {card}")
+        log(f"{name}: collectives a step: " + ", ".join(
+            f"{k} {v['calls']:g} calls {v['bytes'] / 1e6:.3f} MB"
+            for k, v in coll.items()))
+        if trace:
+            step_fn = build_train_step(model, tcfg, plan=plan, mesh=mesh)
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in loader.batch_at(PLAN_STEPS).items()}
+            rec["profile"] = profile_window(
+                torch, lambda: step_fn(res.params, res.opt_state, batch),
+                OUR_KERNELS)
+            log_profile(f"{name}, one step", rec["profile"])
+        return res, rec
+
+    ref, out["train_gpt2L"] = run("train-gpt2L", trace=True)
+    # on the host, so that the plan phases' peaks are their own
+    ref_params = [t.cpu() for t in tree_leaves(ref.params)]
+    del ref
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh((1, 1, 1), ("pod", "data", "model"))
+        for name in PLAN_NAMES:
+            res, rec = run(f"plan-{name}", name, mesh,
+                           trace=name == "shard_zero")
+            want = out["train_gpt2L"]["losses"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(res.losses, want)]
+            rec["loss_rel_diff"] = rel
+            if not max(rel) <= PLAN_LOSS_RTOL:
+                fail(f"plan-{name}: losses {res.losses} vs one device {want}"
+                     f", {max(rel)} > {PLAN_LOSS_RTOL} relative")
+            rec["bit_equal"] = res.losses == want and all(
+                torch.equal(a.cpu(), b) for a, b in
+                zip(tree_leaves(res.params), ref_params))
+            if name in ("data", "zero2") and not rec["bit_equal"]:
+                fail(f"plan-{name}: not bit-equal to one device at a world "
+                     f"of one")
+            log(f"plan-{name}: loss relative differences to one device "
+                f"{rel}; losses and params bit-equal: {rec['bit_equal']}")
+            out[f"plan_{name}"] = rec
+            del res
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    del ref_params
+    torch.cuda.empty_cache()
+    return out
+
+
 def log_profile(name, prof):
     if prof is None:
         log(f"profile {name}: the trace holds no device events (not "
@@ -1738,6 +1870,11 @@ def main() -> None:
         add(training[key]["launches"])
     add(training["train_parity_launches"])
     e2e.update(training)
+    plans = plan_phases(torch, np, ops, card)
+    stage("gpt2L under the plans")
+    for rec in plans.values():
+        add(rec["launches"])
+    e2e.update(plans)
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
 
     def pick(rows, at):

@@ -1,9 +1,11 @@
 """The paper's planning core, ported: the N-site cluster topology
 model, the FABRIC cost model, the plan search generalizing Algorithm 1
-and the technique selector.  Pure Python and numpy, copies of the
-reference's modules; and the one-device train step (``steps``, imported
-on its own: it loads the model).  The torch execution plans (``Plan``,
-the pipeline runtime) are ROADMAP queue 1, items 7 and 8."""
-from repro_torch.core.plans import Placement
+and the technique selector (pure Python and numpy, copies of the
+reference's modules); the execution plans and their sharding rules
+(``plans``, ``sharding``); and the train step (``steps``, imported on
+its own: it loads the model), on one device or under the data, zero2,
+shard and shard_zero plans on ``torch.distributed``.  The pipeline
+runtime is ROADMAP queue 1, item 8."""
+from repro_torch.core.plans import PLANS, MeshSpec, Placement, Plan, get_plan
 
-__all__ = ["Placement"]
+__all__ = ["MeshSpec", "PLANS", "Placement", "Plan", "get_plan"]

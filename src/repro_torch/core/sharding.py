@@ -1,0 +1,452 @@
+"""Logical-axis sharding rule engine and the collectives of the plans
+(port of ``repro/core/sharding.py``).
+
+Every parameter leaf is matched (by its key path + rank) to a tuple of
+*logical* dimension names; a plan then maps logical names to mesh axes.
+Leaves with more dims than the rule's base rank are stacked (layer /
+group axes) and get the plan's ``stack_axis`` (``None`` for SPMD plans,
+``"stage"`` for Pipeshard) prepended.  Assignment is divisibility-aware:
+each dim takes its mapped mesh axis only when the size divides; and when
+the primary tensor-parallel dim does not divide, a *secondary* dim
+(head_dim / embedding-d) picks up the axis so the tensor still shards.
+
+The rules are the reference's, verbatim in meaning.  A spec is a plain
+tuple with one entry per leading dim, each a mesh axis name, a tuple of
+names (the dim split over several axes, the first major) or ``None``,
+with trailing ``None``s dropped: the reference's ``PartitionSpec`` as a
+tuple.  Paths are the ``/``-joined keys of the port's nested dicts, the
+reference's tree paths.
+
+The runtime half has no reference counterpart, since XLA inserts the
+reference's collectives: ``Mesh`` (a ``DeviceMesh`` with one process
+group per set of its axes), ``shard_tree`` / ``gather_tree`` between
+full leaves and this rank's slices, the counted collectives, and
+Megatron's f and g for the tensor-parallel layers (``copy_to_model``,
+``reduce_from_model``).  They are explicit ``torch.distributed`` calls,
+not DTensor, so the order of every reduction is visible and the same
+code runs on gloo and NCCL.
+"""
+from __future__ import annotations
+
+import itertools
+import re
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+Spec = Tuple[Any, ...]
+
+# Secondary names take a mesh axis only when the primary dim of the same
+# tensor failed divisibility.
+SECONDARY = ("head_dim", "embed_d")
+
+# (path regex, base rank, logical dims) — first match wins.
+RULES: Sequence[Tuple[str, int, Tuple[Optional[str], ...]]] = (
+    # embeddings / heads
+    (r"(embed|lm_head)/table$", 2, ("vocab", "embed_d")),
+    (r"pos(_embed)?/table$|pos/table$", 2, (None, "embed_d")),
+    # attention (dense / encdec / hybrid-shared)
+    (r"/wq$", 3, ("residual", "heads", "head_dim")),
+    (r"/w[kv]$", 3, ("residual", "kv_heads", "head_dim")),
+    (r"/wo$", 3, ("heads", "head_dim", "residual")),
+    (r"/bq$", 2, ("heads", "head_dim")),
+    (r"/b[kv]$", 2, ("kv_heads", "head_dim")),
+    (r"/bo$", 1, ("residual",)),
+    # MLA
+    (r"mla/w_dq$", 2, ("residual", None)),
+    (r"mla/(q|kv)_norm$", 1, (None,)),
+    (r"mla/w_uq$", 3, (None, "heads", "head_dim")),
+    (r"mla/w_dkv$", 2, ("residual", None)),
+    (r"mla/w_kr$", 2, ("residual", None)),
+    (r"mla/w_u[kv]$", 3, ("heads", None, "head_dim")),
+    (r"mla/wo$", 3, ("heads", "head_dim", "residual")),
+    # dense MLP
+    (r"mlp/w_(gate|up)$", 2, ("residual", "mlp")),
+    (r"mlp/b_up$", 1, ("mlp",)),
+    (r"mlp/w_down$", 2, ("mlp", "residual")),
+    (r"mlp/b_down$", 1, ("residual",)),
+    # MoE
+    (r"moe/router$", 2, ("residual", None)),
+    (r"moe/w_(gate|up|down)$", 3, ("expert", None, None)),
+    (r"moe/shared_(gate|up)$", 2, ("residual", "mlp")),
+    (r"moe/shared_down$", 2, ("mlp", "residual")),
+    # Mamba (1 and 2)
+    (r"mamba/in_proj$", 2, ("residual", "d_inner")),
+    (r"mamba/conv_w$", 2, (None, "d_inner")),
+    (r"mamba/conv_b$", 1, ("d_inner",)),
+    (r"mamba/x_proj$", 2, ("d_inner", None)),
+    (r"mamba/dt_proj$", 2, (None, "d_inner")),
+    (r"mamba/dt_bias$", 1, (None,)),
+    (r"mamba/A_log$", 2, ("d_inner", None)),   # mamba1 [di, ds]
+    (r"mamba/A_log$", 1, (None,)),             # mamba2 [nh]
+    (r"mamba/D$", 1, (None,)),
+    (r"mamba/norm_scale$", 1, ("d_inner",)),
+    (r"mamba/out_proj$", 2, ("d_inner", "residual")),
+    # VLM projector
+    (r"projector/w1$", 2, (None, "residual")),
+    (r"projector/w2$", 2, ("residual", "residual2")),
+    # norms / gates / everything else: replicated
+)
+
+
+def logical_spec(path_str: str, ndim: int,
+                 *, n_stack: int = 0) -> Tuple[Optional[str], ...]:
+    """Logical dims for one leaf. ``n_stack``: how many leading stacked dims
+    precede the per-layer parameter (0 for unstacked, 1 for [L,...],
+    2 for hybrid [G,k,...])."""
+    base = ndim - n_stack
+    for pat, rank, dims in RULES:
+        if rank == base and re.search(pat, path_str):
+            return ("__stack__",) * n_stack + dims
+    return (None,) * ndim
+
+
+def _stack_depth(path_str: str, family: str) -> int:
+    """Stacked prefix depth for a leaf under layers/encoder-layers."""
+    if "layers/blocks" in path_str:          # hybrid [G, k, ...]
+        return 1 if path_str.endswith("gates") else 2
+    if re.search(r"(^|/)layers/", path_str):
+        return 1
+    return 0
+
+
+def _trim(entries: list) -> Spec:
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+class AxisMap(dict):
+    """logical name -> mesh axis (or axis tuple); missing => replicated."""
+
+    def to_pspec(self, dims: Tuple[Optional[str], ...],
+                 shape: Optional[Tuple[int, ...]] = None,
+                 axis_sizes: Optional[Dict[str, int]] = None) -> Spec:
+        """Divisibility-aware assignment.  Primary dims get their axis when
+        the size divides; SECONDARY dims only fire when the tensor's primary
+        dim failed, so each mesh axis is used at most once per tensor."""
+        entries: list = [None] * len(dims)
+        used: set = set()
+
+        def axes_of(name):
+            ax = self.get(name)
+            if ax is None:
+                return None, ()
+            return ax, (ax if isinstance(ax, tuple) else (ax,))
+
+        def divisible(i, ax_t):
+            if shape is None or axis_sizes is None:
+                return True
+            size = 1
+            for a in ax_t:
+                size *= axis_sizes.get(a, 1)
+            return size > 0 and shape[i] % size == 0
+
+        for pass_secondary in (False, True):
+            for i, d in enumerate(dims):
+                if d is None or entries[i] is not None:
+                    continue
+                if (d in SECONDARY) != pass_secondary:
+                    continue
+                ax, ax_t = axes_of(d)
+                if ax is None or any(a in used for a in ax_t):
+                    continue
+                if divisible(i, ax_t):
+                    entries[i] = ax
+                    used.update(ax_t)
+        return _trim(entries)
+
+
+def tree_map_with_path(fn, tree, *rest, path: str = ""):
+    """``fn(path, leaf, *rest_leaves)`` over nested dicts; ``path`` is the
+    ``/``-joined key path."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      path=f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    return fn(path, tree, *rest)
+
+
+def param_specs(params_or_shapes, axis_map: AxisMap, family: str,
+                axis_sizes: Optional[Dict[str, int]] = None) -> Any:
+    """Spec tree matching the parameter tree (leaves: anything with a
+    ``shape``, e.g. tensors on the meta device)."""
+
+    def spec_of(path, leaf):
+        shape = tuple(leaf.shape)
+        dims = logical_spec(path, len(shape),
+                            n_stack=_stack_depth(path, family))
+        return axis_map.to_pspec(dims, shape, axis_sizes)
+
+    return tree_map_with_path(spec_of, params_or_shapes)
+
+
+def largest_dim_spec(leaf, axes: Tuple[str, ...], axes_size: int) -> Spec:
+    """ZeRO spec: shard the largest *divisible* dimension over ``axes``."""
+    shape = tuple(leaf.shape)
+    if not shape:
+        return ()
+    dims = sorted(range(len(shape)), key=lambda i: -shape[i])
+    for dim in dims:
+        if shape[dim] % axes_size == 0 and shape[dim] >= axes_size:
+            entries: list = [None] * len(shape)
+            entries[dim] = axes if len(axes) > 1 else axes[0]
+            return _trim(entries)
+    return ()
+
+
+def zero_specs(params_or_shapes, axes: Tuple[str, ...], axes_size: int):
+    return tree_map_with_path(
+        lambda _, leaf: largest_dim_spec(leaf, axes, axes_size),
+        params_or_shapes)
+
+
+def add_fsdp_axis(leaf, spec: Spec, axes: Tuple[str, ...],
+                  axes_size: int) -> Spec:
+    """FSDP: put the data axes on the largest still-unsharded divisible dim
+    of an already (tensor-)sharded leaf."""
+    shape = tuple(leaf.shape)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    free = [i for i in range(len(shape)) if entries[i] is None
+            and shape[i] % axes_size == 0 and shape[i] >= axes_size]
+    if not free:
+        return spec
+    dim = max(free, key=lambda i: shape[i])
+    entries[dim] = axes if len(axes) > 1 else axes[0]
+    return _trim(entries)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every mesh axis a spec uses, in the order of its dims."""
+    out: list = []
+    for e in spec:
+        if e is not None:
+            out.extend(e if isinstance(e, tuple) else (e,))
+    return tuple(out)
+
+
+# --------------------------------------------------------------------- #
+# the mesh at run time
+# --------------------------------------------------------------------- #
+
+class Mesh:
+    """A ``DeviceMesh`` seen as the reference's mesh: ``axis_names`` and
+    ``shape`` (axis -> size), so the plans' spec functions
+    take it as they take a ``MeshSpec``; plus this rank's coordinate on
+    each axis and one process group for every set of axes.
+
+    The ranks lie on the mesh in row-major order, the layout
+    ``init_device_mesh`` gives, so a group over several axes (in mesh
+    order) ranks its members major axis first: the order in which a spec
+    entry such as ``("pod", "data")`` splits a dim.  Every group is made
+    here, by every rank in the same order, as ``torch.distributed``
+    requires.
+    """
+
+    def __init__(self, device_mesh):
+        self.axis_names: Tuple[str, ...] = tuple(device_mesh.mesh_dim_names)
+        grid = np.asarray(device_mesh.mesh.tolist(), dtype=np.int64)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, grid.shape))
+        if grid.size != dist.get_world_size() or \
+                not np.array_equal(grid.ravel(), np.arange(grid.size)):
+            raise ValueError(f"the mesh must lay every rank of the world "
+                             f"out in order, got {grid.tolist()}")
+        rank = dist.get_rank()
+        self.coord: Dict[str, int] = dict(zip(
+            self.axis_names, (int(c) for c in np.unravel_index(
+                rank, grid.shape))))
+        self._groups: Dict[Tuple[str, ...], Any] = {}
+        n = len(self.axis_names)
+        for k in range(1, n + 1):
+            for axes in itertools.combinations(self.axis_names, k):
+                if k == 1:
+                    self._groups[axes] = device_mesh.get_group(axes[0])
+                    continue
+                keep = [self.axis_names.index(a) for a in axes]
+                rest = [i for i in range(n) if i not in keep]
+                sub = np.transpose(grid, rest + keep).reshape(
+                    -1, int(np.prod([grid.shape[i] for i in keep])))
+                cur, _ = dist.new_subgroups_by_enumeration(sub.tolist())
+                self._groups[axes] = cur
+
+    def _ordered(self, axes) -> Tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if list(axes) != sorted(axes, key=self.axis_names.index):
+            raise ValueError(f"axes {axes} are not in mesh order "
+                             f"{self.axis_names}")
+        return axes
+
+    def group(self, axes):
+        """Process group of this rank's ranks along ``axes``."""
+        return self._groups[self._ordered(axes)]
+
+    def count(self, axes) -> int:
+        return int(np.prod([self.shape[a] for a in self._ordered(axes)]))
+
+    def index(self, axes) -> int:
+        """This rank's position along ``axes``, major axis first."""
+        i = 0
+        for a in self._ordered(axes):
+            i = i * self.shape[a] + self.coord[a]
+        return i
+
+
+# --------------------------------------------------------------------- #
+# counted collectives
+# --------------------------------------------------------------------- #
+
+KINDS = ("all_reduce", "reduce_scatter", "all_gather")
+_COUNTS = {k: {"calls": 0, "bytes": 0} for k in KINDS}
+
+
+def reset_collective_counts() -> None:
+    for rec in _COUNTS.values():
+        rec["calls"] = rec["bytes"] = 0
+
+
+def collective_counts() -> Dict[str, Dict[str, int]]:
+    """Calls and bytes of each collective kind since the last reset; the
+    bytes are those of the whole tensor a collective works over (the
+    input of an all-reduce and a reduce-scatter, the output of an
+    all-gather)."""
+    return {k: dict(v) for k, v in _COUNTS.items()}
+
+
+def _count(kind: str, t: torch.Tensor, factor: int = 1) -> None:
+    _COUNTS[kind]["calls"] += 1
+    _COUNTS[kind]["bytes"] += t.numel() * t.element_size() * factor
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """All-reduce ``t`` in place over ``group``; returns ``t``."""
+    _count("all_reduce", t)
+    dist.all_reduce(t, op=_OPS[op], group=group)
+    return t
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Sum ``t`` over ``group`` and return this rank's block of ``dim``
+    (the blocks stacked first, one copy)."""
+    n = dist.get_world_size(group)
+    _count("reduce_scatter", t)
+    blocks = torch.stack(t.chunk(n, dim))
+    out = blocks.new_empty(blocks.shape[1:])
+    dist.reduce_scatter_tensor(out, blocks.flatten(0, 1), group=group)
+    return out
+
+
+def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Concatenate the ranks' ``t`` of ``group`` along ``dim``, in group
+    rank order (gathered stacked, then one copy)."""
+    n = dist.get_world_size(group)
+    _count("all_gather", t, n)
+    x = t.contiguous()
+    out = x.new_empty((n * x.shape[0],) + x.shape[1:])
+    dist.all_gather_into_tensor(out, x, group=group)
+    return torch.cat(out.view((n,) + x.shape).unbind(0), dim)
+
+
+# --------------------------------------------------------------------- #
+# full leaves <-> this rank's slices
+# --------------------------------------------------------------------- #
+
+def _entry_axes(e) -> Tuple[str, ...]:
+    return e if isinstance(e, tuple) else (e,)
+
+
+def slice_leaf(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of a full leaf (a copy where it is cut, the
+    leaf itself where every axis of the spec has size 1)."""
+    out = t
+    for dim, e in enumerate(spec):
+        if e is None:
+            continue
+        n = mesh.count(_entry_axes(e))
+        if n > 1:
+            size = t.shape[dim] // n
+            out = out.narrow(dim, mesh.index(_entry_axes(e)) * size, size)
+    return out.clone() if out is not t else t
+
+
+def gather_leaf(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """The full leaf from every rank's block (a collective over the
+    spec's axes)."""
+    for dim, e in enumerate(spec):
+        if e is not None:
+            t = all_gather(t, mesh.group(_entry_axes(e)), dim)
+    return t
+
+
+def shard_tree(tree, specs, mesh: Mesh):
+    """Full leaves -> this rank's blocks, by the spec tree."""
+    return tree_map_with_path(lambda _, t, s: slice_leaf(t, s, mesh),
+                              tree, specs)
+
+
+def gather_tree(tree, specs, mesh: Mesh):
+    """This rank's blocks -> full leaves on every rank."""
+    return tree_map_with_path(lambda _, t, s: gather_leaf(t, s, mesh),
+                              tree, specs)
+
+
+# --------------------------------------------------------------------- #
+# tensor parallelism over the ``model`` axis: Megatron's f and g
+# --------------------------------------------------------------------- #
+
+@dataclass(frozen=True)
+class ModelAxis:
+    """What the layers need of the ``model`` mesh axis under a plan that
+    shards weights: its process group, size and this rank's coordinate,
+    and which kinds of leaf the plan's specs cut on it (a leaf whose dim
+    does not divide stays whole, and its layer computes it whole on
+    every rank)."""
+    group: Any
+    size: int
+    rank: int
+    vocab: bool      # embed/table (and lm_head/table) on the vocab dim
+    positions: bool  # pos_embed/table on its rows (the reference's rules
+    #                  match it as an embedding table)
+    heads: bool      # wq, bq, wo on the heads dim
+    kv_heads: bool   # wk, wv, bk, bv on the kv-heads dim
+    mlp: bool        # the MLP's hidden dim
+
+
+class _CopyToModel(torch.autograd.Function):
+    """f: identity forward; the gradient summed over the model axis."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """g: the partial sums of the model axis added forward; identity
+    backward (every rank's loss is the same number)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    return _CopyToModel.apply(x, axis.group)
+
+
+def reduce_from_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, axis.group)

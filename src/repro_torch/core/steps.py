@@ -1,28 +1,57 @@
-"""The train step for one device (port of the non-pipeline, one-device
-case of ``repro/core/steps.py:build_train_step``).
+"""Train steps: on one device, and under the data, zero2, shard and
+shard_zero plans on ``torch.distributed`` (port of
+``repro/core/steps.py:build_train_step``).
 
 ``build_train_step`` returns ``step(params, opt_state, batch) -> (params,
 opt_state, metrics)`` with the reference's metric keys.  Gradients are
 taken with ``torch.autograd.grad`` on detached copies of the fp32
 leaves, so the caller's params are left as they were; ``grad_accum > 1``
 runs the batch as sequential microbatches and sums their gradients in
-fp32, as the reference's ``lax.scan`` does.  The reference's execution
-plans (data, zero2, shard, pipeshard, ...) shard this step over a mesh;
-the port has none yet (ROADMAP queue 1, item 7).
+fp32, as the reference's ``lax.scan`` does.
+
+Under a plan (``PlanStep``) each rank holds its blocks of the params and
+of the optimizer state, cut by the plan's specs (``core.plans``), and
+takes its slice of the global batch by its place on the batch axes.
+The loss divides by the token count of the whole batch, so the ranks'
+gradients add up to the one-device gradient.  Where the reference's XLA
+inserts the collectives, here they are explicit (``core.sharding``):
+
+  * data       — the gradients are all-reduced over the batch axes;
+  * zero2      — reduce-scattered over the data axes onto the optimizer
+                 blocks (and all-reduced over the model axis when the
+                 batch is split over it too); AdamW updates the blocks
+                 and the new params are all-gathered;
+  * shard      — the dense layers run tensor-parallel over ``model``
+                 (``Model.model_axis``); the gradients of the blocks and
+                 of the whole leaves are all-reduced over the data axes;
+  * shard_zero — both: a leaf cut on ``model`` is gathered whole, then
+                 reduce-scattered onto its optimizer block, whose specs
+                 (the reference's) span the data axes only.
+
+pipeshard (ROADMAP queue 1, item 8), fsdp, the MoE family under any plan
+and the SSM and hybrid families under shard and shard_zero (item 7)
+raise.
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core.plans import MODEL_AXIS, Plan, get_plan
+from repro_torch.core.sharding import (
+    Mesh, ModelAxis, all_reduce, gather_leaf, gather_tree, reduce_scatter,
+    shard_tree, slice_leaf, spec_axes, tree_map_with_path,
+)
 from repro_torch.models.model import Model
-from repro_torch.optim import adamw_update, lr_at
+from repro_torch.optim import AdamWState, adamw_update, lr_at
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
 METRIC_KEYS = ("ce", "aux", "zloss", "accuracy", "tokens")
+# metrics that are sums over the batch's ranks (``tokens`` is global)
+_SUMMED = ("loss", "ce", "aux", "zloss", "accuracy")
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -37,15 +66,8 @@ def value_and_grad(loss_fn, params, batch):
             tree_map(lambda _: next(it), live))
 
 
-def build_train_step(model: Model, tcfg: TrainConfig, *,
-                     plan: Optional[str] = None) -> Callable:
-    """The one-device train step.  ``plan`` must be None: any execution
-    plan raises ``NotImplementedError``."""
-    if plan is not None:
-        raise NotImplementedError(
-            f"plan {plan!r}: the port trains on one device; execution "
-            f"plans on torch.distributed are ROADMAP queue 1, item 7")
-    loss_fn = partial(model.loss, remat=tcfg.remat)
+def _grad_fn(model: Model, tcfg: TrainConfig, loss_fn) -> Callable:
+    """(loss, metrics, grads) of a batch, in ``grad_accum`` microbatches."""
 
     def grad_fn(params, batch):
         A = tcfg.grad_accum
@@ -70,6 +92,50 @@ def build_train_step(model: Model, tcfg: TrainConfig, *,
         metrics["tokens"] = metrics["tokens"] * A
         return loss_sum / A, metrics, tree_map(lambda g: g / A, g_sum)
 
+    return grad_fn
+
+
+def _refuse(plan: Plan, family: str) -> None:
+    """Raise for what the port does not run under a plan yet."""
+    if plan.pipeline:
+        raise NotImplementedError(
+            f"plan {plan.name!r}: the pipeline runtime is not ported "
+            f"(ROADMAP queue 1, item 8)")
+    if plan.fsdp:
+        raise NotImplementedError(
+            f"plan {plan.name!r}: params cut over the data axes are not "
+            f"ported (ROADMAP queue 1, item 7)")
+    if family == "moe":
+        raise NotImplementedError(
+            f"plan {plan.name!r}: the MoE family's load-balance loss and "
+            f"expert capacity are taken over the global batch, which no "
+            f"plan of the port gathers yet (ROADMAP queue 1, item 7)")
+    if plan.shards_weights and family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"plan {plan.name!r}: cutting the {family} family's d_inner "
+            f"over the model axis is not ported (ROADMAP queue 1, item 7)")
+
+
+def build_train_step(model: Model, tcfg: TrainConfig, *,
+                     plan: Union[None, str, Plan] = None,
+                     mesh: Optional[Mesh] = None) -> Callable:
+    """The one-device step for ``plan=None``; else a ``PlanStep`` over
+    ``mesh`` (a ``core.sharding.Mesh``, e.g. from
+    ``launch.mesh.make_host_mesh``)."""
+    if plan is None:
+        model.model_axis = None
+        return _one_device_step(model, tcfg)
+    plan = get_plan(plan) if isinstance(plan, str) else plan
+    _refuse(plan, model.cfg.family)
+    if mesh is None:
+        raise ValueError(f"plan {plan.name!r} needs a mesh "
+                         f"(repro_torch.launch.mesh.make_host_mesh)")
+    return PlanStep(model, tcfg, plan, mesh)
+
+
+def _one_device_step(model: Model, tcfg: TrainConfig) -> Callable:
+    grad_fn = _grad_fn(model, tcfg, partial(model.loss, remat=tcfg.remat))
+
     def step(params, opt_state, batch) -> tuple:
         loss, metrics, grads = grad_fn(params, batch)
         lr = lr_at(opt_state.step, tcfg)
@@ -79,3 +145,158 @@ def build_train_step(model: Model, tcfg: TrainConfig, *,
         return new_params, new_opt, metrics
 
     return step
+
+
+def _cut_dim(spec) -> Tuple[Optional[int], Tuple[str, ...]]:
+    """(dim, axes) of a spec that cuts one dim; (None, ()) for none."""
+    for dim, e in enumerate(spec):
+        if e is not None:
+            return dim, (e if isinstance(e, tuple) else (e,))
+    return None, ()
+
+
+def _model_axis(mesh: Mesh, specs) -> Optional[ModelAxis]:
+    if MODEL_AXIS not in mesh.shape:
+        return None
+
+    def cut(spec) -> bool:
+        return MODEL_AXIS in spec_axes(spec)
+
+    attn, mlp = specs["layers"]["attn"], specs["layers"]["mlp"]
+    return ModelAxis(group=mesh.group(MODEL_AXIS),
+                     size=mesh.shape[MODEL_AXIS],
+                     rank=mesh.coord[MODEL_AXIS],
+                     vocab=cut(specs["embed"]["table"]),
+                     positions="pos_embed" in specs
+                     and cut(specs["pos_embed"]["table"]),
+                     heads=cut(attn["wq"]), kv_heads=cut(attn["wk"]),
+                     mlp=cut(mlp["w_up"]))
+
+
+class PlanStep:
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
+    under ``plan`` on ``mesh``.
+
+    ``params`` are this rank's blocks by ``param_specs`` (``shard_params``
+    cuts them from the full tree), ``opt_state`` its blocks by
+    ``opt_specs`` (``init_opt_state``, ``shard_opt_state``), ``batch``
+    the global batch, of which the step takes this rank's slice.  The
+    metrics are those of the whole batch.  ``gather_params`` and
+    ``gather_opt_state`` give back the one-device layout on every rank.
+    """
+
+    def __init__(self, model: Model, tcfg: TrainConfig, plan: Plan,
+                 mesh: Mesh):
+        self.model, self.tcfg, self.plan, self.mesh = model, tcfg, plan, mesh
+        cfg = model.cfg
+        self._shapes = model.init(torch.Generator(), device="meta")
+        self.param_specs = plan.param_specs(self._shapes, cfg, mesh)
+        self.opt_specs = plan.opt_specs(self._shapes, cfg, mesh)
+        # the layout AdamW updates in: the optimizer's blocks
+        self.update_specs = self.opt_specs if plan.zero_sharding \
+            else self.param_specs
+        model.model_axis = _model_axis(mesh, self.param_specs) \
+            if plan.shards_weights else None
+
+    # ------------------------------------------------------------- #
+    def shard_params(self, params):
+        return shard_tree(params, self.param_specs, self.mesh)
+
+    def gather_params(self, params):
+        return gather_tree(params, self.param_specs, self.mesh)
+
+    def init_opt_state(self) -> AdamWState:
+        dev = self.model.device
+        local = shard_tree(self._shapes, self.opt_specs, self.mesh)
+
+        def zeros(t):
+            return torch.zeros(t.shape, dtype=torch.float32, device=dev)
+
+        return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                          m=tree_map(zeros, local), v=tree_map(zeros, local))
+
+    def shard_opt_state(self, state: AdamWState) -> AdamWState:
+        return AdamWState(step=state.step,
+                          m=shard_tree(state.m, self.opt_specs, self.mesh),
+                          v=shard_tree(state.v, self.opt_specs, self.mesh))
+
+    def gather_opt_state(self, state: AdamWState) -> AdamWState:
+        return AdamWState(step=state.step,
+                          m=gather_tree(state.m, self.opt_specs, self.mesh),
+                          v=gather_tree(state.v, self.opt_specs, self.mesh))
+
+    # ------------------------------------------------------------- #
+    def batch_axes(self, global_batch: int) -> Tuple[str, ...]:
+        return self.plan.batch_axes(self.mesh, global_batch)
+
+    def local_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """This rank's slice of the global ``batch``."""
+        dev = self.model.device
+        specs = self.plan.batch_spec(batch, self.mesh)
+        return {k: slice_leaf(torch.as_tensor(v, device=dev), specs[k],
+                              self.mesh) for k, v in batch.items()}
+
+    def _reduce(self, g, p_spec, u_spec, axes):
+        """One leaf's gradient, partial over the batch ``axes``, onto its
+        update block, summed."""
+        mesh = self.mesh
+        if not self.plan.zero_sharding:
+            if axes:
+                all_reduce(g, mesh.group(axes))
+            return g
+        if p_spec != u_spec:
+            g = gather_leaf(g, p_spec, mesh)      # whole over model
+        dim, zero = _cut_dim(u_spec)
+        scatter = bool(zero) and all(a in axes for a in zero)
+        if scatter:
+            g = reduce_scatter(g, mesh.group(zero), dim)
+            axes = tuple(a for a in axes if a not in zero)
+        if axes:
+            all_reduce(g, mesh.group(axes))
+        if zero and not scatter:
+            g = slice_leaf(g, u_spec, mesh)
+        return g
+
+    def grads(self, params, batch):
+        """(loss, metrics, grads) of the global ``batch``: the whole
+        batch's loss and metrics, and the grads summed over the batch's
+        ranks, this rank's blocks in the update layout
+        (``update_specs``)."""
+        axes = self.batch_axes(batch["tokens"].shape[0])
+        group = self.mesh.group(axes) if axes else None
+        loss_fn = partial(self.model.loss, remat=self.tcfg.remat,
+                          batch_group=group)
+        loss, metrics, grads = _grad_fn(self.model, self.tcfg, loss_fn)(
+            params, self.local_batch(batch))
+        grads = tree_map_with_path(
+            lambda _, g, ps, us: self._reduce(g, ps, us, axes), grads,
+            self.param_specs, self.update_specs)
+        if group is not None:
+            sums = all_reduce(torch.stack(
+                [loss] + [metrics[k].float() for k in _SUMMED[1:]]), group)
+            loss = sums[0]
+            metrics = dict(metrics, **dict(zip(_SUMMED[1:], sums[1:])))
+        return loss, metrics, grads
+
+    def __call__(self, params, opt_state, batch):
+        loss, metrics, grads = self.grads(params, batch)
+        lr = lr_at(opt_state.step, self.tcfg)
+        mesh = self.mesh
+
+        # zero plans: params to the optimizer's blocks and back
+        def to_update(_, p, ps, us):
+            return p if ps == us else slice_leaf(gather_leaf(p, ps, mesh),
+                                                 us, mesh)
+
+        def from_update(_, u, ps, us):
+            return u if ps == us else slice_leaf(gather_leaf(u, us, mesh),
+                                                 ps, mesh)
+
+        p_u = tree_map_with_path(to_update, params, self.param_specs,
+                                 self.update_specs)
+        new_u, new_opt, stats = adamw_update(
+            grads, opt_state, p_u, self.tcfg, lr, specs=self.update_specs,
+            mesh=mesh)
+        new_params = tree_map_with_path(from_update, new_u, self.param_specs,
+                                        self.update_specs)
+        return new_params, new_opt, dict(metrics, loss=loss, **stats)

@@ -1,0 +1,91 @@
+"""Meshes of the port, and topology -> mesh mapping (port of
+``repro/launch/mesh.py`` for the flat plans).
+
+A mesh lays the ranks of the ``torch.distributed`` world out over the
+reference's axes, ``("pod", "data", "model")``: the "pod" axis is the
+slow inter-site dimension, the analogue of the paper's site-to-site WAN
+links.  ``make_topology_mesh`` maps an N-site ``core.topology.Topology``
+selection onto it: one pod block per selected site, each site's GPUs
+split over (data, model), the blocks in the order of ``sites``.  The
+process group must be initialized first (``torch.distributed
+.init_process_group``: NCCL on the card, gloo on the CPU), and the mesh
+covers its whole world.  Pipeline placements wait for the pipeline
+runtime (ROADMAP queue 1, item 8).
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch.distributed as dist
+
+from repro_torch.core.sharding import Mesh
+from repro_torch.core.topology import Topology
+
+
+def make_host_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
+    """A mesh of ``shape`` named ``axes`` over the process group's world
+    (``init_device_mesh``: on "cuda" under NCCL, else on "cpu")."""
+    from torch.distributed.device_mesh import init_device_mesh
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return Mesh(init_device_mesh(device_type, tuple(int(n) for n in shape),
+                                 mesh_dim_names=tuple(axes)))
+
+
+# --------------------------------------------------------------------- #
+# topology sites -> mesh axes
+# --------------------------------------------------------------------- #
+
+def topology_mesh_spec(topo: Topology,
+                       sites: Optional[Sequence[int]] = None, *,
+                       model: int = 1
+                       ) -> Tuple[Tuple[int, int, int],
+                                  Tuple[str, str, str]]:
+    """(shape, axes) of the mesh realizing a site selection: pod = one
+    block per site (the slow inter-site dimension), each site's GPUs split
+    into (data, model).  Pure function of the topology — unit-testable
+    without devices; ``make_topology_mesh`` materializes it."""
+    sel = topo.select(sites)
+    if not sel:
+        raise ValueError("empty site selection")
+    per = {len(topo.sites[i].gpus) for i in sel}
+    if len(per) != 1:
+        raise ValueError(
+            f"sites {sel} have unequal GPU counts {sorted(per)}; meshes "
+            f"are rectangular — select equal-sized sites per mesh")
+    n_per = per.pop()
+    if n_per % model != 0:
+        raise ValueError(f"model={model} does not divide the {n_per} GPUs "
+                         f"per site")
+    return (len(sel), n_per // model, model), ("pod", "data", "model")
+
+
+def make_topology_mesh(topo: Topology,
+                       sites: Optional[Sequence[int]] = None, *,
+                       model: int = 1) -> Mesh:
+    """Mesh over the world's ranks shaped after a topology site
+    selection; rank blocks follow the order of ``sites``."""
+    shape, axes = topology_mesh_spec(topo, sites, model=model)
+    n = shape[0] * shape[1] * shape[2]
+    if n != dist.get_world_size():
+        raise ValueError(f"topology selection needs {n} ranks, the world "
+                         f"has {dist.get_world_size()}")
+    return make_host_mesh(shape, axes)
+
+
+def placement_mesh(topo: Topology, plan, placement, *,
+                   model: int = 1) -> Mesh:
+    """Realize a searched ``core.plans.Placement`` for a flat plan (data,
+    zero2, shard, shard_zero): the plain topology mesh over the
+    placement's site subset.  A pipeline plan raises."""
+    if plan.pipeline:
+        raise NotImplementedError(
+            f"plan {plan.name!r}: staged meshes come with the pipeline "
+            f"runtime (ROADMAP queue 1, item 8)")
+    return make_topology_mesh(topo, placement.sites, model=model)
+
+
+# NVIDIA H100 80GB HBM3 (SXM, 700.00 W power limit) roofline constants,
+# from its data sheet, per card (not measured by this repository).
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12              # bytes/s, HBM3
+NVLINK_BW = 450e9             # bytes/s each way (NVLink 4, 18 links)

@@ -1,0 +1,150 @@
+"""Numerical plan-equivalence check of the port (counterpart of
+``repro.launch.plan_check``).
+
+Spawns ``--world`` ranks on ``torch.distributed`` (NCCL, one card a
+rank, or gloo with ``--device cpu``), lays them out as ``--mesh`` over
+``("pod", "data", "model")`` and trains a small model a few steps under
+each plan; every plan computes the same update as one device, so the
+losses and the norm of the params after the updates must agree with the
+one-device run's, which rank 0 also makes.  Prints one JSON line:
+``{plan: {"losses": [...], "param_norm": x, "step_ms": t}, ...,
+"one_device": {...}}``, ``step_ms`` the mean host time of the steps
+after the first (each ends when its loss reaches the host).  ``--full``
+runs the architecture at its full width and depth in place of the
+reduced one.
+
+    PYTHONPATH=src python -m repro_torch.launch.plan_check --device cpu \\
+        --world 4 --mesh 1,2,2
+    PYTHONPATH=src python -m repro_torch.launch.plan_check --world 4 \\
+        --arch gpt2L --full --seq 1024 --steps 3     # four cards
+"""
+import argparse
+import dataclasses
+import json
+import os
+import tempfile
+import time
+
+# the plans the port runs (pipeshard and fsdp raise, ROADMAP queue 1)
+FLAT = ("data", "zero2", "shard", "shard_zero")
+
+
+def _param_norm(tree) -> float:
+    import torch
+
+    from repro_torch.optim.adamw import tree_leaves
+    return float(torch.sqrt(sum(t.double().square().sum()
+                                for t in tree_leaves(tree))))
+
+
+def _rank(rank: int, args, store: str) -> None:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.optim import init_adamw
+
+    if args.device == "cuda":
+        torch.cuda.set_device(rank)
+        device, backend = f"cuda:{rank}", "nccl"
+    else:
+        torch.set_num_threads(1)
+        device, backend = "cpu", "gloo"
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=args.world)
+    try:
+        mesh = make_host_mesh([int(x) for x in args.mesh.split(",")],
+                              ("pod", "data", "model"))
+        # fp32 on the CPU, where the plans agree to fp32 rounding; bf16 on
+        # the card, which kernel A takes
+        cfg = get_config(args.arch)
+        if not args.full:
+            cfg = dataclasses.replace(cfg.reduced(), n_layers=args.layers)
+        cfg = dataclasses.replace(
+            cfg, dtype="bfloat16" if args.device == "cuda" else "float32")
+        tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                           total_steps=10)
+        rng = np.random.default_rng(0)
+        batch = {k: rng.integers(0, cfg.vocab_size, (args.batch, args.seq))
+                 for k in ("tokens", "labels")}
+
+        def fresh(model):
+            gen = torch.Generator(device=model.device).manual_seed(0)
+            return model.init(gen)
+
+        def steps(step, params, opt, batch):
+            losses, times = [], []
+            for _ in range(args.steps):
+                t0 = time.perf_counter()
+                params, opt, metrics = step(params, opt, batch)
+                losses.append(float(metrics["loss"]))
+                times.append(time.perf_counter() - t0)
+            later = times[1:] or times
+            return params, {"losses": losses,
+                            "step_ms": 1e3 * sum(later) / len(later)}
+
+        results = {}
+        for name in args.plans.split(","):
+            model = Model(cfg, device=device)
+            step = build_train_step(model, tcfg, plan=name, mesh=mesh)
+            params, rec = steps(step, step.shard_params(fresh(model)),
+                                step.init_opt_state(), batch)
+            rec["param_norm"] = _param_norm(step.gather_params(params))
+            results[name] = rec
+            del params
+        if rank == 0:
+            model = Model(cfg, device=device)
+            step = build_train_step(model, tcfg)
+            params = fresh(model)
+            tb = {k: torch.as_tensor(v, device=device)
+                  for k, v in batch.items()}
+            params, rec = steps(step, params, init_adamw(params), tb)
+            rec["param_norm"] = _param_norm(params)
+            results["one_device"] = rec
+            print(json.dumps(results), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--world", type=int, default=4)
+    ap.add_argument("--mesh", default=None,
+                    help="(pod, data, model) shape; default 1,2,2 for a "
+                         "world of 4, else 1,world,1")
+    ap.add_argument("--arch", default="gpt2m")
+    ap.add_argument("--plans", default=",".join(FLAT),
+                    help="comma-separated repro_torch.core.plans.PLANS keys")
+    ap.add_argument("--full", action="store_true",
+                    help="the architecture at full width and depth")
+    ap.add_argument("--layers", type=int, default=2,
+                    help="depth of the reduced architecture")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (NCCL, one card a rank) or cpu (gloo)")
+    args = ap.parse_args(argv)
+    if args.mesh is None:
+        args.mesh = "1,2,2" if args.world == 4 else f"1,{args.world},1"
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch import resolve_device
+    if args.device == "cuda":
+        resolve_device("cuda")                    # raises without a card
+        if torch.cuda.device_count() < args.world:
+            raise RuntimeError(f"--world {args.world} needs as many cards, "
+                               f"{torch.cuda.device_count()} present")
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(_rank, args=(args, os.path.join(d, "store")),
+                           nprocs=args.world, start_method="spawn")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,19 +1,31 @@
-"""Training launcher of the port: pretrain a ported architecture on one
-device on the in-repo synthetic corpus (or ``--data-dir``), the
-counterpart of ``repro.launch.train``.  The reference's ``--plan``,
-``--mesh``, ``--devices``, ``--stages`` and ``--microbatches`` wait for
-execution plans on torch.distributed (ROADMAP queue 1, item 7).
+"""Training launcher of the port: pretrain a ported architecture on the
+in-repo synthetic corpus (or ``--data-dir``), on one device or under an
+execution plan, the counterpart of ``repro.launch.train``.
+
+Without ``--plan`` it trains on one device.  With ``--plan`` (a
+``core.plans.PLANS`` key) and ``--mesh`` it runs on every rank of a
+``torch.distributed`` world: under ``torch.distributed.run`` it reads
+``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` and uses NCCL on
+``cuda:LOCAL_RANK``, or gloo with ``--device cpu``; started alone, it is
+a world of one.  The pipeline plan's ``--stages`` and ``--microbatches``
+wait for ROADMAP queue 1, item 8.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2m \\
         --steps 100 --seq 1024 --batch 8 --vocab 50257
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2m \\
         --reduced --device cpu --steps 3 --seq 32 --batch 4
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 4 \\
+        -m repro_torch.launch.train --arch gpt2m --reduced --device cpu \\
+        --plan shard --mesh 1,2,2 --steps 3 --seq 32 --batch 8
 """
 import argparse
 import dataclasses
+import os
 
 from repro_torch.configs import ARCH_CONFIGS
+from repro_torch.core.plans import PLANS
 
 
 def main(argv=None):
@@ -33,6 +45,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain PyTorch versions)")
+    ap.add_argument("--plan", default=None, choices=sorted(PLANS),
+                    help="execution plan; without it, one device")
+    ap.add_argument("--mesh", default="1,1,1",
+                    help="mesh shape over (pod, data, model), e.g. 1,2,2; "
+                         "fewer numbers name the last axes")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import TrainConfig, get_config
@@ -53,15 +70,60 @@ def main(argv=None):
     loader = Loader(ds, global_batch=args.batch, seed=args.seed)
     tcfg = TrainConfig(learning_rate=args.lr, warmup_steps=args.steps // 10,
                        total_steps=args.steps, seed=args.seed)
-    model = Model(cfg, device=args.device)
-    print(f"{cfg.name} [{cfg.family}] {cfg.param_count() / 1e6:.1f}M params "
-          f"| one device: {model.device}")
-    res = train(model, tcfg, loader, steps=args.steps,
-                log_every=max(args.steps // 10, 1), ckpt_dir=args.ckpt_dir)
+    if args.plan is None:
+        model = Model(cfg, device=args.device)
+        print(f"{cfg.name} [{cfg.family}] {cfg.param_count() / 1e6:.1f}M "
+              f"params | one device: {model.device}")
+        res = train(model, tcfg, loader, steps=args.steps,
+                    log_every=max(args.steps // 10, 1),
+                    ckpt_dir=args.ckpt_dir)
+    else:
+        res = _train_on_mesh(args, cfg, tcfg, loader)
+        if res is None:
+            return None
     flops = model_flops_per_step(cfg, args.batch * args.seq)
     print(f"done: loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f}; "
           f"{res.tflops(flops):.4f} TFLOP/s avg")
     return res
+
+
+def _train_on_mesh(args, cfg, tcfg, loader):
+    """Train under ``args.plan`` on this rank; rank 0's result, None on
+    the other ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import train
+
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    device = f"cuda:{local}" if args.device == "cuda" else args.device
+    model = Model(cfg, device=device)          # raises without a card
+    backend = "nccl" if model.device.type == "cuda" else "gloo"
+    if model.device.type == "cuda":
+        torch.cuda.set_device(model.device)
+    if "RANK" in os.environ:
+        dist.init_process_group(backend)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        axes = ("pod", "data", "model")[-len(shape):]
+        mesh = make_host_mesh(shape, axes)
+        main = dist.get_rank() == 0
+        if main:
+            print(f"{cfg.name} [{cfg.family}] "
+                  f"{cfg.param_count() / 1e6:.1f}M params | plan="
+                  f"{args.plan} mesh={dict(zip(axes, shape))} "
+                  f"({backend}, {dist.get_world_size()} ranks)")
+        res = train(model, tcfg, loader, steps=args.steps,
+                    log_every=max(args.steps // 10, 1),
+                    ckpt_dir=args.ckpt_dir, plan=args.plan, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    return res if main else None
 
 
 if __name__ == "__main__":

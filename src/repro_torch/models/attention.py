@@ -15,6 +15,15 @@ is taken, backward, and int8-KV decode through kernel B
 PyTorch versions instead, with autograd through the plain attention (the
 on-card parity checks of ``chip_smoke.py``); on the CPU the plain
 versions always run, through the same autograd Function as the kernels.
+
+Under a plan that shards weights (``model_axis``), full-sequence
+attention runs this rank's heads: the input enters through Megatron's
+f, the output projection's partial sums are added over the ``model``
+axis (g) before ``bo``.  When the kv heads do not divide the axis, wk
+and wv stay whole: every rank projects all kv heads and its q heads
+read their global kv head; the whole kv weights enter through f, so
+their gradients, which each rank has only for its q heads, are summed
+over the axis.
 """
 from __future__ import annotations
 
@@ -23,6 +32,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sharding import (
+    ModelAxis, copy_to_model, reduce_from_model,
+)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.quantized import int8kv_attention_plain
@@ -273,9 +285,28 @@ def _qkv(x, params, cfg: ModelConfig):
     return q, k, v
 
 
-def _out(o, params):
+def _qkv_cut(x, params, cfg: ModelConfig, axis: ModelAxis):
+    """``_qkv`` of this rank's q heads under a weight-sharding plan."""
+    x = copy_to_model(x, axis)
+    if axis.kv_heads:
+        return _qkv(x, params, cfg)
+    whole = dict(params)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in whole:
+            whole[name] = copy_to_model(whole[name], axis)
+    q, k, v = _qkv(x, whole, cfg)
+    # the kv head of each local q head: global head // (H // KV)
+    h_local = q.shape[2]
+    heads = torch.arange(h_local, device=q.device) + axis.rank * h_local
+    kv = heads // (cfg.n_heads // cfg.n_kv_heads)
+    return q, k.index_select(2, kv), v.index_select(2, kv)
+
+
+def _out(o, params, model_axis: Optional[ModelAxis] = None):
     dt = o.dtype
     y = o.flatten(2) @ params["wo"].to(dt).flatten(0, 1)
+    if model_axis is not None:
+        y = reduce_from_model(y, model_axis)
     if "bo" in params:
         y = y + params["bo"].to(dt)
     return y
@@ -293,14 +324,22 @@ def _rope_qk(q, k, cfg: ModelConfig, positions):
 def attention_forward(x, params, cfg: ModelConfig, *,
                       positions: Optional[torch.Tensor] = None,
                       causal: bool = True, window: int = 0,
-                      use_kernels: bool = True):
-    """Full-sequence attention.  ``positions`` None means arange."""
-    q, k, v = _qkv(x, params, cfg)
+                      use_kernels: bool = True,
+                      model_axis: Optional[ModelAxis] = None):
+    """Full-sequence attention.  ``positions`` None means arange.
+    ``model_axis``: the heads are cut over it when its ``heads`` is set;
+    otherwise every rank computes them all."""
+    if model_axis is not None and not model_axis.heads:
+        model_axis = None
+    if model_axis is None:
+        q, k, v = _qkv(x, params, cfg)
+    else:
+        q, k, v = _qkv_cut(x, params, cfg, model_axis)
     q, k = _rope_qk(q, k, cfg, positions)
     o = chunked_attention(q, k, v, causal=causal, window=window,
                           q_positions=positions, kv_positions=positions,
                           use_kernels=use_kernels)
-    return _out(o, params)
+    return _out(o, params, model_axis)
 
 
 def attention_prefill(x, params, cfg: ModelConfig, *,

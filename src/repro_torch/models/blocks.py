@@ -41,17 +41,24 @@ def _norm(x, p, cfg: ModelConfig, use_kernels: bool):
     return apply_norm(x, p, cfg.norm, cfg.norm_eps, use_kernels=use_kernels)
 
 
-def _mlp_residual(x, p, cfg: ModelConfig, use_kernels: bool):
+def _mlp_residual(x, p, cfg: ModelConfig, use_kernels: bool,
+                  model_axis=None):
     h = _norm(x, p["norm2"], cfg, use_kernels)
-    return x + apply_mlp(h, p["mlp"], cfg.activation)
+    if model_axis is not None and not model_axis.mlp:
+        model_axis = None
+    return x + apply_mlp(h, p["mlp"], cfg.activation, model_axis)
 
 
 def dense_block_forward(x, p, cfg: ModelConfig, *, positions=None,
-                        window: int = 0, use_kernels: bool = True):
+                        window: int = 0, use_kernels: bool = True,
+                        model_axis=None):
+    """``model_axis`` (``core.sharding.ModelAxis``): the plan's cut of
+    the heads and the MLP over the ``model`` axis, None on one device."""
     h = _norm(x, p["norm1"], cfg, use_kernels)
     x = x + attn.attention_forward(h, p["attn"], cfg, positions=positions,
-                                   window=window, use_kernels=use_kernels)
-    return _mlp_residual(x, p, cfg, use_kernels)
+                                   window=window, use_kernels=use_kernels,
+                                   model_axis=model_axis)
+    return _mlp_residual(x, p, cfg, use_kernels, model_axis)
 
 
 def dense_block_prefill(x, p, cfg: ModelConfig, *, positions=None, cache,

@@ -4,6 +4,11 @@ Parameters are plain nested dicts of tensors with the reference's keys;
 layer parameters are stacked on a leading ``[n_layers]`` axis.  Each
 function reads fp32 parameters and computes in the activation's dtype,
 as the reference does.
+
+Under a plan that shards weights, ``apply_mlp``, ``embed`` and
+``unembed`` take the ``model`` axis (``core.sharding.ModelAxis``) and
+this rank's blocks of the leaves it cuts: Megatron's f before a product
+whose output dim is cut, g after one whose contraction dim is.
 """
 from __future__ import annotations
 
@@ -13,6 +18,9 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.sharding import (
+    ModelAxis, copy_to_model, reduce_from_model,
+)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
 
@@ -121,16 +129,29 @@ def init_mlp(generator, d: int, d_ff: int, activation: str, *, lead=(),
     }
 
 
-def apply_mlp(x, params, activation: str):
+def apply_mlp(x, params, activation: str,
+              model_axis: Optional[ModelAxis] = None):
+    """``model_axis``: the hidden dim is cut over it (the dense blocks
+    under a weight-sharding plan; never the MoE experts), so the input
+    enters through f and the down projection's partial sums are added
+    over the axis before ``b_down``."""
     dt = x.dtype
+    if model_axis is not None:
+        x = copy_to_model(x, model_axis)
     if activation == "silu":
         g = x @ params["w_gate"].to(dt)
         u = x @ params["w_up"].to(dt)
         h = F.silu(g.float()).to(dt) * u
-        return h @ params["w_down"].to(dt)
-    h = x @ params["w_up"].to(dt) + params["b_up"].to(dt)
-    h = F.gelu(h.float(), approximate="tanh").to(dt)
-    return h @ params["w_down"].to(dt) + params["b_down"].to(dt)
+        y = h @ params["w_down"].to(dt)
+    else:
+        h = x @ params["w_up"].to(dt) + params["b_up"].to(dt)
+        h = F.gelu(h.float(), approximate="tanh").to(dt)
+        y = h @ params["w_down"].to(dt)
+    if model_axis is not None:
+        y = reduce_from_model(y, model_axis)
+    if "b_down" in params:
+        y = y + params["b_down"].to(dt)
+    return y
 
 
 # --------------------------------------------------------------------- #
@@ -141,18 +162,37 @@ def init_embedding(generator, vocab: int, d: int, *, device="cpu"):
     return {"table": embed_init(generator, (vocab, d), device=device)}
 
 
-def embed(tokens, params, dtype):
+def lookup_rows(ids, table, axis: ModelAxis):
+    """``table[ids]`` of a table cut on its rows over the ``model`` axis,
+    this rank holding rows ``[rank * R, (rank + 1) * R)``: each rank looks
+    up the ids it holds, zeros elsewhere, and the ranks' rows are added
+    over the axis (exact: one of them is non-zero)."""
+    local = ids - axis.rank * table.shape[0]
+    held = (local >= 0) & (local < table.shape[0])
+    rows = F.embedding(torch.where(held, local, 0), table)
+    return reduce_from_model(rows.masked_fill(~held[..., None], 0.0), axis)
+
+
+def embed(tokens, params, dtype, model_axis: Optional[ModelAxis] = None):
+    """``model_axis`` with ``vocab``: this rank holds its block of the
+    table's rows (``lookup_rows``)."""
     # gather, then cast: the same values as the reference's cast-then-
     # gather without converting the whole table every step.  F.embedding's
     # backward sums repeated tokens in a fixed order on the card (indexing
     # would scatter-add with atomics), so a rerun repeats its gradients.
+    if model_axis is not None and model_axis.vocab:
+        return lookup_rows(tokens, params["table"], model_axis).to(dtype)
     return F.embedding(tokens, params["table"]).to(dtype)
 
 
-def unembed(x, params, dtype):
+def unembed(x, params, dtype, model_axis: Optional[ModelAxis] = None):
     """Project back to vocabulary in the compute dtype, then cast the
-    logits to fp32 (greedy-token parity depends on this order)."""
+    logits to fp32 (greedy-token parity depends on this order).  With
+    ``model_axis.vocab`` the logits stay cut over the axis: this rank's
+    ``V_l`` columns."""
     table = params["table"].to(dtype)
+    if model_axis is not None and model_axis.vocab:
+        x = copy_to_model(x, model_axis)
     return (x @ table.t()).float()
 
 

@@ -15,6 +15,15 @@ in place (the reference donates them to its jitted steps instead); a
 cache is a NamedTuple of tensors, or for the hybrid family a dict
 ``{"ssm": SSMState [G, k, ...], "attn": KVCache [G, ...]}``, and
 ``map_cache`` walks either.
+
+Under a plan that shards weights, ``core.steps.build_train_step`` sets
+``Model.model_axis`` (a ``core.sharding.ModelAxis``; None by default, so
+every one-device path is unchanged) and hands the model this rank's
+blocks of the params: the forward pass and the loss then run the dense
+family's layers tensor-parallel, with the logits cut on the vocab when
+the table is, and ``lm_loss`` takes the vocab-parallel logsumexp.
+``lm_loss``'s ``batch_group`` divides by the token count of the whole
+batch across the ranks that split it, as the reference's SPMD loss does.
 """
 from __future__ import annotations
 
@@ -26,12 +35,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sharding import ModelAxis, all_reduce, reduce_from_model
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_norm, embed, init_embedding, init_learned_positions, init_norm,
-    unembed,
+    lookup_rows, unembed,
 )
 
 Params = Dict[str, Any]
@@ -117,6 +127,7 @@ class Model:
         self.device = resolve_device(device)
         self.use_kernels = use_kernels
         self.compute_dtype = _DTYPES[cfg.dtype]
+        self.model_axis: Optional[ModelAxis] = None
 
     @property
     def _groups(self) -> Tuple[int, int]:
@@ -125,10 +136,13 @@ class Model:
         return self.cfg.n_layers // k, k
 
     # ----------------------------------------------------------------- #
-    def init(self, generator: torch.Generator) -> Params:
-        """Fresh fp32 params with the reference's shapes and init laws.
-        ``generator`` must live on the model's device type."""
-        cfg, dev = self.cfg, self.device
+    def init(self, generator: torch.Generator, *, device=None) -> Params:
+        """Fresh fp32 params with the reference's shapes and init laws, on
+        ``device`` (default the model's; "meta" gives the shapes without
+        storage).  ``generator`` must live on that device type (any for
+        "meta")."""
+        cfg = self.cfg
+        dev = self.device if device is None else torch.device(device)
         init_block = _BLOCKS[cfg.family][0]
         params: Params = {
             "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
@@ -159,29 +173,34 @@ class Model:
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def _embed_inputs(self, params, batch) -> Tuple[torch.Tensor,
-                                                    Optional[torch.Tensor]]:
+    def _embed_inputs(self, params, batch, model_axis=None
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Returns (x, positions); positions stay None when the batch
         gives none (arange, the serving case the flash kernel takes)."""
         dt = self.compute_dtype
         tokens = self._tokens(batch["tokens"])
-        x = embed(tokens, params["embed"], dt)
+        x = embed(tokens, params["embed"], dt, model_axis)
         positions = batch.get("positions")
         if positions is not None:
             positions = torch.as_tensor(positions, device=self.device)
         if "pos_embed" in params:
             table = params["pos_embed"]["table"]
-            pe = table[positions.long()] if positions is not None \
-                else table[: x.shape[1]][None]
+            if model_axis is not None and model_axis.positions:
+                ids = positions.long() if positions is not None else \
+                    torch.arange(x.shape[1], device=x.device)[None]
+                pe = lookup_rows(ids, table, model_axis)
+            else:
+                pe = table[positions.long()] if positions is not None \
+                    else table[: x.shape[1]][None]
             x = x + pe.to(dt)
         return x, positions
 
-    def _head(self, params, x) -> torch.Tensor:
+    def _head(self, params, x, model_axis=None) -> torch.Tensor:
         cfg = self.cfg
         x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps,
                        use_kernels=self.use_kernels)
         table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-        return unembed(x, table, self.compute_dtype)
+        return unembed(x, table, self.compute_dtype, model_axis)
 
     def _run(self, params, x, cache, step: int, kw, remat: bool = False):
         """One pass over the layers with the family's block function
@@ -240,17 +259,20 @@ class Model:
     def _forward(self, params, batch, *, window: int = 0,
                  remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits [B, S, V] fp32, aux loss): the reference's
-        ``forward``."""
-        x, positions = self._embed_inputs(params, batch)
-        x, _, aux = self._run(params, x, None, _FORWARD,
-                              dict(positions=positions, window=window,
-                                   use_kernels=self.use_kernels),
-                              remat=remat)
-        return self._head(params, x), aux
+        ``forward``, tensor-parallel under ``model_axis``."""
+        axis = self.model_axis
+        x, positions = self._embed_inputs(params, batch, axis)
+        kw = dict(positions=positions, window=window,
+                  use_kernels=self.use_kernels)
+        if axis is not None:
+            kw["model_axis"] = axis
+        x, _, aux = self._run(params, x, None, _FORWARD, kw, remat=remat)
+        return self._head(params, x, axis), aux
 
     def forward(self, params, batch, *, window: int = 0,
                 remat: bool = False) -> torch.Tensor:
-        """Full-sequence logits [B, S, V] (fp32)."""
+        """Full-sequence logits [B, S, V] (fp32; this rank's vocab columns
+        when ``model_axis`` cuts the table)."""
         return self._forward(params, batch, window=window, remat=remat)[0]
 
     def hidden(self, params, batch) -> torch.Tensor:
@@ -262,13 +284,15 @@ class Model:
                                  use_kernels=self.use_kernels))
         return x
 
-    def loss(self, params, batch, *, remat: bool = True
+    def loss(self, params, batch, *, remat: bool = True, batch_group=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, metrics) of a batch with ``tokens`` and ``labels``: the
         reference's ``Model.loss``, with the MoE family's load-balance
-        loss summed over the layers (0 for the other families)."""
+        loss summed over the layers (0 for the other families).
+        ``batch_group``: see ``lm_loss``."""
         logits, aux = self._forward(params, batch, remat=remat)
-        return lm_loss(self.cfg, logits, batch, aux)
+        return lm_loss(self.cfg, logits, batch, aux,
+                       model_axis=self.model_axis, batch_group=batch_group)
 
     # ----------------------------------------------------------------- #
     def init_cache(self, batch: int, capacity: int, *, window: int = 0,
@@ -362,7 +386,51 @@ class Model:
         return found[0][0]
 
 
-def lm_loss(cfg: ModelConfig, logits, batch, aux
+class _VocabLogsumexp(torch.autograd.Function):
+    """logsumexp over the last dim of logits cut over the ``model`` axis:
+    ``torch.logsumexp``'s own operations on each rank's block (the max,
+    exp of the difference, the sum, its log plus the max), with the max
+    and the sum taken over the axis; backward ``g * exp(logits - lse)``,
+    its formula.  On an axis of one rank it gives ``torch.logsumexp``'s
+    numbers."""
+
+    @staticmethod
+    def forward(ctx, logits, group):
+        gmax = all_reduce(logits.amax(-1), group, "max")
+        sumexp = all_reduce((logits - gmax[..., None]).exp_().sum(-1), group)
+        lse = sumexp.log_().add_(gmax)
+        ctx.save_for_backward(logits, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse = ctx.saved_tensors
+        return g[..., None] * (logits - lse[..., None]).exp(), None
+
+
+def _vocab_parallel(logits32, labels_safe, axis: ModelAxis):
+    """(lse, label logit, argmax) of logits cut on the vocab over the
+    ``model`` axis, this rank holding columns ``[rank * V_l, (rank + 1) *
+    V_l)``: the logsumexp over the axis (``_VocabLogsumexp``), the
+    label's logit from its owner, and the argmax with ``torch.argmax``'s
+    first-index rule across the ranks."""
+    V_l = logits32.shape[-1]
+    start = axis.rank * V_l
+    lse = _VocabLogsumexp.apply(logits32, axis.group)
+    local = labels_safe - start
+    held = (local >= 0) & (local < V_l)
+    picked = torch.gather(logits32, -1, torch.where(held, local, 0)[..., None])
+    label_logit = reduce_from_model(
+        torch.where(held, picked[..., 0], 0.0), axis)
+    local_max, local_arg = logits32.detach().max(dim=-1)
+    gmax = all_reduce(local_max.clone(), axis.group, "max")
+    arg = torch.where(local_max == gmax, local_arg + start,
+                      torch.full_like(local_arg, axis.size * V_l))
+    return lse, label_logit, all_reduce(arg, axis.group, "min")
+
+
+def lm_loss(cfg: ModelConfig, logits, batch, aux, *,
+            model_axis: Optional[ModelAxis] = None, batch_group=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal-LM objective (port of ``repro/models/model.py:lm_loss``):
     cross-entropy of ``logits[:, :-1]`` against ``labels[:, 1:]``, plus a
@@ -371,6 +439,11 @@ def lm_loss(cfg: ModelConfig, logits, batch, aux
     a one-hot, which keeps a vocab-sharded axis partitioned; on one
     device only the value matters, and the one-hot would be an fp32
     [B, S, V] tensor (1.65 GB for gpt2m at batch 8, seq 1024).
+
+    ``model_axis`` with ``vocab``: the logits are this rank's vocab
+    columns (``_vocab_parallel``).  ``batch_group``: the ranks that split
+    the batch; the denominator is their tokens together, so their losses
+    and gradients add up to the loss and gradients of the whole batch.
 
     The shift is the reference's, and the Loader's labels are already
     the next token, so on Loader batches position i is scored against
@@ -381,14 +454,23 @@ def lm_loss(cfg: ModelConfig, logits, batch, aux
     mask = labels >= 0
     labels_safe = torch.where(mask, labels, 0)
     logits32 = logits.float()
-    lse = torch.logsumexp(logits32, dim=-1)
-    label_logit = torch.gather(logits32, -1, labels_safe[..., None])[..., 0]
+    if model_axis is not None and model_axis.vocab:
+        lse, label_logit, pred = _vocab_parallel(logits32, labels_safe,
+                                                 model_axis)
+    else:
+        lse = torch.logsumexp(logits32, dim=-1)
+        label_logit = torch.gather(logits32, -1,
+                                   labels_safe[..., None])[..., 0]
+        pred = torch.argmax(logits, -1)
     nll = lse - label_logit
-    denom = torch.clamp(mask.sum(), min=1)
+    count = mask.sum()
+    if batch_group is not None:
+        count = all_reduce(count, batch_group)
+    denom = torch.clamp(count, min=1)
     ce = torch.where(mask, nll, 0.0).sum() / denom
     # z-loss keeps the softmax normalizer in check (PaLM-style)
     zl = torch.where(mask, lse.square(), 0.0).sum() / denom
     loss = ce + 1e-4 * zl + aux
-    acc = (mask & (torch.argmax(logits, -1) == labels_safe)).sum() / denom
+    acc = (mask & (pred == labels_safe)).sum() / denom
     return loss, {"ce": ce, "aux": aux, "zloss": zl, "accuracy": acc,
                   "tokens": denom.float()}

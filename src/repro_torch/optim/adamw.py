@@ -7,6 +7,12 @@ the reference's order of operations and in fp32 throughout: clip, then
 the moments, then bias correction by ``1 - beta ** step`` taken in fp32
 tensors, then decoupled weight decay on every leaf but the ``_NO_DECAY``
 ones.  Not ``torch.optim.AdamW``: its clipping and decay mask differ.
+
+Under a plan the update runs on this rank's blocks of the grads, params
+and moments, cut by ``specs`` over ``mesh`` (``core.sharding``): the
+clipping norm adds each cut leaf's local sum of squares over the axes
+that cut it and counts a whole leaf once, so it is the norm of the
+whole gradient; every other step is elementwise.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core.sharding import all_reduce, spec_axes
 
 
 class AdamWState(NamedTuple):
@@ -46,13 +53,28 @@ def init_adamw(params) -> AdamWState:
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """The norm of the whole tree; with ``specs``, of the whole tree whose
+    blocks the ranks of ``mesh`` hold (one all-reduce for each set of
+    axes that cuts some leaf, of those leaves' sums stacked)."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if specs is not None:
+        by_axes: Dict[Tuple[str, ...], list] = {}
+        for i, spec in enumerate(tree_leaves(specs)):
+            axes = spec_axes(spec)
+            if axes:
+                by_axes.setdefault(tuple(sorted(
+                    axes, key=mesh.axis_names.index)), []).append(i)
+        for axes, idx in by_axes.items():
+            sums = all_reduce(torch.stack([leaves[i] for i in idx]),
+                              mesh.group(axes))
+            for j, i in enumerate(idx):
+                leaves[i] = sums[j]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, specs=None, mesh=None):
+    norm = global_norm(grads, specs, mesh)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: g.float() * scale, grads), norm
 
@@ -69,10 +91,11 @@ def _decay_mask(key: str) -> bool:
 
 
 def adamw_update(grads, state: AdamWState, params, cfg: TrainConfig,
-                 lr: torch.Tensor) -> Tuple[Any, AdamWState,
-                                            Dict[str, torch.Tensor]]:
-    """One AdamW step.  Returns (new_params, new_state, stats)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+                 lr: torch.Tensor, *, specs=None, mesh=None
+                 ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
+    """One AdamW step.  Returns (new_params, new_state, stats).
+    ``specs``/``mesh``: the leaves are blocks cut by ``specs``."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, specs, mesh)
     step = state.step + 1
     b1, b2 = cfg.beta1, cfg.beta2
     c1 = 1.0 - b1 ** step.float()

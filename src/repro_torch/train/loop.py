@@ -1,4 +1,5 @@
-"""Training loop on one device (port of ``repro/train/loop.py``).
+"""Training loop (port of ``repro/train/loop.py``): on one device, or
+on every rank of a mesh under an execution plan.
 
 Reports what the paper measures (§III-B): wall-clock step time and the
 achieved model TFLOP/s, 6·N·D over the step time.
@@ -11,6 +12,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.steps import build_train_step
@@ -22,7 +24,8 @@ from repro_torch.train.checkpoint import save_checkpoint
 @dataclass
 class TrainResult:
     """The reference's result, plus the final params and optimizer state
-    (the reference's jitted step donates them instead)."""
+    (the reference's jitted step donates them instead): under a plan,
+    this rank's blocks of them."""
     losses: List[float] = field(default_factory=list)
     step_times: List[float] = field(default_factory=list)
     metrics_last: Dict[str, float] = field(default_factory=dict)
@@ -50,7 +53,7 @@ def train(model: Model, tcfg: TrainConfig, loader, *, steps: int,
           start_step: int = 0,
           on_step_failure: Optional[Callable[[int], None]] = None,
           log_fn: Callable[[str], None] = print,
-          plan: Optional[str] = None) -> TrainResult:
+          plan=None, mesh=None) -> TrainResult:
     """Train ``model`` on ``loader.batch_at(i)`` for steps ``start_step``
     to ``steps - 1`` on the model's device.  Fresh params come from
     ``tcfg.seed``.
@@ -62,14 +65,40 @@ def train(model: Model, tcfg: TrainConfig, loader, *, steps: int,
     an exception it raises leaves ``train`` with the partial
     ``TrainResult`` as its ``result`` attribute.  ``ckpt_every`` saves
     after every such number of steps, and ``ckpt_dir`` also at the end.
-    ``plan`` must be None (one device; ROADMAP queue 1, item 7)."""
+
+    ``plan`` (a ``core.plans.PLANS`` name or ``Plan``) runs every step
+    under that plan on ``mesh`` (``launch.mesh.make_host_mesh``); every
+    rank of the mesh calls ``train`` alike.  ``params`` and
+    ``opt_state``, when given, are in the one-device layout, and each
+    rank keeps its blocks; each step takes this rank's slice of
+    ``loader.batch_at(i)`` by its place on the batch axes.  Checkpoints
+    are gathered into the one-device layout and written by rank 0, so
+    any plan, or one device, restores them; only rank 0 logs."""
     cfg = model.cfg
-    step_fn = build_train_step(model, tcfg, plan=plan)
+    step_fn = build_train_step(model, tcfg, plan=plan, mesh=mesh)
     if params is None:
         params = model.init(torch.Generator(device=model.device)
                             .manual_seed(tcfg.seed))
-    if opt_state is None:
-        opt_state = init_adamw(params)
+    if plan is None:
+        main = True
+        if opt_state is None:
+            opt_state = init_adamw(params)
+    else:
+        main = dist.get_rank() == 0
+        params = step_fn.shard_params(params)
+        opt_state = step_fn.init_opt_state() if opt_state is None \
+            else step_fn.shard_opt_state(opt_state)
+
+    def save(step: int) -> None:
+        if plan is None:
+            save_checkpoint(ckpt_dir, step, params, opt_state)
+            return
+        full_p = step_fn.gather_params(params)
+        full_o = step_fn.gather_opt_state(opt_state)
+        if main:
+            save_checkpoint(ckpt_dir, step, full_p, full_o)
+        dist.barrier()
+
     first = loader.batch_at(start_step)
     flops = model_flops_per_step(
         cfg, first["tokens"].shape[0] * first["tokens"].shape[1]
@@ -92,16 +121,16 @@ def train(model: Model, tcfg: TrainConfig, loader, *, steps: int,
         dt = time.perf_counter() - t0
         result.losses.append(loss)
         result.step_times.append(dt)
-        if log_every and (i % log_every == 0 or i == steps - 1):
+        if main and log_every and (i % log_every == 0 or i == steps - 1):
             log_fn(f"step {i:5d} loss {loss:8.4f} "
                    f"ce {float(metrics['ce']):8.4f} "
                    f"gnorm {float(metrics['grad_norm']):7.3f} "
                    f"{dt * 1e3:8.1f} ms "
                    f"{flops / max(dt, 1e-9) / 1e12:6.2f} TFLOP/s")
         if ckpt_dir and ckpt_every and (i + 1) % ckpt_every == 0:
-            save_checkpoint(ckpt_dir, i + 1, params, opt_state)
+            save(i + 1)
     result.metrics_last = {k: float(v) for k, v in metrics.items()}
     if ckpt_dir:
-        save_checkpoint(ckpt_dir, steps, params, opt_state)
+        save(steps)
     result.params, result.opt_state = params, opt_state
     return result

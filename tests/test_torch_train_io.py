@@ -184,10 +184,12 @@ def test_train_losses_match_reference(corpus, pair, grad_accum):
 
 
 def test_train_refuses_plans(pair, corpus):
+    """The plans the port does not run yet raise before any step (data,
+    zero2, shard and shard_zero run: tests/test_torch_plans.py)."""
     _, _, tm = pair
     with pytest.raises(NotImplementedError, match="item 7"):
         ttrain(tm, TrainConfig(), tdata.Loader(corpus[4], BATCH), steps=1,
-               plan="zero2")
+               plan="fsdp")
 
 
 def test_train_resume_and_failure_hook(corpus, pair, tmp_path):
