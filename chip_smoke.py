@@ -53,7 +53,14 @@ real collectives on the card and the plan code end to end, through
 kernel A and its backward; each plan's losses are held to the
 one-device run's, data's and zero2's params bit-equal; it prints each
 plan's step time, tokens/s, 6·N·D TFLOP/s, peak memory and the calls
-and bytes of each collective kind a step.
+and bytes of each collective kind a step.  Then it trains gpt2L the
+same way under the pipeline plan on a (stage, data, model) mesh of one
+rank, four microbatches, under GPipe, 1F1B and interleaved with an
+uneven split of two chunks (``pipe-gpipe``, ``pipe-1f1b``,
+``pipe-interleaved``): kernel A 240 forward and 120 backward launches a
+step (remat), losses held to ``train-gpt2L``'s, the three phases
+bit-equal to each other, 1F1B's peak memory over a forward and backward
+of the batch below GPipe's.
 
 For each model it checks that the kernel path's first-step logits agree
 with the plain path's on the card (the MoE model's against the fp32
@@ -178,6 +185,18 @@ RESUME_RTOL = 1e-5
 PLAN_ARCH, PLAN_STEPS, PLAN_DOCS = "gpt2L", 3, 3 * TRAIN_BATCH
 PLAN_NAMES = ("data", "zero2", "shard", "shard_zero")
 PLAN_LOSS_RTOL = 1e-5
+# the pipe phases: gpt2L under pipeshard on a (stage, data, model) mesh
+# of (1, 1, 1), the batch of 8 cut into PIPE_MICRO microbatches, under
+# each schedule; interleaved runs two chunks, the uneven (16, 14).  Each
+# microbatch's loss divides by the whole batch's token count and the
+# microbatch sums of bf16 GEMMs differ from the one-device batch's in
+# rounding only: the step-1 loss within PIPE_LOSS1_RTOL of train-gpt2L's,
+# every step within PIPE_LOSS_RTOL (AdamW grows the rounding).  The three
+# phases do the same operations in other orders, so their losses and
+# params must be bit-equal.
+PIPE_MICRO = 4
+PIPE_PHASES = (("gpipe", None), ("1f1b", None), ("interleaved", (16, 14)))
+PIPE_LOSS1_RTOL, PIPE_LOSS_RTOL = 1e-4, 2e-3
 # the calibration micro-bench's flash sample (calib/microbench.py):
 # (H, KV, D) and (B, S), causal; grouped-query, unlike the models here
 CAL_FLASH_HEADS, CAL_FLASH_BS = (4, 2, 64), (1, 128)
@@ -1524,7 +1543,8 @@ def train_phases(torch, np, ops, card):
 def plan_phases(torch, np, ops, card):
     """Phases ``train-gpt2L`` and ``plan-<name>`` for each flat plan:
     gpt2L trains ``PLAN_STEPS`` steps through ``train()`` on one device
-    and under each plan on a mesh of one rank over NCCL.  One more step
+    and under each plan on a mesh of one rank over NCCL, then the pipe
+    phases (``pipe_phases``) in the same process group.  One more step
     of the one device and of shard_zero (the plan with the most layout
     work) is traced after its counted phase."""
     import torch.distributed as dist
@@ -1551,22 +1571,25 @@ def plan_phases(torch, np, ops, card):
     flops = model_flops_per_step(cfg, tokens)
     out = {}
 
-    def run(name, plan=None, mesh=None, trace=False):
+    def run(name, plan=None, mesh=None, trace=False, tc=tcfg, micro=1,
+            **kw):
         model = Model(cfg, device="cuda")
         params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
         sharding.reset_collective_counts()
         res, counts = run_phase(
             torch, ops, name,
-            lambda: train(model, tcfg, loader, steps=PLAN_STEPS,
-                          params=params, log_every=0, plan=plan, mesh=mesh),
+            lambda: train(model, tc, loader, steps=PLAN_STEPS,
+                          params=params, log_every=0, plan=plan, mesh=mesh,
+                          **kw),
             needs)
         coll = {k: {"calls": v["calls"] / PLAN_STEPS,
                     "bytes": v["bytes"] / PLAN_STEPS}
                 for k, v in sharding.collective_counts().items()}
         for kname, n in per_step.items():
-            if counts[kname] != n * PLAN_STEPS:
+            if counts[kname] != n * micro * PLAN_STEPS:
                 fail(f"phase {name}: {counts[kname]} {kname} launches, want "
-                     f"{n} a step (remat runs each layer's forward twice)")
+                     f"{n * micro} a step (remat runs each layer's forward "
+                     f"twice)")
         if not all(np.isfinite(res.losses)):
             fail(f"phase {name}: non-finite losses {res.losses}")
         step_s = res.avg_step_time
@@ -1584,7 +1607,7 @@ def plan_phases(torch, np, ops, card):
             f"{k} {v['calls']:g} calls {v['bytes'] / 1e6:.3f} MB"
             for k, v in coll.items()))
         if trace:
-            step_fn = build_train_step(model, tcfg, plan=plan, mesh=mesh)
+            step_fn = build_train_step(model, tc, plan=plan, mesh=mesh, **kw)
             batch = {k: torch.as_tensor(v, device="cuda")
                      for k, v in loader.batch_at(PLAN_STEPS).items()}
             rec["profile"] = profile_window(
@@ -1623,10 +1646,74 @@ def plan_phases(torch, np, ops, card):
             out[f"plan_{name}"] = rec
             del res
             torch.cuda.empty_cache()
+        out.update(pipe_phases(torch, run, loader,
+                               out["train_gpt2L"]["losses"]))
     finally:
         dist.destroy_process_group()
     del ref_params
     torch.cuda.empty_cache()
+    return out
+
+
+def pipe_phases(torch, run, loader, want):
+    """Phases ``pipe-<schedule>`` (``PIPE_PHASES``): gpt2L under
+    pipeshard on a (1, 1, 1) staged mesh, through ``run`` of
+    ``plan_phases``; one more step of 1F1B is traced.  After each phase
+    one more forward and backward of the batch (``PipelineStep.grads``)
+    gives the schedule's own peak: the most memory it allocates above
+    what the params and the optimizer state hold (the phase's peak is
+    AdamW's, the same under every schedule)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import tree_leaves
+
+    tc = TrainConfig(microbatches=PIPE_MICRO)
+    out, first = {}, None
+    for sched, split in PIPE_PHASES:
+        name = f"pipe-{sched}"
+        mesh = make_pipeline_mesh((1, 1, 1), ("pod", "data", "model"), 1,
+                                  stage_layers=split, schedule=sched)
+        res, rec = run(name, "pipeshard", mesh, trace=sched == "1f1b",
+                       tc=tc, micro=PIPE_MICRO, stage_layers=split,
+                       schedule=sched)
+        rel = [abs(a - b) / abs(b) for a, b in zip(res.losses, want)]
+        rec["loss_rel_diff"] = rel
+        if not (rel[0] <= PIPE_LOSS1_RTOL and max(rel) <= PIPE_LOSS_RTOL):
+            fail(f"{name}: losses {res.losses} vs one device {want}: "
+                 f"{rel} relative, beyond {PIPE_LOSS1_RTOL} at step 1 or "
+                 f"{PIPE_LOSS_RTOL}")
+        params = [t.cpu() for t in tree_leaves(res.params)]
+        if first is None:
+            first = (name, res.losses, params)
+        elif res.losses != first[1] or not all(
+                torch.equal(a, b) for a, b in zip(params, first[2])):
+            fail(f"{name}: losses {res.losses} or params not bit-equal to "
+                 f"{first[0]}'s ({first[1]})")
+        rec["split"] = split
+        step = build_train_step(Model(get_config(PLAN_ARCH), device="cuda"),
+                                tc, plan="pipeshard", mesh=mesh,
+                                stage_layers=split, schedule=sched)
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in loader.batch_at(0).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        step.grads(res.params, batch)
+        torch.cuda.synchronize()
+        rec["schedule_peak_bytes"] = torch.cuda.max_memory_allocated() - held
+        log(f"{name}: loss relative differences to one device {rel}; "
+            f"bit-equal to {first[0]}; the schedule's peak "
+            f"{rec['schedule_peak_bytes'] / 2**30:.3f} GiB above the "
+            f"params and optimizer state")
+        out[name.replace("-", "_")] = rec
+        del res, params, step
+        torch.cuda.empty_cache()
+    key = "schedule_peak_bytes"
+    if not out["pipe_1f1b"][key] < out["pipe_gpipe"][key]:
+        fail(f"pipe-1f1b's schedule peak {out['pipe_1f1b'][key]} is not "
+             f"below pipe-gpipe's {out['pipe_gpipe'][key]}")
     return out
 
 
@@ -1871,7 +1958,7 @@ def main() -> None:
     add(training["train_parity_launches"])
     e2e.update(training)
     plans = plan_phases(torch, np, ops, card)
-    stage("gpt2L under the plans")
+    stage("gpt2L under the plans and the pipeline")
     for rec in plans.values():
         add(rec["launches"])
     e2e.update(plans)

@@ -10,16 +10,17 @@ N-site topology.
     Shard     — intra-operator parallelism: weights sharded on their
                 logical axes over the ``model`` mesh axis, batch over the
                 data axes (paper §III-B "Shard").
-    Pipeshard — the layer stack cut into stages over a ``stage`` mesh axis
-                (ROADMAP queue 1, item 8: its runtime is not ported).
+    Pipeshard — the layer stack cut into stages over a ``stage`` mesh axis,
+                microbatches pipelined between them point to point, and
+                the Shard rules inside each stage (``core.pipeline``).
 
 A plan turns (params, mesh) into specs: which mesh axes cut each
 parameter, optimizer-state leaf and batch leaf.  The spec methods read
 only ``mesh.axis_names`` and ``mesh.shape``, so they take a device-free
 ``MeshSpec`` or the runtime ``core.sharding.Mesh`` alike, and give the
-reference's ``PartitionSpec``s as tuples.  ``core.steps
-.build_train_step`` runs data, zero2, shard and shard_zero on
-``torch.distributed``.
+reference's ``PartitionSpec``s as tuples (on a staged ``("stage",
+"data", "model")`` mesh too).  ``core.steps.build_train_step`` runs
+data, zero2, shard, shard_zero and pipeshard on ``torch.distributed``.
 """
 from __future__ import annotations
 

@@ -18,9 +18,10 @@ tuple.  Paths are the ``/``-joined keys of the port's nested dicts, the
 reference's tree paths.
 
 The runtime half has no reference counterpart, since XLA inserts the
-reference's collectives: ``Mesh`` (a ``DeviceMesh`` with one process
+reference's collectives: ``Mesh`` (a grid of ranks with one process
 group per set of its axes), ``shard_tree`` / ``gather_tree`` between
-full leaves and this rank's slices, the counted collectives, and
+full leaves and this rank's slices, the counted collectives and
+point-to-point handoffs (``exchange``), and
 Megatron's f and g for the tensor-parallel layers (``copy_to_model``,
 ``reduce_from_model``).  They are explicit ``torch.distributed`` calls,
 not DTensor, so the order of every reduction is visible and the same
@@ -233,44 +234,59 @@ def spec_axes(spec: Spec) -> Tuple[str, ...]:
 # --------------------------------------------------------------------- #
 
 class Mesh:
-    """A ``DeviceMesh`` seen as the reference's mesh: ``axis_names`` and
-    ``shape`` (axis -> size), so the plans' spec functions
-    take it as they take a ``MeshSpec``; plus this rank's coordinate on
-    each axis and one process group for every set of axes.
+    """The world's ranks laid out over named axes, seen as the
+    reference's mesh: ``axis_names`` and ``shape`` (axis -> size), so the
+    plans' spec functions take it as they take a ``MeshSpec``; plus this
+    rank's coordinate on each axis and one process group for every set
+    of axes.
 
-    The ranks lie on the mesh in row-major order, the layout
-    ``init_device_mesh`` gives, so a group over several axes (in mesh
-    order) ranks its members major axis first: the order in which a spec
-    entry such as ``("pod", "data")`` splits a dim.  Every group is made
+    ``grid`` holds every rank of the world once: in row-major order for
+    the flat plans, with permuted pod blocks for a pipeline's
+    ``stage_order``.  A group ranks its members by global rank
+    (``torch.distributed.new_group``), which is their coordinate order,
+    major axis first, the order in which a spec entry such as ``("pod",
+    "data")`` splits a dim, wherever the grid keeps its ranks ascending
+    along the group's axes: every group but the stage axis of a permuted
+    grid (``members`` gives the coordinate order).  Every group is made
     here, by every rank in the same order, as ``torch.distributed``
     requires.
     """
 
-    def __init__(self, device_mesh):
-        self.axis_names: Tuple[str, ...] = tuple(device_mesh.mesh_dim_names)
-        grid = np.asarray(device_mesh.mesh.tolist(), dtype=np.int64)
+    def __init__(self, grid, axis_names):
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        grid = np.asarray(grid, dtype=np.int64)
+        self.grid = grid
         self.shape: Dict[str, int] = dict(zip(self.axis_names, grid.shape))
-        if grid.size != dist.get_world_size() or \
-                not np.array_equal(grid.ravel(), np.arange(grid.size)):
+        if grid.ndim != len(self.axis_names) or \
+                grid.size != dist.get_world_size() or \
+                not np.array_equal(np.sort(grid.ravel()),
+                                   np.arange(grid.size)):
             raise ValueError(f"the mesh must lay every rank of the world "
-                             f"out in order, got {grid.tolist()}")
-        rank = dist.get_rank()
-        self.coord: Dict[str, int] = dict(zip(
-            self.axis_names, (int(c) for c in np.unravel_index(
-                rank, grid.shape))))
+                             f"out once, got {grid.tolist()}")
+        self.coord: Dict[str, int] = self.coord_of(dist.get_rank())
         self._groups: Dict[Tuple[str, ...], Any] = {}
         n = len(self.axis_names)
         for k in range(1, n + 1):
             for axes in itertools.combinations(self.axis_names, k):
-                if k == 1:
-                    self._groups[axes] = device_mesh.get_group(axes[0])
-                    continue
                 keep = [self.axis_names.index(a) for a in axes]
                 rest = [i for i in range(n) if i not in keep]
                 sub = np.transpose(grid, rest + keep).reshape(
                     -1, int(np.prod([grid.shape[i] for i in keep])))
                 cur, _ = dist.new_subgroups_by_enumeration(sub.tolist())
                 self._groups[axes] = cur
+
+    def coord_of(self, rank: int) -> Dict[str, int]:
+        """A rank's coordinate on each axis."""
+        at = np.argwhere(self.grid == rank)[0]
+        return dict(zip(self.axis_names, (int(c) for c in at)))
+
+    def members(self, axes) -> Tuple[int, ...]:
+        """The ranks of this rank's group along ``axes``, in coordinate
+        order (major axis first)."""
+        axes = self._ordered(axes)
+        index = tuple(slice(None) if a in axes else self.coord[a]
+                      for a in self.axis_names)
+        return tuple(int(r) for r in self.grid[index].ravel())
 
     def _ordered(self, axes) -> Tuple[str, ...]:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -298,7 +314,7 @@ class Mesh:
 # counted collectives
 # --------------------------------------------------------------------- #
 
-KINDS = ("all_reduce", "reduce_scatter", "all_gather")
+KINDS = ("all_reduce", "reduce_scatter", "all_gather", "send", "recv")
 _COUNTS = {k: {"calls": 0, "bytes": 0} for k in KINDS}
 
 
@@ -311,7 +327,8 @@ def collective_counts() -> Dict[str, Dict[str, int]]:
     """Calls and bytes of each collective kind since the last reset; the
     bytes are those of the whole tensor a collective works over (the
     input of an all-reduce and a reduce-scatter, the output of an
-    all-gather)."""
+    all-gather, the tensor a point-to-point ``send`` or ``recv`` moves).
+    A handoff within one rank is no send."""
     return {k: dict(v) for k, v in _COUNTS.items()}
 
 
@@ -351,6 +368,22 @@ def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     out = x.new_empty((n * x.shape[0],) + x.shape[1:])
     dist.all_gather_into_tensor(out, x, group=group)
     return torch.cat(out.view((n,) + x.shape).unbind(0), dim)
+
+
+def exchange(sends, recvs) -> None:
+    """One tick's point-to-point handoffs of a pipeline: ``sends`` and
+    ``recvs`` are lists of (peer rank, tensor), the receive buffers
+    filled in place.  They go in one ``batch_isend_irecv``, so a pair of
+    ranks that send to each other in the same tick cannot deadlock."""
+    ops = []
+    for peer, t in sends:
+        _count("send", t)
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), peer))
+    for peer, t in recvs:
+        _count("recv", t)
+        ops.append(dist.P2POp(dist.irecv, t, peer))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
 
 
 # --------------------------------------------------------------------- #

@@ -1,5 +1,5 @@
-"""Train steps: on one device, and under the data, zero2, shard and
-shard_zero plans on ``torch.distributed`` (port of
+"""Train steps: on one device, and under the data, zero2, shard,
+shard_zero and pipeshard plans on ``torch.distributed`` (port of
 ``repro/core/steps.py:build_train_step``).
 
 ``build_train_step`` returns ``step(params, opt_state, batch) -> (params,
@@ -28,9 +28,21 @@ inserts the collectives, here they are explicit (``core.sharding``):
                  reduce-scattered onto its optimizer block, whose specs
                  (the reference's) span the data axes only.
 
-pipeshard (ROADMAP queue 1, item 8), fsdp, the MoE family under any plan
-and the SSM and hybrid families under shard and shard_zero (item 7)
-raise.
+Under pipeshard (``PipelineStep``) each stage rank holds the layers of
+its chunks and every leaf outside the stack, both cut over ``model`` as
+under shard, and ``core.pipeline.StageRunner`` runs the microbatches
+through the stages in the schedule's order, backwards included:
+
+  * the gradients of a stage's layers are all-reduced over the data
+    axes; those of the leaves every stage holds (the embedding, the
+    position table, the final norm, the head) over the stage and data
+    axes, a stage that does not use a leaf adding zeros;
+  * AdamW's norm sums a stage's layers over the stage axis and takes
+    every other leaf once (``update_specs``).
+
+fsdp, the MoE family under any plan (item 7), the SSM and hybrid
+families under shard and shard_zero (item 7) and under pipeshard (item
+8) raise.
 """
 from __future__ import annotations
 
@@ -38,11 +50,14 @@ from functools import partial
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.core.plans import MODEL_AXIS, Plan, get_plan
+from repro_torch.core.costmodel import parse_schedule
+from repro_torch.core.plans import MODEL_AXIS, STAGE_AXIS, Plan, get_plan
 from repro_torch.core.sharding import (
-    Mesh, ModelAxis, all_reduce, gather_leaf, gather_tree, reduce_scatter,
+    Mesh, ModelAxis, all_gather, all_reduce, gather_leaf, gather_tree,
+    reduce_scatter,
     shard_tree, slice_leaf, spec_axes, tree_map_with_path,
 )
 from repro_torch.models.model import Model
@@ -97,10 +112,11 @@ def _grad_fn(model: Model, tcfg: TrainConfig, loss_fn) -> Callable:
 
 def _refuse(plan: Plan, family: str) -> None:
     """Raise for what the port does not run under a plan yet."""
-    if plan.pipeline:
+    if plan.pipeline and family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"plan {plan.name!r}: the pipeline runtime is not ported "
-            f"(ROADMAP queue 1, item 8)")
+            f"plan {plan.name!r}: the {family} family's stages are not "
+            f"ported (the hybrid's shared block runs in every stage; "
+            f"ROADMAP queue 1, item 8)")
     if plan.fsdp:
         raise NotImplementedError(
             f"plan {plan.name!r}: params cut over the data axes are not "
@@ -118,10 +134,17 @@ def _refuse(plan: Plan, family: str) -> None:
 
 def build_train_step(model: Model, tcfg: TrainConfig, *,
                      plan: Union[None, str, Plan] = None,
-                     mesh: Optional[Mesh] = None) -> Callable:
+                     mesh: Optional[Mesh] = None, stage_layers=None,
+                     schedule: str = "gpipe",
+                     carrier_dtype=torch.float32) -> Callable:
     """The one-device step for ``plan=None``; else a ``PlanStep`` over
     ``mesh`` (a ``core.sharding.Mesh``, e.g. from
-    ``launch.mesh.make_host_mesh``)."""
+    ``launch.mesh.make_host_mesh``), or for a pipeline plan a
+    ``PipelineStep`` over a staged mesh (``launch.mesh
+    .make_pipeline_mesh``) with ``tcfg.microbatches``, the per-chunk
+    ``stage_layers`` (None: the even split) and the tick-order
+    ``schedule`` (``core.costmodel.SCHEDULES``), the reference's
+    keywords."""
     if plan is None:
         model.model_axis = None
         return _one_device_step(model, tcfg)
@@ -130,6 +153,10 @@ def build_train_step(model: Model, tcfg: TrainConfig, *,
     if mesh is None:
         raise ValueError(f"plan {plan.name!r} needs a mesh "
                          f"(repro_torch.launch.mesh.make_host_mesh)")
+    if plan.pipeline:
+        return PipelineStep(model, tcfg, plan, mesh,
+                            stage_layers=stage_layers, schedule=schedule,
+                            carrier_dtype=carrier_dtype)
     return PlanStep(model, tcfg, plan, mesh)
 
 
@@ -300,3 +327,172 @@ class PlanStep:
         new_params = tree_map_with_path(from_update, new_u, self.param_specs,
                                         self.update_specs)
         return new_params, new_opt, dict(metrics, loss=loss, **stats)
+
+
+def _is_layer(path: str) -> bool:
+    return path.startswith("layers/")
+
+
+class PipelineStep:
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
+    under a pipeline plan on a ``(stage, data, model)`` mesh.
+
+    ``params`` are this rank's in the local layout: the ``layers``
+    leaves hold the rows of this stage's chunks back to back
+    (``core.pipeline.stage_rows``), every leaf cut over ``model`` by
+    ``param_specs`` (the reference's ``PartitionSpec``s, whose stack dim
+    the local layout replaces by the stage's rows).  ``batch`` is the
+    global batch, of which the step takes this rank's slice on the data
+    axes and cuts it into ``tcfg.microbatches``.  The metrics are those
+    of the whole batch, on every rank.  ``shard_params`` and
+    ``gather_params`` (also for gradients), ``init_opt_state``,
+    ``shard_opt_state`` and ``gather_opt_state`` go to and from the
+    one-device layout.
+    """
+
+    def __init__(self, model: Model, tcfg: TrainConfig, plan: Plan,
+                 mesh: Mesh, *, stage_layers=None, schedule: str = "gpipe",
+                 carrier_dtype=torch.float32):
+        from repro_torch.core.pipeline import (
+            StageRunner, stage_rows, validate_stages)
+        if STAGE_AXIS not in mesh.shape:
+            raise ValueError(f"plan {plan.name!r} needs a mesh with a "
+                             f"{STAGE_AXIS!r} axis (launch.mesh"
+                             f".make_pipeline_mesh), got {mesh.axis_names}")
+        self.model, self.tcfg, self.plan, self.mesh = model, tcfg, plan, mesh
+        cfg = model.cfg
+        S = mesh.shape[STAGE_AXIS]
+        _, v = parse_schedule(schedule)
+        self._shapes = model.init(torch.Generator(), device="meta")
+        self.split = validate_stages(cfg, self._shapes["layers"], S,
+                                     stage_layers, schedule=schedule) \
+            or (cfg.n_layers // (S * v),) * (S * v)
+        self.rows = [stage_rows(self.split, S, v, s) for s in range(S)]
+        self.stage = mesh.coord[STAGE_AXIS]
+        self.param_specs = plan.param_specs(self._shapes, cfg, mesh)
+        # the local layout's cuts (the stack dim is the stage's rows) and
+        # AdamW's (a stage's rows summed over the stage axis in its norm)
+        self.local_specs = tree_map_with_path(
+            lambda path, spec: ((None,) + tuple(spec[1:]))
+            if _is_layer(path) and spec else spec, self.param_specs)
+        self.update_specs = tree_map_with_path(
+            lambda path, spec: (STAGE_AXIS,) + tuple(spec[1:])
+            if _is_layer(path) else spec, self.local_specs)
+        model.model_axis = _model_axis(mesh, self.param_specs) \
+            if plan.shards_weights else None
+        ranks = mesh.members(STAGE_AXIS)
+        self.runner = StageRunner(model, schedule, tcfg.microbatches,
+                                  self.split, self.stage, ranks,
+                                  remat=tcfg.remat,
+                                  carrier_dtype=carrier_dtype)
+
+    # ------------------------------------------------------------- #
+    def _local(self, tree):
+        """Full leaves -> this rank's, in the local layout."""
+        rows = self.rows[self.stage]
+
+        def cut(path, t, spec):
+            if _is_layer(path):
+                t = t.index_select(0, torch.as_tensor(
+                    rows, dtype=torch.long, device=t.device))
+            return slice_leaf(t, spec, self.mesh)
+
+        return tree_map_with_path(cut, tree, self.local_specs)
+
+    def _gather(self, tree):
+        """This rank's leaves in the local layout -> full leaves."""
+        mesh = self.mesh
+        group = mesh.group(STAGE_AXIS)
+        order = [mesh.coord_of(r)[STAGE_AXIS]
+                 for r in dist.get_process_group_ranks(group)]
+        most = max(len(r) for r in self.rows)
+
+        def whole(path, t, spec):
+            t = gather_leaf(t, spec, mesh)
+            if not _is_layer(path) or len(order) == 1:
+                return t
+            pad = t.new_zeros((most - t.shape[0],) + tuple(t.shape[1:]))
+            blocks = all_gather(torch.cat([t, pad]), group, 0).view(
+                (len(order), most) + tuple(t.shape[1:]))
+            out = t.new_empty((self.model.cfg.n_layers,)
+                              + tuple(t.shape[1:]))
+            for j, s in enumerate(order):
+                rows = torch.as_tensor(self.rows[s], dtype=torch.long,
+                                       device=t.device)
+                out.index_copy_(0, rows, blocks[j, :len(rows)])
+            return out
+
+        return tree_map_with_path(whole, tree, self.local_specs)
+
+    def shard_params(self, params):
+        return self._local(params)
+
+    def gather_params(self, params):
+        return self._gather(params)
+
+    def init_opt_state(self) -> AdamWState:
+        dev = self.model.device
+        local = self._local(self._shapes)
+
+        def zeros(t):
+            return torch.zeros(t.shape, dtype=torch.float32, device=dev)
+
+        return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                          m=tree_map(zeros, local), v=tree_map(zeros, local))
+
+    def shard_opt_state(self, state: AdamWState) -> AdamWState:
+        return AdamWState(step=state.step, m=self._local(state.m),
+                          v=self._local(state.v))
+
+    def gather_opt_state(self, state: AdamWState) -> AdamWState:
+        return AdamWState(step=state.step, m=self._gather(state.m),
+                          v=self._gather(state.v))
+
+    # ------------------------------------------------------------- #
+    def batch_axes(self, global_batch: int) -> Tuple[str, ...]:
+        return self.plan.batch_axes(self.mesh, global_batch)
+
+    def local_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """This rank's slice of the global ``batch``."""
+        dev = self.model.device
+        specs = self.plan.batch_spec(batch, self.mesh)
+        return {k: slice_leaf(torch.as_tensor(v, device=dev), specs[k],
+                              self.mesh) for k, v in batch.items()}
+
+    def grads(self, params, batch):
+        """(loss, metrics, grads) of the global ``batch``: the whole
+        batch's loss and metrics, and the grads summed over its
+        microbatches and data ranks, in the local layout."""
+        mesh = self.mesh
+        axes = self.batch_axes(batch["tokens"].shape[0])
+        local = self.local_batch(batch)
+        count = (torch.as_tensor(local["labels"])[:, 1:] >= 0).sum()
+        if axes:
+            count = all_reduce(count, mesh.group(axes))
+        denom = torch.clamp(count, min=1)
+        sums, grads = self.runner.run(params, local, denom)
+        every = (STAGE_AXIS,) + axes
+
+        def reduce(path, g):
+            over = axes if _is_layer(path) else every
+            return all_reduce(g, mesh.group(over)) if over else g
+
+        grads = tree_map_with_path(reduce, grads)
+        last = self.stage == mesh.shape[STAGE_AXIS] - 1
+        sums = all_reduce(torch.cat([sums, (denom if last else 0 * denom)
+                                     .float()[None]]), mesh.group(every))
+        metrics = dict(zip(("ce", "aux", "zloss", "accuracy", "tokens"),
+                           sums[1:]))
+        return sums[0], metrics, grads
+
+    def apply(self, params, opt_state, loss, metrics, grads):
+        """The AdamW update of ``grads`` (from ``grads``): the step's
+        output."""
+        lr = lr_at(opt_state.step, self.tcfg)
+        new_params, new_opt, stats = adamw_update(
+            grads, opt_state, params, self.tcfg, lr,
+            specs=self.update_specs, mesh=self.mesh)
+        return new_params, new_opt, dict(metrics, loss=loss, **stats)
+
+    def __call__(self, params, opt_state, batch):
+        return self.apply(params, opt_state, *self.grads(params, batch))

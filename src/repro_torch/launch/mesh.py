@@ -1,5 +1,5 @@
 """Meshes of the port, and topology -> mesh mapping (port of
-``repro/launch/mesh.py`` for the flat plans).
+``repro/launch/mesh.py``).
 
 A mesh lays the ranks of the ``torch.distributed`` world out over the
 reference's axes, ``("pod", "data", "model")``: the "pod" axis is the
@@ -9,26 +9,30 @@ selection onto it: one pod block per selected site, each site's GPUs
 split over (data, model), the blocks in the order of ``sites``.  The
 process group must be initialized first (``torch.distributed
 .init_process_group``: NCCL on the card, gloo on the CPU), and the mesh
-covers its whole world.  Pipeline placements wait for the pipeline
-runtime (ROADMAP queue 1, item 8).
+covers its whole world.  A pipeline plan reshapes that mesh into
+``("stage", "data", "model")`` by ``core.pipeline.pipeline_mesh``
+(``make_pipeline_mesh``, ``placement_pipeline_mesh``): the stage axis
+absorbs the pod axis, in the placement's stage order, then splits data.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch.distributed as dist
 
 from repro_torch.core.sharding import Mesh
 from repro_torch.core.topology import Topology
 
 
-def make_host_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
-    """A mesh of ``shape`` named ``axes`` over the process group's world
-    (``init_device_mesh``: on "cuda" under NCCL, else on "cpu")."""
-    from torch.distributed.device_mesh import init_device_mesh
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return Mesh(init_device_mesh(device_type, tuple(int(n) for n in shape),
-                                 mesh_dim_names=tuple(axes)))
+def make_host_mesh(shape: Sequence[int], axes: Sequence[str], *,
+                   grid=None) -> Mesh:
+    """A mesh of ``shape`` named ``axes`` over the process group's world:
+    its ranks in row-major order, or laid out as ``grid``."""
+    shape = tuple(int(n) for n in shape)
+    grid = np.arange(int(np.prod(shape))) if grid is None \
+        else np.asarray(grid)
+    return Mesh(grid.reshape(shape), axes)
 
 
 # --------------------------------------------------------------------- #
@@ -72,15 +76,46 @@ def make_topology_mesh(topo: Topology,
     return make_host_mesh(shape, axes)
 
 
+def make_pipeline_mesh(shape: Sequence[int], axes: Sequence[str],
+                       n_stages: int, *, stage_order=None,
+                       stage_layers=None, schedule: str = "gpipe") -> Mesh:
+    """The ``(stage, data, model)`` mesh ``core.pipeline.pipeline_mesh``
+    makes of the world's ranks laid out row-major as ``shape`` over
+    ``axes`` (a sub-tuple of ``("pod", "data", "model")``)."""
+    from repro_torch.core.pipeline import STAGED_AXES, pipeline_mesh
+    n = int(np.prod(shape))
+    if n != dist.get_world_size():
+        raise ValueError(f"mesh {tuple(shape)} needs {n} ranks, the world "
+                         f"has {dist.get_world_size()}")
+    grid = pipeline_mesh(np.arange(n).reshape(tuple(shape)), axes,
+                         n_stages, stage_order=stage_order,
+                         stage_layers=stage_layers, schedule=schedule)
+    return make_host_mesh(grid.shape, STAGED_AXES, grid=grid)
+
+
+def placement_pipeline_mesh(topo: Topology, placement, *,
+                            model: int = 1) -> Mesh:
+    """Realize a searched pipeline ``core.plans.Placement`` as a staged
+    mesh: one pod block per placed site, the blocks permuted into the
+    placement's stage order, and its ``stage_layers`` (when present)
+    shape-checked against the stage count.  Pass the same
+    ``placement.stage_layers`` and ``schedule`` to
+    ``core.steps.build_train_step``."""
+    shape, axes = topology_mesh_spec(topo, placement.sites, model=model)
+    return make_pipeline_mesh(shape, axes, placement.n_stages,
+                              stage_order=placement.pod_permutation(),
+                              stage_layers=placement.stage_layers,
+                              schedule=placement.schedule)
+
+
 def placement_mesh(topo: Topology, plan, placement, *,
                    model: int = 1) -> Mesh:
-    """Realize a searched ``core.plans.Placement`` for a flat plan (data,
-    zero2, shard, shard_zero): the plain topology mesh over the
-    placement's site subset.  A pipeline plan raises."""
+    """Realize any searched ``core.plans.Placement`` for a plan: the
+    staged mesh for a pipeline plan (``placement_pipeline_mesh``), the
+    plain topology mesh over the placement's site subset for a flat one
+    (data, zero2, shard, shard_zero)."""
     if plan.pipeline:
-        raise NotImplementedError(
-            f"plan {plan.name!r}: staged meshes come with the pipeline "
-            f"runtime (ROADMAP queue 1, item 8)")
+        return placement_pipeline_mesh(topo, placement, model=model)
     return make_topology_mesh(topo, placement.sites, model=model)
 
 

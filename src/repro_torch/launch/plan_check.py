@@ -6,10 +6,15 @@ rank, or gloo with ``--device cpu``), lays them out as ``--mesh`` over
 ``("pod", "data", "model")`` and trains a small model a few steps under
 each plan; every plan computes the same update as one device, so the
 losses and the norm of the params after the updates must agree with the
-one-device run's, which rank 0 also makes.  Prints one JSON line:
-``{plan: {"losses": [...], "param_norm": x, "step_ms": t}, ...,
-"one_device": {...}}``, ``step_ms`` the mean host time of the steps
-after the first (each ends when its loss reaches the host).  ``--full``
+one-device run's, which rank 0 also makes.  pipeshard reshapes the mesh
+into ``--stages`` stages (``launch.mesh.make_pipeline_mesh``) and runs
+once for each of ``--schedules`` with ``--microbatches`` and
+``--stage-layers``; a schedule other than GPipe keys its record
+``pipeshard@<schedule>``.  Prints one JSON line: ``{plan: {"losses":
+[...], "param_norm": x, "step_ms": t, "sends_a_step": n,
+"send_bytes_a_step": b}, ..., "one_device": {...}}``, ``step_ms`` the
+mean host time of the steps after the first (each ends when its loss
+reaches the host), the sends summed over the world's ranks.  ``--full``
 runs the architecture at its full width and depth in place of the
 reduced one.
 
@@ -25,8 +30,8 @@ import os
 import tempfile
 import time
 
-# the plans the port runs (pipeshard and fsdp raise, ROADMAP queue 1)
-FLAT = ("data", "zero2", "shard", "shard_zero")
+# the plans the port runs (fsdp raises, ROADMAP queue 1, item 7)
+PLANS_RUN = ("data", "zero2", "shard", "shard_zero", "pipeshard")
 
 
 def _param_norm(tree) -> float:
@@ -43,8 +48,9 @@ def _rank(rank: int, args, store: str) -> None:
     import torch.distributed as dist
 
     from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import sharding
     from repro_torch.core.steps import build_train_step
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_pipeline_mesh
     from repro_torch.models import Model
     from repro_torch.optim import init_adamw
 
@@ -57,8 +63,11 @@ def _rank(rank: int, args, store: str) -> None:
     dist.init_process_group(backend, init_method=f"file://{store}",
                             rank=rank, world_size=args.world)
     try:
-        mesh = make_host_mesh([int(x) for x in args.mesh.split(",")],
-                              ("pod", "data", "model"))
+        shape = [int(x) for x in args.mesh.split(",")]
+        axes = ("pod", "data", "model")
+        mesh = make_host_mesh(shape, axes)
+        split = None if args.stage_layers is None else \
+            tuple(int(x) for x in args.stage_layers.split(","))
         # fp32 on the CPU, where the plans agree to fp32 rounding; bf16 on
         # the card, which kernel A takes
         cfg = get_config(args.arch)
@@ -67,7 +76,7 @@ def _rank(rank: int, args, store: str) -> None:
         cfg = dataclasses.replace(
             cfg, dtype="bfloat16" if args.device == "cuda" else "float32")
         tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1,
-                           total_steps=10)
+                           total_steps=10, microbatches=args.microbatches)
         rng = np.random.default_rng(0)
         batch = {k: rng.integers(0, cfg.vocab_size, (args.batch, args.seq))
                  for k in ("tokens", "labels")}
@@ -87,14 +96,32 @@ def _rank(rank: int, args, store: str) -> None:
             return params, {"losses": losses,
                             "step_ms": 1e3 * sum(later) / len(later)}
 
-        results = {}
+        runs = []
         for name in args.plans.split(","):
+            if name != "pipeshard":
+                runs.append((name, name, mesh, {}))
+                continue
+            for sched in args.schedules.split(","):
+                runs.append((name if sched == "gpipe" else
+                             f"{name}@{sched}", name, make_pipeline_mesh(
+                                 shape, axes, args.stages,
+                                 stage_layers=split, schedule=sched),
+                             dict(stage_layers=split, schedule=sched)))
+        results = {}
+        for key, name, on, kw in runs:
             model = Model(cfg, device=device)
-            step = build_train_step(model, tcfg, plan=name, mesh=mesh)
-            params, rec = steps(step, step.shard_params(fresh(model)),
-                                step.init_opt_state(), batch)
+            step = build_train_step(model, tcfg, plan=name, mesh=on, **kw)
+            params = step.shard_params(fresh(model))
+            sharding.reset_collective_counts()
+            params, rec = steps(step, params, step.init_opt_state(), batch)
+            sent = sharding.collective_counts()["send"]
+            sent = torch.tensor([sent["calls"], sent["bytes"]],
+                                dtype=torch.float64, device=device)
+            dist.all_reduce(sent)
+            rec["sends_a_step"] = float(sent[0]) / args.steps
+            rec["send_bytes_a_step"] = float(sent[1]) / args.steps
             rec["param_norm"] = _param_norm(step.gather_params(params))
-            results[name] = rec
+            results[key] = rec
             del params
         if rank == 0:
             model = Model(cfg, device=device)
@@ -117,8 +144,16 @@ def main(argv=None) -> None:
                     help="(pod, data, model) shape; default 1,2,2 for a "
                          "world of 4, else 1,world,1")
     ap.add_argument("--arch", default="gpt2m")
-    ap.add_argument("--plans", default=",".join(FLAT),
+    ap.add_argument("--plans", default=",".join(PLANS_RUN),
                     help="comma-separated repro_torch.core.plans.PLANS keys")
+    ap.add_argument("--stages", type=int, default=None,
+                    help="pipeline stages of pipeshard; default 2 where "
+                         "pod x data splits in two, else 1")
+    ap.add_argument("--microbatches", type=int, default=4)
+    ap.add_argument("--schedules", default="gpipe",
+                    help="comma-separated pipeline schedules of pipeshard")
+    ap.add_argument("--stage-layers", default=None,
+                    help="layers of each chunk (pipeshard; default even)")
     ap.add_argument("--full", action="store_true",
                     help="the architecture at full width and depth")
     ap.add_argument("--layers", type=int, default=2,
@@ -131,6 +166,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.mesh is None:
         args.mesh = "1,2,2" if args.world == 4 else f"1,{args.world},1"
+    if args.stages is None:
+        pod, data, _ = (int(x) for x in args.mesh.split(","))
+        args.stages = 2 if (pod * data) % 2 == 0 else 1
 
     import torch
     import torch.multiprocessing as mp

@@ -7,8 +7,12 @@ Without ``--plan`` it trains on one device.  With ``--plan`` (a
 ``torch.distributed`` world: under ``torch.distributed.run`` it reads
 ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` and uses NCCL on
 ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``; started alone, it is
-a world of one.  The pipeline plan's ``--stages`` and ``--microbatches``
-wait for ROADMAP queue 1, item 8.
+a world of one.  Under ``--plan pipeshard`` the mesh is reshaped into
+``--stages`` pipeline stages (``core.pipeline.pipeline_mesh``: the pod
+axis first, then the data axis), each rank's batch is cut into
+``--microbatches``, the stages run the tick order ``--schedule`` and
+split the layers by ``--stage-layers`` (one count per chunk; default
+even).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2m \\
         --steps 100 --seq 1024 --batch 8 --vocab 50257
@@ -19,6 +23,11 @@ wait for ROADMAP queue 1, item 8.
     PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 4 \\
         -m repro_torch.launch.train --arch gpt2m --reduced --device cpu \\
         --plan shard --mesh 1,2,2 --steps 3 --seq 32 --batch 8
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 2 \
+        -m repro_torch.launch.train --arch gpt2m --reduced --device cpu \
+        --plan pipeshard --mesh 2,1,1 --schedule 1f1b --microbatches 2 \
+        --steps 3 --seq 32 --batch 4
 """
 import argparse
 import dataclasses
@@ -50,6 +59,17 @@ def main(argv=None):
     ap.add_argument("--mesh", default="1,1,1",
                     help="mesh shape over (pod, data, model), e.g. 1,2,2; "
                          "fewer numbers name the last axes")
+    ap.add_argument("--stages", type=int, default=2,
+                    help="pipeline stages (pipeshard)")
+    ap.add_argument("--microbatches", type=int, default=4,
+                    help="microbatches a rank's batch is cut into "
+                         "(pipeshard)")
+    ap.add_argument("--schedule", default="gpipe",
+                    help="pipeline tick order: gpipe, 1f1b, interleaved "
+                         "or interleaved<v> (pipeshard)")
+    ap.add_argument("--stage-layers", default=None,
+                    help="layers of each chunk, e.g. 16,14 (pipeshard; "
+                         "default the even split)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import TrainConfig, get_config
@@ -69,7 +89,8 @@ def main(argv=None):
     ds = build_dataset(texts, tok, seq_len=args.seq)
     loader = Loader(ds, global_batch=args.batch, seed=args.seed)
     tcfg = TrainConfig(learning_rate=args.lr, warmup_steps=args.steps // 10,
-                       total_steps=args.steps, seed=args.seed)
+                       total_steps=args.steps, seed=args.seed,
+                       microbatches=args.microbatches)
     if args.plan is None:
         model = Model(cfg, device=args.device)
         print(f"{cfg.name} [{cfg.family}] {cfg.param_count() / 1e6:.1f}M "
@@ -93,7 +114,8 @@ def _train_on_mesh(args, cfg, tcfg, loader):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.core.plans import get_plan
+    from repro_torch.launch.mesh import make_host_mesh, make_pipeline_mesh
     from repro_torch.models import Model
     from repro_torch.train import train
 
@@ -111,16 +133,24 @@ def _train_on_mesh(args, cfg, tcfg, loader):
     try:
         shape = tuple(int(x) for x in args.mesh.split(","))
         axes = ("pod", "data", "model")[-len(shape):]
-        mesh = make_host_mesh(shape, axes)
+        split = None if args.stage_layers is None else \
+            tuple(int(x) for x in args.stage_layers.split(","))
+        if get_plan(args.plan).pipeline:
+            mesh = make_pipeline_mesh(shape, axes, args.stages,
+                                      stage_layers=split,
+                                      schedule=args.schedule)
+        else:
+            mesh = make_host_mesh(shape, axes)
         main = dist.get_rank() == 0
         if main:
             print(f"{cfg.name} [{cfg.family}] "
                   f"{cfg.param_count() / 1e6:.1f}M params | plan="
-                  f"{args.plan} mesh={dict(zip(axes, shape))} "
+                  f"{args.plan} mesh={mesh.shape} "
                   f"({backend}, {dist.get_world_size()} ranks)")
         res = train(model, tcfg, loader, steps=args.steps,
                     log_every=max(args.steps // 10, 1),
-                    ckpt_dir=args.ckpt_dir, plan=args.plan, mesh=mesh)
+                    ckpt_dir=args.ckpt_dir, plan=args.plan, mesh=mesh,
+                    stage_layers=split, schedule=args.schedule)
     finally:
         dist.destroy_process_group()
     return res if main else None

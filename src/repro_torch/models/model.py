@@ -24,6 +24,8 @@ family's layers tensor-parallel, with the logits cut on the vocab when
 the table is, and ``lm_loss`` takes the vocab-parallel logsumexp.
 ``lm_loss``'s ``batch_group`` divides by the token count of the whole
 batch across the ranks that split it, as the reference's SPMD loss does.
+A pipeline stage runs the pieces: ``embed_stage``, ``run_layers`` over
+its chunk of the stack, and ``head_loss`` with an outside denominator.
 """
 from __future__ import annotations
 
@@ -284,6 +286,37 @@ class Model:
                                  use_kernels=self.use_kernels))
         return x
 
+    # the pieces a pipeline stage runs (``core.pipeline.StageRunner``)
+    def embed_stage(self, params, batch
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The first stage's embedding: ``(x, positions)`` of ``batch``
+        under ``model_axis``; ``params`` needs ``embed`` (and
+        ``pos_embed``) only."""
+        return self._embed_inputs(params, batch, self.model_axis)
+
+    def run_layers(self, layers, x, *, positions=None, remat: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(x, aux)`` after the layers of a sub-stack ``layers``
+        (leaves ``[n, ...]``), as ``_run`` runs the whole stack."""
+        kw = dict(positions=positions, window=0,
+                  use_kernels=self.use_kernels)
+        if self.model_axis is not None:
+            kw["model_axis"] = self.model_axis
+        x, _, aux = self._run({"layers": layers}, x, None, _FORWARD, kw,
+                              remat=remat)
+        return x, aux
+
+    def head_loss(self, params, x, batch, *, denom
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The last stage's final norm, head and ``lm_loss`` of the
+        hidden states ``x`` of ``batch``, divided by ``denom`` (the whole
+        batch's token count when ``batch`` is one microbatch of it);
+        ``params`` needs ``final_norm`` and the head's table only."""
+        logits = self._head(params, x, self.model_axis)
+        return lm_loss(self.cfg, logits, batch,
+                       torch.zeros((), device=x.device),
+                       model_axis=self.model_axis, denom=denom)
+
     def loss(self, params, batch, *, remat: bool = True, batch_group=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, metrics) of a batch with ``tokens`` and ``labels``: the
@@ -430,7 +463,8 @@ def _vocab_parallel(logits32, labels_safe, axis: ModelAxis):
 
 
 def lm_loss(cfg: ModelConfig, logits, batch, aux, *,
-            model_axis: Optional[ModelAxis] = None, batch_group=None
+            model_axis: Optional[ModelAxis] = None, batch_group=None,
+            denom: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal-LM objective (port of ``repro/models/model.py:lm_loss``):
     cross-entropy of ``logits[:, :-1]`` against ``labels[:, 1:]``, plus a
@@ -444,6 +478,8 @@ def lm_loss(cfg: ModelConfig, logits, batch, aux, *,
     columns (``_vocab_parallel``).  ``batch_group``: the ranks that split
     the batch; the denominator is their tokens together, so their losses
     and gradients add up to the loss and gradients of the whole batch.
+    ``denom``: that count given from outside (a pipeline's microbatch
+    divides by the whole batch's), in place of this batch's own.
 
     The shift is the reference's, and the Loader's labels are already
     the next token, so on Loader batches position i is scored against
@@ -463,10 +499,11 @@ def lm_loss(cfg: ModelConfig, logits, batch, aux, *,
                                    labels_safe[..., None])[..., 0]
         pred = torch.argmax(logits, -1)
     nll = lse - label_logit
-    count = mask.sum()
-    if batch_group is not None:
-        count = all_reduce(count, batch_group)
-    denom = torch.clamp(count, min=1)
+    if denom is None:
+        count = mask.sum()
+        if batch_group is not None:
+            count = all_reduce(count, batch_group)
+        denom = torch.clamp(count, min=1)
     ce = torch.where(mask, nll, 0.0).sum() / denom
     # z-loss keeps the softmax normalizer in check (PaLM-style)
     zl = torch.where(mask, lse.square(), 0.0).sum() / denom

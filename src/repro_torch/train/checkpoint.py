@@ -16,6 +16,9 @@ Durability contract, the reference's:
 
 Tensors go to the host as numpy arrays; numpy has no bfloat16, so the
 port checkpoints its fp32 masters and int32 step (bf16 leaves raise).
+Under a plan ``train/loop.py`` gathers the params and moments into the
+one-device layout first (a pipeline's stages included), and rank 0
+writes them.
 """
 from __future__ import annotations
 

@@ -53,7 +53,8 @@ def train(model: Model, tcfg: TrainConfig, loader, *, steps: int,
           start_step: int = 0,
           on_step_failure: Optional[Callable[[int], None]] = None,
           log_fn: Callable[[str], None] = print,
-          plan=None, mesh=None) -> TrainResult:
+          plan=None, mesh=None, stage_layers=None,
+          schedule: str = "gpipe") -> TrainResult:
     """Train ``model`` on ``loader.batch_at(i)`` for steps ``start_step``
     to ``steps - 1`` on the model's device.  Fresh params come from
     ``tcfg.seed``.
@@ -73,9 +74,16 @@ def train(model: Model, tcfg: TrainConfig, loader, *, steps: int,
     rank keeps its blocks; each step takes this rank's slice of
     ``loader.batch_at(i)`` by its place on the batch axes.  Checkpoints
     are gathered into the one-device layout and written by rank 0, so
-    any plan, or one device, restores them; only rank 0 logs."""
+    any plan, or one device, restores them; only rank 0 logs.
+
+    ``stage_layers`` and ``schedule`` (pipeline plans, the reference's
+    keywords): a searched ``Placement``'s per-chunk layer split and
+    tick-order schedule, on a staged mesh
+    (``launch.mesh.make_pipeline_mesh``); ``tcfg.microbatches`` cuts
+    each rank's batch."""
     cfg = model.cfg
-    step_fn = build_train_step(model, tcfg, plan=plan, mesh=mesh)
+    step_fn = build_train_step(model, tcfg, plan=plan, mesh=mesh,
+                               stage_layers=stage_layers, schedule=schedule)
     if params is None:
         params = model.init(torch.Generator(device=model.device)
                             .manual_seed(tcfg.seed))

@@ -962,3 +962,57 @@ def test_ssd_kernel_unaligned_views(cuda_device):
     wy, wh = tms.ssd_scan_plain(xh, dt, b_s, c_s, a, h0)
     _scan_close(y, wy)
     _scan_close(h, wh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule,split", [("1f1b", None),
+                                            ("interleaved", (2, 1))])
+def test_pipeshard_step_on_card(cuda_device, schedule, split):
+    """One reduced-gpt2m pipeshard step on a (1, 1, 1) staged mesh over
+    NCCL (a world of one, made in-process): kernel A 2·L·m forward and
+    L·m backward launches (remat), the loss within 1e-2 of the one-device
+    step's, no send at one stage."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import sharding
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.optim import init_adamw
+
+    cfg = dataclasses.replace(get_config("gpt2m").reduced(), n_layers=3)
+    tcfg = TrainConfig(microbatches=2)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (4, 64))
+    batch = {k: torch.as_tensor(tokens, device=cuda_device)
+             for k in ("tokens", "labels")}
+
+    def fresh(model):
+        return model.init(torch.Generator(device="cuda").manual_seed(0))
+
+    model = Model(cfg, device="cuda")
+    params = fresh(model)
+    _, _, want = build_train_step(model, tcfg)(params, init_adamw(params),
+                                               batch)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_pipeline_mesh((1, 1, 1), ("pod", "data", "model"), 1,
+                                  stage_layers=split, schedule=schedule)
+        model = Model(cfg, device="cuda")
+        step = build_train_step(model, tcfg, plan="pipeshard", mesh=mesh,
+                                stage_layers=split, schedule=schedule)
+        params = step.shard_params(fresh(model))
+        ops.reset_launch_counts()
+        sharding.reset_collective_counts()
+        _, _, got = step(params, step.init_opt_state(), batch)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert sharding.collective_counts()["send"]["calls"] == 0
+    finally:
+        dist.destroy_process_group()
+    L, m = cfg.n_layers, tcfg.microbatches
+    assert counts["flash_attn_fwd"] == 2 * L * m
+    assert counts["flash_attn_bwd"] == L * m
+    assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=1e-2)

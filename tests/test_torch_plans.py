@@ -187,11 +187,12 @@ def test_gpt2L_vocab_stays_whole_on_a_model_axis_of_two():
 
 def test_topology_mesh_spec_equals_reference():
     """The mesh of every paper topology's site selections, as the
-    reference shapes it; a pipeline placement raises."""
+    reference shapes it; a pipeline placement's staged grid, as the
+    reference reshapes its devices."""
     from repro.core.costmodel import PAPER_TOPOLOGIES as JTOPOS
     from repro.launch.mesh import topology_mesh_spec as jspec
     from repro_torch.core.costmodel import PAPER_TOPOLOGIES as TTOPOS
-    from repro_torch.launch.mesh import placement_mesh, topology_mesh_spec
+    from repro_torch.launch.mesh import topology_mesh_spec
     assert sorted(JTOPOS) == sorted(TTOPOS)
     for name, jt in JTOPOS.items():
         for sites in (None, (0,), (1,)):
@@ -205,9 +206,19 @@ def test_topology_mesh_spec_equals_reference():
                     continue
                 assert topology_mesh_spec(TTOPOS[name], sites,
                                           model=model) == want, name
-    with pytest.raises(NotImplementedError, match="item 8"):
-        placement_mesh(TTOPOS[name], tplans.PLANS["pipeshard"],
-                       tplans.Placement((0, 1)))
+    from jax.sharding import Mesh as JMesh
+    from repro.core.pipeline import pipeline_mesh as jpipeline_mesh
+    from repro_torch.core.pipeline import pipeline_mesh
+    for order in ((0, 1), (1, 0)):
+        placement = tplans.Placement((0, 1), order)
+        shape, axes = topology_mesh_spec(TTOPOS[name], placement.sites)
+        grid = np.arange(int(np.prod(shape))).reshape(shape)
+        want = jpipeline_mesh(JMesh(grid, axes), placement.n_stages,
+                              stage_order=placement.pod_permutation())
+        assert np.array_equal(pipeline_mesh(
+            grid, axes, placement.n_stages,
+            stage_order=placement.pod_permutation()),
+            np.asarray(want.devices)), (name, order)
 
 
 # ------------------------------------------------------------------ #
@@ -302,9 +313,10 @@ def test_shard_collectives_a_layer_with_remat(worlds):
              for k in hi["counts"]}
     nbytes = {k: hi["counts"][k]["bytes"] - lo["counts"][k]["bytes"]
               for k in hi["counts"]}
-    assert calls == {"all_reduce": 5, "reduce_scatter": 0, "all_gather": 0}
+    assert calls == {"all_reduce": 5, "reduce_scatter": 0, "all_gather": 0,
+                     "send": 0, "recv": 0}
     assert nbytes == {"all_reduce": 5 * act + grad, "reduce_scatter": 0,
-                      "all_gather": 0}
+                      "all_gather": 0, "send": 0, "recv": 0}
 
 
 def test_shard_checkpoint_restores_on_one_device(worlds):
@@ -341,7 +353,8 @@ def test_launcher_trains_under_torchrun_on_gloo(_started):
 def test_plan_check_prints_every_plan_beside_one_device(_started):
     res = json.loads(_finished(_started, "plan_check").strip()
                      .splitlines()[-1])
-    assert sorted(res) == sorted(("one_device",) + worker.PLAN_NAMES)
+    assert sorted(res) == sorted(("one_device", "pipeshard")
+                                 + worker.PLAN_NAMES)
     for name, r in res.items():
         np.testing.assert_allclose(r["losses"], res["one_device"]["losses"],
                                    rtol=LOSS_RTOL, err_msg=name)
@@ -353,7 +366,7 @@ def test_plan_check_prints_every_plan_beside_one_device(_started):
 # refusals
 
 @pytest.mark.parametrize("arch,plan,item", [
-    ("gpt2m", "pipeshard", "item 8"),
+    ("falcon-mamba-7b", "pipeshard", "item 8"),
     ("gpt2m", "fsdp", "item 7"),
     ("phi3.5-moe-42b-a6.6b", "data", "item 7"),
     ("falcon-mamba-7b", "shard", "item 7"),
