@@ -48,19 +48,27 @@ Then it trains gpt2L (the paper's second model: 30 layers, d_model
 1280, 20 heads of 64, vocab 50257) at full width and depth, batch 8 of
 1024 tokens, three steps of ``train()`` on one device (``train-gpt2L``)
 and under each of the paper's flat plans, data, zero2, shard and
-shard_zero, on a mesh of one rank over NCCL (``plan-data``, ...): the
-real collectives on the card and the plan code end to end, through
-kernel A and its backward; each plan's losses are held to the
-one-device run's, data's and zero2's params bit-equal; it prints each
-plan's step time, tokens/s, 6·N·D TFLOP/s, peak memory and the calls
-and bytes of each collective kind a step.  Then it trains gpt2L the
+shard_zero, and under fsdp, on a mesh of one rank over NCCL
+(``plan-data``, ..., ``plan-fsdp``): the real collectives on the card
+and the plan code end to end, through kernel A and its backward; each
+plan's losses are held to the one-device run's, data's, zero2's and
+fsdp's params bit-equal; it prints each plan's step time, tokens/s,
+6·N·D TFLOP/s, peak memory and the calls and bytes of each collective
+kind a step.  Then it trains gpt2L the
 same way under the pipeline plan on a (stage, data, model) mesh of one
 rank, four microbatches, under GPipe, 1F1B and interleaved with an
 uneven split of two chunks (``pipe-gpipe``, ``pipe-1f1b``,
 ``pipe-interleaved``): kernel A 240 forward and 120 backward launches a
 step (remat), losses held to ``train-gpt2L``'s, the three phases
 bit-equal to each other, 1F1B's peak memory over a forward and backward
-of the batch below GPipe's.
+of the batch below GPipe's.  Then the MoE, SSM and hybrid families at
+full width, depth cut (phi3.5-MoE 2 of 32 layers, falcon-mamba 4 of 64,
+zamba2 12 of 54), three steps of batch 4 of 512 random tokens through
+the kernels' plain versions (their kernels have no backward on the
+card), on one device, then under shard (``fam-moe-shard``, ...,
+bit-equal to one device) and under pipeshard with 1F1B and four
+microbatches (``fam-moe-pipe``, ..., held to one device with four
+accumulated microbatches), each step updating its state in place.
 
 For each model it checks that the kernel path's first-step logits agree
 with the plain path's on the card (the MoE model's against the fp32
@@ -181,10 +189,27 @@ RESUME_RTOL = 1e-5
 # fell apart would grow through AdamW), so their losses are held to 1e-5
 # relative and their bit-equality is reported; data and zero2 do the
 # same operations as one device, and their params must be bit-equal
-# after the three steps.
+# after the three steps; so must fsdp's, which runs shard's operations
+# on each layer's leaves gathered whole (copies at one rank).
 PLAN_ARCH, PLAN_STEPS, PLAN_DOCS = "gpt2L", 3, 3 * TRAIN_BATCH
-PLAN_NAMES = ("data", "zero2", "shard", "shard_zero")
+PLAN_NAMES = ("data", "zero2", "shard", "shard_zero", "fsdp")
+PLAN_BIT_EQUAL = ("data", "zero2", "fsdp")
 PLAN_LOSS_RTOL = 1e-5
+# the family phases: the MoE, SSM and hybrid families at full width,
+# depth cut, under shard and under pipeshard (1F1B, FAM_MICRO
+# microbatches) at a world of one, three steps of batch 4 of 512 random
+# tokens each, through the kernels' plain versions (rows 1b and 3 to 6
+# have no backward on the card).  shard is held bit-equal to the
+# one-device port; pipeshard to the one-device port with grad_accum =
+# FAM_MICRO (each microbatch routed as one, as pipeshard routes it),
+# within FAM_LOSS1_RTOL at step 1 and FAM_LOSS_RTOL after.  The steps
+# update their params and optimizer state in place (donate): phi3.5-MoE
+# at 2 layers holds 2.86 B fp32 params, 11.5 GB a copy.
+FAM_MODELS = (("moe", "phi3.5-moe-42b-a6.6b", 2),
+              ("ssm", "falcon-mamba-7b", 4),
+              ("hybrid", "zamba2-2.7b", 12))
+FAM_BATCH, FAM_SEQ, FAM_STEPS, FAM_MICRO = 4, 512, 3, 4
+FAM_LOSS1_RTOL, FAM_LOSS_RTOL = 1e-5, 1e-3
 # the pipe phases: gpt2L under pipeshard on a (stage, data, model) mesh
 # of (1, 1, 1), the batch of 8 cut into PIPE_MICRO microbatches, under
 # each schedule; interleaved runs two chunks, the uneven (16, 14).  Each
@@ -850,18 +875,26 @@ def run_phase(torch, ops, name, fn, needs):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    before = torch.cuda.memory_stats()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    after = torch.cuda.memory_stats()
+    # the caching allocator's calls to the driver over the phase
+    allocator = {k: after.get(k, 0) - before.get(k, 0) for k in
+                 ("num_device_alloc", "num_device_free",
+                  "num_alloc_retries")}
     PHASES[name] = {"wall_s": wall, "launches": counts,
-                    "peak_bytes": torch.cuda.max_memory_allocated()}
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "allocator": allocator}
     missing = [k for k in needs if counts[k] == 0]
     if missing:
         fail(f"phase {name}: kernels {missing} never launched ({counts})")
     log(f"phase {name}: {wall:.2f}s, peak memory "
-        f"{PHASES[name]['peak_bytes'] / 2**30:.2f} GiB, launches {counts}")
+        f"{PHASES[name]['peak_bytes'] / 2**30:.2f} GiB, launches {counts}, "
+        f"allocator {allocator}")
     return out, counts
 
 
@@ -1544,9 +1577,10 @@ def plan_phases(torch, np, ops, card):
     """Phases ``train-gpt2L`` and ``plan-<name>`` for each flat plan:
     gpt2L trains ``PLAN_STEPS`` steps through ``train()`` on one device
     and under each plan on a mesh of one rank over NCCL, then the pipe
-    phases (``pipe_phases``) in the same process group.  One more step
-    of the one device and of shard_zero (the plan with the most layout
-    work) is traced after its counted phase."""
+    phases (``pipe_phases``) and the family phases (``family_phases``)
+    in the same process group.  One more step of the one device, of
+    shard_zero (the plan with the most layout work) and of fsdp is traced
+    after its counted phase."""
     import torch.distributed as dist
 
     from repro_torch.configs import TrainConfig, get_config
@@ -1628,7 +1662,7 @@ def plan_phases(torch, np, ops, card):
         mesh = make_host_mesh((1, 1, 1), ("pod", "data", "model"))
         for name in PLAN_NAMES:
             res, rec = run(f"plan-{name}", name, mesh,
-                           trace=name == "shard_zero")
+                           trace=name in ("shard_zero", "fsdp"))
             want = out["train_gpt2L"]["losses"]
             rel = [abs(a - b) / abs(b) for a, b in zip(res.losses, want)]
             rec["loss_rel_diff"] = rel
@@ -1638,7 +1672,7 @@ def plan_phases(torch, np, ops, card):
             rec["bit_equal"] = res.losses == want and all(
                 torch.equal(a.cpu(), b) for a, b in
                 zip(tree_leaves(res.params), ref_params))
-            if name in ("data", "zero2") and not rec["bit_equal"]:
+            if name in PLAN_BIT_EQUAL and not rec["bit_equal"]:
                 fail(f"plan-{name}: not bit-equal to one device at a world "
                      f"of one")
             log(f"plan-{name}: loss relative differences to one device "
@@ -1648,6 +1682,7 @@ def plan_phases(torch, np, ops, card):
             torch.cuda.empty_cache()
         out.update(pipe_phases(torch, run, loader,
                                out["train_gpt2L"]["losses"]))
+        out.update(family_phases(torch, np, ops, card))
     finally:
         dist.destroy_process_group()
     del ref_params
@@ -1714,6 +1749,116 @@ def pipe_phases(torch, run, loader, want):
     if not out["pipe_1f1b"][key] < out["pipe_gpipe"][key]:
         fail(f"pipe-1f1b's schedule peak {out['pipe_1f1b'][key]} is not "
              f"below pipe-gpipe's {out['pipe_gpipe'][key]}")
+    return out
+
+
+def collectives_a_step(torch, steps):
+    """The collective counts since the last reset, a step."""
+    from repro_torch.core import sharding
+    return {k: {"calls": v["calls"] / steps, "bytes": v["bytes"] / steps}
+            for k, v in sharding.collective_counts().items()}
+
+
+def family_phases(torch, np, ops, card):
+    """Phases ``fam-<tag>-shard`` and ``fam-<tag>-pipe`` (``FAM_MODELS``)
+    in the process group of ``plan_phases``, each after its yardstick,
+    the one-device port on the same steps (``fam-<tag>-one``; with
+    ``grad_accum``, ``fam-<tag>-accum``).  Each family's model is built
+    once; every phase initializes its params from the seed."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import sharding
+    from repro_torch.data import Loader, PackedDataset
+    from repro_torch.launch.mesh import make_host_mesh, make_pipeline_mesh
+    from repro_torch.models import Model, trains_through_kernels
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import model_flops_per_step, train
+
+    axes = ("pod", "data", "model")
+    flat = make_host_mesh((1, 1, 1), axes)
+    staged = make_pipeline_mesh((1, 1, 1), axes, 1, schedule="1f1b")
+    tokens = FAM_BATCH * FAM_SEQ
+    out = {}
+    for tag, arch, layers in FAM_MODELS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers,
+                                  max_seq_len=max(full.max_seq_len, FAM_SEQ))
+        if trains_through_kernels(cfg):
+            fail(f"{arch}: expected a family without backward kernels")
+        log(f"fam-{tag}: {arch} at full width, reduced: {layers} of "
+            f"{full.n_layers} layers, {cfg.param_count() / 1e9:.3f} B "
+            f"params; batch {FAM_BATCH} x {FAM_SEQ} random tokens, "
+            f"{FAM_STEPS} steps; the kernels' plain versions")
+        model = Model(cfg, device="cuda", use_kernels=False)
+        rng = np.random.default_rng(SEED + 3)
+        ds = PackedDataset(rng.integers(
+            0, cfg.vocab_size, (FAM_STEPS * FAM_BATCH, FAM_SEQ + 1))
+            .astype(np.int32), FAM_SEQ)
+        loader = Loader(ds, global_batch=FAM_BATCH, seed=SEED)
+        flops = model_flops_per_step(cfg, tokens)
+
+        def run(name, tcfg, keep=False, **kw):
+            """One phase of FAM_STEPS steps; with ``keep``, also the final
+            params on the host."""
+            sharding.reset_collective_counts()
+            res, counts = run_phase(
+                torch, ops, name,
+                lambda: train(model, tcfg, loader, steps=FAM_STEPS,
+                              log_every=0, donate=True, **kw), [])
+            if not all(np.isfinite(res.losses)):
+                fail(f"{name}: non-finite losses {res.losses}")
+            step_s = res.avg_step_time
+            rec = {"losses": res.losses, "step_s": res.step_times,
+                   "avg_step_s_steps_2_to_3": step_s,
+                   "tokens_per_s": tokens / step_s,
+                   "model_tflops": flops / step_s / 1e12,
+                   "peak_bytes": PHASES[name]["peak_bytes"],
+                   "launches": counts,
+                   "collectives_a_step": collectives_a_step(torch,
+                                                            FAM_STEPS)}
+            params = [t.cpu() for t in tree_leaves(res.params)] if keep \
+                else None
+            log(f"{name}: losses {res.losses}; step {step_s * 1e3:.1f} ms "
+                f"(steps 2 to {FAM_STEPS}), {tokens / step_s:.0f} tokens/s, "
+                f"6ND {rec['model_tflops']:.2f} TFLOP/s, peak memory "
+                f"{rec['peak_bytes'] / 2**30:.2f} GiB, on {card}")
+            log(f"{name}: collectives a step: " + ", ".join(
+                f"{k} {v['calls']:g} calls {v['bytes'] / 1e6:.3f} MB"
+                for k, v in rec["collectives_a_step"].items()))
+            del res
+            torch.cuda.empty_cache()
+            return rec, params
+
+        one, one_params = run(f"fam-{tag}-one", TrainConfig(), keep=True)
+        rec, params = run(f"fam-{tag}-shard", TrainConfig(), keep=True,
+                          plan="shard", mesh=flat)
+        rec["bit_equal"] = rec["losses"] == one["losses"] and all(
+            torch.equal(a, b) for a, b in zip(params, one_params))
+        log(f"fam-{tag}-shard: held bit-equal to fam-{tag}-one "
+            f"({one['losses']}): {rec['bit_equal']}")
+        if not rec["bit_equal"]:
+            fail(f"fam-{tag}-shard: not bit-equal to one device at a world "
+                 f"of one")
+        out[f"fam_{tag}_one"], out[f"fam_{tag}_shard"] = one, rec
+        del params, one_params
+        tc = TrainConfig(microbatches=FAM_MICRO)
+        accum, _ = run(f"fam-{tag}-accum", TrainConfig(grad_accum=FAM_MICRO))
+        rec, _ = run(f"fam-{tag}-pipe", tc, plan="pipeshard", mesh=staged,
+                     schedule="1f1b")
+        rel = [abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                                  accum["losses"])]
+        rec["loss_rel_diff"] = rel
+        log(f"fam-{tag}-pipe: held to fam-{tag}-accum ({accum['losses']}) "
+            f"within {FAM_LOSS1_RTOL} at step 1 and {FAM_LOSS_RTOL} after: "
+            f"relative differences {rel}, {rel[0] / FAM_LOSS1_RTOL:.3f} and "
+            f"{max(rel[1:]) / FAM_LOSS_RTOL:.3f} of the tolerances")
+        if not (rel[0] <= FAM_LOSS1_RTOL and max(rel) <= FAM_LOSS_RTOL):
+            fail(f"fam-{tag}-pipe: losses {rec['losses']} vs "
+                 f"{accum['losses']}: {rel} relative")
+        out[f"fam_{tag}_accum"], out[f"fam_{tag}_pipe"] = accum, rec
+        del model
+        torch.cuda.empty_cache()
     return out
 
 

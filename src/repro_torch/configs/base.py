@@ -5,8 +5,11 @@ dense, MoE, SSM and hybrid families read, with the same names, defaults
 and ``reduced()`` rule, so a port config and a reference config built
 the same way compare equal field by field; and of ``TrainConfig``, field
 for field.  The other families' sub-configs (MLA, the encoder and vision
-extras) and the plans' runtime fields (``moe_dispatch_axes``,
-``moe_expert_axis``) are not ported yet.
+extras) are not ported yet.  The plans' runtime fields of the
+reference's config (``moe_dispatch_axes``, ``moe_expert_axis``) are
+not fields here: the port's plans tell the model how to route
+(``models.moe.Dispatch``) and what the model axis cuts
+(``core.sharding.ModelAxis``).
 """
 from __future__ import annotations
 

@@ -34,13 +34,21 @@ backwards explicitly, in the order its schedule gives:
     rank is a local one.  Carriers are fp32 unless asked otherwise.
     Each chunk, the embedding and the head accumulate their own fp32
     gradients in microbatch order, so every schedule computes the same
-    bits.
+    bits;
+  * the hybrid family's stack is its groups, and every stage runs the
+    shared block at the head of each of its groups: each chunk
+    accumulates its own gradient of it, added in chunk order;
+  * the MoE family's aux: each chunk's forward adds its layers' aux
+    divided by the microbatch count to the objective its backward
+    differentiates (the reference's sum over stages and microbatches
+    over ``m``).
 
 ``core.steps.PipelineStep`` drives it, reduces the gradients over the
 mesh and updates the params.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -389,9 +397,10 @@ class StageRunner:
     ``stage_rows`` back to back, every other leaf whole or cut over the
     model axis), this rank's slice of the batch as tensors on the
     model's device and the whole batch's token count, and returns the
-    sums over its microbatches of (loss, ce, aux, zloss, accuracy) (zeros
-    but on the last stage) and the fp32 gradients in the local layout
-    (zeros for the leaves the stage does not use).  ``peak_in_flight``:
+    sums over its microbatches of (loss, ce, aux, zloss, accuracy) (the
+    stage's share: its chunks' aux, and the rest on the last stage) and
+    the fp32 gradients in the local layout (zeros for the leaves the
+    stage does not use).  ``peak_in_flight``:
     the most (chunk, microbatch) graphs the last ``run`` held at once.
     """
 
@@ -424,6 +433,9 @@ class StageRunner:
 
         chunks = [live(tree_map(lambda t: t.narrow(0, a, n),
                                 params["layers"])) for a, n in self.spans]
+        # the hybrid's shared block: each chunk's own leaves of it
+        shared = [live(params["shared"]) if "shared" in params else None
+                  for _ in chunks]
         # the embedding's and the head's own leaves (one table twice when
         # tied), so that each accumulates its own gradient
         emb = live({k: params[k] for k in ("embed", "pos_embed")
@@ -431,6 +443,8 @@ class StageRunner:
         head = live({"final_norm": params["final_norm"],
                      head_key: params[head_key]}) if s == S - 1 else None
         acc_chunk = [[None] * len(tree_leaves(c)) for c in chunks]
+        acc_shared = [[None] * len(tree_leaves(t)) if t else []
+                      for t in shared]
         acc_emb = [None] * len(tree_leaves(emb)) if emb else []
         acc_head = [None] * len(tree_leaves(head)) if head else []
         B = batch["tokens"].shape[0]
@@ -445,6 +459,7 @@ class StageRunner:
         dev = model.device
         cdt = model.compute_dtype
         sums = torch.zeros(5, dtype=torch.float32, device=dev)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
         inbox_act: Dict[tuple, torch.Tensor] = {}
         inbox_grad: Dict[tuple, torch.Tensor] = {}
         saved: Dict[tuple, tuple] = {}
@@ -461,26 +476,39 @@ class StageRunner:
                 pos = mb.get("positions")
                 x_in = inbox_act.pop((k, i)).requires_grad_(True)
                 h = x_in.to(cdt)
-            y, _ = model.run_layers(chunks[k], h, positions=pos,
-                                    remat=self.remat)
+            y, aux = model.run_layers(chunks[k], h, positions=pos,
+                                      remat=self.remat, shared=shared[k])
+            # this chunk's part of the step's aux: its layers' over m
+            aux = aux / self.m if aux.requires_grad else None
+            if aux is not None:
+                sums = sums + torch.stack([aux.detach(), zero, aux.detach(),
+                                           zero, zero])
             out = y.to(self.carrier)
             if c == self.last:
                 loss, met = model.head_loss(head, out.to(cdt), mb,
                                             denom=denom)
-                saved[(k, i)] = (x_in, loss)
+                saved[(k, i)] = (x_in, loss if aux is None else loss + aux,
+                                 None)
                 sums = sums + torch.stack(
                     [loss.detach()] + [met[n].detach().float() for n in
                                        ("ce", "aux", "zloss", "accuracy")])
                 return None
-            saved[(k, i)] = (x_in, out)
+            saved[(k, i)] = (x_in, out, aux)
             return ((s + 1) % S, (k + (s == S - 1), i), inbox_act,
                     out.detach())
 
         def backward(k, i):
             c = k * S + s
-            x_in, out = saved.pop((k, i))
-            grad_out = None if c == self.last else inbox_grad.pop((k, i))
+            x_in, out, aux = saved.pop((k, i))
+            outs, grad_outs = [out], None
+            if c != self.last:
+                grad_outs = [inbox_grad.pop((k, i))]
+                if aux is not None:
+                    outs.append(aux)
+                    grad_outs.append(torch.ones_like(aux))
             groups = [(chunks[k], acc_chunk[k])]
+            if shared[k] is not None:
+                groups.append((shared[k], acc_shared[k]))
             if c == 0:
                 groups.append((emb, acc_emb))
             if c == self.last:
@@ -488,7 +516,7 @@ class StageRunner:
             inputs = [t for tree, _ in groups for t in tree_leaves(tree)]
             if x_in is not None:
                 inputs.append(x_in)
-            got = torch.autograd.grad(out, inputs, grad_out,
+            got = torch.autograd.grad(outs, inputs, grad_outs,
                                       allow_unused=True)
             at = 0
             for _, acc in groups:
@@ -546,7 +574,9 @@ class StageRunner:
 
         per_chunk = [total(acc, c) for acc, c in zip(acc_chunk, chunks)]
         parts = ([total(acc_emb, emb)] if emb else []) + \
-            ([total(acc_head, head)] if head else [])
+            ([total(acc_head, head)] if head else []) + \
+            [{"shared": total(acc, t)} for acc, t in zip(acc_shared, shared)
+             if t is not None]
         grads = {}
         for key, leaf in params.items():
             if key == "layers":
@@ -554,8 +584,9 @@ class StageRunner:
                     lambda *ts: torch.cat(ts), *per_chunk)
                 continue
             # zeros for a leaf this stage does not use; the tied table on
-            # a stage of one: the embedding's, then the head's
+            # a stage of one: the embedding's, then the head's; the
+            # shared block: its chunks' in chunk order
             mine = [p[key] for p in parts if key in p] or [total([], leaf)]
             grads[key] = mine[0] if len(mine) == 1 else tree_map(
-                torch.add, *mine)
+                lambda *ts: functools.reduce(torch.add, ts), *mine)
         return sums, grads

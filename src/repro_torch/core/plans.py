@@ -20,7 +20,7 @@ only ``mesh.axis_names`` and ``mesh.shape``, so they take a device-free
 ``MeshSpec`` or the runtime ``core.sharding.Mesh`` alike, and give the
 reference's ``PartitionSpec``s as tuples (on a staged ``("stage",
 "data", "model")`` mesh too).  ``core.steps.build_train_step`` runs
-data, zero2, shard, shard_zero and pipeshard on ``torch.distributed``.
+every plan of ``PLANS`` on ``torch.distributed``.
 """
 from __future__ import annotations
 

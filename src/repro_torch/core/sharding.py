@@ -350,23 +350,26 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
 
 def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Sum ``t`` over ``group`` and return this rank's block of ``dim``
-    (the blocks stacked first, one copy)."""
+    (the blocks stacked first: one copy, none along dim 0)."""
     n = dist.get_world_size(group)
     _count("reduce_scatter", t)
-    blocks = torch.stack(t.chunk(n, dim))
-    out = blocks.new_empty(blocks.shape[1:])
-    dist.reduce_scatter_tensor(out, blocks.flatten(0, 1), group=group)
+    blocks = t.contiguous() if dim == 0 else \
+        torch.stack(t.chunk(n, dim)).flatten(0, 1)
+    out = blocks.new_empty((blocks.shape[0] // n,) + blocks.shape[1:])
+    dist.reduce_scatter_tensor(out, blocks, group=group)
     return out
 
 
 def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Concatenate the ranks' ``t`` of ``group`` along ``dim``, in group
-    rank order (gathered stacked, then one copy)."""
+    rank order (gathered stacked, then one copy, none along dim 0)."""
     n = dist.get_world_size(group)
     _count("all_gather", t, n)
     x = t.contiguous()
     out = x.new_empty((n * x.shape[0],) + x.shape[1:])
     dist.all_gather_into_tensor(out, x, group=group)
+    if dim == 0:
+        return out
     return torch.cat(out.view((n,) + x.shape).unbind(0), dim)
 
 
@@ -439,7 +442,8 @@ class ModelAxis:
     shards weights: its process group, size and this rank's coordinate,
     and which kinds of leaf the plan's specs cut on it (a leaf whose dim
     does not divide stays whole, and its layer computes it whole on
-    every rank)."""
+    every rank).  The attention and MLP flags describe the dense blocks:
+    the layers' own, or the hybrid family's shared block."""
     group: Any
     size: int
     rank: int
@@ -449,6 +453,12 @@ class ModelAxis:
     heads: bool      # wq, bq, wo on the heads dim
     kv_heads: bool   # wk, wv, bk, bv on the kv-heads dim
     mlp: bool        # the MLP's hidden dim
+    experts: bool = False         # moe/w_gate, w_up, w_down on the experts
+    shared_experts: bool = False  # moe/shared_* on their hidden dim
+    d_inner: bool = False   # the SSM's channels: each rank runs a block
+    #                         of them (and, for Mamba2, of whole heads)
+    # the mamba leaves cut over the axis: (name, dim of a layer's leaf)
+    ssm_cut: Tuple[Tuple[str, int], ...] = ()
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -483,3 +493,128 @@ def copy_to_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
 
 def reduce_from_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
     return _ReduceFromModel.apply(x, axis.group)
+
+
+# --------------------------------------------------------------------- #
+# gather for use, reduce-scatter the gradient
+# --------------------------------------------------------------------- #
+
+class _GatherLeaves(torch.autograd.Function):
+    """Forward: each leaf whole from the blocks of ``group`` along its
+    own dim, all of them through one flat buffer (one all-gather).
+    Backward: with ``scatter``, the gradients summed over ``group`` and
+    cut back to this rank's blocks (one reduce-scatter); else summed over
+    ``sum_group`` (None: not summed, every rank holds the whole
+    gradient) and cut."""
+
+    @staticmethod
+    def forward(ctx, dims, group, scatter, sum_group, index, *blocks):
+        n = dist.get_world_size(group)
+        ctx.dims, ctx.group, ctx.scatter = dims, group, scatter
+        ctx.sum_group, ctx.index, ctx.n = sum_group, index, n
+        ctx.shapes = [b.shape for b in blocks]
+        ctx.dtype, ctx.device = blocks[0].dtype, blocks[0].device
+        flat = torch.cat([b.reshape(-1) for b in blocks])
+        every = all_gather(flat, group, 0).view(n, -1)
+        outs, at = [], 0
+        for b, d in zip(blocks, dims):
+            # the n blocks side by side along d (a view for one rank)
+            part = every[:, at:at + b.numel()].reshape((n,) + b.shape)
+            outs.append(part.movedim(0, d).reshape(
+                b.shape[:d] + (n * b.shape[d],) + b.shape[d + 1:]))
+            at += b.numel()
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n = ctx.n
+        rows = []
+        for g, shape, d in zip(gs, ctx.shapes, ctx.dims):
+            if g is None:                  # a leaf the use left unused
+                rows.append(torch.zeros((n, shape.numel()), dtype=ctx.dtype,
+                                        device=ctx.device))
+                continue
+            rows.append(g.reshape(shape[:d] + (n, shape[d]) + shape[d + 1:])
+                        .movedim(d, 0).reshape(n, -1))
+        flat = torch.cat(rows, 1)
+        if ctx.scatter:
+            mine = reduce_scatter(flat, ctx.group, 0)[0]
+        else:
+            if ctx.sum_group is not None:
+                flat = all_reduce(flat, ctx.sum_group)
+            mine = flat[ctx.index]
+        out, at = [], 0
+        for shape in ctx.shapes:
+            out.append(mine[at:at + shape.numel()].view(shape))
+            at += shape.numel()
+        return (None,) * 5 + tuple(out)
+
+
+def gather_for_use(t: torch.Tensor, dim: int, group, *, index: int,
+                   scatter: bool = True, sum_group=None) -> torch.Tensor:
+    """The whole leaf from this rank's block ``t`` (``index`` along the
+    group); its gradient goes back to the block, summed over ``group``
+    (``scatter``) or over ``sum_group``.  The summed gradient is the
+    one ``all_reduce`` then ``slice_leaf`` give, as ``core.steps
+    .PlanStep`` reduces a leaf that is not cut."""
+    return _GatherLeaves.apply((dim,), group, scatter, sum_group, index,
+                               t)[0]
+
+
+def subtree(tree, path: str):
+    """The node of nested dicts at a ``/``-joined ``path``."""
+    for key in path.split("/") if path else ():
+        tree = tree[key]
+    return tree
+
+
+class FsdpGather:
+    """fsdp's gather for use: the leaves of a params subtree whose specs
+    cut them over the data axes are gathered whole over those axes at
+    their use, and their gradients reduce-scattered back onto the blocks,
+    summed over the ranks that split the batch (``gather_for_use``, all
+    of one call's leaves through one flat buffer: one all-gather and one
+    reduce-scatter for a layer).
+    ``Model`` calls it on each layer inside its layer loop (so a rank
+    holds one layer whole at a time, and remat's recompute gathers
+    again), and on the embedding, the position table, the final norm,
+    the head and the hybrid's shared block at their use.
+
+    ``__call__(path, tree, depth, upto)``: ``tree`` is the node at
+    ``path`` with its first ``depth`` dims (the stack's) indexed away;
+    the leaves whose data-axes cut lies on a dim in ``[depth, upto)`` of
+    the full leaf are gathered.  A leaf cut on a stack dim is gathered
+    whole before the loop (``upto`` the stack's depth)."""
+
+    def __init__(self, specs, mesh: Mesh, axes: Tuple[str, ...],
+                 batch_axes: Tuple[str, ...]):
+        self.specs, self.mesh, self.axes = specs, mesh, tuple(axes)
+        self.entry = self.axes if len(self.axes) > 1 else self.axes[0]
+        self.group = mesh.group(self.axes)
+        self.index = mesh.index(self.axes)
+        # the gradient of a gathered leaf is partial over the batch axes
+        self.scatter = all(a in batch_axes for a in self.axes)
+        self.sum_group = mesh.group(batch_axes) \
+            if batch_axes and not self.scatter else None
+
+    def cut_dim(self, spec) -> Optional[int]:
+        """The dim of a leaf's spec cut over the data axes, or None."""
+        return next((d for d, e in enumerate(spec) if e == self.entry), None)
+
+    def __call__(self, path: str, tree, depth: int = 0,
+                 upto: Optional[int] = None):
+        picked = []
+
+        def pick(sub, t, spec):
+            d = self.cut_dim(spec)
+            if d is not None and d >= depth and (upto is None or d < upto):
+                picked.append((sub, t, d - depth))
+            return t
+
+        tree_map_with_path(pick, tree, subtree(self.specs, path))
+        if not picked:
+            return tree
+        whole = dict(zip((p for p, _, _ in picked), _GatherLeaves.apply(
+            tuple(d for _, _, d in picked), self.group, self.scatter,
+            self.sum_group, self.index, *(t for _, t, _ in picked))))
+        return tree_map_with_path(lambda sub, t: whole.get(sub, t), tree)

@@ -1,5 +1,6 @@
-"""Train steps: on one device, and under the data, zero2, shard,
-shard_zero and pipeshard plans on ``torch.distributed`` (port of
+"""Train steps: on one device, and under every plan of ``PLANS`` (data,
+zero2, shard, shard_zero, fsdp, pipeshard) on ``torch.distributed``, for
+the dense, MoE, SSM and hybrid families (port of
 ``repro/core/steps.py:build_train_step``).
 
 ``build_train_step`` returns ``step(params, opt_state, batch) -> (params,
@@ -7,12 +8,17 @@ opt_state, metrics)`` with the reference's metric keys.  Gradients are
 taken with ``torch.autograd.grad`` on detached copies of the fp32
 leaves, so the caller's params are left as they were; ``grad_accum > 1``
 runs the batch as sequential microbatches and sums their gradients in
-fp32, as the reference's ``lax.scan`` does.
+fp32, as the reference's ``lax.scan`` does.  ``donate`` updates the
+params and the optimizer state in place, as the reference's jitted step
+donates them (``optim.adamw_update``).
 
 Under a plan (``PlanStep``) each rank holds its blocks of the params and
 of the optimizer state, cut by the plan's specs (``core.plans``), and
 takes its slice of the global batch by its place on the batch axes.
-The loss divides by the token count of the whole batch, so the ranks'
+Of each of the step's microbatches (``grad_accum``'s, a pipeline's) a
+rank takes its part on the batch axes: the reference's microbatch i is
+the global rows ``[i B/n, (i+1) B/n)``, split over the data axes.  The
+loss divides by the token count of the whole batch, so the ranks'
 gradients add up to the one-device gradient.  Where the reference's XLA
 inserts the collectives, here they are explicit (``core.sharding``):
 
@@ -26,7 +32,23 @@ inserts the collectives, here they are explicit (``core.sharding``):
                  of the whole leaves are all-reduced over the data axes;
   * shard_zero — both: a leaf cut on ``model`` is gathered whole, then
                  reduce-scattered onto its optimizer block, whose specs
-                 (the reference's) span the data axes only.
+                 (the reference's) span the data axes only;
+  * fsdp       — shard, with every leaf also cut over the data axes
+                 (``add_fsdp_axis``) and the optimizer state on the same
+                 blocks: each leaf is gathered at its use, a layer's
+                 inside the layer loop (``core.sharding.FsdpGather``), and
+                 its gradient reduce-scattered back onto the block, which
+                 AdamW updates where it lies.  The residual stream stays
+                 whole on every rank: the reference's ``resid_pspec``
+                 under fsdp only places activations and changes no
+                 number.
+
+The families under the plans that shard weights (``_model_axis``): the
+dense blocks (the hybrid's shared one too) cut heads and MLP; the MoE
+family its experts when ``n_experts`` divides the model axis, each
+batch rank routing its own tokens with its own capacity and adding the
+mean of the ranks' auxes (``models.moe``); the SSM family ``d_inner``
+(``models.ssm``).
 
 Under pipeshard (``PipelineStep``) each stage rank holds the layers of
 its chunks and every leaf outside the stack, both cut over ``model`` as
@@ -38,11 +60,15 @@ through the stages in the schedule's order, backwards included:
     position table, the final norm, the head) over the stage and data
     axes, a stage that does not use a leaf adding zeros;
   * AdamW's norm sums a stage's layers over the stage axis and takes
-    every other leaf once (``update_specs``).
+    every other leaf once (``update_specs``);
+  * the MoE family routes each global microbatch as one over the data
+    axes, and its aux is the sum over the stages and microbatches
+    divided by their count, as the reference's pipeline takes it; the
+    hybrid family's groups are the stack, and its shared block runs in
+    every stage.
 
-fsdp, the MoE family under any plan (item 7), the SSM and hybrid
-families under shard and shard_zero (item 7) and under pipeshard (item
-8) raise.
+The families the port does not have raise in ``Model`` (ROADMAP queue
+1, item 10).
 """
 from __future__ import annotations
 
@@ -56,11 +82,12 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.costmodel import parse_schedule
 from repro_torch.core.plans import MODEL_AXIS, STAGE_AXIS, Plan, get_plan
 from repro_torch.core.sharding import (
-    Mesh, ModelAxis, all_gather, all_reduce, gather_leaf, gather_tree,
-    reduce_scatter,
-    shard_tree, slice_leaf, spec_axes, tree_map_with_path,
+    FsdpGather, Mesh, ModelAxis, all_gather, all_reduce, gather_leaf,
+    gather_tree, reduce_scatter, shard_tree, slice_leaf, spec_axes,
+    tree_map_with_path,
 )
 from repro_torch.models.model import Model
+from repro_torch.models.moe import Dispatch
 from repro_torch.optim import AdamWState, adamw_update, lr_at
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
@@ -100,43 +127,25 @@ def _grad_fn(model: Model, tcfg: TrainConfig, loss_fn) -> Callable:
         for a in range(A):
             mb = {k: v[a * b:(a + 1) * b] for k, v in batch.items()}
             loss, metrics, g = value_and_grad(loss_fn, params, mb)
-            g_sum = tree_map(lambda acc, gg: acc + gg.float(), g_sum, g)
+            # in place: one fp32 copy of the gradients besides a
+            # microbatch's
+            tree_map(lambda acc, gg: acc.add_(gg.float()), g_sum, g)
+            del g
             loss_sum = loss_sum + loss
             m_sum = {k: m_sum[k] + metrics[k] for k in METRIC_KEYS}
         metrics = {k: v / A for k, v in m_sum.items()}
         metrics["tokens"] = metrics["tokens"] * A
-        return loss_sum / A, metrics, tree_map(lambda g: g / A, g_sum)
+        return loss_sum / A, metrics, tree_map(lambda g: g.div_(A), g_sum)
 
     return grad_fn
-
-
-def _refuse(plan: Plan, family: str) -> None:
-    """Raise for what the port does not run under a plan yet."""
-    if plan.pipeline and family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"plan {plan.name!r}: the {family} family's stages are not "
-            f"ported (the hybrid's shared block runs in every stage; "
-            f"ROADMAP queue 1, item 8)")
-    if plan.fsdp:
-        raise NotImplementedError(
-            f"plan {plan.name!r}: params cut over the data axes are not "
-            f"ported (ROADMAP queue 1, item 7)")
-    if family == "moe":
-        raise NotImplementedError(
-            f"plan {plan.name!r}: the MoE family's load-balance loss and "
-            f"expert capacity are taken over the global batch, which no "
-            f"plan of the port gathers yet (ROADMAP queue 1, item 7)")
-    if plan.shards_weights and family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"plan {plan.name!r}: cutting the {family} family's d_inner "
-            f"over the model axis is not ported (ROADMAP queue 1, item 7)")
 
 
 def build_train_step(model: Model, tcfg: TrainConfig, *,
                      plan: Union[None, str, Plan] = None,
                      mesh: Optional[Mesh] = None, stage_layers=None,
                      schedule: str = "gpipe",
-                     carrier_dtype=torch.float32) -> Callable:
+                     carrier_dtype=torch.float32,
+                     donate: bool = False) -> Callable:
     """The one-device step for ``plan=None``; else a ``PlanStep`` over
     ``mesh`` (a ``core.sharding.Mesh``, e.g. from
     ``launch.mesh.make_host_mesh``), or for a pipeline plan a
@@ -144,30 +153,31 @@ def build_train_step(model: Model, tcfg: TrainConfig, *,
     .make_pipeline_mesh``) with ``tcfg.microbatches``, the per-chunk
     ``stage_layers`` (None: the even split) and the tick-order
     ``schedule`` (``core.costmodel.SCHEDULES``), the reference's
-    keywords."""
+    keywords.  ``donate``: the step updates the params and optimizer
+    state it is given in place."""
+    model.model_axis = model.fsdp = model.dispatch = None
     if plan is None:
-        model.model_axis = None
-        return _one_device_step(model, tcfg)
+        return _one_device_step(model, tcfg, donate)
     plan = get_plan(plan) if isinstance(plan, str) else plan
-    _refuse(plan, model.cfg.family)
     if mesh is None:
         raise ValueError(f"plan {plan.name!r} needs a mesh "
                          f"(repro_torch.launch.mesh.make_host_mesh)")
     if plan.pipeline:
         return PipelineStep(model, tcfg, plan, mesh,
                             stage_layers=stage_layers, schedule=schedule,
-                            carrier_dtype=carrier_dtype)
-    return PlanStep(model, tcfg, plan, mesh)
+                            carrier_dtype=carrier_dtype, donate=donate)
+    return PlanStep(model, tcfg, plan, mesh, donate=donate)
 
 
-def _one_device_step(model: Model, tcfg: TrainConfig) -> Callable:
+def _one_device_step(model: Model, tcfg: TrainConfig,
+                     donate: bool = False) -> Callable:
     grad_fn = _grad_fn(model, tcfg, partial(model.loss, remat=tcfg.remat))
 
     def step(params, opt_state, batch) -> tuple:
         loss, metrics, grads = grad_fn(params, batch)
         lr = lr_at(opt_state.step, tcfg)
         new_params, new_opt, stats = adamw_update(grads, opt_state, params,
-                                                  tcfg, lr)
+                                                  tcfg, lr, donate=donate)
         metrics: Dict[str, torch.Tensor] = dict(metrics, loss=loss, **stats)
         return new_params, new_opt, metrics
 
@@ -182,22 +192,78 @@ def _cut_dim(spec) -> Tuple[Optional[int], Tuple[str, ...]]:
     return None, ()
 
 
-def _model_axis(mesh: Mesh, specs) -> Optional[ModelAxis]:
+def _model_axis(mesh: Mesh, specs, cfg) -> Optional[ModelAxis]:
+    """What the specs cut over the ``model`` axis, family by family: the
+    dense blocks' heads and MLP (the layers', or the hybrid's shared
+    block's), the MoE experts and shared experts, and the SSM leaves
+    (``d_inner``: the channels cut whole, which for Mamba2 needs the
+    heads to divide the axis too)."""
     if MODEL_AXIS not in mesh.shape:
         return None
+    M = mesh.shape[MODEL_AXIS]
 
     def cut(spec) -> bool:
         return MODEL_AXIS in spec_axes(spec)
 
-    attn, mlp = specs["layers"]["attn"], specs["layers"]["mlp"]
-    return ModelAxis(group=mesh.group(MODEL_AXIS),
-                     size=mesh.shape[MODEL_AXIS],
+    layers = specs["layers"]
+    dense = specs.get("shared", layers)
+    kw = {}
+    if "attn" in dense:
+        kw.update(heads=cut(dense["attn"]["wq"]),
+                  kv_heads=cut(dense["attn"]["wk"]))
+    if "mlp" in dense:
+        kw["mlp"] = cut(dense["mlp"]["w_up"])
+    if "moe" in layers:
+        moe = layers["moe"]
+        kw.update(experts=cut(moe["w_up"]),
+                  shared_experts="shared_up" in moe
+                  and cut(moe["shared_up"]))
+    mamba, depth = (layers["blocks"]["mamba"], 2) if "blocks" in layers \
+        else (layers.get("mamba"), 1)
+    if mamba is not None:
+        s = cfg.ssm
+        di = s.expand * cfg.d_model
+        heads = s.version == 1 or (s.n_heads or di // s.head_dim) % M == 0
+        kw.update(d_inner=cut(mamba["out_proj"]) and heads,
+                  ssm_cut=tuple((k, spec.index(MODEL_AXIS) - depth)
+                                for k, spec in mamba.items() if cut(spec)))
+    return ModelAxis(group=mesh.group(MODEL_AXIS), size=M,
                      rank=mesh.coord[MODEL_AXIS],
                      vocab=cut(specs["embed"]["table"]),
                      positions="pos_embed" in specs
                      and cut(specs["pos_embed"]["table"]),
-                     heads=cut(attn["wq"]), kv_heads=cut(attn["wk"]),
-                     mlp=cut(mlp["w_up"]))
+                     heads=kw.pop("heads", False),
+                     kv_heads=kw.pop("kv_heads", False),
+                     mlp=kw.pop("mlp", False), **kw)
+
+
+def _local_rows(batch, specs, mesh: Mesh, groups: int, dev
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the global ``batch``: of each of ``groups``
+    consecutive groups of rows (the step's microbatches), its part on
+    the batch axes of ``specs``, the groups back to back."""
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v, device=dev)
+        spec = specs[k]
+        n = v.shape[0]
+        parts = mesh.count(spec_axes(spec)) if spec else 1
+        if n % (groups * parts):
+            raise ValueError(f"batch {n} does not split into {groups} "
+                             f"microbatches over {parts} batch ranks")
+        v = v.reshape((groups, n // groups) + tuple(v.shape[1:]))
+        out[k] = slice_leaf(v, (None,) + tuple(spec), mesh).flatten(0, 1)
+    return out
+
+
+def _dispatch(model: Model, mesh: Mesh, axes, whole: bool
+              ) -> Optional[Dispatch]:
+    """The MoE family's routing over the batch ``axes`` (None for the
+    other families, or where no axis splits the batch)."""
+    if model.cfg.family != "moe" or not axes:
+        return None
+    return Dispatch(group=mesh.group(axes), size=mesh.count(axes),
+                    rank=mesh.index(axes), whole=whole)
 
 
 class PlanStep:
@@ -213,16 +279,19 @@ class PlanStep:
     """
 
     def __init__(self, model: Model, tcfg: TrainConfig, plan: Plan,
-                 mesh: Mesh):
+                 mesh: Mesh, *, donate: bool = False):
         self.model, self.tcfg, self.plan, self.mesh = model, tcfg, plan, mesh
+        self.donate = donate
         cfg = model.cfg
         self._shapes = model.init(torch.Generator(), device="meta")
         self.param_specs = plan.param_specs(self._shapes, cfg, mesh)
         self.opt_specs = plan.opt_specs(self._shapes, cfg, mesh)
-        # the layout AdamW updates in: the optimizer's blocks
+        # the layout AdamW updates in: the optimizer's blocks (fsdp's are
+        # the params' own)
         self.update_specs = self.opt_specs if plan.zero_sharding \
             else self.param_specs
-        model.model_axis = _model_axis(mesh, self.param_specs) \
+        self.data_axes = plan.mesh_axes(mesh)["data"]
+        model.model_axis = _model_axis(mesh, self.param_specs, cfg) \
             if plan.shards_weights else None
 
     # ------------------------------------------------------------- #
@@ -257,16 +326,22 @@ class PlanStep:
         return self.plan.batch_axes(self.mesh, global_batch)
 
     def local_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """This rank's slice of the global ``batch``."""
-        dev = self.model.device
-        specs = self.plan.batch_spec(batch, self.mesh)
-        return {k: slice_leaf(torch.as_tensor(v, device=dev), specs[k],
-                              self.mesh) for k, v in batch.items()}
+        """This rank's rows of the global ``batch``: its part of each of
+        the ``grad_accum`` microbatches (``_local_rows``)."""
+        return _local_rows(batch, self.plan.batch_spec(batch, self.mesh),
+                           self.mesh, max(self.tcfg.grad_accum, 1),
+                           self.model.device)
 
     def _reduce(self, g, p_spec, u_spec, axes):
         """One leaf's gradient, partial over the batch ``axes``, onto its
         update block, summed."""
         mesh = self.mesh
+        if self.plan.fsdp:
+            # a leaf cut over the data axes comes summed onto its block
+            # from its gather's backward; one they leave whole, as shard
+            if self.model.fsdp.cut_dim(p_spec) is None and axes:
+                all_reduce(g, mesh.group(axes))
+            return g
         if not self.plan.zero_sharding:
             if axes:
                 all_reduce(g, mesh.group(axes))
@@ -291,7 +366,12 @@ class PlanStep:
         (``update_specs``)."""
         axes = self.batch_axes(batch["tokens"].shape[0])
         group = self.mesh.group(axes) if axes else None
-        loss_fn = partial(self.model.loss, remat=self.tcfg.remat,
+        model = self.model
+        model.dispatch = _dispatch(model, self.mesh, axes, whole=False)
+        if self.plan.fsdp:
+            model.fsdp = FsdpGather(self.param_specs, self.mesh,
+                                    self.data_axes, axes)
+        loss_fn = partial(model.loss, remat=self.tcfg.remat,
                           batch_group=group)
         loss, metrics, grads = _grad_fn(self.model, self.tcfg, loss_fn)(
             params, self.local_batch(batch))
@@ -306,7 +386,11 @@ class PlanStep:
         return loss, metrics, grads
 
     def __call__(self, params, opt_state, batch):
-        loss, metrics, grads = self.grads(params, batch)
+        return self.apply(params, opt_state, *self.grads(params, batch))
+
+    def apply(self, params, opt_state, loss, metrics, grads):
+        """The AdamW update of ``grads`` (from ``grads``): the step's
+        output."""
         lr = lr_at(opt_state.step, self.tcfg)
         mesh = self.mesh
 
@@ -323,7 +407,7 @@ class PlanStep:
                                  self.update_specs)
         new_u, new_opt, stats = adamw_update(
             grads, opt_state, p_u, self.tcfg, lr, specs=self.update_specs,
-            mesh=mesh)
+            mesh=mesh, donate=self.donate)
         new_params = tree_map_with_path(from_update, new_u, self.param_specs,
                                         self.update_specs)
         return new_params, new_opt, dict(metrics, loss=loss, **stats)
@@ -340,11 +424,11 @@ class PipelineStep:
     ``params`` are this rank's in the local layout: the ``layers``
     leaves hold the rows of this stage's chunks back to back
     (``core.pipeline.stage_rows``), every leaf cut over ``model`` by
-    ``param_specs`` (the reference's ``PartitionSpec``s, whose stack dim
-    the local layout replaces by the stage's rows).  ``batch`` is the
-    global batch, of which the step takes this rank's slice on the data
-    axes and cuts it into ``tcfg.microbatches``.  The metrics are those
-    of the whole batch, on every rank.  ``shard_params`` and
+    ``param_specs`` (the reference's ``PartitionSpec``s, whose stack
+    dims the local layout replaces by the stage's rows).  ``batch`` is
+    the global batch cut into ``tcfg.microbatches``, of each of which
+    the step takes this rank's part on the data axes.  The metrics are
+    those of the whole batch, on every rank.  ``shard_params`` and
     ``gather_params`` (also for gradients), ``init_opt_state``,
     ``shard_opt_state`` and ``gather_opt_state`` go to and from the
     one-device layout.
@@ -352,33 +436,38 @@ class PipelineStep:
 
     def __init__(self, model: Model, tcfg: TrainConfig, plan: Plan,
                  mesh: Mesh, *, stage_layers=None, schedule: str = "gpipe",
-                 carrier_dtype=torch.float32):
+                 carrier_dtype=torch.float32, donate: bool = False):
         from repro_torch.core.pipeline import (
-            StageRunner, stage_rows, validate_stages)
+            StageRunner, stack_length, stage_rows, validate_stages)
         if STAGE_AXIS not in mesh.shape:
             raise ValueError(f"plan {plan.name!r} needs a mesh with a "
                              f"{STAGE_AXIS!r} axis (launch.mesh"
                              f".make_pipeline_mesh), got {mesh.axis_names}")
         self.model, self.tcfg, self.plan, self.mesh = model, tcfg, plan, mesh
+        self.donate = donate
         cfg = model.cfg
         S = mesh.shape[STAGE_AXIS]
         _, v = parse_schedule(schedule)
         self._shapes = model.init(torch.Generator(), device="meta")
+        # the stack: layers, or the hybrid family's groups
+        self.length = stack_length(cfg, self._shapes["layers"])
         self.split = validate_stages(cfg, self._shapes["layers"], S,
                                      stage_layers, schedule=schedule) \
-            or (cfg.n_layers // (S * v),) * (S * v)
+            or (self.length // (S * v),) * (S * v)
         self.rows = [stage_rows(self.split, S, v, s) for s in range(S)]
         self.stage = mesh.coord[STAGE_AXIS]
         self.param_specs = plan.param_specs(self._shapes, cfg, mesh)
-        # the local layout's cuts (the stack dim is the stage's rows) and
-        # AdamW's (a stage's rows summed over the stage axis in its norm)
+        # the local layout's cuts (no stack dim is cut over the stage
+        # axis: the stage holds its rows of the first) and AdamW's (a
+        # stage's rows summed over the stage axis in its norm)
         self.local_specs = tree_map_with_path(
-            lambda path, spec: ((None,) + tuple(spec[1:]))
-            if _is_layer(path) and spec else spec, self.param_specs)
+            lambda path, spec: tuple(None if e == STAGE_AXIS else e
+                                     for e in spec)
+            if _is_layer(path) else spec, self.param_specs)
         self.update_specs = tree_map_with_path(
             lambda path, spec: (STAGE_AXIS,) + tuple(spec[1:])
             if _is_layer(path) else spec, self.local_specs)
-        model.model_axis = _model_axis(mesh, self.param_specs) \
+        model.model_axis = _model_axis(mesh, self.param_specs, cfg) \
             if plan.shards_weights else None
         ranks = mesh.members(STAGE_AXIS)
         self.runner = StageRunner(model, schedule, tcfg.microbatches,
@@ -414,8 +503,7 @@ class PipelineStep:
             pad = t.new_zeros((most - t.shape[0],) + tuple(t.shape[1:]))
             blocks = all_gather(torch.cat([t, pad]), group, 0).view(
                 (len(order), most) + tuple(t.shape[1:]))
-            out = t.new_empty((self.model.cfg.n_layers,)
-                              + tuple(t.shape[1:]))
+            out = t.new_empty((self.length,) + tuple(t.shape[1:]))
             for j, s in enumerate(order):
                 rows = torch.as_tensor(self.rows[s], dtype=torch.long,
                                        device=t.device)
@@ -453,11 +541,12 @@ class PipelineStep:
         return self.plan.batch_axes(self.mesh, global_batch)
 
     def local_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """This rank's slice of the global ``batch``."""
-        dev = self.model.device
-        specs = self.plan.batch_spec(batch, self.mesh)
-        return {k: slice_leaf(torch.as_tensor(v, device=dev), specs[k],
-                              self.mesh) for k, v in batch.items()}
+        """This rank's rows of the global ``batch``: its part of each
+        microbatch, the reference's microbatch i being the global rows
+        ``[i B/m, (i+1) B/m)`` (``_local_rows``)."""
+        return _local_rows(batch, self.plan.batch_spec(batch, self.mesh),
+                           self.mesh, self.tcfg.microbatches,
+                           self.model.device)
 
     def grads(self, params, batch):
         """(loss, metrics, grads) of the global ``batch``: the whole
@@ -465,6 +554,7 @@ class PipelineStep:
         microbatches and data ranks, in the local layout."""
         mesh = self.mesh
         axes = self.batch_axes(batch["tokens"].shape[0])
+        self.model.dispatch = _dispatch(self.model, mesh, axes, whole=True)
         local = self.local_batch(batch)
         count = (torch.as_tensor(local["labels"])[:, 1:] >= 0).sum()
         if axes:
@@ -478,8 +568,11 @@ class PipelineStep:
             return all_reduce(g, mesh.group(over)) if over else g
 
         grads = tree_map_with_path(reduce, grads)
-        last = self.stage == mesh.shape[STAGE_AXIS] - 1
-        sums = all_reduce(torch.cat([sums, (denom if last else 0 * denom)
+        # the whole batch's token count, once: from the last stage's
+        # first batch rank (the sum runs over the data axes too)
+        once = self.stage == mesh.shape[STAGE_AXIS] - 1 and \
+            (not axes or mesh.index(axes) == 0)
+        sums = all_reduce(torch.cat([sums, (denom if once else 0 * denom)
                                      .float()[None]]), mesh.group(every))
         metrics = dict(zip(("ce", "aux", "zloss", "accuracy", "tokens"),
                            sums[1:]))
@@ -491,7 +584,7 @@ class PipelineStep:
         lr = lr_at(opt_state.step, self.tcfg)
         new_params, new_opt, stats = adamw_update(
             grads, opt_state, params, self.tcfg, lr,
-            specs=self.update_specs, mesh=self.mesh)
+            specs=self.update_specs, mesh=self.mesh, donate=self.donate)
         return new_params, new_opt, dict(metrics, loss=loss, **stats)
 
     def __call__(self, params, opt_state, batch):

@@ -14,18 +14,29 @@ pipeline's loss and gradients of one batch beside the unsharded port's
      "auxes": {...}}
 
 ``losses``/``gnorms``/``auxes`` keys: ``searched`` (the searched,
-possibly uneven split), plus, when the layer count divides the chunk
-count, ``legacy`` (``stage_layers=None``) and ``even`` (the same equal
-split passed explicitly); a schedule other than GPipe suffixes its keys,
-e.g. ``searched@1f1b``.  The port's pipeline sums its microbatches'
-losses and gradients, so it agrees with the unsharded loss to rounding,
-and every schedule and split of one layout to the bit.  ``--carrier
-bf16`` hands bf16 activations between the stages.  The model runs in
-fp32 on the CPU, in bf16 on the card (kernel A takes bf16).
+possibly uneven split), plus, when the stack divides the chunk count,
+``legacy`` (``stage_layers=None``) and ``even`` (the same equal split
+passed explicitly); a schedule other than GPipe suffixes its keys, e.g.
+``searched@1f1b``.  The port's pipeline sums its microbatches' losses
+and gradients, so it agrees with the unsharded loss to rounding, and
+every schedule and split of one layout to the bit.  ``--carrier bf16``
+hands bf16 activations between the stages.  The model runs in fp32 on
+the CPU, in bf16 on the card (kernel A takes bf16).
+
+``--arch`` takes every ported family.  The MoE family routes each
+microbatch as one, so its unsharded yardstick runs the batch in
+``--micro`` accumulated microbatches (``grad_accum``).  The hybrid
+family's stack is its groups of ``hybrid_attn_every`` layers, while the
+search splits layers: it runs the even splits of its groups only (and
+reports the searched layer split).  On the card the families whose
+kernels have no backward run their plain versions
+(``models.trains_through_kernels``).
 
     PYTHONPATH=src python -m repro_torch.launch.pipeline_check \\
         --device cpu --gpus A30,T4 --layers 6 \\
         --schedules gpipe,1f1b,interleaved
+    PYTHONPATH=src python -m repro_torch.launch.pipeline_check \\
+        --device cpu --arch zamba2-2.7b --layers 4 --schedules gpipe,1f1b
 """
 import argparse
 import json
@@ -51,10 +62,10 @@ def _rank(rank: int, args, store: str) -> None:
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.core.costmodel import Workload, parse_schedule
     from repro_torch.core.search import PlanSearch
-    from repro_torch.core.steps import build_train_step, value_and_grad
+    from repro_torch.core.steps import _grad_fn, build_train_step
     from repro_torch.core.topology import Link, Site, line
     from repro_torch.launch.mesh import placement_pipeline_mesh
-    from repro_torch.models import Model
+    from repro_torch.models import Model, trains_through_kernels
 
     gpus = args.gpus.split(",")
     n_sites = len(gpus)
@@ -73,6 +84,11 @@ def _rank(rank: int, args, store: str) -> None:
             dtype="bfloat16" if args.device == "cuda" else "float32")
         carrier = torch.bfloat16 if args.carrier == "bf16" else \
             torch.float32
+        use_kernels = trains_through_kernels(cfg)
+        hybrid = cfg.family == "hybrid"
+        # the pipeline's stack: layers, or the hybrid's groups
+        stack = args.layers // cfg.hybrid_attn_every if hybrid \
+            else args.layers
         topo = line("hetline",
                     [Site((g,), name=f"S{i}") for i, g in enumerate(gpus)],
                     [Link(20e-3, 3.0)] * (n_sites - 1))
@@ -107,15 +123,15 @@ def _rank(rank: int, args, store: str) -> None:
             placement = searched_placement(sched)
             _, virt = parse_schedule(sched)
             n_chunks = n_sites * virt
-            splits = {"searched": placement.stage_layers}
-            if args.layers % n_chunks == 0:
+            splits = {} if hybrid else {"searched": placement.stage_layers}
+            if stack % n_chunks == 0:
                 splits["legacy"] = None
-                splits["even"] = (args.layers // n_chunks,) * n_chunks
+                splits["even"] = (stack // n_chunks,) * n_chunks
             mesh = placement_pipeline_mesh(topo, placement)
             for name, split in splits.items():
                 key = name if sched == "gpipe" else f"{name}@{sched}"
                 split_report[key] = None if split is None else list(split)
-                model = Model(cfg, device=device)
+                model = Model(cfg, device=device, use_kernels=use_kernels)
                 step = build_train_step(model, tcfg, plan="pipeshard",
                                         mesh=mesh, stage_layers=split,
                                         schedule=sched,
@@ -126,11 +142,13 @@ def _rank(rank: int, args, store: str) -> None:
                 gnorms[key] = _gnorm(step.gather_params(grads))
                 auxes[key] = float(metrics["aux"])
         if rank == 0:
-            model = Model(cfg, device=device)
+            model = Model(cfg, device=device, use_kernels=use_kernels)
             tb = {k: torch.as_tensor(v, device=device)
                   for k, v in batch.items()}
-            ref_loss, ref_metrics, ref_grads = value_and_grad(
-                lambda p, b: model.loss(p, b), fresh(model), tb)
+            accum = args.micro if cfg.family == "moe" else 1
+            ref_loss, ref_metrics, ref_grads = _grad_fn(
+                model, dataclasses.replace(tcfg, grad_accum=accum),
+                model.loss)(fresh(model), tb)
             print(json.dumps({
                 "stage_layers": list(searched_placement(schedules[0])
                                      .stage_layers or ()),
@@ -151,7 +169,7 @@ def main(argv=None) -> None:
     ap.add_argument("--gpus", default="A30,T4",
                     help="one GPU type per site/stage, comma-separated")
     ap.add_argument("--arch", default="gpt2m",
-                    help="config name of the dense family")
+                    help="config name of any ported family")
     ap.add_argument("--layers", type=int, default=6)
     ap.add_argument("--micro", type=int, default=4)
     ap.add_argument("--batch", type=int, default=8)

@@ -2,8 +2,12 @@
 in-repo synthetic corpus (or ``--data-dir``), on one device or under an
 execution plan, the counterpart of ``repro.launch.train``.
 
-Without ``--plan`` it trains on one device.  With ``--plan`` (a
-``core.plans.PLANS`` key) and ``--mesh`` it runs on every rank of a
+``--arch`` takes any ported architecture (dense, MoE, SSM, hybrid); on
+the card the families whose kernels have no backward train through the
+plain versions (``models.trains_through_kernels``).  Without ``--plan``
+it trains on one device.  With ``--plan`` (a ``core.plans.PLANS`` key:
+data, zero2, shard, shard_zero, fsdp, pipeshard) and ``--mesh`` it runs
+on every rank of a
 ``torch.distributed`` world: under ``torch.distributed.run`` it reads
 ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` and uses NCCL on
 ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``; started alone, it is
@@ -28,6 +32,10 @@ even).
         -m repro_torch.launch.train --arch gpt2m --reduced --device cpu \
         --plan pipeshard --mesh 2,1,1 --schedule 1f1b --microbatches 2 \
         --steps 3 --seq 32 --batch 4
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 4 \
+        -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --reduced \
+        --device cpu --plan fsdp --mesh 1,2,2 --steps 3 --seq 32 --batch 8
 """
 import argparse
 import dataclasses
@@ -75,7 +83,7 @@ def main(argv=None):
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data import (Loader, Tokenizer, build_dataset,
                                   load_text_dir, synthetic_wikipedia)
-    from repro_torch.models import Model
+    from repro_torch.models import Model, trains_through_kernels
     from repro_torch.train import model_flops_per_step, train
 
     texts = list(load_text_dir(args.data_dir)) if args.data_dir else \
@@ -92,7 +100,8 @@ def main(argv=None):
                        total_steps=args.steps, seed=args.seed,
                        microbatches=args.microbatches)
     if args.plan is None:
-        model = Model(cfg, device=args.device)
+        model = Model(cfg, device=args.device,
+                      use_kernels=trains_through_kernels(cfg))
         print(f"{cfg.name} [{cfg.family}] {cfg.param_count() / 1e6:.1f}M "
               f"params | one device: {model.device}")
         res = train(model, tcfg, loader, steps=args.steps,
@@ -116,12 +125,13 @@ def _train_on_mesh(args, cfg, tcfg, loader):
 
     from repro_torch.core.plans import get_plan
     from repro_torch.launch.mesh import make_host_mesh, make_pipeline_mesh
-    from repro_torch.models import Model
+    from repro_torch.models import Model, trains_through_kernels
     from repro_torch.train import train
 
     local = int(os.environ.get("LOCAL_RANK", 0))
     device = f"cuda:{local}" if args.device == "cuda" else args.device
-    model = Model(cfg, device=device)          # raises without a card
+    model = Model(cfg, device=device,          # raises without a card
+                  use_kernels=trains_through_kernels(cfg))
     backend = "nccl" if model.device.type == "cuda" else "gloo"
     if model.device.type == "cuda":
         torch.cuda.set_device(model.device)

@@ -1,3 +1,3 @@
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, trains_through_kernels
 
-__all__ = ["Model"]
+__all__ = ["Model", "trains_through_kernels"]

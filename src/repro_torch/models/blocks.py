@@ -14,6 +14,10 @@ the other families.  Prefill and decode write a layer's new recurrent
 state into its cache slice in place, as attention writes its k/v.  The
 MoE block's forward returns ``(x, aux)``, its load-balance loss; its
 prefill and decode drop the aux, as serving ignores it.
+
+Under a plan the forward functions take ``model_axis`` (the plan's cut
+over the ``model`` axis, ``core.sharding.ModelAxis``) and the MoE block
+its ``dispatch`` (``moe.Dispatch``); both are None on one device.
 """
 from __future__ import annotations
 
@@ -93,19 +97,23 @@ def init_moe_block(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
     }
 
 
-def _moe_residual(x, p, cfg: ModelConfig, use_kernels: bool):
+def _moe_residual(x, p, cfg: ModelConfig, use_kernels: bool,
+                  model_axis=None, dispatch=None):
     h = _norm(x, p["norm2"], cfg, use_kernels)
-    m, aux = moe_mod.moe_forward(h, p["moe"], cfg)
+    m, aux = moe_mod.moe_forward(h, p["moe"], cfg, dispatch=dispatch,
+                                 model_axis=model_axis)
     return x + m, aux
 
 
 def moe_block_forward(x, p, cfg: ModelConfig, *, positions=None,
-                      window: int = 0, use_kernels: bool = True):
+                      window: int = 0, use_kernels: bool = True,
+                      model_axis=None, dispatch=None):
     """Returns (x, aux)."""
     h = _norm(x, p["norm1"], cfg, use_kernels)
     x = x + attn.attention_forward(h, p["attn"], cfg, positions=positions,
-                                   window=window, use_kernels=use_kernels)
-    return _moe_residual(x, p, cfg, use_kernels)
+                                   window=window, use_kernels=use_kernels,
+                                   model_axis=model_axis)
+    return _moe_residual(x, p, cfg, use_kernels, model_axis, dispatch)
 
 
 def moe_block_prefill(x, p, cfg: ModelConfig, *, positions=None, cache,
@@ -146,9 +154,10 @@ def init_ssm_block(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
 
 
 def ssm_block_forward(x, p, cfg: ModelConfig, *, use_kernels: bool = True,
-                      **_):
+                      model_axis=None, **_):
     h = _norm(x, p["norm"], cfg, use_kernels)
-    y, _ = ssm_mod.mamba1_forward(h, p["mamba"], cfg, use_kernels=use_kernels)
+    y, _ = ssm_mod.mamba1_forward(h, p["mamba"], cfg, use_kernels=use_kernels,
+                                  model_axis=model_axis)
     return x + y
 
 
@@ -181,9 +190,10 @@ def init_mamba2_block(generator, cfg: ModelConfig, *, lead=(),
 
 
 def mamba2_block_forward(x, p, cfg: ModelConfig, *,
-                         use_kernels: bool = True, **_):
+                         use_kernels: bool = True, model_axis=None, **_):
     h = _norm(x, p["norm"], cfg, use_kernels)
-    y, _ = ssm_mod.mamba2_forward(h, p["mamba"], cfg, use_kernels=use_kernels)
+    y, _ = ssm_mod.mamba2_forward(h, p["mamba"], cfg, use_kernels=use_kernels,
+                                  model_axis=model_axis)
     return x + y
 
 

@@ -16,16 +16,26 @@ cache is a NamedTuple of tensors, or for the hybrid family a dict
 ``{"ssm": SSMState [G, k, ...], "attn": KVCache [G, ...]}``, and
 ``map_cache`` walks either.
 
-Under a plan that shards weights, ``core.steps.build_train_step`` sets
-``Model.model_axis`` (a ``core.sharding.ModelAxis``; None by default, so
-every one-device path is unchanged) and hands the model this rank's
-blocks of the params: the forward pass and the loss then run the dense
-family's layers tensor-parallel, with the logits cut on the vocab when
-the table is, and ``lm_loss`` takes the vocab-parallel logsumexp.
+Under a plan, ``core.steps.build_train_step`` sets three attributes
+(all None by default, so every one-device path is unchanged) and hands
+the model this rank's blocks of the params:
+
+  * ``model_axis`` (a ``core.sharding.ModelAxis``) under the plans that
+    shard weights: the layers run tensor-parallel (attention and MLP,
+    the experts, the SSM's channels), with the logits cut on the vocab
+    when the table is, and ``lm_loss`` takes the vocab-parallel
+    logsumexp;
+  * ``fsdp`` (a ``core.sharding.FsdpGather``) under fsdp: every leaf cut
+    over the data axes is gathered at its use, a layer's inside the
+    layer loop;
+  * ``dispatch`` (a ``moe.Dispatch``): which tokens the MoE layers route
+    together.
+
 ``lm_loss``'s ``batch_group`` divides by the token count of the whole
 batch across the ranks that split it, as the reference's SPMD loss does.
 A pipeline stage runs the pieces: ``embed_stage``, ``run_layers`` over
-its chunk of the stack, and ``head_loss`` with an outside denominator.
+its chunk of the stack (a hybrid chunk with the shared block), and
+``head_loss`` with an outside denominator.
 """
 from __future__ import annotations
 
@@ -37,10 +47,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sharding import ModelAxis, all_reduce, reduce_from_model
+from repro_torch.core.sharding import (
+    FsdpGather, ModelAxis, all_reduce, reduce_from_model,
+)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.moe import Dispatch
 from repro_torch.models.layers import (
     apply_norm, embed, init_embedding, init_learned_positions, init_norm,
     lookup_rows, unembed,
@@ -65,6 +78,15 @@ _BLOCKS = {
     "hybrid": (blocks.init_mamba2_block, blocks.mamba2_block_forward,
                blocks.mamba2_block_prefill, blocks.mamba2_block_decode),
 }
+
+
+def trains_through_kernels(cfg: ModelConfig) -> bool:
+    """Whether every kernel a training step of ``cfg`` reaches has a
+    backward on the card.  Only kernel A has one, so only the dense
+    family with LayerNorm (GPT-2) trains through the kernels; the
+    launchers train the others with ``use_kernels=False`` (their kernels'
+    wrappers raise when a gradient is taken; ROADMAP queue 2, item 7)."""
+    return cfg.family == "dense" and cfg.norm == "layernorm"
 
 
 def unstack(tree) -> List:
@@ -130,6 +152,8 @@ class Model:
         self.use_kernels = use_kernels
         self.compute_dtype = _DTYPES[cfg.dtype]
         self.model_axis: Optional[ModelAxis] = None
+        self.fsdp: Optional[FsdpGather] = None
+        self.dispatch: Optional[Dispatch] = None
 
     @property
     def _groups(self) -> Tuple[int, int]:
@@ -175,18 +199,28 @@ class Model:
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _use(self, path: str, tree, depth: int = 0,
+             upto: Optional[int] = None):
+        """The params node at ``path`` as its use needs it: under fsdp
+        its leaves cut over the data axes gathered (``FsdpGather``),
+        else as it is."""
+        if self.fsdp is None:
+            return tree
+        return self.fsdp(path, tree, depth, upto)
+
     def _embed_inputs(self, params, batch, model_axis=None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Returns (x, positions); positions stay None when the batch
         gives none (arange, the serving case the flash kernel takes)."""
         dt = self.compute_dtype
         tokens = self._tokens(batch["tokens"])
-        x = embed(tokens, params["embed"], dt, model_axis)
+        x = embed(tokens, self._use("embed", params["embed"]), dt,
+                  model_axis)
         positions = batch.get("positions")
         if positions is not None:
             positions = torch.as_tensor(positions, device=self.device)
         if "pos_embed" in params:
-            table = params["pos_embed"]["table"]
+            table = self._use("pos_embed", params["pos_embed"])["table"]
             if model_axis is not None and model_axis.positions:
                 ids = positions.long() if positions is not None else \
                     torch.arange(x.shape[1], device=x.device)[None]
@@ -199,10 +233,11 @@ class Model:
 
     def _head(self, params, x, model_axis=None) -> torch.Tensor:
         cfg = self.cfg
-        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps,
-                       use_kernels=self.use_kernels)
-        table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-        return unembed(x, table, self.compute_dtype, model_axis)
+        x = apply_norm(x, self._use("final_norm", params["final_norm"]),
+                       cfg.norm, cfg.norm_eps, use_kernels=self.use_kernels)
+        key = "embed" if cfg.tie_embeddings else "lm_head"
+        return unembed(x, self._use(key, params[key]), self.compute_dtype,
+                       model_axis)
 
     def _run(self, params, x, cache, step: int, kw, remat: bool = False):
         """One pass over the layers with the family's block function
@@ -211,12 +246,26 @@ class Model:
         and its gate, ``h + gate * (y - h)``.  ``remat`` recomputes each
         block's activations in the backward instead of keeping them.
         Returns (x, cache, aux): aux is the sum of the MoE blocks'
-        load-balance losses over a forward pass, else 0."""
+        load-balance losses over a forward pass, else 0.
+
+        Under fsdp (``self.fsdp``) each layer's leaves are gathered
+        inside the block function, so a rank holds one layer whole at a
+        time and remat's recompute gathers again; leaves cut on a stack
+        dim are gathered before the loop."""
         cfg = self.cfg
-        fn = _BLOCKS[cfg.family][step]
+        hybrid = cfg.family == "hybrid"
+        path, depth = ("layers/blocks", 2) if hybrid else ("layers", 1)
+        block = _BLOCKS[cfg.family][step]
         with_aux = cfg.family == "moe" and step == _FORWARD
         auxs = []
-        shared_fn = _BLOCKS["dense"][step]
+        dense = _BLOCKS["dense"][step]
+
+        def fn(x, p, *a, **k):
+            return block(x, self._use(path, p, depth), *a, **k)
+
+        def shared_fn(x, p, *a, **k):
+            return dense(x, self._use("shared", p), *a, **k)
+
         if remat:
             fn = partial(checkpoint, fn, use_reentrant=False)
             shared_fn = partial(checkpoint, shared_fn, use_reentrant=False)
@@ -234,14 +283,16 @@ class Model:
                     new.append(c)
             return x, (None if cache is None else _restack(cache, new))
 
-        if cfg.family != "hybrid":
-            x, cache = run_stack(x, params["layers"], cache)
+        if not hybrid:
+            x, cache = run_stack(x, self._use(path, params["layers"], 0,
+                                              depth), cache)
             aux = torch.stack(auxs).sum() if auxs \
                 else torch.zeros((), device=x.device)
             return x, cache, aux
-        gates = params["layers"]["gates"].unbind(0)
+        stacked = self._use("layers", params["layers"], 0, depth)
+        gates = stacked["gates"].unbind(0)
         attn_new = []
-        for g, group in enumerate(unstack(params["layers"]["blocks"])):
+        for g, group in enumerate(unstack(stacked["blocks"])):
             if cache is None:
                 y = shared_fn(x, params["shared"], cfg, **kw)
             else:
@@ -264,12 +315,20 @@ class Model:
         ``forward``, tensor-parallel under ``model_axis``."""
         axis = self.model_axis
         x, positions = self._embed_inputs(params, batch, axis)
+        x, _, aux = self._run(params, x, None, _FORWARD,
+                              self._plan_kw(positions, window), remat=remat)
+        return self._head(params, x, axis), aux
+
+    def _plan_kw(self, positions, window: int) -> Dict[str, Any]:
+        """The block functions' keywords of a training forward: the
+        plan's model axis and the MoE dispatch where there are."""
         kw = dict(positions=positions, window=window,
                   use_kernels=self.use_kernels)
-        if axis is not None:
-            kw["model_axis"] = axis
-        x, _, aux = self._run(params, x, None, _FORWARD, kw, remat=remat)
-        return self._head(params, x, axis), aux
+        if self.model_axis is not None:
+            kw["model_axis"] = self.model_axis
+        if self.dispatch is not None:
+            kw["dispatch"] = self.dispatch
+        return kw
 
     def forward(self, params, batch, *, window: int = 0,
                 remat: bool = False) -> torch.Tensor:
@@ -294,16 +353,17 @@ class Model:
         ``pos_embed``) only."""
         return self._embed_inputs(params, batch, self.model_axis)
 
-    def run_layers(self, layers, x, *, positions=None, remat: bool = False
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def run_layers(self, layers, x, *, positions=None, remat: bool = False,
+                   shared=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(x, aux)`` after the layers of a sub-stack ``layers``
-        (leaves ``[n, ...]``), as ``_run`` runs the whole stack."""
-        kw = dict(positions=positions, window=0,
-                  use_kernels=self.use_kernels)
-        if self.model_axis is not None:
-            kw["model_axis"] = self.model_axis
-        x, _, aux = self._run({"layers": layers}, x, None, _FORWARD, kw,
-                              remat=remat)
+        (leaves ``[n, ...]``; the hybrid family's groups, with the
+        ``shared`` block at the head of each), as ``_run`` runs the whole
+        stack."""
+        params = {"layers": layers}
+        if shared is not None:
+            params["shared"] = shared
+        x, _, aux = self._run(params, x, None, _FORWARD,
+                              self._plan_kw(positions, 0), remat=remat)
         return x, aux
 
     def head_loss(self, params, x, batch, *, denom

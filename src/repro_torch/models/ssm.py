@@ -15,15 +15,38 @@ Full-sequence forward and prefill scan the sequence:
 Both take the initial state ``h0`` from the cache, so a prefill from a
 filled state continues it.  Decode keeps a constant-size state: the
 last ``d_conv - 1`` inputs of the conv and the SSM state ``h`` (fp32).
+
+Under a plan that shards weights the forward takes ``model_axis``
+(``core.sharding.ModelAxis``) and this rank's blocks of the leaves, cut
+by the reference's rules (``d_inner`` over ``model``).  With
+``model_axis.d_inner`` each rank runs a contiguous block of the
+channels (Mamba2: of whole heads): the leaves that line up with it run
+locally (Mamba1: ``conv_w``, ``conv_b``, ``x_proj``'s rows,
+``dt_proj``, ``A_log``, ``out_proj``; Mamba2: ``norm_scale``,
+``out_proj``), the partial sums of ``x_proj`` and ``out_proj`` are added
+over the axis, and so is the gated RMSNorm's mean square (each rank's
+mean, added, divided by the ranks).  The leaves whose cut does not
+follow the channels (``in_proj`` = [x | z] or [z | x | B | C | dt],
+Mamba2's ``conv_w`` and ``conv_b`` over [x | B | C]) are gathered whole
+for use and the whole per-head or per-channel vectors (``dt_bias``,
+``D``, Mamba2's ``A_log``) enter through f: either way the gradient is
+summed over the axis and comes back to the reference's blocks
+(``core.sharding.gather_for_use``).  Without ``d_inner`` every rank
+computes the layer whole from the gathered leaves.  The scans (kernels
+3 and 4 and their plain versions) work per channel or per head and take
+the block as it is.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sharding import (
+    ModelAxis, copy_to_model, gather_for_use, reduce_from_model,
+)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import dense_init
 
@@ -42,6 +65,45 @@ def _const(values, lead, device):
     """``values`` broadcast to ``lead + values.shape`` (a fresh tensor)."""
     values = values.to(device)
     return values.expand(tuple(lead) + tuple(values.shape)).clone()
+
+
+# --------------------------------------------------------------------- #
+# the model axis: whole leaves for use, this rank's channels
+# --------------------------------------------------------------------- #
+
+def _whole(params, name: str, axis: ModelAxis):
+    """A leaf of which this rank uses more than its block, whole, its
+    gradient summed over the axis: gathered where the specs cut it, else
+    entering through f."""
+    dim = dict(axis.ssm_cut).get(name)
+    if dim is None:
+        return copy_to_model(params[name], axis)
+    return gather_for_use(params[name], dim, axis.group, index=axis.rank)
+
+
+def _replicated(params, axis: ModelAxis):
+    """Every leaf whole, for a layer each rank computes whole: a leaf the
+    specs cut is gathered, and its gradient, whole on every rank, is cut
+    back to the block unsummed."""
+    cut = dict(axis.ssm_cut)
+    return {k: t if k not in cut else gather_for_use(
+        t, cut[k], axis.group, index=axis.rank, scatter=False)
+        for k, t in params.items()}
+
+
+def _columns(t, spans, dim: int = -1):
+    """The ``(start, length)`` spans of ``t`` along ``dim``, in order."""
+    return torch.cat([t.narrow(dim, a, n) for a, n in spans], dim)
+
+
+def _added(x, axis: ModelAxis):
+    """Partial sums added over the axis (g), whose result every rank
+    uses for its own channels, so its gradient is added too (f)."""
+    return copy_to_model(reduce_from_model(x, axis), axis)
+
+
+def _channels(axis: Optional[ModelAxis]) -> Optional[ModelAxis]:
+    return axis if axis is not None and axis.d_inner else None
 
 
 # --------------------------------------------------------------------- #
@@ -132,15 +194,18 @@ def _mamba1_chunk_scan(x, dt, b_s, c_s, A, h0, chunk: int):
 
 
 def _mamba1_inner(x_conv, z, params, cfg: ModelConfig, h0, chunk: int, *,
-                  use_kernels: bool = False):
+                  use_kernels: bool = False, channels=None):
     """x_conv: [B, S, di] post-conv+silu; returns (y [B, S, di], h_last).
     The scan is kernel 4 (through ``kernels/ops.py``) or the reference's
     chunked scan; the D skip and the gate stay here, as in the
-    reference's adapter."""
+    reference's adapter.  ``channels``: the model axis this rank's block
+    of the channels is cut over (``x_proj``'s partial sums added)."""
     ds = cfg.ssm.d_state
     dt_rank = params["dt_proj"].shape[0]
     dt = x_conv.dtype
     proj = x_conv @ params["x_proj"].to(dt)
+    if channels is not None:
+        proj = _added(proj, channels)
     dt_raw, B_s, C_s = proj.split([dt_rank, ds, ds], dim=-1)
     delta = _softplus((dt_raw @ params["dt_proj"].to(dt)).float()
                       + params["dt_bias"].float())
@@ -157,14 +222,36 @@ def _mamba1_inner(x_conv, z, params, cfg: ModelConfig, h0, chunk: int, *,
     return y.to(dt), h_last
 
 
+def _mamba1_cut(params, axis: ModelAxis, di: int):
+    """This rank's leaves of a Mamba1 layer whose channels are cut: its
+    columns of x and of z from the whole ``in_proj``, its slice of the
+    whole ``dt_bias`` and ``D``; the other leaves are its blocks."""
+    c = di // axis.size
+    lo = axis.rank * c
+    p = dict(params)
+    p["in_proj"] = _columns(_whole(params, "in_proj", axis),
+                            ((lo, c), (di + lo, c)))
+    for name in ("dt_bias", "D"):
+        p[name] = _whole(params, name, axis).narrow(0, lo, c)
+    return p
+
+
 def mamba1_forward(x, params, cfg: ModelConfig, *, state: SSMState = None,
-                   use_kernels: bool = False):
+                   use_kernels: bool = False,
+                   model_axis: Optional[ModelAxis] = None):
     """x: [B, S, d] -> ([B, S, d], new state or None).  With a ``state``
     the scan starts from ``state.h`` (the conv pads with zeros, as the
-    reference's does)."""
+    reference's does).  ``model_axis``: see the module docstring."""
     s = cfg.ssm
     di = s.expand * cfg.d_model
     dt = x.dtype
+    channels = _channels(model_axis)
+    if channels is not None:
+        params = _mamba1_cut(params, channels, di)
+        di //= channels.size
+        x = copy_to_model(x, channels)
+    elif model_axis is not None:
+        params = _replicated(params, model_axis)
     xz = x @ params["in_proj"].to(dt)
     x_in, z = xz.chunk(2, dim=-1)
     x_conv = causal_conv(x_in, params["conv_w"], params["conv_b"])
@@ -172,8 +259,10 @@ def mamba1_forward(x, params, cfg: ModelConfig, *, state: SSMState = None,
     h0 = torch.zeros((x.shape[0], di, s.d_state), device=x.device) \
         if state is None else state.h.float()
     y, h_last = _mamba1_inner(x_conv, z, params, cfg, h0, s.chunk,
-                              use_kernels=use_kernels)
+                              use_kernels=use_kernels, channels=channels)
     out = y @ params["out_proj"].to(dt)
+    if channels is not None:
+        out = reduce_from_model(out, channels)
     new_state = None
     if state is not None:
         conv = torch.cat([state.conv, x_in.to(state.conv.dtype)],
@@ -271,13 +360,44 @@ def _ssd_chunk_scan(xh, dt_h, B_s, C_s, A, h0, chunk: int):
     return torch.cat(ys, dim=1)[:, :S], h
 
 
+def _mamba2_cut(params, axis: ModelAxis, cfg: ModelConfig):
+    """This rank's leaves of a Mamba2 layer whose heads are cut: its
+    columns of z, x and dt and all of B and C from the whole ``in_proj``
+    ([z | x | B | C | dt]), its x and all of B and C from the whole conv
+    ([x | B | C]; B and C are every head's), its heads of the whole
+    ``dt_bias``, ``A_log`` and ``D``; ``norm_scale`` and ``out_proj`` are
+    its blocks."""
+    di, nh, _, ds = _m2_dims(cfg)
+    c, h = di // axis.size, nh // axis.size
+    lo, hlo = axis.rank * c, axis.rank * h
+    p = dict(params)
+    p["in_proj"] = _columns(_whole(params, "in_proj", axis),
+                            ((lo, c), (di + lo, c), (2 * di, 2 * ds),
+                             (2 * di + 2 * ds + hlo, h)))
+    for name in ("conv_w", "conv_b"):
+        p[name] = _columns(_whole(params, name, axis),
+                           ((lo, c), (di, 2 * ds)))
+    for name in ("dt_bias", "A_log", "D"):
+        p[name] = _whole(params, name, axis).narrow(0, hlo, h)
+    return p
+
+
 def mamba2_forward(x, params, cfg: ModelConfig, *, state: SSMState = None,
-                   use_kernels: bool = False):
+                   use_kernels: bool = False,
+                   model_axis: Optional[ModelAxis] = None):
     """x: [B, S, d] -> ([B, S, d], new state or None); the scan is kernel
-    3 (through ``kernels/ops.py``) or the reference's chunked scan."""
+    3 (through ``kernels/ops.py``) or the reference's chunked scan.
+    ``model_axis``: see the module docstring."""
     s = cfg.ssm
     di, nh, hd, ds = _m2_dims(cfg)
     dt = x.dtype
+    channels = _channels(model_axis)
+    if channels is not None:
+        params = _mamba2_cut(params, channels, cfg)
+        di, nh = di // channels.size, nh // channels.size
+        x = copy_to_model(x, channels)
+    elif model_axis is not None:
+        params = _replicated(params, model_axis)
     B = x.shape[0]
     proj = x @ params["in_proj"].to(dt)
     z, xBC, dt_raw = proj.split([di, di + 2 * ds, nh], dim=-1)
@@ -299,8 +419,12 @@ def mamba2_forward(x, params, cfg: ModelConfig, *, state: SSMState = None,
     # gated RMSNorm (mamba2 places the gate inside the norm)
     y = y * F.silu(z.float())
     var = y.square().mean(dim=-1, keepdim=True)
+    if channels is not None:
+        var = _added(var, channels) / channels.size
     y = y * torch.rsqrt(var + cfg.norm_eps) * params["norm_scale"]
     out = y.to(dt) @ params["out_proj"].to(dt)
+    if channels is not None:
+        out = reduce_from_model(out, channels)
     new_state = None
     if state is not None:
         # the conv state keeps the conv's inputs, before the conv

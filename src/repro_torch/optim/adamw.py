@@ -91,30 +91,51 @@ def _decay_mask(key: str) -> bool:
 
 
 def adamw_update(grads, state: AdamWState, params, cfg: TrainConfig,
-                 lr: torch.Tensor, *, specs=None, mesh=None
+                 lr: torch.Tensor, *, specs=None, mesh=None,
+                 donate: bool = False
                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (new_params, new_state, stats).
-    ``specs``/``mesh``: the leaves are blocks cut by ``specs``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, specs, mesh)
+    ``specs``/``mesh``: the leaves are blocks cut by ``specs``.
+
+    Leaf by leaf: each leaf's clipped gradient and moments are made and
+    dropped before the next, so no whole-tree temporary is held.
+    ``donate`` (the reference's jitted step donates its params and
+    state): the new values are written into ``params``, ``state.m`` and
+    ``state.v`` in place, the same bits, and those trees are returned,
+    so a step holds one copy of each."""
+    gnorm = global_norm(grads, specs, mesh)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
     step = state.step + 1
     b1, b2 = cfg.beta1, cfg.beta2
     c1 = 1.0 - b1 ** step.float()
     c2 = 1.0 - b2 ** step.float()
 
-    new_m = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.m, grads)
-    new_v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g),
-                     state.v, grads)
-
-    def upd(tree, m_tree, v_tree, path=""):
-        if isinstance(tree, dict):
-            return {k: upd(tree[k], m_tree[k], v_tree[k], k) for k in tree}
-        p, mh, vh = tree, m_tree / c1, v_tree / c2
+    def one(path, p, g, m, v):
+        g = g.float() * scale
+        m_new = b1 * m + (1 - b1) * g
+        v_new = b2 * v + (1 - b2) * torch.square(g)
+        del g
+        mh, vh = m_new / c1, v_new / c2
         delta = mh / (torch.sqrt(vh) + cfg.eps)
+        del mh, vh
         if _decay_mask(path):
             delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype)
+        p_new = (p.float() - lr * delta).to(p.dtype)
+        if not donate:
+            return p_new, m_new, v_new
+        p.copy_(p_new)
+        m.copy_(m_new)
+        v.copy_(v_new)
+        return p, m, v
+
+    def walk(p, g, m, v, path=""):
+        if isinstance(p, dict):
+            out = {k: walk(p[k], g[k], m[k], v[k], k) for k in p}
+            return tuple({k: o[j] for k, o in out.items()} for j in range(3))
+        return one(path, p, g, m, v)
 
     with torch.no_grad():
-        new_params = upd(params, new_m, new_v)
+        new_params, new_m, new_v = walk(params, grads, state.m, state.v)
     return new_params, AdamWState(step=step, m=new_m, v=new_v), {
         "grad_norm": gnorm, "lr": lr}

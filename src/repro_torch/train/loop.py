@@ -54,7 +54,7 @@ def train(model: Model, tcfg: TrainConfig, loader, *, steps: int,
           on_step_failure: Optional[Callable[[int], None]] = None,
           log_fn: Callable[[str], None] = print,
           plan=None, mesh=None, stage_layers=None,
-          schedule: str = "gpipe") -> TrainResult:
+          schedule: str = "gpipe", donate: bool = False) -> TrainResult:
     """Train ``model`` on ``loader.batch_at(i)`` for steps ``start_step``
     to ``steps - 1`` on the model's device.  Fresh params come from
     ``tcfg.seed``.
@@ -80,10 +80,16 @@ def train(model: Model, tcfg: TrainConfig, loader, *, steps: int,
     keywords): a searched ``Placement``'s per-chunk layer split and
     tick-order schedule, on a staged mesh
     (``launch.mesh.make_pipeline_mesh``); ``tcfg.microbatches`` cuts
-    each rank's batch."""
+    each rank's batch.
+
+    ``donate``: each step updates the params and optimizer state in
+    place (``core.steps.build_train_step``), so a step holds one copy of
+    them; the ``params`` and ``opt_state`` given (at a world of one under
+    a plan, the same tensors) are overwritten."""
     cfg = model.cfg
     step_fn = build_train_step(model, tcfg, plan=plan, mesh=mesh,
-                               stage_layers=stage_layers, schedule=schedule)
+                               stage_layers=stage_layers, schedule=schedule,
+                               donate=donate)
     if params is None:
         params = model.init(torch.Generator(device=model.device)
                             .manual_seed(tcfg.seed))

@@ -184,12 +184,15 @@ def test_train_losses_match_reference(corpus, pair, grad_accum):
 
 
 def test_train_refuses_plans(pair, corpus):
-    """The plans the port does not run yet raise before any step (data,
-    zero2, shard and shard_zero run: tests/test_torch_plans.py)."""
+    """Every plan of ``PLANS`` runs (tests/test_torch_plans.py,
+    tests/test_torch_plan_families.py); ``train`` refuses one without
+    its mesh before any step."""
+    from repro_torch.core.plans import PLANS
     _, _, tm = pair
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttrain(tm, TrainConfig(), tdata.Loader(corpus[4], BATCH), steps=1,
-               plan="fsdp")
+    for plan in PLANS:
+        with pytest.raises(ValueError, match="needs a mesh"):
+            ttrain(tm, TrainConfig(), tdata.Loader(corpus[4], BATCH),
+                   steps=1, plan=plan)
 
 
 def test_train_resume_and_failure_hook(corpus, pair, tmp_path):
