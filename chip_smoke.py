@@ -69,6 +69,14 @@ card), on one device, then under shard (``fam-moe-shard``, ...,
 bit-equal to one device) and under pipeshard with 1F1B and four
 microbatches (``fam-moe-pipe``, ..., held to one device with four
 accumulated microbatches), each step updating its state in place.
+Then it serves under the flat plans in the same process group: gpt2L at
+full size through ``Engine`` (batch 8, prompt 64, 32 new tokens) under
+data, zero2, shard, shard_zero and fsdp with the fp32 cache, under
+shard with the int8 cache (kernel B with its log-sum-exp, the merge of
+the ring's blocks) and through ``ContinuousEngine`` (int8, 8 slots, 16
+requests), and llama3.2-3b at full size with the int8 cache under shard
+(``serve-*``): each phase's tokens held to the one-device engine's on
+the same weights and prompts, three runs timed.
 
 For each model it checks that the kernel path's first-step logits agree
 with the plain path's on the card (the MoE model's against the fp32
@@ -222,6 +230,27 @@ FAM_LOSS1_RTOL, FAM_LOSS_RTOL = 1e-5, 1e-3
 PIPE_MICRO = 4
 PIPE_PHASES = (("gpipe", None), ("1f1b", None), ("interleaved", (16, 14)))
 PIPE_LOSS1_RTOL, PIPE_LOSS_RTOL = 1e-4, 2e-3
+# the serve phases: gpt2L at full size through ``Engine`` (batch 8,
+# prompt 64, 32 new tokens) under each flat plan over NCCL at a world of
+# one, fp32 KV (``serve-<plan>``), under shard with the int8 cache
+# (``serve-shard-int8``) and through ``ContinuousEngine`` (int8, 8 slots,
+# 16 requests of 16 to 256 tokens, ``serve-shard-continuous``), and
+# llama3.2-3b at full size with the int8 cache under shard
+# (``serve-llama-shard``): kernels A and B at head_dim 128 and kernel 6.
+# Each phase serves SERVE_RUNS times (TTFT and tokens/s as the median
+# and spread), after one run of the one-device engine on the same
+# weights and prompts (``serve-one-<kind>``), whose tokens it must give.
+# At a world of one the merge of one block is exact and every gather a
+# copy, so bit-equal tokens are expected; a phase that is not compares
+# the logits of prefill and of every decode step, teacher-forced on the
+# one-device tokens, within SERVE_LOGIT_RTOL of the largest logit.
+SERVE_RUNS, SERVE_LOGIT_RTOL = 3, 1e-2
+# (phase, arch, plan, KV dtype, engine)
+SERVE_PHASES = tuple((f"serve-{p}", PLAN_ARCH, p, "fp32", "engine")
+                     for p in PLAN_NAMES) + (
+    ("serve-shard-int8", PLAN_ARCH, "shard", "int8", "engine"),
+    ("serve-shard-continuous", PLAN_ARCH, "shard", "int8", "continuous"),
+    ("serve-llama-shard", "llama3.2-3b", "shard", "int8", "engine"))
 # the calibration micro-bench's flash sample (calib/microbench.py):
 # (H, KV, D) and (B, S), causal; grouped-query, unlike the models here
 CAL_FLASH_HEADS, CAL_FLASH_BS = (4, 2, 64), (1, 128)
@@ -492,7 +521,11 @@ def decode_mask(torch, g, B, Sk, fills):
 def check_int8kv(torch, F, H, KV, D, cases, seed):
     """Kernel B against its plain version with H query heads over KV
     key/value heads of D, at decode shapes ``(B, Sk, fills)`` (masks as
-    ``decode_mask`` makes them); a rerun must give the same bits."""
+    ``decode_mask`` makes them); a rerun must give the same bits.  Its
+    log-sum-exp output (``with_lse``, what a serving plan merges the
+    ring's blocks by) is held to the plain version's within
+    ``LSE_ATOL``, -inf on a row with no live key, and must leave the
+    output's bits as they were; it is timed beside the plain call."""
     from repro_torch.kernels import quantized as qz
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -519,6 +552,18 @@ def check_int8kv(torch, F, H, KV, D, cases, seed):
             fail(f"{what}: max_abs_err {err} > {KERNEL_ATOL}")
         if not torch.equal(got, again):
             fail(f"{what}: a rerun gave other bits")
+        with_lse, lse = qz.int8kv_attention_cuda(*args, with_lse=True)
+        _, want_lse = qz.int8kv_attention_plain(*args, with_lse=True)
+        torch.cuda.synchronize()
+        dead_rows = ~valid.any(-1)
+        lse_err = float((lse - want_lse)[~dead_rows].abs().amax()) \
+            if not dead_rows.all() else 0.0
+        if not torch.equal(with_lse, got):
+            fail(f"{what}: the output with the lse differs from without")
+        if not (torch.isneginf(lse[dead_rows]).all() and
+                lse_err <= LSE_ATOL):
+            fail(f"{what}: lse max_abs_err {lse_err} > {LSE_ATOL}, or a row "
+                 f"with no live key without -inf")
         worst = max(worst, err)
         # what this data needs: K, V and both scales of each live key; a
         # row with no live key averages all its values (V and v scale);
@@ -539,6 +584,9 @@ def check_int8kv(torch, F, H, KV, D, cases, seed):
             "fills": fills, "max_abs_err": err, "rerun_bit_equal": True,
             "splits": qz.int8kv_splits(B, KV, Sk, n_sm),
             "ms": time_ms(torch, lambda: qz.int8kv_attention_cuda(*args)),
+            "with_lse_ms": time_ms(torch, lambda: qz.int8kv_attention_cuda(
+                *args, with_lse=True)),
+            "lse_max_abs_err": lse_err,
             "plain_ms": time_ms(torch, lambda: qz.int8kv_attention_plain(
                 *args)),
             "library_ms": None,
@@ -548,7 +596,8 @@ def check_int8kv(torch, F, H, KV, D, cases, seed):
             "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
         log(f"{what} live={live:5d} splits={row['splits']} err={err:.3e} "
-            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"ms={row['ms']:.4f} with_lse_ms={row['with_lse_ms']:.4f} "
+            f"lse_err={lse_err:.2e} plain_ms={row['plain_ms']:.4f} "
             f"sdpa_on_dequantized_ms={row['sdpa_dequant_ms']:.4f} "
             f"bound_ms={b_ms:.5f} ({b_by})")
     return rows, worst
@@ -1683,11 +1732,241 @@ def plan_phases(torch, np, ops, card):
         out.update(pipe_phases(torch, run, loader,
                                out["train_gpt2L"]["losses"]))
         out.update(family_phases(torch, np, ops, card))
+        out.update(serve_phases(torch, np, ops, card, mesh))
     finally:
         dist.destroy_process_group()
     del ref_params
     torch.cuda.empty_cache()
     return out
+
+
+def serve_phases(torch, np, ops, card, mesh):
+    """Phases ``SERVE_PHASES`` in the process group of ``plan_phases``
+    on its mesh of one rank, each after its one-device yardstick
+    (``serve-one-<kind>``, once a model, KV dtype and engine).  Each
+    prints TTFT and decode tokens/s (median and spread of
+    ``SERVE_RUNS``), the collectives of a decode step, the kernels'
+    launches and the peak memory, and must launch kernel A L times a
+    prefill and, with the int8 cache, kernel B L times a decode step.
+    One decode step of ``serve-shard`` and of its yardstick is traced."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import sharding
+    from repro_torch.models import Model
+    from repro_torch.serve import ContinuousEngine, Engine, Request
+    from repro_torch.serve import steps
+
+    out = {}
+    t_serve = time.perf_counter()
+    max_len = ENGINE_PROMPT + ENGINE_GEN + 8
+    cont_len = CONT_LENS[1] + CONT_GEN + 8
+    for arch in dict.fromkeys(a for _, a, _, _, _ in SERVE_PHASES):
+        cfg = get_config(arch)
+        L = cfg.n_layers
+        model = Model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        rng = np.random.default_rng(SEED + 7)
+        batch = {"tokens": rng.integers(4, cfg.vocab_size,
+                                        (ENGINE_BATCH, ENGINE_PROMPT),
+                                        dtype=np.int64)}
+        lens = rng.integers(CONT_LENS[0], CONT_LENS[1] + 1, CONT_REQUESTS)
+        reqs = [Request(i, rng.integers(4, cfg.vocab_size, (int(n),),
+                                        dtype=np.int64))
+                for i, n in enumerate(lens)]
+        refs = {}
+        log(f"serve: {arch}'s weights after "
+            f"{time.perf_counter() - t_serve:.1f}s")
+        for name, _, plan, kv, kind in (p for p in SERVE_PHASES
+                                         if p[1] == arch):
+            needs = ["flash_attn_fwd"] + \
+                (["int8kv_decode"] if kv == "int8" else []) + \
+                (["rmsnorm"] if cfg.norm == "rmsnorm" else [])
+            tag = f"{'llama-' if arch != PLAN_ARCH else ''}{kind}-{kv}"
+            if (kind, kv) not in refs:
+                one = f"serve-one-{tag}"
+                out[one.replace("-", "_")], refs[(kind, kv)] = serve_runs(
+                    torch, np, ops, one, model, params, batch, reqs, kv,
+                    kind, needs, card, L, max_len, cont_len, runs=1)
+            ref = refs[(kind, kv)]
+            t_phase = time.perf_counter()
+            if kind == "continuous":
+                eng = ContinuousEngine(model, slots=CONT_SLOTS,
+                                       max_len=cont_len, kv_dtype=kv,
+                                       plan=plan, mesh=mesh)
+            else:
+                eng = Engine(model, batch_size=ENGINE_BATCH,
+                             max_len=max_len, kv_dtype=kv, plan=plan,
+                             mesh=mesh)
+            local = eng.shard_params(params)
+            rec, tokens = serve_runs(torch, np, ops, name, model, local,
+                                     batch, reqs, kv, kind, needs, card, L,
+                                     max_len, cont_len, eng=eng)
+            rec.update(compare_served(torch, steps, sharding, name, model,
+                                      (params, local), batch, reqs, kv,
+                                      kind, eng, ref, tokens))
+            if name == "serve-shard":
+                for what, e, p in (("serve-one-engine-fp32 (one device)",
+                                    Engine(model, batch_size=ENGINE_BATCH,
+                                           max_len=max_len), params),
+                                   (name, eng, local)):
+                    cache = e._init_cache(ENGINE_BATCH)
+                    _, cache = steps.prefill_step(model, p, batch, cache,
+                                                  plan=e.plan)
+                    tok = torch.ones((ENGINE_BATCH, 1), dtype=torch.long,
+                                     device="cuda")
+                    prof = profile_window(
+                        torch, lambda: steps.serve_step(
+                            model, p, cache, tok, plan=e.plan), OUR_KERNELS)
+                    log_profile(f"{what}, one decode step", prof)
+                    rec.setdefault("profile_decode_step", {})[what] = prof
+            out[name.replace("-", "_")] = rec
+            log(f"{name}: {time.perf_counter() - t_phase:.1f}s with its "
+                f"engine, comparison and trace")
+            del eng, local
+            torch.cuda.empty_cache()
+        del model, params
+        torch.cuda.empty_cache()
+    log(f"serve phases in {time.perf_counter() - t_serve:.1f}s")
+    return out
+
+
+def serve_runs(torch, np, ops, name, model, params, batch, reqs, kv, kind,
+               needs, card, L, max_len, cont_len, eng=None,
+               runs=SERVE_RUNS):
+    """Phase ``name``: ``runs`` runs of an engine (one device when ``eng``
+    is None) with the launches of kernels A and B checked.  Returns the
+    record (TTFT and tokens/s, their median and spread) and the first
+    run's tokens."""
+    from repro_torch.serve import ContinuousEngine, Engine
+
+    if eng is None and kind == "continuous":
+        eng = ContinuousEngine(model, slots=CONT_SLOTS, max_len=cont_len,
+                               kv_dtype=kv)
+    elif eng is None:
+        eng = Engine(model, batch_size=ENGINE_BATCH, max_len=max_len,
+                     kv_dtype=kv)
+    if kind == "continuous":
+        def once():
+            return eng.run(params, reqs, max_new=CONT_GEN)
+    else:
+        def once():
+            return eng.generate(params, batch, n_tokens=ENGINE_GEN)
+    res, counts = run_phase(torch, ops, name,
+                            lambda: [once() for _ in range(runs)], needs)
+    if kind == "continuous":
+        prefills = runs * CONT_REQUESTS
+        steps_ = sum(len(r["stats"].occupancy) for r in res)
+        ttft = [float(np.median(list(r["stats"].ttft_s.values())))
+                for r in res]
+        rate = [r["stats"].tokens_per_s for r in res]
+        for r in reqs:
+            check_tokens(np, res[0]["outputs"][r.uid], (CONT_GEN,),
+                         model.cfg.vocab_size, f"{name} request {r.uid}")
+        tokens = res[0]["outputs"]
+    else:
+        prefills, steps_ = runs, runs * (ENGINE_GEN - 1)
+        ttft = [r["stats"].prefill_s for r in res]
+        rate = [r["stats"].tokens_per_s for r in res]
+        tokens = res[0]["tokens"]
+        check_tokens(np, tokens, (ENGINE_BATCH, ENGINE_GEN),
+                     model.cfg.vocab_size, name)
+    want = {"flash_attn_fwd": L * prefills,
+            "int8kv_decode": L * steps_ if kv == "int8" else 0}
+    for kname, n in want.items():
+        if counts[kname] != n:
+            fail(f"phase {name}: {counts[kname]} {kname} launches, want {n}"
+                 f" (L = {L} a prefill, and a decode step with int8 KV)")
+    rec = {"runs": runs, "ttft_s": ttft, "tokens_per_s": rate,
+           "ttft_median_s": float(np.median(ttft)),
+           "ttft_spread_s": max(ttft) - min(ttft),
+           "tokens_per_s_median": float(np.median(rate)),
+           "tokens_per_s_spread": max(rate) - min(rate),
+           "prefills": prefills, "decode_steps": steps_,
+           "peak_bytes": PHASES[name]["peak_bytes"], "launches": counts}
+    what = "TTFT p50 of the requests" if kind == "continuous" else "TTFT"
+    log(f"{name}: {what} median {rec['ttft_median_s'] * 1e3:.2f} ms "
+        f"(spread {rec['ttft_spread_s'] * 1e3:.2f} ms), decode "
+        f"{rec['tokens_per_s_median']:.1f} tok/s median (spread "
+        f"{rec['tokens_per_s_spread']:.1f}) over {runs} runs, peak "
+        f"memory {rec['peak_bytes'] / 2**30:.2f} GiB, on {card}")
+    return rec, tokens
+
+
+def compare_served(torch, steps, sharding, name, model, params, batch,
+                   reqs, kv, kind, eng, ref, tokens):
+    """The gate of a serve phase: its tokens equal the one-device
+    engine's, else the teacher-forced logits of prefill and every decode
+    step within ``SERVE_LOGIT_RTOL`` of the largest (of the whole batch,
+    or of each request that differs, served alone).  Where the tokens of
+    an ``Engine`` phase are equal, its prefill and first decode step run
+    once more beside one device (``first_steps``), to record whether
+    their logits are bit-equal and the collectives of a decode step."""
+    from repro_torch.serve.steps import ServePlan
+
+    if kind == "continuous":
+        differ = [r for r in reqs if not np_equal(tokens[r.uid],
+                                                  ref[r.uid])]
+    else:
+        differ = [] if np_equal(tokens, ref) else [None]
+    out = {"tokens_bit_equal": not differ,
+           "compared": "teacher-forced logits" if differ else "tokens"}
+    if kind == "engine":
+        out["logits_first_steps_bit_equal"], coll = first_steps(
+            torch, steps, sharding, model, params, batch, eng, ref, kv)
+        out["logits_first_steps_bit_equal"] &= not differ
+        out["collectives_a_decode_step"] = coll
+        log(f"{name}: collectives a decode step: " + ", ".join(
+            f"{k} {v['calls']:g} calls {v['bytes'] / 1e6:.3f} MB"
+            for k, v in coll.items() if v["calls"]))
+    cases = [(batch, ref, eng.plan)] if differ and kind == "engine" else []
+    for r in differ if kind == "continuous" else ():
+        sp = ServePlan(model, eng.plan.plan, eng.plan.mesh,
+                       max_len=eng.max_len)
+        cases.append(({"tokens": r.prompt[None]}, ref[r.uid][None], sp))
+    for b, toks, sp in cases:
+        err, scale, _ = steps.teacher_forced(
+            model, params[0], params[1], b, toks, sp, kv_dtype=kv)
+        out.setdefault("teacher_forced", []).append(
+            {"steps": toks.shape[1], "max_abs_err": err,
+             "max_abs_logit": scale})
+        if not err <= SERVE_LOGIT_RTOL * scale:
+            fail(f"{name}: teacher-forced logits differ by {err} > "
+                 f"{SERVE_LOGIT_RTOL} x {scale}")
+    log(f"{name}: tokens bit-equal to one device: {out['tokens_bit_equal']}"
+        f"; compared {out['compared']}; first steps' logits bit-equal: "
+        f"{out.get('logits_first_steps_bit_equal')}")
+    return out
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+
+def first_steps(torch, steps, sharding, model, params, batch, eng, ref, kv):
+    """Prefill and one decode step of ``batch`` under ``eng``'s plan (with
+    this rank's blocks ``params[1]`` of the full ``params[0]``) and on one
+    device, the decode step fed the one-device engine's first tokens
+    ``ref[:, :1]``.  Returns whether both steps' logits are bit-equal, and
+    the collectives of the decode step under the plan
+    (``sharding.collective_counts``, reset just before it)."""
+    B = ref.shape[0]
+    tok = torch.as_tensor(ref[:, :1], device="cuda")
+    same, coll = True, None
+    for p, sp in ((params[0], None), (params[1], eng.plan)):
+        cache = model.init_cache(B, eng.max_len, kv_dtype=kv) if sp is None \
+            else sp.init_cache(B, kv_dtype=kv)
+        first, cache = steps.prefill_step(model, p, batch, cache, plan=sp)
+        torch.cuda.synchronize()
+        sharding.reset_collective_counts()
+        second, _, _ = steps.serve_step(model, p, cache, tok, plan=sp)
+        torch.cuda.synchronize()
+        if sp is None:
+            want = first, second
+        else:
+            coll = sharding.collective_counts()
+            same = torch.equal(first, want[0]) and torch.equal(second,
+                                                               want[1])
+    return same, coll
 
 
 def pipe_phases(torch, run, loader, want):
@@ -1881,8 +2160,10 @@ def log_profile(name, prof):
 
 
 # keys a kernel row may add: kernel A's rates and ratios (add_rates),
-# kernel 5's row-major library time; and the training shape
-EXTRAS = ("tflops", "x_library", "x_bound", "library_row_major_ms")
+# kernel 5's row-major library time, kernel B's time with its lse; and
+# the training shape
+EXTRAS = ("tflops", "x_library", "x_bound", "library_row_major_ms",
+          "with_lse_ms")
 TRAIN_AT = {"B": 8, "S": 1024, "H": 16, "D": 64}
 # the port's CUDA functions in a trace, by the kernel they belong to (a
 # call of kernel B launches int8kv_combine_kernel after the split kernel
@@ -2106,6 +2387,9 @@ def main() -> None:
     stage("gpt2L under the plans and the pipeline")
     for rec in plans.values():
         add(rec["launches"])
+    for key in ("serve_one_llama_engine_int8", "serve_llama_shard"):
+        for k in at128:
+            at128[k] += plans[key]["launches"][k]
     e2e.update(plans)
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
 

@@ -175,6 +175,44 @@ class Plan:
             return (_one(axes),) if axes else ()
         return shardlib.tree_map_with_path(leaf_spec, batch)
 
+    def cache_spec(self, cache, cfg: ModelConfig, mesh, batch_size: int):
+        """Decode-cache specs: batch over the data axes; under the plans
+        that shard weights the long dim right after batch (the ring's
+        sequence, and the int8 cache's scales') goes over ``model``, so
+        a long KV cache fits: context-parallel decode.  The batch dim is
+        found by size, the first dim of ``batch_size`` (caches carry
+        layer or group stack prefixes of varying depth).  ``cache`` is a
+        cache structure of the port (``core.sharding.map_cache`` walks
+        it); the result has its structure, a tuple spec at each leaf, and
+        the leaves named ``index`` get ``()``."""
+        data = self.mesh_axes(mesh)["data"]
+        use_model = self.shards_weights or self.pipeline
+        d_ax = _one(data) if data else None
+        model_n = mesh.shape.get(MODEL_AXIS, 1)
+        data_n = 1
+        for a in data:
+            data_n *= mesh.shape[a]
+
+        def leaf_spec(name, leaf):
+            shape = tuple(leaf.shape)
+            if not shape or name == "index":
+                return ()
+            entries: list = [None] * len(shape)
+            b_dim = next((i for i, s in enumerate(shape) if s == batch_size),
+                         None)
+            if b_dim is not None and d_ax is not None \
+                    and batch_size % data_n == 0:
+                entries[b_dim] = d_ax
+            if use_model and b_dim is not None and len(shape) > b_dim + 1 \
+                    and shape[b_dim + 1] >= model_n \
+                    and shape[b_dim + 1] % model_n == 0:
+                entries[b_dim + 1] = MODEL_AXIS
+            while entries and entries[-1] is None:
+                entries.pop()
+            return tuple(entries)
+
+        return shardlib.map_cache(leaf_spec, cache)
+
 
 @dataclass(frozen=True)
 class Placement:

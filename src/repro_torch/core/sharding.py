@@ -32,7 +32,7 @@ from __future__ import annotations
 import itertools
 import re
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -169,6 +169,19 @@ def tree_map_with_path(fn, tree, *rest, path: str = ""):
                                       path=f"{path}/{k}" if path else str(k))
                 for k, v in tree.items()}
     return fn(path, tree, *rest)
+
+
+def map_cache(fn: Callable, *caches, name: str = ""):
+    """``fn(leaf_name, *leaves)`` over caches of one structure (NamedTuples
+    and dicts of tensors); returns the same structure of its results."""
+    c0 = caches[0]
+    if isinstance(c0, dict):
+        return {k: map_cache(fn, *(c[k] for c in caches), name=k)
+                for k in c0}
+    if isinstance(c0, tuple):
+        return type(c0)(*(map_cache(fn, *(getattr(c, f) for c in caches),
+                                    name=f) for f in c0._fields))
+    return fn(name, *caches)
 
 
 def param_specs(params_or_shapes, axis_map: AxisMap, family: str,

@@ -56,7 +56,13 @@
 //    o = sum_s 2^(m_s - M) acc_s / max(sum_s 2^(m_s - M) l_s, 1e-30).
 //    (The last CTA of a group merging through an atomic counter saved
 //    the launch but measured slower in the traced decode.)  No atomics
-//    at all, so reruns are bit-equal.
+//    at all, so reruns are bit-equal;
+//  * on request each (row, head)'s log-sum-exp of its live scores, in
+//    natural-log units, (m + log2 l) ln 2, goes to an fp32 [B, H] output
+//    (a serving plan merges the blocks of a ring cut over ranks by it):
+//    from the main kernel with one split, from the merge with more; a
+//    row with no live key gets -inf (its scores are all NEG_INF, which
+//    no live score reaches).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,6 +79,7 @@ constexpr int MAX_TILES = 32;     // tiles a split: 2048 keys
 constexpr int NSTAGE = 2;         // tiles in the cp.async ring
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -156,6 +163,7 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ vscale,
                      const uint8_t* __restrict__ valid,
                      __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse,
                      float* __restrict__ ws_ml,
                      float* __restrict__ ws_acc,
                      int H, int KV, int group, int Sk, int kps, int splits,
@@ -393,6 +401,9 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
     if (splits == 1) {
       o[b * o_sb + (h0 + h) * o_sh + d] =
           __float2bfloat16(a / fmaxf(sm.l[h], 1e-30f));
+      if (lse != nullptr && d == 0)
+        lse[(long long)b * H + h0 + h] =
+            row_dead ? -INFINITY : (sm.m[h] + log2f(sm.l[h])) * LN2;
     } else {
       const long long hs = ((long long)b * H + h0 + h) * splits + split;
       ws_acc[hs * HD + d] = a;
@@ -405,13 +416,15 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // Merge the splits of one (batch row, head): thread d of HD, splits in
-// order, so the result does not depend on which CTA finished first.
+// order, so the result does not depend on which CTA finished first;
+// thread 0 writes the row's log-sum-exp when asked (a dead row's splits
+// all hold m = NEG_INF).
 template <int HD>
 __global__ void __launch_bounds__(HD)
 int8kv_combine_kernel(const float* __restrict__ ws_ml,
                       const float* __restrict__ ws_acc,
-                      __nv_bfloat16* __restrict__ o, int H, int splits,
-                      long long o_sb, long long o_sh) {
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int H, int splits, long long o_sb, long long o_sh) {
   const int bh = blockIdx.x, b = bh / H, h = bh % H, d = threadIdx.x;
   const float* ml = ws_ml + (long long)bh * splits * 2;
   const float* acc = ws_acc + (long long)bh * splits * HD + d;
@@ -425,12 +438,15 @@ int8kv_combine_kernel(const float* __restrict__ ws_ml,
     a = fmaf(w, acc[(long long)s * HD], a);
   }
   o[b * o_sb + h * o_sh + d] = __float2bfloat16(a / fmaxf(L, 1e-30f));
+  if (lse != nullptr && d == 0)
+    lse[bh] = M <= NEG_INF ? -INFINITY : (M + log2f(L)) * LN2;
 }
 
 template <int HD>
 int launch(const void* q, const void* kq, const void* ks, const void* vq,
-           const void* vs, const void* valid, void* o, void* ws_ml,
-           void* ws_acc, int B, int H, int KV, int Sk, int splits, int kps,
+           const void* vs, const void* valid, void* o, void* lse,
+           void* ws_ml, void* ws_acc, int B, int H, int KV, int Sk,
+           int splits, int kps,
            long long q_sb, long long q_sh, long long o_sb, long long o_sh,
            float scale, cudaStream_t stream) {
   const int group = H / KV;
@@ -439,13 +455,13 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq,
   int8kv_decode_kernel<HD><<<grid, NT, 0, stream>>>(
       (const __nv_bfloat16*)q, (const int8_t*)kq, (const float*)ks,
       (const int8_t*)vq, (const float*)vs, (const uint8_t*)valid,
-      (__nv_bfloat16*)o, (float*)ws_ml, (float*)ws_acc, H, KV, group, Sk,
-      kps, splits, q_sb, q_sh, o_sb, o_sh, scale);
+      (__nv_bfloat16*)o, (float*)lse, (float*)ws_ml, (float*)ws_acc, H, KV,
+      group, Sk, kps, splits, q_sb, q_sh, o_sb, o_sh, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   int8kv_combine_kernel<HD><<<B * H, HD, 0, stream>>>(
-      (const float*)ws_ml, (const float*)ws_acc, (__nv_bfloat16*)o, H,
-      splits, o_sb, o_sh);
+      (const float*)ws_ml, (const float*)ws_acc, (__nv_bfloat16*)o,
+      (float*)lse, H, splits, o_sb, o_sh);
   return (int)cudaGetLastError();
 }
 
@@ -453,17 +469,18 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq,
 
 // q: [B, 1, H, D] bf16 (batch and head strides given); kq/vq:
 // [B, Sk, KV, D] int8, 16-byte aligned, and ks/vs: [B, Sk, KV] fp32,
-// contiguous; valid: [B, Sk] bool; o: [B, 1, H, D] bf16; D = head_dim is
-// 64 or 128.  Sk is cut into `splits` ranges of `kps` keys (a multiple of
+// contiguous; valid: [B, Sk] bool; o: [B, 1, H, D] bf16; lse: null, or
+// an fp32 [B, H] for each (row, head)'s log-sum-exp; D = head_dim is 64
+// or 128.  Sk is cut into `splits` ranges of `kps` keys (a multiple of
 // 64, at most 2048; the last range may be shorter).  With splits > 1,
 // ws_ml [B, H, splits, 2] and ws_acc [B, H, splits, D] are fp32 scratch
 // and a second launch merges them.  Returns the first launch error
 // (cudaErrorInvalidValue for shapes the kernel does not take).
 extern "C" int int8kv_decode_bf16(
     const void* q, const void* kq, const void* ks, const void* vq,
-    const void* vs, const void* valid, void* o, void* ws_ml, void* ws_acc,
-    int B, int H, int KV, int Sk, int head_dim, int splits, int kps,
-    long long q_sb, long long q_sh, long long o_sb, long long o_sh,
+    const void* vs, const void* valid, void* o, void* lse, void* ws_ml,
+    void* ws_acc, int B, int H, int KV, int Sk, int head_dim, int splits,
+    int kps, long long q_sb, long long q_sh, long long o_sb, long long o_sh,
     float scale, void* stream) {
   if (B <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || splits <= 0 ||
       kps <= 0 || kps % TILE != 0 || kps / TILE > MAX_TILES ||
@@ -472,10 +489,10 @@ extern "C" int int8kv_decode_bf16(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (head_dim == 64)
-    return launch<64>(q, kq, ks, vq, vs, valid, o, ws_ml, ws_acc, B, H, KV,
-                      Sk, splits, kps, q_sb, q_sh, o_sb, o_sh, scale, st);
+    return launch<64>(q, kq, ks, vq, vs, valid, o, lse, ws_ml, ws_acc, B, H,
+                      KV, Sk, splits, kps, q_sb, q_sh, o_sb, o_sh, scale, st);
   if (head_dim == 128)
-    return launch<128>(q, kq, ks, vq, vs, valid, o, ws_ml, ws_acc, B, H, KV,
-                       Sk, splits, kps, q_sb, q_sh, o_sb, o_sh, scale, st);
+    return launch<128>(q, kq, ks, vq, vs, valid, o, lse, ws_ml, ws_acc, B, H,
+                       KV, Sk, splits, kps, q_sb, q_sh, o_sb, o_sh, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -86,15 +86,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
 
 
-def flash_attention_int8kv(q, k_q, k_scale, v_q, v_scale, valid):
+def flash_attention_int8kv(q, k_q, k_scale, v_q, v_scale, valid, *,
+                           with_lse: bool = False):
     """Non-causal attention over an int8 KV cache with a [B, Sk] key
     validity mask (the ring fill state).  q: [B, Sq, H, D] (Sq = 1 on
-    the card).  Returns [B, Sq, H, D] in q.dtype."""
+    the card).  Returns [B, Sq, H, D] in q.dtype; ``with_lse`` (Sq = 1)
+    also the fp32 [B, H] log-sum-exp of each (row, head)'s live scores,
+    -inf for a row with none."""
     if _on_card(q):
         _refuse_grad("flash_attention_int8kv", q, k_q, k_scale, v_q, v_scale)
         return _q.int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale,
-                                        valid)
-    return _q.int8kv_attention_plain(q, k_q, k_scale, v_q, v_scale, valid)
+                                        valid, with_lse=with_lse)
+    return _q.int8kv_attention_plain(q, k_q, k_scale, v_q, v_scale, valid,
+                                     with_lse=with_lse)
 
 
 def mamba1_scan(x, dt, b_s, c_s, A, h0):

@@ -83,10 +83,14 @@ def dequantize(q, scale, *, block: int = 128, axis: int = -1):
     return torch.movedim(qm * sm, -1, axis)
 
 
-def int8kv_attention_plain(q, k_q, k_scale, v_q, v_scale, valid):
+def int8kv_attention_plain(q, k_q, k_scale, v_q, v_scale, valid, *,
+                           with_lse: bool = False):
     """q: [B, Sq, H, Dk] fp; k_q/v_q: [B, Sk, KV, D*] int8; k_scale/
     v_scale: [B, Sk, KV] fp32; valid: [B, Sk] (nonzero = key live).
-    Non-causal.  Returns [B, Sq, H, Dv] in q.dtype."""
+    Non-causal.  Returns [B, Sq, H, Dv] in q.dtype; ``with_lse`` (Sq =
+    1) also each (row, head)'s log-sum-exp of its live scores, fp32
+    [B, H] in natural-log units, -inf for a row with no live key
+    (``live_lse``)."""
     B, Sq, H, Dk = q.shape
     KV = k_q.shape[2]
     group = H // KV
@@ -97,7 +101,19 @@ def int8kv_attention_plain(q, k_q, k_scale, v_q, v_scale, valid):
     s = s.masked_fill(~valid.bool()[:, None, None, None, :], NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqj,bjkd->bqkgd", w, v)
-    return o.reshape(B, Sq, H, -1).to(q.dtype)
+    o = o.reshape(B, Sq, H, -1).to(q.dtype)
+    if not with_lse:
+        return o
+    return o, live_lse(s[:, :, :, 0].reshape(B, H, -1), valid)
+
+
+def live_lse(s, valid):
+    """[B, H] log-sum-exp of masked scores ``s`` [B, H, Sk] (fp32, keys
+    not ``valid`` [B, Sk] at ``NEG_INF``), -inf for a row with no live
+    key: the weight of a block that holds none in a merge of blocks."""
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(valid.bool().any(-1)[:, None], lse,
+                       torch.full_like(lse, float("-inf")))
 
 
 # kernel B's split of Sk (TILE and MAX_TILES in csrc/int8kv_attn.cu):
@@ -136,15 +152,19 @@ def _lib():
     fn = lib.int8kv_decode_bf16
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 9 + [I] * 7 + [L] * 4 + [ctypes.c_float, P]
+        fn.argtypes = [P] * 10 + [I] * 7 + [L] * 4 + [ctypes.c_float, P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale, valid):
+def int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale, valid, *,
+                          with_lse: bool = False):
     """Launch kernel B.  q: [B, 1, H, D] bf16; k_q/v_q: [B, Sk, KV, D]
     int8, k_scale/v_scale: [B, Sk, KV] fp32 and valid: [B, Sk] bool, all
-    contiguous CUDA tensors; D = 64 or 128.  Returns [B, 1, H, D] bf16."""
+    contiguous CUDA tensors; D = 64 or 128.  Returns [B, 1, H, D] bf16;
+    ``with_lse`` also the fp32 [B, H] log-sum-exp of each (row, head)'s
+    live scores, natural-log units (-inf for a row with no live key),
+    as ``int8kv_attention_plain`` gives it."""
     tensors = (("q", q), ("k_q", k_q), ("k_scale", k_scale), ("v_q", v_q),
                ("v_scale", v_scale), ("valid", valid))
     for name, t in tensors:
@@ -175,6 +195,8 @@ def int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale, valid):
                          "16-byte aligned")
     splits, kps = int8kv_splits(B, KV, Sk, _build.sm_count(q.device))
     o = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch = ()
     if splits > 1:       # each split's (max, sum) and accumulator, fp32
@@ -185,12 +207,13 @@ def int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale, valid):
     ptrs = [t.data_ptr() for t in scratch] or [None] * 2
     err = _lib()(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
                  v_q.data_ptr(), v_scale.data_ptr(), valid.data_ptr(),
-                 o.data_ptr(), *ptrs, B, H, KV, Sk, D, splits, kps,
+                 o.data_ptr(), None if lse is None else lse.data_ptr(),
+                 *ptrs, B, H, KV, Sk, D, splits, kps,
                  q.stride(0), q.stride(2), o.stride(0), o.stride(2),
                  1.0 / (D ** 0.5), stream)
     _build.check(err, "int8kv_decode_bf16")
     int8kv_attention_cuda.launches += 1
-    return o
+    return (o, lse) if with_lse else o
 
 
 int8kv_attention_cuda.launches = 0

@@ -4,6 +4,17 @@ falcon-mamba-7b, zamba2-2.7b) on one device, fixed-batch by default,
 continuous batching with ``--continuous``.  Weights are random, from
 seed 0.
 
+With ``--plan`` (a ``core.plans.PLANS`` key; the dense family serves
+under data, zero2, shard, shard_zero and fsdp) and ``--mesh`` it serves
+on every rank of a ``torch.distributed`` world: under
+``torch.distributed.run`` it reads ``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK`` and uses NCCL on ``cuda:LOCAL_RANK``, or gloo with
+``--device cpu``; started alone, it is a world of one.  Rank 0 prints.
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc_per_node 2 -m repro_torch.launch.serve --reduced \
+        --device cpu --plan shard --mesh 1,1,2 --kv-dtype int8
+
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 --gen 32
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
@@ -16,8 +27,11 @@ seed 0.
         --arch phi3.5-moe-42b-a6.6b --reduced --device cpu --kv-dtype int8
 """
 import argparse
+import os
+import zlib
 
 from repro_torch.configs import ARCH_CONFIGS
+from repro_torch.core.plans import PLANS
 
 
 def parse_trace(spec: str, max_prompt: int):
@@ -66,10 +80,62 @@ def main(argv=None) -> dict:
                     help="continuous request trace: N prompts with "
                          "lengths uniform in [LO, HI] (default "
                          "2x the slot count over 8..--prompt-len)")
+    ap.add_argument("--runs", type=int, default=1,
+                    help="fixed-batch runs; prints each run's prefill and "
+                         "decode rate (the first pays the warm-up)")
+    ap.add_argument("--check", type=float, nargs="?", const=0.05,
+                    default=None, metavar="RTOL",
+                    help="under --plan: hold the last run's tokens and "
+                         "the teacher-forced logits of every step to the "
+                         "one-device engine's, on each rank; exit non-zero "
+                         "where a logit differs by more than RTOL (default "
+                         "0.05, bf16's envelope) of the largest")
+    ap.add_argument("--plan", default=None, choices=sorted(PLANS),
+                    help="execution plan; without it, one device")
+    ap.add_argument("--mesh", default="1,1,1",
+                    help="mesh shape over (pod, data, model), e.g. 1,2,2; "
+                         "fewer numbers name the last axes")
     args = ap.parse_args(argv)
     if args.trace and not args.continuous:
         ap.error("--trace only applies with --continuous")
+    if args.plan is None:
+        return _serve(args)
+    return _serve_on_mesh(args)
 
+
+def _serve_on_mesh(args):
+    """Serve under ``args.plan`` on this rank; rank 0's result, None on
+    the other ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    device = f"cuda:{local}" if args.device == "cuda" else args.device
+    backend = "gloo" if device == "cpu" else "nccl"
+    if backend == "nccl":
+        torch.cuda.set_device(device)     # raises without a card
+    if "RANK" in os.environ:
+        dist.init_process_group(backend)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        mesh = make_host_mesh(shape, ("pod", "data", "model")[-len(shape):])
+        res = _serve(args, device, mesh,
+                     f" plan={args.plan} mesh={mesh.shape} ({backend}, "
+                     f"{dist.get_world_size()} ranks)",
+                     main=dist.get_rank() == 0)
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def _serve(args, device=None, mesh=None, where: str = "", main=True):
+    """Run the engine on ``device`` (``args.device``), under
+    ``args.plan`` on ``mesh`` when given; prints when ``main``."""
     import numpy as np
     import torch
 
@@ -80,13 +146,19 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = Model(cfg, device=args.device)
-    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    model = Model(cfg, device=device or args.device)
+
+    def init_params():
+        return model.init(torch.Generator(device=model.device).manual_seed(0))
+
+    params = init_params()
+    on = dict(device=model.device.type, plan=args.plan, mesh=mesh)
 
     rng = np.random.default_rng(0)
     max_len = args.prompt_len + args.gen + 8
     header = (f"{cfg.name} [{cfg.family}] device={model.device} "
-              f"batch={args.batch} kv={args.kv_dtype}")
+              f"batch={args.batch} kv={args.kv_dtype}{where}")
+    log = print if main else (lambda *a: None)
 
     if args.continuous:
         n, lo, hi = parse_trace(args.trace or f"{2 * args.batch}",
@@ -96,33 +168,66 @@ def main(argv=None) -> dict:
                          (int(rng.integers(lo, hi + 1)),)), np.int32)
             for _ in range(n)]
         eng = ContinuousEngine(model, slots=args.batch, max_len=max_len,
-                               kv_dtype=args.kv_dtype, device=args.device)
-        res = eng.run(params, [Request(i, p) for i, p in enumerate(prompts)],
+                               kv_dtype=args.kv_dtype, **on)
+        res = eng.run(eng.shard_params(params),
+                      [Request(i, p) for i, p in enumerate(prompts)],
                       max_new=args.gen)
         st = res["stats"]
         lens = sorted(len(p) for p in prompts)
-        print(f"{header} continuous slots={args.batch}")
-        print(f"{n} requests (prompt lens {lens[0]}..{lens[-1]}) | "
+        log(f"{header} continuous slots={args.batch}")
+        log(f"{n} requests (prompt lens {lens[0]}..{lens[-1]}) | "
               f"{st.n_tokens} tokens in {st.total_s:.2f}s | "
               f"{st.tokens_per_s:.1f} tok/s | "
               f"occupancy {st.mean_occupancy:.2f}/{args.batch} | "
               f"TTFT p50 "
               f"{np.percentile(sorted(st.ttft_s.values()), 50):.3f}s")
-        return res
+        return res if main else None
 
     batch = {"tokens": np.asarray(
         rng.integers(4, min(cfg.vocab_size, 400),
                      (args.batch, args.prompt_len)), np.int32)}
     eng = Engine(model, batch_size=args.batch, max_len=max_len,
                  window=args.window, temperature=args.temperature,
-                 kv_dtype=args.kv_dtype, device=args.device)
-    out = eng.generate(params, batch, n_tokens=args.gen)
-    s = out["stats"]
-    print(header)
-    print(f"prefill {s.prefill_s * 1e3:.1f} ms | decode "
-          f"{s.steps_per_s:.1f} steps/s "
-          f"({s.tokens_per_s:.1f} tok/s aggregate)")
-    return out
+                 kv_dtype=args.kv_dtype, **on)
+    params = eng.shard_params(params)
+    if model.device.type == "cuda":      # the peak of serving, not of init
+        torch.cuda.reset_peak_memory_stats(model.device)
+    log(header)
+    for _ in range(args.runs):
+        out = eng.generate(params, batch, n_tokens=args.gen)
+        s = out["stats"]
+        log(f"prefill {s.prefill_s * 1e3:.1f} ms | decode "
+            f"{s.steps_per_s:.1f} steps/s "
+            f"({s.tokens_per_s:.1f} tok/s aggregate) | tokens crc32 "
+            f"{zlib.crc32(np.ascontiguousarray(out['tokens'], np.int64)):08x}")
+    if model.device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(model.device) / 2**30
+        if mesh is None:
+            log(f"peak memory {peak:.2f} GiB")
+        else:
+            import torch.distributed as dist
+            peaks = [None] * dist.get_world_size()
+            dist.all_gather_object(peaks, peak)
+            log("peak memory by rank " + ", ".join(
+                f"{p:.2f}" for p in peaks) + " GiB")
+    if args.check is not None and eng.plan is not None:
+        from repro_torch.serve.steps import teacher_forced
+        full = init_params()
+        one = Engine(model, batch_size=args.batch, max_len=max_len,
+                     window=args.window, kv_dtype=args.kv_dtype,
+                     device=model.device.type)
+        want = one.generate(full, batch, n_tokens=args.gen)["tokens"]
+        err, scale, same = teacher_forced(model, full, params, batch, want,
+                                          eng.plan, kv_dtype=args.kv_dtype)
+        log(f"against one device on each rank: tokens equal "
+            f"{np.array_equal(out['tokens'], want)} | teacher-forced "
+            f"logits max |diff| {err:.4g} of max |logit| {scale:.4g}"
+            f"{' (bit-equal)' if same else ''}")
+        if not err <= args.check * scale:
+            raise SystemExit(f"teacher-forced logits differ from one "
+                             f"device by {err:.4g} > {args.check} x "
+                             f"{scale:.4g}")
+    return out if main else None
 
 
 if __name__ == "__main__":

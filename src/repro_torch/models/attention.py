@@ -6,7 +6,8 @@ ring-buffered KV caches (fp32/bf16 or int8), and the GPT-2 biases.
 Where the reference's jitted steps donate a cache and return a new one,
 the port writes into the cache's tensors in place (``_append_token``,
 ``_ring_fill``) and returns a cache tuple over the same storage with a
-new ``index`` tensor.
+new ``index`` tensor.  One device is the case of one block of the ring
+(``WHOLE_RING``) below.
 
 Kernels: on a CUDA tensor, full-sequence causal attention goes through
 kernel A (``kernels/flash_attention.py``), forward and, when a gradient
@@ -24,20 +25,29 @@ and wv stay whole: every rank projects all kv heads and its q heads
 read their global kv head; the whole kv weights enter through f, so
 their gradients, which each rank has only for its q heads, are summed
 over the axis.
+
+Serving under such a plan (``RingBlocks``, the layout of
+``core.plans.Plan.cache_spec``) cuts each KV cache's ring over the
+``model`` axis: a rank holds a block of consecutive slots of every KV
+head.  Prefill attends over this rank's heads and fills the rank's block
+from the whole-head k and v; decode gathers every head's q, k and v,
+writes the token where its slot lies, attends over the block and merges
+the ranks' partials by their log-sum-exp (``merge_blocks``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from dataclasses import dataclass
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sharding import (
-    ModelAxis, copy_to_model, reduce_from_model,
+    ModelAxis, all_gather, copy_to_model, reduce_from_model,
 )
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.quantized import int8kv_attention_plain
+from repro_torch.kernels.quantized import int8kv_attention_plain, live_lse
 from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -108,9 +118,12 @@ def _decode_positions(index):
     return index[None, None] if index.dim() == 0 else index[:, None]
 
 
-def decode_attention(q, k_cache, v_cache, valid_mask):
+def decode_attention(q, k_cache, v_cache, valid_mask, *,
+                     with_lse: bool = False):
     """One-token attention.  q: [B, 1, H, Dk]; caches [B, S, KV, D*];
-    valid_mask: [B, S] bool marking filled slots."""
+    valid_mask: [B, S] bool marking filled slots.  ``with_lse`` also
+    returns each (row, head)'s log-sum-exp of its filled slots' scores,
+    fp32 [B, H], -inf for a row with none (``live_lse``)."""
     B, _, H, Dk = q.shape
     KV = k_cache.shape[2]
     group = H // KV
@@ -119,7 +132,10 @@ def decode_attention(q, k_cache, v_cache, valid_mask):
     s = s.masked_fill(~valid_mask[:, None, None, :], NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w, v_cache.float())
-    return out.reshape(B, 1, H, -1).to(q.dtype)
+    out = out.reshape(B, 1, H, -1).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, live_lse(s.reshape(B, H, -1), valid_mask)
 
 
 class KVCache(NamedTuple):
@@ -145,15 +161,6 @@ def init_kv_cache(batch: int, capacity: int, kv_heads: int, dk: int, dv: int,
         v=torch.zeros(lead + (batch, capacity, kv_heads, dv), dtype=dtype,
                       device=device),
         index=torch.zeros(lead, dtype=torch.int32, device=device))
-
-
-def cache_append(cache: KVCache, k_new, v_new) -> KVCache:
-    """Append one token (k_new/v_new: [B, 1, KV, D]) at the ring position,
-    in place."""
-    slot = torch.remainder(cache.index, cache.capacity)
-    _append_token(cache.k, k_new, slot)
-    _append_token(cache.v, v_new, slot)
-    return KVCache(cache.k, cache.v, cache.index + 1)
 
 
 # --------------------------------------------------------------------- #
@@ -197,55 +204,6 @@ def _quant_kv(x):
     return q, s[..., 0]
 
 
-def quant_cache_append(cache: QuantKVCache, k_new, v_new) -> QuantKVCache:
-    """Quantize and append one token (k_new/v_new: [B, 1, KV, D]) in
-    place."""
-    slot = torch.remainder(cache.index, cache.capacity)
-    kq, ks = _quant_kv(k_new)
-    vq, vs = _quant_kv(v_new)
-    _append_token(cache.k_q, kq, slot)
-    _append_token(cache.k_scale, ks, slot)
-    _append_token(cache.v_q, vq, slot)
-    _append_token(cache.v_scale, vs, slot)
-    return cache._replace(index=cache.index + 1)
-
-
-def _ring_fill(buf, new, S: int):
-    """Prefill a ring buffer leaf in place: keep the most recent
-    ``capacity`` entries of ``new`` [B, S, ...] in slot = pos % capacity
-    layout.  Returns ``buf``."""
-    cap = buf.shape[1]
-    if S >= cap:
-        roll = -((S - cap) % cap) if cap else 0
-        buf.copy_(torch.roll(new[:, S - cap:], roll, dims=1))
-    else:
-        buf[:, :S] = new
-    return buf
-
-
-def quant_cache_prefill(cache: QuantKVCache, k, v, S: int) -> QuantKVCache:
-    """Fill the quantized cache from full-sequence k/v [B, S, KV, D]."""
-    kq, ks = _quant_kv(k)
-    vq, vs = _quant_kv(v)
-    for buf, new in ((cache.k_q, kq), (cache.k_scale, ks),
-                     (cache.v_q, vq), (cache.v_scale, vs)):
-        _ring_fill(buf, new, S)
-    return cache._replace(index=torch.full_like(cache.index, S))
-
-
-def quant_decode_attention(q, cache: QuantKVCache, *,
-                           use_kernels: bool = True):
-    """One-token attention over the int8 cache.  Every cached token is in
-    the past, so the fill mask alone (non-causal) gives
-    ``decode_attention``'s semantics."""
-    valid = cache.valid(q.shape[0]).contiguous()
-    if use_kernels and q.is_cuda:
-        return kernel_ops.flash_attention_int8kv(
-            q, cache.k_q, cache.k_scale, cache.v_q, cache.v_scale, valid)
-    return int8kv_attention_plain(q, cache.k_q, cache.k_scale, cache.v_q,
-                                  cache.v_scale, valid)
-
-
 # --------------------------------------------------------------------- #
 # standard GQA attention parameters
 # --------------------------------------------------------------------- #
@@ -285,8 +243,11 @@ def _qkv(x, params, cfg: ModelConfig):
     return q, k, v
 
 
-def _qkv_cut(x, params, cfg: ModelConfig, axis: ModelAxis):
-    """``_qkv`` of this rank's q heads under a weight-sharding plan."""
+def _qkv_cut(x, params, cfg: ModelConfig, axis: ModelAxis, *,
+             whole_kv: bool = False):
+    """``_qkv`` of this rank's q heads under a weight-sharding plan: k
+    and v of its kv heads where the plan cuts them; otherwise of every
+    kv head with ``whole_kv``, else of each local q head's kv head."""
     x = copy_to_model(x, axis)
     if axis.kv_heads:
         return _qkv(x, params, cfg)
@@ -295,11 +256,17 @@ def _qkv_cut(x, params, cfg: ModelConfig, axis: ModelAxis):
         if name in whole:
             whole[name] = copy_to_model(whole[name], axis)
     q, k, v = _qkv(x, whole, cfg)
-    # the kv head of each local q head: global head // (H // KV)
-    h_local = q.shape[2]
-    heads = torch.arange(h_local, device=q.device) + axis.rank * h_local
+    if whole_kv:
+        return q, k, v
+    return (q,) + _kv_of_heads(k, v, cfg, axis, q.shape[2])
+
+
+def _kv_of_heads(k, v, cfg: ModelConfig, axis: ModelAxis, h_local: int):
+    """Of every kv head's k and v, the kv head of each of this rank's
+    ``h_local`` q heads: global head // (H // KV)."""
+    heads = torch.arange(h_local, device=k.device) + axis.rank * h_local
     kv = heads // (cfg.n_heads // cfg.n_kv_heads)
-    return q, k.index_select(2, kv), v.index_select(2, kv)
+    return k.index_select(2, kv), v.index_select(2, kv)
 
 
 def _out(o, params, model_axis: Optional[ModelAxis] = None):
@@ -342,36 +309,204 @@ def attention_forward(x, params, cfg: ModelConfig, *,
     return _out(o, params, model_axis)
 
 
+# --------------------------------------------------------------------- #
+# prefill and decode over a cache whose ring may be cut into blocks over
+# the ``model`` axis (serving under a plan); one device holds one block
+# --------------------------------------------------------------------- #
+
+@dataclass(frozen=True)
+class RingBlocks:
+    """Where a rank's ring slots lie under a serving plan: the ring of
+    every KV head is cut into ``size`` blocks of ``c`` consecutive slots
+    over ``group`` (the ``model`` axis, ``Plan.cache_spec``'s cut of the
+    dim after batch), this rank holding block ``rank``, slots ``[rank *
+    c, (rank + 1) * c)``, ``c`` its cache's capacity.  ``group`` None:
+    the ring whole on every rank, one block (``WHOLE_RING``)."""
+    group: Any
+    size: int
+    rank: int
+
+
+WHOLE_RING = RingBlocks(group=None, size=1, rank=0)
+
+
+def _gather_heads(ts, axis: ModelAxis):
+    """Each of ``ts`` ([B, S, w, D], this rank's heads) whole over the
+    heads of the ``model`` axis, in rank order, all through one
+    all-gather."""
+    widths = [t.shape[2] for t in ts]
+    every = all_gather(torch.cat(ts, 2), axis.group, 0).unflatten(
+        0, (axis.size, -1))                      # [n, B, S, sum w, D]
+    out, at = [], 0
+    for w in widths:
+        out.append(every[:, :, :, at:at + w].permute(1, 2, 0, 3, 4)
+                   .flatten(2, 3))
+        at += w
+    return out
+
+
+def _heads(x, params, cfg: ModelConfig, axis: Optional[ModelAxis]):
+    """(q, k, v, heads cut): q of this rank's heads where the plan cuts
+    them, k and v of its kv heads where it cuts those, else every
+    head's."""
+    if axis is not None and axis.heads:
+        return _qkv_cut(x, params, cfg, axis, whole_kv=True) + (True,)
+    return _qkv(x, params, cfg) + (False,)
+
+
+def _ring_fill(buf, new, S: int, blocks: RingBlocks):
+    """Fill this rank's block ``buf`` [B, c, ...] of a ring buffer leaf
+    in place: of the ring the whole prompt ``new`` [B, S, ...] gives (its
+    last ``capacity`` entries in slot = pos % capacity layout), slots
+    ``[rank c, (rank + 1) c)``.  Returns ``buf``."""
+    c = buf.shape[1]
+    lo, cap = blocks.rank * c, blocks.size * c
+    if S >= cap:
+        ring = torch.roll(new[:, S - cap:], -((S - cap) % cap), dims=1)
+        buf.copy_(ring[:, lo:lo + c])
+    elif S > lo:
+        n = min(S, lo + c) - lo
+        buf[:, :n] = new[:, lo:lo + n]
+    return buf
+
+
 def attention_prefill(x, params, cfg: ModelConfig, *,
                       positions: Optional[torch.Tensor] = None, cache,
-                      window: int = 0, use_kernels: bool = True):
+                      window: int = 0, use_kernels: bool = True,
+                      model_axis: Optional[ModelAxis] = None,
+                      blocks: RingBlocks = WHOLE_RING):
     """Prefill: full causal attention, and fill the cache (in place) with
-    the prompt's k/v."""
-    q, k, v = _qkv(x, params, cfg)
+    the prompt's k/v.  Under a serving plan the prompt's attention runs
+    over this rank's heads (``model_axis``; kernel A), as the training
+    forward runs it, and the whole-head k and v (gathered over the heads
+    where the plan cuts the kv heads) fill this rank's block of the ring
+    (``blocks``), int8 quantized from the whole heads, so that payloads
+    and scales are the one-device ones."""
+    axis = model_axis
+    q, k, v, cut = _heads(x, params, cfg, axis)
     q, k = _rope_qk(q, k, cfg, positions)
-    o = chunked_attention(q, k, v, causal=True, window=window,
+    k_att, v_att = k, v
+    if cut and axis.kv_heads:
+        k, v = _gather_heads([k, v], axis)
+    elif cut:
+        k_att, v_att = _kv_of_heads(k, v, cfg, axis, q.shape[2])
+    o = chunked_attention(q, k_att, v_att, causal=True, window=window,
                           q_positions=positions, kv_positions=positions,
                           use_kernels=use_kernels)
     S = x.shape[1]
     if isinstance(cache, QuantKVCache):
-        return _out(o, params), quant_cache_prefill(cache, k, v, S)
-    _ring_fill(cache.k, k, S)
-    _ring_fill(cache.v, v, S)
-    return _out(o, params), KVCache(cache.k, cache.v,
-                                    torch.full_like(cache.index, S))
+        (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
+        fills = ((cache.k_q, kq), (cache.k_scale, ks), (cache.v_q, vq),
+                 (cache.v_scale, vs))
+    else:
+        fills = ((cache.k, k), (cache.v, v))
+    for buf, new in fills:
+        _ring_fill(buf, new, S, blocks)
+    return (_out(o, params, axis if cut else None),
+            cache._replace(index=torch.full_like(cache.index, S)))
+
+
+def _append_block(cache, k_new, v_new, blocks: RingBlocks):
+    """Append one token (whole-head k_new/v_new: [B, 1, KV, D]) at its
+    ring slot, index % capacity, in place: the rank whose block holds a
+    row's slot writes it (one block: every row, as ``_append_token``
+    writes it).  Returns (cache with index + 1, [B, c] fill mask of this
+    rank's block)."""
+    c = cache.capacity
+    lo, cap = blocks.rank * c, blocks.size * c
+    slot = torch.remainder(cache.index, cap)
+    if isinstance(cache, QuantKVCache):
+        (kq, ks), (vq, vs) = _quant_kv(k_new), _quant_kv(v_new)
+        writes = ((cache.k_q, kq), (cache.k_scale, ks), (cache.v_q, vq),
+                  (cache.v_scale, vs))
+    else:
+        writes = ((cache.k, k_new), (cache.v, v_new))
+    if blocks.size == 1:
+        for buf, new in writes:
+            _append_token(buf, new, slot)
+    else:
+        # the rows whose slot lies in [lo, lo + c); the others keep what
+        # their slot held
+        B = k_new.shape[0]
+        rows = torch.arange(B, device=slot.device)
+        local = (slot - lo).expand(B)
+        own = (local >= 0) & (local < c)
+        at = torch.clamp(local, 0, c - 1).long()
+        for buf, new in writes:
+            keep = own.view((B,) + (1,) * (buf.dim() - 2))
+            buf[rows, at] = torch.where(keep, new[:, 0].to(buf.dtype),
+                                        buf[rows, at])
+    index = cache.index + 1
+    valid = _ring_valid(index, k_new.shape[0], cap)[:, lo:lo + c]
+    return cache._replace(index=index), valid.contiguous()
+
+
+def merge_partials(o, lse):
+    """The attention over the union of ``n`` disjoint sets of keys from
+    each set's partial: ``o`` [n, B, H, D] (fp32) over set r and ``lse``
+    [n, B, H] its log-sum-exp, merged in order r = 0, 1, ... in fp32,
+    o = sum_r exp(lse_r - m) o_r / sum_r exp(lse_r - m) with m the
+    largest lse, so that reruns are bit-equal.  A set with no live key
+    has lse -inf and weight 0 (one set must hold one); one set merges
+    to itself exactly.  Returns [B, H, D] fp32."""
+    w = torch.exp(lse - lse.amax(0))
+    num, den = w[0, ..., None] * o[0], w[0]
+    for r in range(1, o.shape[0]):
+        num = num + w[r, ..., None] * o[r]
+        den = den + w[r]
+    return num / den[..., None]
+
+
+def merge_blocks(o, lse, blocks: RingBlocks):
+    """One-token attention over a ring cut into blocks, from this rank's
+    partial over its block, ``o`` [B, 1, H, D] and ``lse`` [B, H]: the
+    ranks' partials all-gathered over ``blocks.group`` (one collective)
+    and merged in rank order (``merge_partials``; a row's own token is
+    always filled, so some block holds a live key)."""
+    parts = torch.cat([o[:, 0].float(), lse[..., None]], -1)  # [B, H, D+1]
+    parts = all_gather(parts, blocks.group, 0).unflatten(
+        0, (blocks.size, -1))
+    return merge_partials(parts[..., :-1], parts[..., -1]).to(
+        o.dtype)[:, None]
 
 
 def attention_decode(x, params, cfg: ModelConfig, *, cache,
-                     window: int = 0, use_kernels: bool = True):
-    """One-token decode: x [B, 1, d]."""
-    B = x.shape[0]
-    q, k, v = _qkv(x, params, cfg)
+                     window: int = 0, use_kernels: bool = True,
+                     model_axis: Optional[ModelAxis] = None,
+                     blocks: RingBlocks = WHOLE_RING):
+    """One-token decode: x [B, 1, d].  The token's k and v are written at
+    its ring slot and q attends over the filled slots (kernel B for the
+    int8 cache on the card).  Under a serving plan each rank projects its
+    heads' q, k and v (``model_axis``) and the ranks gather every head's
+    (one all-gather); the rank whose block (``blocks``) holds a row's
+    slot writes its k and v; each rank attends with every head over its
+    block's filled slots, and the partials merge by their log-sum-exp
+    (``merge_blocks``; a ring whole on every rank is one block, whose
+    partial needs no merge); a rank keeps its heads for ``wo``.
+    ``window`` is the ring's: the cache's capacity."""
+    axis = model_axis
+    q, k, v, cut = _heads(x, params, cfg, axis)
     q, k = _rope_qk(q, k, cfg, _decode_positions(cache.index)
                     if cfg.rope_theta else None)
-    if isinstance(cache, QuantKVCache):
-        cache = quant_cache_append(cache, k, v)
-        o = quant_decode_attention(q, cache, use_kernels=use_kernels)
+    h_local = q.shape[2]
+    if cut and axis.kv_heads:
+        q, k, v = _gather_heads([q, k, v], axis)
+    elif cut:
+        (q,) = _gather_heads([q], axis)
+    cache, valid = _append_block(cache, k, v, blocks)
+    # a ring whole on every rank is one block: its partial is the answer
+    lse = blocks.group is not None
+    if not isinstance(cache, QuantKVCache):
+        o = decode_attention(q, cache.k, cache.v, valid, with_lse=lse)
+    elif use_kernels and q.is_cuda:
+        o = kernel_ops.flash_attention_int8kv(
+            q, cache.k_q, cache.k_scale, cache.v_q, cache.v_scale, valid,
+            with_lse=lse)
     else:
-        cache = cache_append(cache, k, v)
-        o = decode_attention(q, cache.k, cache.v, cache.valid(B))
-    return _out(o, params), cache
+        o = int8kv_attention_plain(q, cache.k_q, cache.k_scale, cache.v_q,
+                                   cache.v_scale, valid, with_lse=lse)
+    if lse:
+        o = merge_blocks(*o, blocks)
+    if cut:
+        o = o[:, :, axis.rank * h_local:(axis.rank + 1) * h_local]
+    return _out(o, params, axis if cut else None), cache

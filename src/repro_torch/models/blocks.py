@@ -66,20 +66,28 @@ def dense_block_forward(x, p, cfg: ModelConfig, *, positions=None,
 
 
 def dense_block_prefill(x, p, cfg: ModelConfig, *, positions=None, cache,
-                        window: int = 0, use_kernels: bool = True):
+                        window: int = 0, use_kernels: bool = True,
+                        model_axis=None, blocks=attn.WHOLE_RING):
+    """Under a serving plan ``model_axis`` cuts the heads and the MLP as
+    in ``dense_block_forward``, and ``blocks`` (``attention.RingBlocks``)
+    says which ring slots this rank's cache holds."""
     h = _norm(x, p["norm1"], cfg, use_kernels)
     a, cache = attn.attention_prefill(h, p["attn"], cfg, positions=positions,
                                       cache=cache, window=window,
-                                      use_kernels=use_kernels)
-    return _mlp_residual(x + a, p, cfg, use_kernels), cache
+                                      use_kernels=use_kernels,
+                                      model_axis=model_axis, blocks=blocks)
+    return _mlp_residual(x + a, p, cfg, use_kernels, model_axis), cache
 
 
 def dense_block_decode(x, p, cfg: ModelConfig, *, cache, window: int = 0,
-                       use_kernels: bool = True):
+                       use_kernels: bool = True, model_axis=None,
+                       blocks=attn.WHOLE_RING):
+    """``model_axis`` and ``blocks``: as ``dense_block_prefill``'s."""
     h = _norm(x, p["norm1"], cfg, use_kernels)
     a, cache = attn.attention_decode(h, p["attn"], cfg, cache=cache,
-                                     window=window, use_kernels=use_kernels)
-    return _mlp_residual(x + a, p, cfg, use_kernels), cache
+                                     window=window, use_kernels=use_kernels,
+                                     model_axis=model_axis, blocks=blocks)
+    return _mlp_residual(x + a, p, cfg, use_kernels, model_axis), cache
 
 
 # --------------------------------------------------------------------- #

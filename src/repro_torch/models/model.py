@@ -14,7 +14,7 @@ where the reference wraps it in ``jax.checkpoint``.  Caches are updated
 in place (the reference donates them to its jitted steps instead); a
 cache is a NamedTuple of tensors, or for the hybrid family a dict
 ``{"ssm": SSMState [G, k, ...], "attn": KVCache [G, ...]}``, and
-``map_cache`` walks either.
+``map_cache`` (``core.sharding``) walks either.
 
 Under a plan, ``core.steps.build_train_step`` sets three attributes
 (all None by default, so every one-device path is unchanged) and hands
@@ -31,6 +31,13 @@ the model this rank's blocks of the params:
   * ``dispatch`` (a ``moe.Dispatch``): which tokens the MoE layers route
     together.
 
+Serving under a plan (``serve.steps.ServePlan``) sets ``model_axis`` and
+``fsdp`` the same way for the length of each step; ``prefill`` and
+``decode_step`` then take the ``blocks`` of the ring this rank's cache
+holds (``attention.RingBlocks``) and return the whole vocabulary's
+logits on every rank, and ``init_cache`` / ``init_slot_cache`` give a
+rank its rows and block.
+
 ``lm_loss``'s ``batch_group`` divides by the token count of the whole
 batch across the ranks that split it, as the reference's SPMD loss does.
 A pipeline stage runs the pieces: ``embed_stage``, ``run_layers`` over
@@ -40,7 +47,7 @@ its chunk of the stack (a hybrid chunk with the shared block), and
 from __future__ import annotations
 
 from functools import partial
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -48,7 +55,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sharding import (
-    FsdpGather, ModelAxis, all_reduce, reduce_from_model,
+    FsdpGather, ModelAxis, all_gather, all_reduce, map_cache,
+    reduce_from_model,
 )
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
@@ -100,19 +108,6 @@ def unstack(tree) -> List:
         n = len(next(iter(per_key.values())))
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
     return tree.unbind(0)
-
-
-def map_cache(fn: Callable, *caches, name: str = ""):
-    """``fn(leaf_name, *leaves)`` over caches of one structure (NamedTuples
-    and dicts of tensors); returns the same structure of its results."""
-    c0 = caches[0]
-    if isinstance(c0, dict):
-        return {k: map_cache(fn, *(c[k] for c in caches), name=k)
-                for k in c0}
-    if isinstance(c0, tuple):
-        return type(c0)(*(map_cache(fn, *(getattr(c, f) for c in caches),
-                                    name=f) for f in c0._fields))
-    return fn(name, *caches)
 
 
 def _cache_layer(cache, i: int):
@@ -389,14 +384,26 @@ class Model:
 
     # ----------------------------------------------------------------- #
     def init_cache(self, batch: int, capacity: int, *, window: int = 0,
-                   kv_dtype: str = "fp32") -> Cache:
+                   kv_dtype: str = "fp32", rows: Optional[int] = None,
+                   seq_blocks: int = 1, device=None) -> Cache:
         """Decode cache, leaves stacked on the layer axis (``[G, ...]``
         and ``[G, k, ...]`` for the hybrid family).  ``kv_dtype='fp32'``
         keeps k/v in the compute dtype (the reference's name); 'int8' is
         the quantized cache decode runs through kernel B, for the dense
-        and MoE families only, as in the reference."""
-        cfg, dt, dev = self.cfg, self.compute_dtype, self.device
+        and MoE families only, as in the reference.
+
+        Under a serving plan a rank holds ``rows`` of the ``batch`` rows
+        and one of ``seq_blocks`` blocks of the ring's slots
+        (``serve.steps.ServePlan``).  ``device`` (default the model's):
+        "meta" gives the shapes alone."""
+        cfg, dt = self.cfg, self.compute_dtype
+        dev = self.device if device is None else torch.device(device)
         cap = min(capacity, window) if window else capacity
+        if cap % seq_blocks:
+            raise ValueError(f"a ring of {cap} slots does not cut into "
+                             f"{seq_blocks} blocks")
+        cap //= seq_blocks
+        batch = batch if rows is None else rows
         if kv_dtype not in ("fp32", "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}; expected "
                              f"'fp32' or 'int8'")
@@ -426,12 +433,16 @@ class Model:
             lead=lead, device=dev)
 
     def init_slot_cache(self, batch: int, capacity: int, *, window: int = 0,
-                        kv_dtype: str = "fp32") -> Cache:
+                        kv_dtype: str = "fp32", rows: Optional[int] = None,
+                        seq_blocks: int = 1, device=None) -> Cache:
         """Per-slot cache for continuous batching: ``init_cache`` with
         every ring ``index`` widened by a trailing ``[batch]`` axis, one
-        fill position per slot.  SSM state carries no index."""
+        fill position per slot.  SSM state carries no index.  Under a
+        serving plan (``rows``, ``seq_blocks``) every rank holds the
+        whole index, every slot's."""
         cache = self.init_cache(batch, capacity, window=window,
-                                kv_dtype=kv_dtype)
+                                kv_dtype=kv_dtype, rows=rows,
+                                seq_blocks=seq_blocks, device=device)
         return map_cache(
             lambda name, leaf: torch.zeros(
                 leaf.shape + (batch,), dtype=leaf.dtype, device=leaf.device)
@@ -439,33 +450,57 @@ class Model:
 
     # ----------------------------------------------------------------- #
     def prefill(self, params, batch, cache: Cache, *, window: int = 0,
-                last_pos=None) -> Tuple[torch.Tensor, Cache]:
+                last_pos=None, blocks=None) -> Tuple[torch.Tensor, Cache]:
         """Returns (logits [B, V] at the last position, or at ``last_pos``
         for a bucket-padded prompt; filled cache).  The recurrent layers
-        start from the cache's state ``h``, as the reference's do."""
-        x, positions = self._embed_inputs(params, batch)
+        start from the cache's state ``h``, as the reference's do.
+        ``blocks``: the ring's blocks under a serving plan."""
+        x, positions = self._embed_inputs(params, batch, self.model_axis)
         x, cache, _ = self._run(params, x, cache, _PREFILL,
-                                dict(positions=positions, window=window,
-                                     use_kernels=self.use_kernels))
+                                self._serve_kw(blocks, window=window,
+                                               positions=positions))
         if last_pos is None:
             last_pos = x.shape[1] - 1
-        x_last = x[:, last_pos:last_pos + 1]
-        return self._head(params, x_last)[:, 0], cache
+        return self._logits(params, x[:, last_pos:last_pos + 1]), cache
 
-    def decode_step(self, params, cache: Cache, tokens, *, window: int = 0
-                    ) -> Tuple[torch.Tensor, Cache]:
-        """tokens: [B, 1] -> (logits [B, V], cache advanced one token)."""
-        cfg, dt = self.cfg, self.compute_dtype
-        x = embed(self._tokens(tokens), params["embed"], dt)
+    def decode_step(self, params, cache: Cache, tokens, *, window: int = 0,
+                    blocks=None) -> Tuple[torch.Tensor, Cache]:
+        """tokens: [B, 1] -> (logits [B, V], cache advanced one token).
+        ``blocks``: the ring's blocks under a serving plan."""
+        cfg, dt, axis = self.cfg, self.compute_dtype, self.model_axis
+        x = embed(self._tokens(tokens), self._use("embed", params["embed"]),
+                  dt, axis)
         if "pos_embed" in params:
-            pos = self._cache_index(cache)
-            pe = params["pos_embed"]["table"][
-                torch.clamp(pos, 0, cfg.max_seq_len - 1).long()].to(dt)
-            x = x + (pe[None, None] if pos.dim() == 0 else pe[:, None])
+            pos = torch.clamp(self._cache_index(cache), 0,
+                              cfg.max_seq_len - 1).long()
+            ids = pos[None, None] if pos.dim() == 0 else pos[:, None]
+            table = self._use("pos_embed", params["pos_embed"])["table"]
+            pe = lookup_rows(ids, table, axis) \
+                if axis is not None and axis.positions else table[ids]
+            x = x + pe.to(dt)
         x, cache, _ = self._run(params, x, cache, _DECODE,
-                                dict(window=window,
-                                     use_kernels=self.use_kernels))
-        return self._head(params, x)[:, 0], cache
+                                self._serve_kw(blocks, window=window))
+        return self._logits(params, x), cache
+
+    def _serve_kw(self, blocks, **kw) -> Dict[str, Any]:
+        """The block functions' keywords of prefill and decode: the
+        plan's model axis and the ring's blocks where there are."""
+        kw["use_kernels"] = self.use_kernels
+        if self.model_axis is not None:
+            kw["model_axis"] = self.model_axis
+        if blocks is not None:
+            kw["blocks"] = blocks
+        return kw
+
+    def _logits(self, params, x) -> torch.Tensor:
+        """The logits [B, V] of one position's hidden states [B, 1, d]:
+        the whole vocabulary on every rank (the ranks' blocks gathered in
+        rank order where the plan cuts the table)."""
+        axis = self.model_axis
+        logits = self._head(params, x, axis)[:, 0]
+        if axis is not None and axis.vocab:
+            logits = all_gather(logits, axis.group, -1)
+        return logits
 
     def _cache_index(self, cache: Cache) -> torch.Tensor:
         """Current absolute position: the first ring index leaf's layer 0

@@ -1,4 +1,5 @@
-"""Serving engines (port of ``repro/serve/engine.py``), on one device.
+"""Serving engines (port of ``repro/serve/engine.py``), on one device or
+under a plan on a mesh.
 
   * ``Engine`` — fixed-batch prefill + decode: every request in a batch
     waits for the longest prompt and the longest generation.
@@ -11,6 +12,11 @@
     to the fixed-batch engine's for the same prompt.
 
 Both default to ``device="cuda"`` and raise when no card is present.
+Without ``plan`` and ``mesh`` they run on one device.  With them
+(``serve.steps.ServePlan``: the dense family under data, zero2, shard,
+shard_zero or fsdp) every rank of the mesh runs the engine on the same
+requests and returns the whole batch's tokens; it takes this rank's
+blocks of the params (``shard_params``).
 On the card, prefill attention runs kernel A, int8-KV decode runs kernel
 B, every RMSNorm runs kernel 6, and the prefill scans of the SSM and
 hybrid families run kernels 4 and 3 (``kernels/ops.py``).
@@ -28,7 +34,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.model import Model, map_cache
 from repro_torch.serve.steps import (
-    decode_slots_step, insert_step, prefill_step, serve_step,
+    ServePlan, decode_slots_step, insert_step, prefill_step, serve_step,
 )
 
 
@@ -59,6 +65,16 @@ def _check_model_device(model: Model, device) -> torch.device:
     return model.device
 
 
+def _serve_plan(model: Model, plan, mesh, max_len: int,
+                window: int = 0) -> Optional[ServePlan]:
+    """The engine's ``ServePlan``, or None on one device."""
+    if (plan is None) != (mesh is None):
+        raise ValueError("serving under a plan takes both plan= and mesh=")
+    if plan is None:
+        return None
+    return ServePlan(model, plan, mesh, max_len=max_len, window=window)
+
+
 @dataclass
 class ServeStats:
     prefill_s: float = 0.0
@@ -84,8 +100,29 @@ class ServeStats:
         return self.steps_per_s * self.n_slots
 
 
-class Engine:
-    """Fixed-batch prefill + decode for one model on one device.
+class _Served:
+    """What both engines do alike on one device and under a plan: their
+    ``model``, ``plan`` (a ``ServePlan`` or None), ``max_len``,
+    ``window`` and ``kv_dtype``."""
+
+    def shard_params(self, params):
+        """This rank's blocks of the full params (the params themselves on
+        one device)."""
+        return params if self.plan is None else self.plan.shard_params(params)
+
+    def _init_cache(self, batch: int, *, slots: bool = False):
+        """A fresh cache (this rank's share of it under a plan)."""
+        if self.plan is not None:
+            return self.plan.init_cache(batch, kv_dtype=self.kv_dtype,
+                                        slots=slots)
+        init = self.model.init_slot_cache if slots else self.model.init_cache
+        return init(batch, self.max_len, window=self.window,
+                    kv_dtype=self.kv_dtype)
+
+
+class Engine(_Served):
+    """Fixed-batch prefill + decode for one model, on one device or under
+    ``plan`` on ``mesh``.
 
     For the MoE family a token's output depends on the batch it is routed
     with: an expert takes at most its capacity (``capacity_factor`` of
@@ -95,9 +132,10 @@ class Engine:
 
     def __init__(self, model: Model, *, batch_size: int, max_len: int,
                  window: int = 0, temperature: float = 0.0, top_k: int = 0,
-                 kv_dtype: str = "fp32", device="cuda"):
+                 kv_dtype: str = "fp32", device="cuda", plan=None, mesh=None):
         self.device = _check_model_device(model, device)
         self.model = model
+        self.plan = _serve_plan(model, plan, mesh, max_len, window)
         self.window = window
         self.temperature, self.top_k = temperature, top_k
         self.batch_size, self.max_len = batch_size, max_len
@@ -117,13 +155,11 @@ class Engine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
         dev = self.device
         # a fresh cache per call: decode writes it in place
-        cache = self.model.init_cache(self.batch_size, self.max_len,
-                                      window=self.window,
-                                      kv_dtype=self.kv_dtype)
+        cache = self._init_cache(self.batch_size)
         _sync(dev)
         t0 = time.perf_counter()
         logits, cache = prefill_step(self.model, params, batch, cache,
-                                     window=self.window)
+                                     window=self.window, plan=self.plan)
         tok = sample_tokens(logits, gen, temperature=self.temperature,
                             top_k=self.top_k)[:, None]
         out: List[Any] = [tok.cpu()]
@@ -133,7 +169,8 @@ class Engine:
             if timing:
                 t0 = time.perf_counter()
             logits, next_tok, cache = serve_step(self.model, params, cache,
-                                                 tok, window=self.window)
+                                                 tok, window=self.window,
+                                                 plan=self.plan)
             if self.temperature > 0:
                 tok = sample_tokens(logits, gen,
                                     temperature=self.temperature,
@@ -277,8 +314,10 @@ class ContinuousStats:
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 
 
-class ContinuousEngine:
-    """Slot-based continuous batching over a persistent decode cache.
+class ContinuousEngine(_Served):
+    """Slot-based continuous batching over a persistent decode cache, on
+    one device or under ``plan`` on ``mesh`` (batch-1 prefills run whole
+    on every rank; the rank whose rows hold a slot inserts into it).
 
     Prompt lengths pad up to a bucket (the causal mask keeps the pad tail
     invisible, and the insert rewinds the slot's index to the true
@@ -297,9 +336,11 @@ class ContinuousEngine:
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  kv_dtype: str = "fp32", eos_id: int = -1, pad_id: int = 0,
                  detokenize: Optional[Callable[[Any], Any]] = None,
-                 device="cuda"):
+                 device="cuda", plan=None, mesh=None):
         self.device = _check_model_device(model, device)
         self.model = model
+        self.plan = _serve_plan(model, plan, mesh, max_len)
+        self.window = 0
         self.slots, self.max_len = slots, max_len
         self.kv_dtype = kv_dtype
         self.eos_id, self.pad_id = eos_id, pad_id
@@ -332,7 +373,7 @@ class ContinuousEngine:
         logits, pcache = prefill_step(
             self.model, params,
             {"tokens": torch.from_numpy(padded).to(self.device)},
-            src_cache, last_pos=L - 1)
+            src_cache, last_pos=L - 1, plan=self.plan)
         return int(torch.argmax(logits, dim=-1)[0]), pcache, L
 
     @torch.no_grad()
@@ -349,9 +390,8 @@ class ContinuousEngine:
         slot_tok = np.full((self.slots, 1), self.pad_id, np.int64)
         live = np.zeros((self.slots,), bool)
         dev = self.device
-        cache = self.model.init_slot_cache(self.slots, self.max_len,
-                                           kv_dtype=self.kv_dtype)
-        src = self.model.init_cache(1, self.max_len, kv_dtype=self.kv_dtype)
+        cache = self._init_cache(self.slots, slots=True)
+        src = self._init_cache(1)
         t_start = time.perf_counter()
 
         def finish(slot: int) -> None:
@@ -370,7 +410,7 @@ class ContinuousEngine:
                 stats.prefill_s.append(now - t0)
                 stats.ttft_s[req.uid] = now - t_start
                 slot = sched.admit(req.uid, budget)
-                cache = insert_step(cache, pcache, slot, L)
+                cache = insert_step(cache, pcache, slot, L, plan=self.plan)
                 bufs[slot] = [tok0]
                 live[slot] = True
                 slot_tok[slot, 0] = tok0
@@ -384,7 +424,8 @@ class ContinuousEngine:
             _, next_tok, cache = decode_slots_step(
                 self.model, params, cache,
                 torch.from_numpy(slot_tok).to(dev),
-                torch.from_numpy(live).to(dev), pad_id=self.pad_id)
+                torch.from_numpy(live).to(dev), pad_id=self.pad_id,
+                plan=self.plan)
             nt = next_tok.cpu().numpy()   # host sync: scheduler input
             if timing:
                 stats.decode_s.append(time.perf_counter() - t0)

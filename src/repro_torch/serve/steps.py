@@ -1,54 +1,246 @@
-"""Serving steps on one device: counterparts of the reference's
-``build_prefill_step``, ``build_serve_step``, ``build_insert_step`` and
-``build_decode_slots_step`` (``repro/core/steps.py``).
+"""Serving steps: counterparts of the reference's ``build_prefill_step``,
+``build_serve_step``, ``build_insert_step`` and
+``build_decode_slots_step`` (``repro/core/steps.py``), on one device and
+under the flat plans of ``core.plans.PLANS`` (``ServePlan``).
 
 PyTorch runs eagerly, so each step is a plain function rather than a
 compiled one, and the caches the reference donates are updated in place
 here.  A cache is any structure of NamedTuples and dicts of tensors (a
 KV cache, an SSM state, the hybrid family's ``{"ssm", "attn"}`` dict);
 the slot steps walk it with ``map_cache`` and treat the leaves named
-``index`` (ring fill positions) apart.  Plans and meshes come with the
-plans item of the ROADMAP.
+``index`` (ring fill positions) apart.
+
+Under a plan (``plan=ServePlan(...)``) every rank is given the whole
+batch (tokens, ``live``) and returns the whole batch's logits and tokens,
+the same on every rank, as the reference's steps return replicated
+outputs.  A rank runs its rows of the batch (the plan's batch axes; a
+batch they do not divide runs whole on every rank) through the model
+under the plan's cut of the weights, on its rows and block of the cache
+(``Plan.cache_spec``'s layout: under the plans that shard weights the
+ring's slots are cut over ``model``, ``models.attention.RingBlocks``).
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+from typing import Dict, Optional, Tuple, Union
+
 import torch
 
+from repro_torch.core.plans import MODEL_AXIS, Plan, get_plan
+from repro_torch.core.sharding import (
+    FsdpGather, Mesh, all_gather, shard_tree,
+)
+from repro_torch.core.steps import _local_rows, _model_axis
+from repro_torch.models.attention import WHOLE_RING, RingBlocks
 from repro_torch.models.model import Cache, Model, map_cache
+
+# what serving under a plan does not run yet
+NOT_YET = "ROADMAP queue 1, item 7"
+
+
+class ServePlan:
+    """Serving under ``plan`` on ``mesh``: for the engines and the steps
+    what ``core.steps.PlanStep`` is for training.  It holds the plan's
+    specs of the params, the ``model`` axis of the weights' cut
+    (``core.steps._model_axis``), fsdp's gather of the leaves cut over the
+    data axes, and the layout of the caches: ``Plan.cache_spec``'s, with
+    a rank's rows of a batch those of the plan's batch axes.
+
+    The caches hold ``max_len`` positions (a ring of ``window`` when it
+    is set); under the plans that shard weights, when ``model`` divides
+    that capacity, a rank holds the block ``[r c, (r + 1) c)`` of every
+    KV head's ring (``blocks``), else the whole ring.  Under data and
+    zero2 ``cache_spec`` cuts the cache's batch dim over the data axes
+    only, while their batch axes also take ``model``: a rank holds the
+    rows of its part of the batch, which changes memory, not numbers.
+
+    The dense family serves under data, zero2, shard, shard_zero and
+    fsdp; pipeshard and the other families raise (``NOT_YET``)."""
+
+    def __init__(self, model: Model, plan: Union[str, Plan], mesh: Mesh, *,
+                 max_len: int, window: int = 0):
+        plan = get_plan(plan) if isinstance(plan, str) else plan
+        cfg = model.cfg
+        if plan.pipeline:
+            raise NotImplementedError(
+                f"serving under {plan.name!r} is not ported yet ({NOT_YET})")
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"serving family {cfg.family!r} under a plan is not ported "
+                f"yet ({NOT_YET}); the dense family serves under "
+                f"{plan.name!r}")
+        self.model, self.plan, self.mesh = model, plan, mesh
+        self.max_len, self.window = max_len, window
+        self._shapes = model.init(torch.Generator(), device="meta")
+        self.param_specs = plan.param_specs(self._shapes, cfg, mesh)
+        self.model_axis = _model_axis(mesh, self.param_specs, cfg) \
+            if plan.shards_weights else None
+        data = plan.mesh_axes(mesh)["data"]
+        self.fsdp = FsdpGather(self.param_specs, mesh, data, ()) \
+            if plan.fsdp else None
+        cap = min(max_len, window) if window else max_len
+        n = mesh.shape.get(MODEL_AXIS, 1)
+        self.blocks: Optional[RingBlocks] = None
+        if self.model_axis is not None:
+            self.blocks = RingBlocks(mesh.group(MODEL_AXIS), n,
+                                     mesh.coord[MODEL_AXIS]) \
+                if cap >= n and cap % n == 0 else WHOLE_RING
+
+    # ------------------------------------------------------------- #
+    def shard_params(self, params):
+        """This rank's blocks of the full params."""
+        return shard_tree(params, self.param_specs, self.mesh)
+
+    def rows(self, batch_size: int) -> Tuple[int, int]:
+        """(first, count) of this rank's rows of a batch."""
+        axes = self.plan.batch_axes(self.mesh, batch_size)
+        count = batch_size // (self.mesh.count(axes) if axes else 1)
+        return (self.mesh.index(axes) * count if axes else 0), count
+
+    def local_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """This rank's rows of ``batch`` (``core.steps._local_rows``)."""
+        return _local_rows(batch, self.plan.batch_spec(batch, self.mesh),
+                           self.mesh, 1, self.model.device)
+
+    def gather_rows(self, t: torch.Tensor, batch_size: int) -> torch.Tensor:
+        """The whole batch of ``t`` (this rank's rows first on dim 0) on
+        every rank, the rows in order."""
+        axes = self.plan.batch_axes(self.mesh, batch_size)
+        if not axes or self.mesh.count(axes) == 1:
+            return t
+        return all_gather(t, self.mesh.group(axes), 0)
+
+    def init_cache(self, batch_size: int, *, kv_dtype: str = "fp32",
+                   slots: bool = False) -> Cache:
+        """This rank's rows and block of a fresh cache of ``batch_size``
+        rows (``slots``: ``Model.init_slot_cache``'s per-slot cache).
+        Raises where ``cache_spec`` takes another dim for the batch: it
+        finds the batch dim by size, so a stack as deep as the batch is
+        cut in its place."""
+        m = self.model
+        init = m.init_slot_cache if slots else m.init_cache
+        kw = dict(window=self.window, kv_dtype=kv_dtype)
+        shapes = init(batch_size, self.max_len, device="meta", **kw)
+        specs = self.plan.cache_spec(shapes, m.cfg, self.mesh, batch_size)
+        cut = self.blocks is not None and self.blocks.group is not None
+
+        def check(name, leaf, spec):
+            if name == "index":
+                return
+            at = next(i for i, s in enumerate(leaf.shape) if s == batch_size)
+            if at != 1:
+                raise ValueError(
+                    f"cache_spec takes dim {at} of the cache leaf {name!r} "
+                    f"{tuple(leaf.shape)} for the batch of {batch_size} (it "
+                    f"finds the batch dim by size); serve another batch "
+                    f"size than the stack depth (ROADMAP queue 3)")
+            if (len(spec) > 2 and spec[2] == MODEL_AXIS) != cut:
+                raise AssertionError(f"{name}: cache_spec {spec} against "
+                                     f"the ring's blocks {self.blocks}")
+
+        map_cache(check, shapes, specs)
+        return init(batch_size, self.max_len, rows=self.rows(batch_size)[1],
+                    seq_blocks=self.blocks.size if cut else 1, **kw)
+
+
+@contextmanager
+def _bound(model: Model, plan: Optional[ServePlan]):
+    """The model's plan attributes set to ``plan``'s for a step (cleared
+    on one device), and given back their values after it: a model may
+    serve under several plans and on one device, and train under a
+    ``core.steps.PlanStep``, which sets them once."""
+    saved = model.model_axis, model.fsdp, model.dispatch
+    model.model_axis, model.fsdp = (None, None) if plan is None \
+        else (plan.model_axis, plan.fsdp)
+    model.dispatch = None
+    try:
+        yield
+    finally:
+        model.model_axis, model.fsdp, model.dispatch = saved
+
+
+def _index_rows(cache: Cache, first: int, count: int) -> Cache:
+    """The per-slot cache with each ``index`` leaf's trailing slot axis
+    narrowed to this rank's rows (views)."""
+    return map_cache(lambda name, leaf: leaf[..., first:first + count]
+                     if name == "index" else leaf, cache)
 
 
 @torch.no_grad()
 def prefill_step(model: Model, params, batch, cache: Cache, *,
-                 window: int = 0, last_pos=None):
+                 window: int = 0, last_pos=None,
+                 plan: Optional[ServePlan] = None):
     """(logits [B, V], filled cache).  ``last_pos`` (continuous
     batching) reads the logits of a bucket-padded prompt's true last
-    token; the pad tail after it is causally invisible."""
-    return model.prefill(params, batch, cache, window=window,
-                         last_pos=last_pos)
+    token; the pad tail after it is causally invisible.  ``plan``: the
+    whole batch in, this rank's rows and block of the cache, the whole
+    batch's logits out."""
+    if plan is None:
+        with _bound(model, None):
+            return model.prefill(params, batch, cache, window=window,
+                                 last_pos=last_pos)
+    B = torch.as_tensor(batch["tokens"]).shape[0]
+    with _bound(model, plan):
+        logits, cache = model.prefill(params, plan.local_batch(batch),
+                                      cache, window=window,
+                                      last_pos=last_pos, blocks=plan.blocks)
+    return plan.gather_rows(logits, B), cache
+
+
+def _decode(model: Model, params, cache: Cache, tokens, window: int,
+            plan: Optional[ServePlan]):
+    """(logits of the whole batch, new cache) of one decode step of this
+    rank's rows (``cache`` already this rank's)."""
+    if plan is None:
+        with _bound(model, None):
+            return model.decode_step(params, cache, tokens, window=window)
+    first, count = plan.rows(tokens.shape[0])
+    with _bound(model, plan):
+        logits, cache = model.decode_step(params, cache,
+                                          tokens[first:first + count],
+                                          window=window, blocks=plan.blocks)
+    return plan.gather_rows(logits, tokens.shape[0]), cache
 
 
 @torch.no_grad()
 def serve_step(model: Model, params, cache: Cache, tokens, *,
-               window: int = 0):
+               window: int = 0, plan: Optional[ServePlan] = None):
     """One new token against the cache: (logits, greedy next token
     [B, 1] int32, cache)."""
-    logits, cache = model.decode_step(params, cache, tokens, window=window)
+    tokens = torch.as_tensor(tokens, device=model.device)
+    logits, cache = _decode(model, params, cache, tokens, window, plan)
     next_tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
     return logits, next_tok, cache
 
 
 @torch.no_grad()
 def decode_slots_step(model: Model, params, cache: Cache, tokens, live, *,
-                      window: int = 0, pad_id: int = 0):
+                      window: int = 0, pad_id: int = 0,
+                      plan: Optional[ServePlan] = None):
     """One decode step over the persistent slot cache.  Dead slots
     (``live`` False) emit ``pad_id`` and keep their ring indices (the
     leaves named ``index``), so an evicted slot's KV ring cannot move
     before the insert that recycles it.  Its SSM state may drift, as in
-    the reference: the insert overwrites it."""
-    logits, new = model.decode_step(params, cache, tokens, window=window)
-    # decode made new index tensors; ``cache`` still holds the old ones
-    new = map_cache(lambda name, n, o: torch.where(live, n, o)
-                    if name == "index" else n, new, cache)
+    the reference: the insert overwrites it.  ``plan``: every rank holds
+    the whole index; its rows' new indices are gathered into it."""
+    tokens = torch.as_tensor(tokens, device=model.device)
+    first, count = (0, tokens.shape[0]) if plan is None \
+        else plan.rows(tokens.shape[0])
+    mine = cache if plan is None else _index_rows(cache, first, count)
+    logits, new = _decode(model, params, mine, tokens, window, plan)
+    rows = live[first:first + count]
+
+    def freeze(name, n, o):
+        """decode made new index tensors; ``mine`` still holds the old."""
+        if name != "index":
+            return n
+        kept = torch.where(rows, n, o)
+        if plan is None:
+            return kept
+        return plan.gather_rows(kept.movedim(-1, 0).contiguous(),
+                                tokens.shape[0]).movedim(0, -1)
+
+    new = map_cache(freeze, new, mine)
     next_tok = torch.where(live[:, None],
                            torch.argmax(logits, dim=-1)[:, None],
                            torch.full_like(live[:, None], pad_id,
@@ -57,7 +249,42 @@ def decode_slots_step(model: Model, params, cache: Cache, tokens, live, *,
 
 
 @torch.no_grad()
-def insert_step(dst: Cache, src: Cache, slot: int, length: int) -> Cache:
+def teacher_forced(model: Model, params, local, batch, tokens,
+                   plan: ServePlan, *, kv_dtype: str = "fp32"):
+    """Prefill and every decode step of ``batch`` under ``plan`` (with
+    this rank's blocks ``local`` of the full ``params``) beside one
+    device, both fed the one-device greedy ``tokens`` [B, n] in
+    lockstep (teacher-forced, so the two paths see the same inputs even
+    where their greedy tokens part).  Returns (the largest |logit
+    difference|, the largest |one-device logit|, whether every step's
+    logits were bit-equal)."""
+    B = tokens.shape[0]
+    caches = [model.init_cache(B, plan.max_len, window=plan.window,
+                               kv_dtype=kv_dtype),
+              plan.init_cache(B, kv_dtype=kv_dtype)]
+    err = scale = 0.0
+    same = True
+    for i in range(tokens.shape[1]):
+        out = []
+        for j, (p, sp) in enumerate(((params, None), (local, plan))):
+            if i == 0:
+                lg, caches[j] = prefill_step(model, p, batch, caches[j],
+                                             window=plan.window, plan=sp)
+            else:
+                tok = torch.as_tensor(tokens[:, i - 1:i], device=model.device)
+                lg, _, caches[j] = serve_step(model, p, caches[j], tok,
+                                              window=plan.window, plan=sp)
+            out.append(lg)
+        want, got = out
+        err = max(err, float((got - want).abs().max()))
+        scale = max(scale, float(want.abs().max()))
+        same = same and torch.equal(got, want)
+    return err, scale, same
+
+
+@torch.no_grad()
+def insert_step(dst: Cache, src: Cache, slot: int, length: int, *,
+                plan: Optional[ServePlan] = None) -> Cache:
     """Scatter a freshly prefilled batch-1 cache ``src`` into slot
     ``slot`` of the per-slot cache ``dst``, in place, and set the slot's
     ring indices to the request's true ``length`` (the prefill cache
@@ -68,17 +295,34 @@ def insert_step(dst: Cache, src: Cache, slot: int, length: int) -> Cache:
     the first axis on which ``dst`` and ``src`` differ in size: 1 for
     ``[L, B, ...]`` leaves, 2 for the hybrid family's ``[G, k, B, ...]``
     SSM state.  With one slot the shapes agree and the whole leaf is
-    the slot."""
+    the slot.  ``plan``: the rank whose rows hold the slot writes it, its
+    block of the ring from its block of ``src``; every rank sets the
+    slot's index."""
+    at, mine = slot, True
+    if plan is not None:
+        index = next(leaf for name, leaf in _leaves(dst) if name == "index")
+        first, count = plan.rows(index.shape[-1])
+        at, mine = slot - first, first <= slot < first + count
+
     def put(name, d, s):
         if name == "index":
             d[..., slot] = length
+            return d
+        if not mine:
             return d
         axis = next((i for i, (m, n) in enumerate(zip(d.shape, s.shape))
                      if m != n), None)
         if axis is None:
             d.copy_(s)
         else:
-            d.select(axis, slot).copy_(s.select(axis, 0))
+            d.select(axis, at).copy_(s.select(axis, 0))
         return d
 
     return map_cache(put, dst, src)
+
+
+def _leaves(cache: Cache):
+    """(name, leaf) of every leaf of a cache."""
+    out = []
+    map_cache(lambda name, leaf: out.append((name, leaf)), cache)
+    return out

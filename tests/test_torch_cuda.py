@@ -1016,3 +1016,82 @@ def test_pipeshard_step_on_card(cuda_device, schedule, split):
     assert counts["flash_attn_fwd"] == 2 * L * m
     assert counts["flash_attn_bwd"] == L * m
     assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["dead", "last", "random"])
+@pytest.mark.parametrize("tiles_a_split", [0, 1, 3])
+@pytest.mark.parametrize("D,group", [(64, 1), (128, 3)])
+def test_int8kv_kernel_lse(cuda_device, monkeypatch, D, group, tiles_a_split,
+                           mask):
+    """Kernel B's log-sum-exp of each (row, head)'s live scores against
+    the plain version's, with one split (``tiles_a_split`` 0: the
+    planner's, one split at 296 slots) and forced splits of 1 and 3
+    tiles (the merge writes it): -inf on a row with no live key, the
+    output the same bits as without the lse."""
+    B, KV, Sk = 4, 2, 296
+    H = group * KV
+    if tiles_a_split:
+        kps = tiles_a_split * tq.KEY_TILE
+        monkeypatch.setattr(tq, "int8kv_splits",
+                            lambda *_: (-(-Sk // kps), kps))
+    g = torch.Generator(device=cuda_device).manual_seed(D + tiles_a_split)
+    q = torch.randn((B, 1, H, D), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    kq, ks = tq.quantize(torch.randn((B, Sk, KV, D), generator=g,
+                                     device=cuda_device), block=D)
+    vq, vs = tq.quantize(torch.randn((B, Sk, KV, D), generator=g,
+                                     device=cuda_device), block=D)
+    args = (q, kq, ks[..., 0].contiguous(), vq, vs[..., 0].contiguous(),
+            _decode_mask(mask, B, Sk, g, cuda_device))
+    o, lse = tq.int8kv_attention_cuda(*args, with_lse=True)
+    plain = tq.int8kv_attention_cuda(*args)
+    want_o, want = tq.int8kv_attention_plain(*args, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, plain)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=0,
+                               atol=BF16_ATOL)
+    dead = ~args[-1].any(-1)
+    assert torch.isneginf(lse[dead]).all()
+    assert torch.isfinite(lse[~dead]).all()
+    torch.testing.assert_close(lse[~dead], want[~dead], rtol=0,
+                               atol=LSE_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_engine_under_shard_at_a_world_of_one_matches_one_device(
+        cuda_device, kv_dtype):
+    """Reduced gpt2m through ``Engine`` under shard on an NCCL world of
+    one (the merge of one block, kernel B with its lse for the int8
+    cache): the one-device engine's tokens, kernel A once a layer a
+    prefill and kernel B once a layer a decode step."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import Engine
+
+    cfg = get_config("gpt2m").reduced()
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(4, cfg.vocab_size, (4, 16))}
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    want = Engine(model, batch_size=4, max_len=32,
+                  kv_dtype=kv_dtype).generate(params, batch, 6)["tokens"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        eng = Engine(model, batch_size=4, max_len=32, kv_dtype=kv_dtype,
+                     plan="shard",
+                     mesh=make_host_mesh((1, 1, 1), ("pod", "data", "model")))
+        ops.reset_launch_counts()
+        got = eng.generate(eng.shard_params(params), batch, 6)["tokens"]
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got, want)
+    assert counts["flash_attn_fwd"] == cfg.n_layers
+    assert counts["int8kv_decode"] == \
+        (cfg.n_layers * 5 if kv_dtype == "int8" else 0)
