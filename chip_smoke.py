@@ -76,7 +76,15 @@ shard with the int8 cache (kernel B with its log-sum-exp, the merge of
 the ring's blocks) and through ``ContinuousEngine`` (int8, 8 slots, 16
 requests), and llama3.2-3b at full size with the int8 cache under shard
 (``serve-*``): each phase's tokens held to the one-device engine's on
-the same weights and prompts, three runs timed.
+the same weights and prompts, three runs timed.  Then, once each after
+its one-device yardstick: gpt2L under pipeshard on one stage of two
+chunks (16 and 14 layers) through ``Engine`` (fp32 KV) and
+``ContinuousEngine`` (int8; ``serve-pipeshard``,
+``serve-pipeshard-continuous``), and phi3.5-MoE (7 of 32 layers, int8
+KV), falcon-mamba-7b and zamba2-2.7b (chunks of 5 and 4 of its 9
+groups) at full width under shard and under pipeshard
+(``serve-moe-shard``, ..., ``serve-hybrid-pipeshard``): kernels A, B,
+3, 4 and 6 as the families use them.
 
 For each model it checks that the kernel path's first-step logits agree
 with the plain path's on the card (the MoE model's against the fp32
@@ -250,7 +258,28 @@ SERVE_PHASES = tuple((f"serve-{p}", PLAN_ARCH, p, "fp32", "engine")
                      for p in PLAN_NAMES) + (
     ("serve-shard-int8", PLAN_ARCH, "shard", "int8", "engine"),
     ("serve-shard-continuous", PLAN_ARCH, "shard", "int8", "continuous"),
+    ("serve-pipeshard", PLAN_ARCH, "pipeshard", "fp32", "engine"),
+    ("serve-pipeshard-continuous", PLAN_ARCH, "pipeshard", "int8",
+     "continuous"),
     ("serve-llama-shard", "llama3.2-3b", "shard", "int8", "engine"))
+# gpt2L under pipeshard: one stage of two chunks, the uneven (16, 14)
+SERVE_PIPE_SPLIT = (16, 14)
+# the families under the serving plans, at a world of one: each model
+# built once, its one-device Engine (``serve-one-<tag>-engine-<kv>``),
+# then under shard and under pipeshard (one stage; zamba2 two chunks of
+# its 9 groups), one run each, their tokens held to the one-device
+# engine's as the gpt2L phases' are.  phi3.5-MoE keeps 7 of its 32
+# layers: at 8 the stack would be as deep as the batch of 8, which
+# ``cache_spec`` takes for the batch (it finds the batch by size) and
+# the serving plans refuse.  (tag, arch, layers kept or None, KV dtype,
+# kernels each phase must launch, pipeline split or None)
+SERVE_FAMILIES = (
+    ("moe", "phi3.5-moe-42b-a6.6b", 7, "int8",
+     ("rmsnorm", "flash_attn_fwd", "int8kv_decode"), None),
+    ("ssm", "falcon-mamba-7b", None, "fp32", ("mamba1_scan", "rmsnorm"),
+     None),
+    ("hybrid", "zamba2-2.7b", None, "fp32",
+     ("ssd_scan", "flash_attn_fwd", "rmsnorm"), (5, 4)))
 # the calibration micro-bench's flash sample (calib/microbench.py):
 # (H, KV, D) and (B, S), causal; grouped-query, unlike the models here
 CAL_FLASH_HEADS, CAL_FLASH_BS = (4, 2, 64), (1, 128)
@@ -1733,6 +1762,7 @@ def plan_phases(torch, np, ops, card):
                                out["train_gpt2L"]["losses"]))
         out.update(family_phases(torch, np, ops, card))
         out.update(serve_phases(torch, np, ops, card, mesh))
+        out.update(serve_family_phases(torch, np, ops, card, mesh))
     finally:
         dist.destroy_process_group()
     del ref_params
@@ -1751,12 +1781,14 @@ def serve_phases(torch, np, ops, card, mesh):
     One decode step of ``serve-shard`` and of its yardstick is traced."""
     from repro_torch.configs import get_config
     from repro_torch.core import sharding
+    from repro_torch.launch.mesh import make_pipeline_mesh
     from repro_torch.models import Model
     from repro_torch.serve import ContinuousEngine, Engine, Request
     from repro_torch.serve import steps
 
     out = {}
     t_serve = time.perf_counter()
+    staged = make_pipeline_mesh((1, 1, 1), ("pod", "data", "model"), 1)
     max_len = ENGINE_PROMPT + ENGINE_GEN + 8
     cont_len = CONT_LENS[1] + CONT_GEN + 8
     for arch in dict.fromkeys(a for _, a, _, _, _ in SERVE_PHASES):
@@ -1788,18 +1820,22 @@ def serve_phases(torch, np, ops, card, mesh):
                     kind, needs, card, L, max_len, cont_len, runs=1)
             ref = refs[(kind, kv)]
             t_phase = time.perf_counter()
+            on = dict(plan=plan, mesh=mesh)
+            if plan == "pipeshard":
+                on.update(mesh=staged, stage_layers=SERVE_PIPE_SPLIT)
             if kind == "continuous":
                 eng = ContinuousEngine(model, slots=CONT_SLOTS,
-                                       max_len=cont_len, kv_dtype=kv,
-                                       plan=plan, mesh=mesh)
+                                       max_len=cont_len, kv_dtype=kv, **on)
             else:
                 eng = Engine(model, batch_size=ENGINE_BATCH,
-                             max_len=max_len, kv_dtype=kv, plan=plan,
-                             mesh=mesh)
+                             max_len=max_len, kv_dtype=kv, **on)
             local = eng.shard_params(params)
+            # the pipeshard phases run once, as the family phases do
             rec, tokens = serve_runs(torch, np, ops, name, model, local,
                                      batch, reqs, kv, kind, needs, card, L,
-                                     max_len, cont_len, eng=eng)
+                                     max_len, cont_len, eng=eng,
+                                     runs=1 if plan == "pipeshard"
+                                     else SERVE_RUNS)
             rec.update(compare_served(torch, steps, sharding, name, model,
                                       (params, local), batch, reqs, kv,
                                       kind, eng, ref, tokens))
@@ -1829,13 +1865,81 @@ def serve_phases(torch, np, ops, card, mesh):
     return out
 
 
+def serve_family_phases(torch, np, ops, card, mesh):
+    """Phases ``serve-<tag>-shard`` and ``serve-<tag>-pipeshard``
+    (``SERVE_FAMILIES``) in the process group of ``plan_phases``, each
+    after the family's one-device yardstick ``serve-one-<tag>-engine-
+    <kv>`` on the same weights and prompts, whose tokens it must give
+    (``compare_served``).  Each family's model is built once; each phase
+    must launch the family's kernels, kernel A once an attention layer a
+    prefill and, with the int8 cache, B once an attention layer a decode
+    step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import sharding
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+    from repro_torch.serve import steps
+
+    out = {}
+    t_all = time.perf_counter()
+    staged = make_pipeline_mesh((1, 1, 1), ("pod", "data", "model"), 1)
+    max_len = ENGINE_PROMPT + ENGINE_GEN + 8
+    for tag, arch, layers, kv, needs, split in SERVE_FAMILIES:
+        t_family = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        # the layers with attention: every one, none, or the hybrid's
+        # shared block at the head of each group
+        attn = {"ssm": 0, "hybrid": cfg.n_layers // max(
+            cfg.hybrid_attn_every, 1)}.get(cfg.family, cfg.n_layers)
+        model = Model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        rng = np.random.default_rng(SEED + 11)
+        batch = {"tokens": rng.integers(4, cfg.vocab_size,
+                                        (ENGINE_BATCH, ENGINE_PROMPT),
+                                        dtype=np.int64)}
+        log(f"serve-{tag}: {arch}, {cfg.n_layers} layers at full width, "
+            f"{kv} cache, weights after "
+            f"{time.perf_counter() - t_family:.1f}s")
+        one = f"serve-one-{tag}-engine-{kv}"
+        out[one.replace("-", "_")], ref = serve_runs(
+            torch, np, ops, one, model, params, batch, [], kv, "engine",
+            needs, card, attn, max_len, 0, runs=1)
+        for plan, m, stage_layers in (("shard", mesh, None),
+                                      ("pipeshard", staged, split)):
+            name = f"serve-{tag}-{plan}"
+            eng = Engine(model, batch_size=ENGINE_BATCH, max_len=max_len,
+                         kv_dtype=kv, plan=plan, mesh=m,
+                         stage_layers=stage_layers)
+            local = eng.shard_params(params)
+            rec, tokens = serve_runs(torch, np, ops, name, model, local,
+                                     batch, [], kv, "engine", needs, card,
+                                     attn, max_len, 0, eng=eng, runs=1)
+            rec.update(compare_served(torch, steps, sharding, name, model,
+                                      (params, local), batch, [], kv,
+                                      "engine", eng, ref, tokens))
+            out[name.replace("-", "_")] = rec
+            del eng, local
+            torch.cuda.empty_cache()
+        log(f"serve-{tag}: {time.perf_counter() - t_family:.1f}s with its "
+            f"weights, yardstick and comparisons")
+        del model, params
+        torch.cuda.empty_cache()
+    log(f"serve family phases in {time.perf_counter() - t_all:.1f}s")
+    return out
+
+
 def serve_runs(torch, np, ops, name, model, params, batch, reqs, kv, kind,
                needs, card, L, max_len, cont_len, eng=None,
                runs=SERVE_RUNS):
     """Phase ``name``: ``runs`` runs of an engine (one device when ``eng``
-    is None) with the launches of kernels A and B checked.  Returns the
-    record (TTFT and tokens/s, their median and spread) and the first
-    run's tokens."""
+    is None) with the launches of kernels A and B checked (``L``: the
+    model's attention layers).  Returns the record (TTFT and tokens/s,
+    their median and spread) and the first run's tokens."""
     from repro_torch.serve import ContinuousEngine, Engine
 
     if eng is None and kind == "continuous":
@@ -1920,7 +2024,8 @@ def compare_served(torch, steps, sharding, name, model, params, batch,
     cases = [(batch, ref, eng.plan)] if differ and kind == "engine" else []
     for r in differ if kind == "continuous" else ():
         sp = ServePlan(model, eng.plan.plan, eng.plan.mesh,
-                       max_len=eng.max_len)
+                       max_len=eng.max_len,
+                       stage_layers=eng.plan.stage_layers)
         cases.append(({"tokens": r.prompt[None]}, ref[r.uid][None], sp))
     for b, toks, sp in cases:
         err, scale, _ = steps.teacher_forced(
@@ -2387,7 +2492,9 @@ def main() -> None:
     stage("gpt2L under the plans and the pipeline")
     for rec in plans.values():
         add(rec["launches"])
-    for key in ("serve_one_llama_engine_int8", "serve_llama_shard"):
+    for key in ("serve_one_llama_engine_int8", "serve_llama_shard",
+                "serve_one_moe_engine_int8", "serve_moe_shard",
+                "serve_moe_pipeshard"):
         for k in at128:
             at128[k] += plans[key]["launches"][k]
     e2e.update(plans)

@@ -44,7 +44,10 @@ backwards explicitly, in the order its schedule gives:
     over ``m``).
 
 ``core.steps.PipelineStep`` drives it, reduces the gradients over the
-mesh and updates the params.
+mesh and updates the params.  ``StageServer`` runs a stage's part of a
+serving step (``serve.steps.ServePlan`` under pipeshard): the same
+chunks on the stage's layers' rows of the cache, one pass of the whole
+batch, no backward.
 """
 from __future__ import annotations
 
@@ -264,6 +267,17 @@ def schedule_tables(schedule: str, n_stages: int,
 # the port's runtime
 # --------------------------------------------------------------------- #
 
+def chunk_spans(split, n_stages: int, stage: int) -> List[Tuple[int, int]]:
+    """(start, length) of each of ``stage``'s chunks in its rows
+    (``stage_rows``): chunk ``k * n_stages + stage`` is its k-th."""
+    spans, start = [], 0
+    for k in range(len(split) // n_stages):
+        n = int(split[k * n_stages + stage])
+        spans.append((start, n))
+        start += n
+    return spans
+
+
 def stage_rows(split, n_stages: int, virt: int, stage: int) -> np.ndarray:
     """The stack rows ``stage`` holds, its chunks back to back:
     ``stage_gather_index``'s with the padded slots dropped."""
@@ -413,12 +427,7 @@ class StageRunner:
         _, self.v = parse_schedule(schedule)
         self.s, self.ranks = stage, tuple(ranks)
         self.last = self.S * self.v - 1
-        self.spans = []                       # local (start, length) a chunk
-        start = 0
-        for k in range(self.v):
-            n = int(split[k * self.S + stage])
-            self.spans.append((start, n))
-            start += n
+        self.spans = chunk_spans(split, self.S, stage)
         self.timeline = pipeline_timeline(schedule, self.S, n_micro)
 
     # ---------------------------------------------------------------- #
@@ -590,3 +599,100 @@ class StageRunner:
             grads[key] = mine[0] if len(mine) == 1 else tree_map(
                 lambda *ts: functools.reduce(torch.add, ts), *mine)
         return sums, grads
+
+
+# --------------------------------------------------------------------- #
+# serving
+# --------------------------------------------------------------------- #
+
+class StageServer:
+    """One stage's part of a serving step under a pipeline plan: prefill
+    or one decode step of this rank's rows of the batch through the
+    stages, without microbatches (the reference's serving steps have
+    none, and a plan's schedule does not change serving).
+
+    ``split`` is the layers (the hybrid family's groups) of each of the
+    ``n_stages * v`` chunks, chunk ``c`` on stage ``c % n_stages``;
+    ``ranks[s]`` is the rank of stage ``s`` at this rank's (data, model)
+    place and ``group`` the stage axis's process group.  The stage's
+    params hold the rows of its chunks back to back (``stage_rows``), as
+    does its cache.  The first stage embeds; each chunk's stage runs its
+    layers on its rows of the cache and hands the hidden state, in the
+    compute dtype, to the next chunk's stage (a copy: counted ``send``
+    and ``recv``, or local within a rank); the last stage runs the final
+    norm and the head, and its logits of this rank's rows reach every
+    stage by one counted ``broadcast``."""
+
+    def __init__(self, model, split, stage: int, ranks: Sequence[int],
+                 group):
+        self.model, self.s, self.ranks, self.group = model, stage, \
+            tuple(ranks), group
+        self.S = len(self.ranks)
+        self.v = len(split) // self.S
+        self.spans = chunk_spans(split, self.S, stage)
+
+    def prefill(self, params, batch, cache, *, window: int = 0,
+                last_pos=None, blocks=None):
+        """(logits [B_r, V] of this rank's rows, filled cache)."""
+        model = self.model
+        tokens = batch["tokens"]
+        positions = batch.get("positions")
+        if positions is not None:
+            positions = torch.as_tensor(positions, device=model.device)
+
+        def embed():
+            return model.embed_stage(params, batch)[0]
+
+        return self._run(params, cache, embed, tuple(tokens.shape[:2]),
+                         dict(window=window, positions=positions,
+                              blocks=blocks), last_pos)
+
+    def decode(self, params, cache, tokens, *, window: int = 0,
+               blocks=None):
+        """(logits [B_r, V] of this rank's rows ``tokens`` [B_r, 1], the
+        cache advanced one token)."""
+        return self._run(params, cache,
+                         lambda: self.model.decode_embed(params, cache,
+                                                         tokens),
+                         (tokens.shape[0], 1),
+                         dict(decode=True, window=window, blocks=blocks),
+                         None)
+
+    def _run(self, params, cache, embed, rows_seq, kw, last_pos):
+        from repro_torch.core.sharding import broadcast, exchange, map_cache
+        model, S, s = self.model, self.S, self.s
+        x, outs = None, []
+        for c in range(S * self.v):
+            owner, prev = c % S, (c - 1) % S
+            if c and prev != owner:
+                if s == prev:
+                    exchange([(self.ranks[owner], x)], [])
+                elif s == owner:
+                    x = torch.empty(rows_seq + (model.cfg.d_model,),
+                                    dtype=model.compute_dtype,
+                                    device=model.device)
+                    exchange([], [(self.ranks[prev], x)])
+            if s != owner:
+                continue
+            if c == 0:
+                x = embed()
+            a, n = self.spans[c // S]
+            layers = {"layers": tree_map(lambda t: t.narrow(0, a, n),
+                                         params["layers"])}
+            if "shared" in params:
+                layers["shared"] = params["shared"]
+            part = map_cache(lambda _, leaf: leaf.narrow(0, a, n), cache)
+            x, part = model.serve_layers(layers, x, part, **kw)
+            outs.append(part)
+        # k/v and the states were written in place through the views; a
+        # chunk's ring indices are new tensors
+        cache = map_cache(lambda name, leaf, *parts: torch.cat(parts)
+                          if name == "index" else leaf, cache, *outs)
+        if s == S - 1:
+            logits = model.serve_logits(params, x, last_pos)
+        else:
+            logits = torch.empty((rows_seq[0], model.cfg.vocab_size),
+                                 dtype=torch.float32, device=model.device)
+        if S > 1:
+            broadcast(logits, self.group, self.ranks[S - 1])
+        return logits, cache

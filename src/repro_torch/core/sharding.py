@@ -327,7 +327,8 @@ class Mesh:
 # counted collectives
 # --------------------------------------------------------------------- #
 
-KINDS = ("all_reduce", "reduce_scatter", "all_gather", "send", "recv")
+KINDS = ("all_reduce", "reduce_scatter", "all_gather", "broadcast", "send",
+         "recv")
 _COUNTS = {k: {"calls": 0, "bytes": 0} for k in KINDS}
 
 
@@ -340,7 +341,8 @@ def collective_counts() -> Dict[str, Dict[str, int]]:
     """Calls and bytes of each collective kind since the last reset; the
     bytes are those of the whole tensor a collective works over (the
     input of an all-reduce and a reduce-scatter, the output of an
-    all-gather, the tensor a point-to-point ``send`` or ``recv`` moves).
+    all-gather, the tensor a ``broadcast`` or a point-to-point ``send``
+    or ``recv`` moves).
     A handoff within one rank is no send."""
     return {k: dict(v) for k, v in _COUNTS.items()}
 
@@ -384,6 +386,14 @@ def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     if dim == 0:
         return out
     return torch.cat(out.view((n,) + x.shape).unbind(0), dim)
+
+
+def broadcast(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """``t`` of the global rank ``src`` on every rank of ``group``, in
+    place; returns ``t``."""
+    _count("broadcast", t)
+    dist.broadcast(t, src=src, group=group)
+    return t
 
 
 def exchange(sends, recvs) -> None:

@@ -4,16 +4,25 @@ falcon-mamba-7b, zamba2-2.7b) on one device, fixed-batch by default,
 continuous batching with ``--continuous``.  Weights are random, from
 seed 0.
 
-With ``--plan`` (a ``core.plans.PLANS`` key; the dense family serves
-under data, zero2, shard, shard_zero and fsdp) and ``--mesh`` it serves
-on every rank of a ``torch.distributed`` world: under
-``torch.distributed.run`` it reads ``RANK``, ``WORLD_SIZE`` and
+With ``--plan`` (a ``core.plans.PLANS`` key: data, zero2, shard,
+shard_zero, fsdp or pipeshard; every family serves under each) and
+``--mesh`` it serves on every rank of a ``torch.distributed`` world:
+under ``torch.distributed.run`` it reads ``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK`` and uses NCCL on ``cuda:LOCAL_RANK``, or gloo with
-``--device cpu``; started alone, it is a world of one.  Rank 0 prints.
+``--device cpu``; started alone, it is a world of one.  Under ``--plan
+pipeshard`` the mesh is reshaped into ``--stages`` pipeline stages
+(``core.pipeline.pipeline_mesh``: the pod axis first, then the data
+axis), whose layers ``--stage-layers`` splits (one count per chunk, a
+whole number of chunks a stage; default the even split, one chunk a
+stage).  Rank 0 prints.
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc_per_node 2 -m repro_torch.launch.serve --reduced \
         --device cpu --plan shard --mesh 1,1,2 --kv-dtype int8
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc_per_node 2 -m repro_torch.launch.serve --reduced \\
+        --device cpu --plan pipeshard --mesh 2,1,1 --stages 2
 
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 --gen 32
 
@@ -95,6 +104,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--mesh", default="1,1,1",
                     help="mesh shape over (pod, data, model), e.g. 1,2,2; "
                          "fewer numbers name the last axes")
+    ap.add_argument("--stages", type=int, default=2,
+                    help="pipeline stages (pipeshard)")
+    ap.add_argument("--stage-layers", default=None,
+                    help="layers (the hybrid family's groups) of each "
+                         "chunk, e.g. 16,14 (pipeshard; default the even "
+                         "split)")
     args = ap.parse_args(argv)
     if args.trace and not args.continuous:
         ap.error("--trace only applies with --continuous")
@@ -109,7 +124,8 @@ def _serve_on_mesh(args):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.core.plans import get_plan
+    from repro_torch.launch.mesh import make_host_mesh, make_pipeline_mesh
 
     local = int(os.environ.get("LOCAL_RANK", 0))
     device = f"cuda:{local}" if args.device == "cuda" else args.device
@@ -123,7 +139,15 @@ def _serve_on_mesh(args):
                                 world_size=1)
     try:
         shape = tuple(int(x) for x in args.mesh.split(","))
-        mesh = make_host_mesh(shape, ("pod", "data", "model")[-len(shape):])
+        axes = ("pod", "data", "model")[-len(shape):]
+        if get_plan(args.plan).pipeline:
+            split = _split(args)
+            v = 1 if split is None else len(split) // args.stages
+            mesh = make_pipeline_mesh(
+                shape, axes, args.stages, stage_layers=split,
+                schedule="gpipe" if v <= 1 else f"interleaved{v}")
+        else:
+            mesh = make_host_mesh(shape, axes)
         res = _serve(args, device, mesh,
                      f" plan={args.plan} mesh={mesh.shape} ({backend}, "
                      f"{dist.get_world_size()} ranks)",
@@ -133,6 +157,12 @@ def _serve_on_mesh(args):
     return res
 
 
+def _split(args):
+    """``--stage-layers`` as a tuple, or None."""
+    return None if args.stage_layers is None else \
+        tuple(int(x) for x in args.stage_layers.split(","))
+
+
 def _serve(args, device=None, mesh=None, where: str = "", main=True):
     """Run the engine on ``device`` (``args.device``), under
     ``args.plan`` on ``mesh`` when given; prints when ``main``."""
@@ -140,6 +170,7 @@ def _serve(args, device=None, mesh=None, where: str = "", main=True):
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.core.plans import get_plan
     from repro_torch.models import Model
     from repro_torch.serve import ContinuousEngine, Engine, Request
 
@@ -153,6 +184,8 @@ def _serve(args, device=None, mesh=None, where: str = "", main=True):
 
     params = init_params()
     on = dict(device=model.device.type, plan=args.plan, mesh=mesh)
+    if args.plan is not None and get_plan(args.plan).pipeline:
+        on["stage_layers"] = _split(args)
 
     rng = np.random.default_rng(0)
     max_len = args.prompt_len + args.gen + 8

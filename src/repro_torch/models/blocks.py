@@ -15,9 +15,11 @@ state into its cache slice in place, as attention writes its k/v.  The
 MoE block's forward returns ``(x, aux)``, its load-balance loss; its
 prefill and decode drop the aux, as serving ignores it.
 
-Under a plan the forward functions take ``model_axis`` (the plan's cut
+Under a plan every block function takes ``model_axis`` (the plan's cut
 over the ``model`` axis, ``core.sharding.ModelAxis``) and the MoE block
-its ``dispatch`` (``moe.Dispatch``); both are None on one device.
+its ``dispatch`` (``moe.Dispatch``); both are None on one device.  The
+prefill and decode of the blocks with attention also take the ring's
+``blocks`` (``attention.RingBlocks``) of a serving plan.
 """
 from __future__ import annotations
 
@@ -125,20 +127,30 @@ def moe_block_forward(x, p, cfg: ModelConfig, *, positions=None,
 
 
 def moe_block_prefill(x, p, cfg: ModelConfig, *, positions=None, cache,
-                      window: int = 0, use_kernels: bool = True):
+                      window: int = 0, use_kernels: bool = True,
+                      model_axis=None, blocks=attn.WHOLE_RING,
+                      dispatch=None):
+    """``model_axis`` and ``blocks``: as ``dense_block_prefill``'s;
+    ``dispatch``: as ``moe_block_forward``'s."""
     h = _norm(x, p["norm1"], cfg, use_kernels)
     a, cache = attn.attention_prefill(h, p["attn"], cfg, positions=positions,
                                       cache=cache, window=window,
-                                      use_kernels=use_kernels)
-    return _moe_residual(x + a, p, cfg, use_kernels)[0], cache
+                                      use_kernels=use_kernels,
+                                      model_axis=model_axis, blocks=blocks)
+    return _moe_residual(x + a, p, cfg, use_kernels, model_axis,
+                         dispatch)[0], cache
 
 
 def moe_block_decode(x, p, cfg: ModelConfig, *, cache, window: int = 0,
-                     use_kernels: bool = True):
+                     use_kernels: bool = True, model_axis=None,
+                     blocks=attn.WHOLE_RING, dispatch=None):
+    """As ``moe_block_prefill``, for one token."""
     h = _norm(x, p["norm1"], cfg, use_kernels)
     a, cache = attn.attention_decode(h, p["attn"], cfg, cache=cache,
-                                     window=window, use_kernels=use_kernels)
-    return _moe_residual(x + a, p, cfg, use_kernels)[0], cache
+                                     window=window, use_kernels=use_kernels,
+                                     model_axis=model_axis, blocks=blocks)
+    return _moe_residual(x + a, p, cfg, use_kernels, model_axis,
+                         dispatch)[0], cache
 
 
 def _store(cache: ssm_mod.SSMState, new: ssm_mod.SSMState):
@@ -170,17 +182,19 @@ def ssm_block_forward(x, p, cfg: ModelConfig, *, use_kernels: bool = True,
 
 
 def ssm_block_prefill(x, p, cfg: ModelConfig, *, cache,
-                      use_kernels: bool = True, **_):
+                      use_kernels: bool = True, model_axis=None, **_):
     h = _norm(x, p["norm"], cfg, use_kernels)
     y, new = ssm_mod.mamba1_forward(h, p["mamba"], cfg, state=cache,
-                                    use_kernels=use_kernels)
+                                    use_kernels=use_kernels,
+                                    model_axis=model_axis)
     return x + y, _store(cache, new)
 
 
 def ssm_block_decode(x, p, cfg: ModelConfig, *, cache,
-                     use_kernels: bool = True, **_):
+                     use_kernels: bool = True, model_axis=None, **_):
     h = _norm(x, p["norm"], cfg, use_kernels)
-    y, new = ssm_mod.mamba1_decode(h, p["mamba"], cfg, state=cache)
+    y, new = ssm_mod.mamba1_decode(h, p["mamba"], cfg, state=cache,
+                                   model_axis=model_axis)
     return x + y, _store(cache, new)
 
 
@@ -206,15 +220,17 @@ def mamba2_block_forward(x, p, cfg: ModelConfig, *,
 
 
 def mamba2_block_prefill(x, p, cfg: ModelConfig, *, cache,
-                         use_kernels: bool = True, **_):
+                         use_kernels: bool = True, model_axis=None, **_):
     h = _norm(x, p["norm"], cfg, use_kernels)
     y, new = ssm_mod.mamba2_forward(h, p["mamba"], cfg, state=cache,
-                                    use_kernels=use_kernels)
+                                    use_kernels=use_kernels,
+                                    model_axis=model_axis)
     return x + y, _store(cache, new)
 
 
 def mamba2_block_decode(x, p, cfg: ModelConfig, *, cache,
-                        use_kernels: bool = True, **_):
+                        use_kernels: bool = True, model_axis=None, **_):
     h = _norm(x, p["norm"], cfg, use_kernels)
-    y, new = ssm_mod.mamba2_decode(h, p["mamba"], cfg, state=cache)
+    y, new = ssm_mod.mamba2_decode(h, p["mamba"], cfg, state=cache,
+                                   model_axis=model_axis)
     return x + y, _store(cache, new)

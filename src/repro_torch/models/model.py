@@ -31,12 +31,14 @@ the model this rank's blocks of the params:
   * ``dispatch`` (a ``moe.Dispatch``): which tokens the MoE layers route
     together.
 
-Serving under a plan (``serve.steps.ServePlan``) sets ``model_axis`` and
-``fsdp`` the same way for the length of each step; ``prefill`` and
-``decode_step`` then take the ``blocks`` of the ring this rank's cache
-holds (``attention.RingBlocks``) and return the whole vocabulary's
-logits on every rank, and ``init_cache`` / ``init_slot_cache`` give a
-rank its rows and block.
+Serving under a plan (``serve.steps.ServePlan``) sets ``model_axis``,
+``fsdp`` and ``dispatch`` the same way for the length of each step;
+``prefill`` and ``decode_step`` then take the ``blocks`` of the ring
+this rank's cache holds (``attention.RingBlocks``) and return the whole
+vocabulary's logits on every rank, and ``init_cache`` /
+``init_slot_cache`` give a rank its rows, block and SSM channels.  A
+pipeline stage serves through the pieces of those two (``decode_embed``,
+``serve_layers`` over its layers' rows of the cache, ``serve_logits``).
 
 ``lm_loss``'s ``batch_group`` divides by the token count of the whole
 batch across the ranks that split it, as the reference's SPMD loss does.
@@ -385,17 +387,22 @@ class Model:
     # ----------------------------------------------------------------- #
     def init_cache(self, batch: int, capacity: int, *, window: int = 0,
                    kv_dtype: str = "fp32", rows: Optional[int] = None,
-                   seq_blocks: int = 1, device=None) -> Cache:
+                   seq_blocks: int = 1, channel_blocks: int = 1,
+                   depth: Optional[int] = None, device=None) -> Cache:
         """Decode cache, leaves stacked on the layer axis (``[G, ...]``
         and ``[G, k, ...]`` for the hybrid family).  ``kv_dtype='fp32'``
         keeps k/v in the compute dtype (the reference's name); 'int8' is
         the quantized cache decode runs through kernel B, for the dense
         and MoE families only, as in the reference.
 
-        Under a serving plan a rank holds ``rows`` of the ``batch`` rows
-        and one of ``seq_blocks`` blocks of the ring's slots
-        (``serve.steps.ServePlan``).  ``device`` (default the model's):
-        "meta" gives the shapes alone."""
+        Under a serving plan a rank holds ``rows`` of the ``batch`` rows,
+        one of ``seq_blocks`` blocks of the ring's slots, its part of the
+        SSM states of layers whose ``d_inner`` is cut into
+        ``channel_blocks`` (``ssm.init_ssm_state``) and, under a
+        pipeline, the ``depth`` entries of the stack (layers, or the
+        hybrid family's groups) of its stage (``serve.steps.ServePlan``).
+        ``device`` (default the model's): "meta" gives the shapes
+        alone."""
         cfg, dt = self.cfg, self.compute_dtype
         dev = self.device if device is None else torch.device(device)
         cap = min(capacity, window) if window else capacity
@@ -411,19 +418,22 @@ class Model:
             raise ValueError(
                 "kv_dtype='int8' needs a plain-GQA attention cache; "
                 f"family {cfg.family!r} stores no quantizable k/v tensors")
+        ssm_kw = dict(device=dev, channel_blocks=channel_blocks)
         if cfg.family == "ssm":
             return ssm_mod.init_ssm_state(cfg, batch, dt,
-                                          lead=(cfg.n_layers,), device=dev)
+                                          lead=(depth or cfg.n_layers,),
+                                          **ssm_kw)
         if cfg.family == "hybrid":
             G, k = self._groups
+            G = depth or G
             return {
                 "ssm": ssm_mod.init_ssm_state(cfg, batch, dt, lead=(G, k),
-                                              device=dev),
+                                              **ssm_kw),
                 "attn": attn_mod.init_kv_cache(
                     batch, cap, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim,
                     dt, lead=(G,), device=dev),
             }
-        lead = (cfg.n_layers,)
+        lead = (depth or cfg.n_layers,)
         if kv_dtype == "int8":
             return attn_mod.init_quant_kv_cache(
                 batch, cap, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim,
@@ -433,16 +443,14 @@ class Model:
             lead=lead, device=dev)
 
     def init_slot_cache(self, batch: int, capacity: int, *, window: int = 0,
-                        kv_dtype: str = "fp32", rows: Optional[int] = None,
-                        seq_blocks: int = 1, device=None) -> Cache:
+                        kv_dtype: str = "fp32", **kw) -> Cache:
         """Per-slot cache for continuous batching: ``init_cache`` with
         every ring ``index`` widened by a trailing ``[batch]`` axis, one
         fill position per slot.  SSM state carries no index.  Under a
-        serving plan (``rows``, ``seq_blocks``) every rank holds the
+        serving plan (``init_cache``'s keywords) every rank holds the
         whole index, every slot's."""
         cache = self.init_cache(batch, capacity, window=window,
-                                kv_dtype=kv_dtype, rows=rows,
-                                seq_blocks=seq_blocks, device=device)
+                                kv_dtype=kv_dtype, **kw)
         return map_cache(
             lambda name, leaf: torch.zeros(
                 leaf.shape + (batch,), dtype=leaf.dtype, device=leaf.device)
@@ -456,17 +464,25 @@ class Model:
         start from the cache's state ``h``, as the reference's do.
         ``blocks``: the ring's blocks under a serving plan."""
         x, positions = self._embed_inputs(params, batch, self.model_axis)
-        x, cache, _ = self._run(params, x, cache, _PREFILL,
-                                self._serve_kw(blocks, window=window,
-                                               positions=positions))
-        if last_pos is None:
-            last_pos = x.shape[1] - 1
-        return self._logits(params, x[:, last_pos:last_pos + 1]), cache
+        x, cache = self.serve_layers(params, x, cache, window=window,
+                                     positions=positions, blocks=blocks)
+        return self.serve_logits(params, x, last_pos), cache
 
     def decode_step(self, params, cache: Cache, tokens, *, window: int = 0,
                     blocks=None) -> Tuple[torch.Tensor, Cache]:
         """tokens: [B, 1] -> (logits [B, V], cache advanced one token).
         ``blocks``: the ring's blocks under a serving plan."""
+        x = self.decode_embed(params, cache, tokens)
+        x, cache = self.serve_layers(params, x, cache, decode=True,
+                                     window=window, blocks=blocks)
+        return self.serve_logits(params, x), cache
+
+    # the pieces of prefill and decode a pipeline stage runs
+    # (``core.pipeline.StageServer``)
+    def decode_embed(self, params, cache: Cache, tokens) -> torch.Tensor:
+        """The hidden states [B, 1, d] of the decode ``tokens`` [B, 1] at
+        the cache's position; ``params`` needs ``embed`` (and
+        ``pos_embed``) only."""
         cfg, dt, axis = self.cfg, self.compute_dtype, self.model_axis
         x = embed(self._tokens(tokens), self._use("embed", params["embed"]),
                   dt, axis)
@@ -478,16 +494,39 @@ class Model:
             pe = lookup_rows(ids, table, axis) \
                 if axis is not None and axis.positions else table[ids]
             x = x + pe.to(dt)
-        x, cache, _ = self._run(params, x, cache, _DECODE,
-                                self._serve_kw(blocks, window=window))
-        return self._logits(params, x), cache
+        return x
+
+    def serve_layers(self, params, x, cache: Cache, *, decode: bool = False,
+                     window: int = 0, positions=None, blocks=None
+                     ) -> Tuple[torch.Tensor, Cache]:
+        """``(x, cache)`` after the prefill (or one ``decode`` step) of
+        the layers of ``params["layers"]`` (a sub-stack, with the hybrid
+        family's ``shared`` block) on ``cache``, whose stack holds the
+        same layers."""
+        kw = self._serve_kw(blocks, window=window)
+        if not decode:
+            kw["positions"] = positions
+        x, cache, _ = self._run(params, x, cache,
+                                _DECODE if decode else _PREFILL, kw)
+        return x, cache
+
+    def serve_logits(self, params, x, last_pos=None) -> torch.Tensor:
+        """The logits [B, V] of the hidden states ``x`` [B, S, d] at
+        ``last_pos`` (default the last position); ``params`` needs
+        ``final_norm`` and the head's table only."""
+        if last_pos is None:
+            last_pos = x.shape[1] - 1
+        return self._logits(params, x[:, last_pos:last_pos + 1])
 
     def _serve_kw(self, blocks, **kw) -> Dict[str, Any]:
         """The block functions' keywords of prefill and decode: the
-        plan's model axis and the ring's blocks where there are."""
+        plan's model axis, the MoE dispatch and the ring's blocks where
+        there are."""
         kw["use_kernels"] = self.use_kernels
         if self.model_axis is not None:
             kw["model_axis"] = self.model_axis
+        if self.dispatch is not None:
+            kw["dispatch"] = self.dispatch
         if blocks is not None:
             kw["blocks"] = blocks
         return kw

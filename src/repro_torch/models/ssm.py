@@ -16,8 +16,9 @@ Both take the initial state ``h0`` from the cache, so a prefill from a
 filled state continues it.  Decode keeps a constant-size state: the
 last ``d_conv - 1`` inputs of the conv and the SSM state ``h`` (fp32).
 
-Under a plan that shards weights the forward takes ``model_axis``
-(``core.sharding.ModelAxis``) and this rank's blocks of the leaves, cut
+Under a plan that shards weights the forward and decode take
+``model_axis`` (``core.sharding.ModelAxis``) and this rank's blocks of
+the leaves, cut
 by the reference's rules (``d_inner`` over ``model``).  With
 ``model_axis.d_inner`` each rank runs a contiguous block of the
 channels (Mamba2: of whole heads): the leaves that line up with it run
@@ -34,7 +35,9 @@ summed over the axis and comes back to the reference's blocks
 (``core.sharding.gather_for_use``).  Without ``d_inner`` every rank
 computes the layer whole from the gathered leaves.  The scans (kernels
 3 and 4 and their plain versions) work per channel or per head and take
-the block as it is.
+the block as it is.  A served state under the cut is this rank's: its
+channels' (Mamba1) or heads' (Mamba2) ``h``, and the conv inputs its
+computation uses (``init_ssm_state``'s ``channel_blocks``).
 """
 from __future__ import annotations
 
@@ -245,13 +248,10 @@ def mamba1_forward(x, params, cfg: ModelConfig, *, state: SSMState = None,
     s = cfg.ssm
     di = s.expand * cfg.d_model
     dt = x.dtype
-    channels = _channels(model_axis)
+    params, channels = _cut_for(params, model_axis, _mamba1_cut, di)
     if channels is not None:
-        params = _mamba1_cut(params, channels, di)
         di //= channels.size
         x = copy_to_model(x, channels)
-    elif model_axis is not None:
-        params = _replicated(params, model_axis)
     xz = x @ params["in_proj"].to(dt)
     x_in, z = xz.chunk(2, dim=-1)
     x_conv = causal_conv(x_in, params["conv_w"], params["conv_b"])
@@ -271,10 +271,30 @@ def mamba1_forward(x, params, cfg: ModelConfig, *, state: SSMState = None,
     return out, new_state
 
 
-def mamba1_decode(x, params, cfg: ModelConfig, *, state: SSMState):
-    """One token: x [B, 1, d]."""
+def _cut_for(params, model_axis: Optional[ModelAxis], cut, *args):
+    """(this rank's leaves, the channels' axis or None) of a layer under
+    ``model_axis``: ``cut``'s leaves where ``d_inner`` is cut, every leaf
+    whole where it is not (``_replicated``), the leaves as they are on
+    one device."""
+    channels = _channels(model_axis)
+    if channels is not None:
+        return cut(params, channels, *args), channels
+    if model_axis is not None:
+        return _replicated(params, model_axis), None
+    return params, None
+
+
+def mamba1_decode(x, params, cfg: ModelConfig, *, state: SSMState,
+                  model_axis: Optional[ModelAxis] = None):
+    """One token: x [B, 1, d].  ``model_axis``: as ``mamba1_forward``'s;
+    with ``d_inner`` cut, ``state`` holds this rank's channels (conv
+    inputs and ``h``)."""
     ds = cfg.ssm.d_state
     dt = x.dtype
+    params, channels = _cut_for(params, model_axis, _mamba1_cut,
+                                cfg.ssm.expand * cfg.d_model)
+    if channels is not None:
+        x = copy_to_model(x, channels)
     dt_rank = params["dt_proj"].shape[0]
     xz = x @ params["in_proj"].to(dt)
     x_in, z = xz.chunk(2, dim=-1)
@@ -282,6 +302,8 @@ def mamba1_decode(x, params, cfg: ModelConfig, *, state: SSMState):
                           params["conv_b"])
     x_c = F.silu(x_c.float())
     proj = x_c.to(dt) @ params["x_proj"].to(dt)
+    if channels is not None:
+        proj = _added(proj, channels)
     dt_raw, B_s, C_s = proj.split([dt_rank, ds, ds], dim=-1)
     delta = _softplus((dt_raw @ params["dt_proj"].to(dt)).float()
                       + params["dt_bias"].float())[:, 0]
@@ -293,6 +315,8 @@ def mamba1_decode(x, params, cfg: ModelConfig, *, state: SSMState):
     y = y + params["D"].float() * x_c[:, 0]
     y = y * F.silu(z[:, 0].float())
     out = y.to(dt) @ params["out_proj"].to(dt)
+    if channels is not None:
+        out = reduce_from_model(out, channels)
     return out[:, None], SSMState(conv=conv.to(state.conv.dtype),
                                   h=h.to(state.h.dtype))
 
@@ -391,13 +415,10 @@ def mamba2_forward(x, params, cfg: ModelConfig, *, state: SSMState = None,
     s = cfg.ssm
     di, nh, hd, ds = _m2_dims(cfg)
     dt = x.dtype
-    channels = _channels(model_axis)
+    params, channels = _cut_for(params, model_axis, _mamba2_cut, cfg)
     if channels is not None:
-        params = _mamba2_cut(params, channels, cfg)
         di, nh = di // channels.size, nh // channels.size
         x = copy_to_model(x, channels)
-    elif model_axis is not None:
-        params = _replicated(params, model_axis)
     B = x.shape[0]
     proj = x @ params["in_proj"].to(dt)
     z, xBC, dt_raw = proj.split([di, di + 2 * ds, nh], dim=-1)
@@ -434,10 +455,17 @@ def mamba2_forward(x, params, cfg: ModelConfig, *, state: SSMState = None,
     return out, new_state
 
 
-def mamba2_decode(x, params, cfg: ModelConfig, *, state: SSMState):
-    """One token: x [B, 1, d]."""
+def mamba2_decode(x, params, cfg: ModelConfig, *, state: SSMState,
+                  model_axis: Optional[ModelAxis] = None):
+    """One token: x [B, 1, d].  ``model_axis``: as ``mamba2_forward``'s;
+    with ``d_inner`` cut, ``state`` holds this rank's heads of ``h`` and
+    the conv inputs of its x and of the whole B and C."""
     di, nh, hd, ds = _m2_dims(cfg)
     dt = x.dtype
+    params, channels = _cut_for(params, model_axis, _mamba2_cut, cfg)
+    if channels is not None:
+        di, nh = di // channels.size, nh // channels.size
+        x = copy_to_model(x, channels)
     B = x.shape[0]
     proj = x @ params["in_proj"].to(dt)
     z, xBC, dt_raw = proj.split([di, di + 2 * ds, nh], dim=-1)
@@ -457,23 +485,32 @@ def mamba2_decode(x, params, cfg: ModelConfig, *, state: SSMState):
     y = y.reshape(B, di)
     y = y * F.silu(z[:, 0].float())
     var = y.square().mean(dim=-1, keepdim=True)
+    if channels is not None:
+        var = _added(var, channels) / channels.size
     y = y * torch.rsqrt(var + cfg.norm_eps) * params["norm_scale"]
     out = y.to(dt) @ params["out_proj"].to(dt)
+    if channels is not None:
+        out = reduce_from_model(out, channels)
     return out[:, None], SSMState(conv=conv.to(state.conv.dtype),
                                   h=h.to(state.h.dtype))
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype, *, lead=(),
-                   device="cpu") -> SSMState:
-    """Zero decode state; ``lead`` stacking dims come first."""
+                   device="cpu", channel_blocks: int = 1) -> SSMState:
+    """Zero decode state; ``lead`` stacking dims come first.
+    ``channel_blocks``: a rank's state of a layer whose ``d_inner`` is
+    cut into that many blocks over the model axis (Mamba1: its channels'
+    conv inputs and ``h``; Mamba2: its heads' ``h`` and the conv inputs
+    of its x and of the whole B and C)."""
     s = cfg.ssm
     lead = tuple(lead)
+    n = channel_blocks
     if s.version == 1:
-        di = s.expand * cfg.d_model
+        di = s.expand * cfg.d_model // n
         conv_ch, h_shape = di, (di, s.d_state)
     else:
         di, nh, hd, ds = _m2_dims(cfg)
-        conv_ch, h_shape = di + 2 * ds, (nh, hd, ds)
+        conv_ch, h_shape = di // n + 2 * ds, (nh // n, hd, ds)
     return SSMState(
         conv=torch.zeros(lead + (batch, s.d_conv - 1, conv_ch), dtype=dtype,
                          device=device),

@@ -13,10 +13,12 @@ under a plan on a mesh.
 
 Both default to ``device="cuda"`` and raise when no card is present.
 Without ``plan`` and ``mesh`` they run on one device.  With them
-(``serve.steps.ServePlan``: the dense family under data, zero2, shard,
-shard_zero or fsdp) every rank of the mesh runs the engine on the same
-requests and returns the whole batch's tokens; it takes this rank's
-blocks of the params (``shard_params``).
+(``serve.steps.ServePlan``: every family under every plan of
+``core.plans.PLANS``; pipeshard on a staged mesh,
+``launch.mesh.make_pipeline_mesh``, with ``stage_layers``) every rank of
+the mesh runs the engine on the same requests and returns the whole
+batch's tokens; it takes this rank's blocks of the params
+(``shard_params``).
 On the card, prefill attention runs kernel A, int8-KV decode runs kernel
 B, every RMSNorm runs kernel 6, and the prefill scans of the SSM and
 hybrid families run kernels 4 and 3 (``kernels/ops.py``).
@@ -65,14 +67,15 @@ def _check_model_device(model: Model, device) -> torch.device:
     return model.device
 
 
-def _serve_plan(model: Model, plan, mesh, max_len: int,
-                window: int = 0) -> Optional[ServePlan]:
+def _serve_plan(model: Model, plan, mesh, max_len: int, window: int = 0,
+                stage_layers=None) -> Optional[ServePlan]:
     """The engine's ``ServePlan``, or None on one device."""
     if (plan is None) != (mesh is None):
         raise ValueError("serving under a plan takes both plan= and mesh=")
     if plan is None:
         return None
-    return ServePlan(model, plan, mesh, max_len=max_len, window=window)
+    return ServePlan(model, plan, mesh, max_len=max_len, window=window,
+                     stage_layers=stage_layers)
 
 
 @dataclass
@@ -132,10 +135,12 @@ class Engine(_Served):
 
     def __init__(self, model: Model, *, batch_size: int, max_len: int,
                  window: int = 0, temperature: float = 0.0, top_k: int = 0,
-                 kv_dtype: str = "fp32", device="cuda", plan=None, mesh=None):
+                 kv_dtype: str = "fp32", device="cuda", plan=None, mesh=None,
+                 stage_layers=None):
         self.device = _check_model_device(model, device)
         self.model = model
-        self.plan = _serve_plan(model, plan, mesh, max_len, window)
+        self.plan = _serve_plan(model, plan, mesh, max_len, window,
+                                stage_layers)
         self.window = window
         self.temperature, self.top_k = temperature, top_k
         self.batch_size, self.max_len = batch_size, max_len
@@ -336,10 +341,11 @@ class ContinuousEngine(_Served):
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  kv_dtype: str = "fp32", eos_id: int = -1, pad_id: int = 0,
                  detokenize: Optional[Callable[[Any], Any]] = None,
-                 device="cuda", plan=None, mesh=None):
+                 device="cuda", plan=None, mesh=None, stage_layers=None):
         self.device = _check_model_device(model, device)
         self.model = model
-        self.plan = _serve_plan(model, plan, mesh, max_len)
+        self.plan = _serve_plan(model, plan, mesh, max_len,
+                                stage_layers=stage_layers)
         self.window = 0
         self.slots, self.max_len = slots, max_len
         self.kv_dtype = kv_dtype
@@ -410,7 +416,8 @@ class ContinuousEngine(_Served):
                 stats.prefill_s.append(now - t0)
                 stats.ttft_s[req.uid] = now - t_start
                 slot = sched.admit(req.uid, budget)
-                cache = insert_step(cache, pcache, slot, L, plan=self.plan)
+                cache = insert_step(cache, pcache, slot, L, plan=self.plan,
+                                    slots=self.slots)
                 bufs[slot] = [tok0]
                 live[slot] = True
                 slot_tok[slot, 0] = tok0

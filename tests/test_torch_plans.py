@@ -314,9 +314,9 @@ def test_shard_collectives_a_layer_with_remat(worlds):
     nbytes = {k: hi["counts"][k]["bytes"] - lo["counts"][k]["bytes"]
               for k in hi["counts"]}
     assert calls == {"all_reduce": 5, "reduce_scatter": 0, "all_gather": 0,
-                     "send": 0, "recv": 0}
+                     "broadcast": 0, "send": 0, "recv": 0}
     assert nbytes == {"all_reduce": 5 * act + grad, "reduce_scatter": 0,
-                      "all_gather": 0, "send": 0, "recv": 0}
+                      "all_gather": 0, "broadcast": 0, "send": 0, "recv": 0}
 
 
 def test_shard_checkpoint_restores_on_one_device(worlds):

@@ -19,8 +19,9 @@ the engines on a mesh, with ``cache_spec``'s context-parallel KV cache.
   log-sum-exp merge of blocks equals whole-cache attention; each plan's
   ``Engine`` at a world of one equals the reference's ``Engine`` under
   the same plan on a (1, 1) mesh; the launcher serves under
-  ``torch.distributed.run``; pipeshard and the other families are
-  refused; ``serve.placement`` equals the reference's.
+  ``torch.distributed.run``; a plan needs its mesh; ``serve.placement``
+  equals the reference's.  Pipeshard and the MoE, SSM and hybrid
+  families are ``tests/test_torch_serve_families.py``'s.
 """
 from __future__ import annotations
 
@@ -76,7 +77,6 @@ LIMIT_CHECK = ["repro_torch.launch.serve", "--reduced", "--device", "cpu",
                "--check", "-1"]
 SPEC_MESHES = ((1, 1, 1), (1, 1, 2), (1, 2, 1), (1, 2, 2), (1, 1, 4))
 AXES = ("pod", "data", "model")
-NOT_YET = "ROADMAP queue 1, item 7"
 
 
 # ------------------------------------------------------------------ #
@@ -298,23 +298,18 @@ def test_engine_at_a_world_of_one_equals_reference_engine(
     np.testing.assert_array_equal(got, want)
 
 
-def test_pipeshard_and_the_other_families_are_refused(one_rank):
+def test_a_plan_without_a_mesh_is_refused():
+    """The engines serve under a plan on a mesh, or on one device: a plan
+    without its mesh (or a mesh without a plan) raises.  Every family
+    serves under every plan (``tests/test_torch_serve_families.py``)."""
     from repro_torch.serve import ContinuousEngine, Engine
-    from repro_torch.serve.steps import ServePlan
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match=NOT_YET):
-        Engine(TModel(tcfg, device="cpu"), batch_size=4, max_len=16,
-               device="cpu", plan="pipeshard", mesh=one_rank)
-    for arch in ("phi3.5-moe-42b-a6.6b", "falcon-mamba-7b", "zamba2-2.7b"):
-        m = TModel(tconfigs.get_config(arch).reduced(), device="cpu")
-        with pytest.raises(NotImplementedError, match=NOT_YET):
-            ContinuousEngine(m, slots=4, max_len=16, device="cpu",
-                             plan="shard", mesh=one_rank)
-        with pytest.raises(NotImplementedError, match=NOT_YET):
-            ServePlan(m, "data", one_rank, max_len=16)
     with pytest.raises(ValueError, match="plan= and mesh="):
         Engine(TModel(tcfg, device="cpu"), batch_size=4, max_len=16,
                device="cpu", plan="shard")
+    with pytest.raises(ValueError, match="plan= and mesh="):
+        ContinuousEngine(TModel(tcfg, device="cpu"), slots=4, max_len=16,
+                         device="cpu", mesh=object())
 
 
 def test_a_batch_as_deep_as_the_stack_raises(one_rank):
