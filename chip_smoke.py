@@ -84,7 +84,21 @@ chunks (16 and 14 layers) through ``Engine`` (fp32 KV) and
 KV), falcon-mamba-7b and zamba2-2.7b (chunks of 5 and 4 of its 9
 groups) at full width under shard and under pipeshard
 (``serve-moe-shard``, ..., ``serve-hybrid-pipeshard``): kernels A, B,
-3, 4 and 6 as the families use them.
+3, 4 and 6 as the families use them.  Then elasticity, gpt2m at full
+size (batch 8 of 1024 tokens, ``TrainConfig`` defaults), in the same
+process group: two steps under pipeshard on one stage (interleaved,
+chunks of 13 and 11 layers, four microbatches), a checkpoint, and
+``reshard_checkpoint`` onto fsdp (``elastic-reshard-pipe``); the same
+from zero2 onto that pipeshard layout (``elastic-reshard-flat``); and
+the recovery mode of ``launch/replan.py`` on a two-site topology with
+site V2 dead, from the first phase's checkpoint, onto the survivor
+search's winner (``elastic-recover``).  The resharded params and AdamW
+moments must be bit-equal to the host-side reference re-placement and
+every loss after a reshard bit-equal to a control that restored the same
+checkpoint without the reshard code; kernel A launches 48 forward and 24
+backward a microbatch of a step; each phase prints its checkpoint
+writes and restores (seconds, GB), its step times before and after, and
+its peak memory.
 
 For each model it checks that the kernel path's first-step logits agree
 with the plain path's on the card (the MoE model's against the fp32
@@ -104,6 +118,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -238,6 +253,22 @@ FAM_LOSS1_RTOL, FAM_LOSS_RTOL = 1e-5, 1e-3
 PIPE_MICRO = 4
 PIPE_PHASES = (("gpipe", None), ("1f1b", None), ("interleaved", (16, 14)))
 PIPE_LOSS1_RTOL, PIPE_LOSS_RTOL = 1e-4, 2e-3
+# the elastic phases: gpt2m at full size (TrainConfig's defaults: remat,
+# bf16 compute over fp32 params), batch 8 of 1024 random tokens, over
+# NCCL at a world of one.  elastic-reshard-pipe trains ELASTIC_STEPS
+# steps under pipeshard on one stage, interleaved, the uneven split
+# ELASTIC_SPLIT, ELASTIC_MICRO microbatches, checkpoints, reshards the
+# checkpoint onto fsdp and takes one more step; elastic-reshard-flat the
+# same from zero2 onto that pipeshard layout; elastic-recover runs the
+# recovery mode of ``launch/replan.py`` on the ELASTIC_GPUS topology
+# with site V2 dead from the first phase's checkpoint, two steps.  The
+# resharded params and moments must be bit-equal to the host-side
+# reference re-placement (``train.reshard.reshard_state``), and every
+# loss after a reshard bit-equal to a control that restored the same
+# checkpoint without the reshard code.  The reference's search picks
+# ELASTIC_WINNER for this workload (tests/test_torch_elastic.py).
+ELASTIC_STEPS, ELASTIC_MICRO, ELASTIC_SPLIT = 2, 4, (13, 11)
+ELASTIC_GPUS, ELASTIC_DEAD, ELASTIC_WINNER = "A30;A30", (1,), ("data", (0,))
 # the serve phases: gpt2L at full size through ``Engine`` (batch 8,
 # prompt 64, 32 new tokens) under each flat plan over NCCL at a world of
 # one, fp32 KV (``serve-<plan>``), under shard with the int8 cache
@@ -1763,6 +1794,7 @@ def plan_phases(torch, np, ops, card):
         out.update(family_phases(torch, np, ops, card))
         out.update(serve_phases(torch, np, ops, card, mesh))
         out.update(serve_family_phases(torch, np, ops, card, mesh))
+        out.update(elastic_phases(torch, np, ops, card, mesh))
     finally:
         dist.destroy_process_group()
     del ref_params
@@ -2133,6 +2165,185 @@ def pipe_phases(torch, run, loader, want):
     if not out["pipe_1f1b"][key] < out["pipe_gpipe"][key]:
         fail(f"pipe-1f1b's schedule peak {out['pipe_1f1b'][key]} is not "
              f"below pipe-gpipe's {out['pipe_gpipe'][key]}")
+    return out
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def elastic_phases(torch, np, ops, card, mesh):
+    """Phases ``elastic-reshard-pipe``, ``elastic-reshard-flat`` and
+    ``elastic-recover`` (see ``ELASTIC_STEPS``) in the process group of
+    ``plan_phases``, ``mesh`` its flat mesh of one rank.  Each phase
+    counts kernel A's launches: 2 L forward and L backward a microbatch
+    of a step (remat).  Each prints the seconds and GB of every
+    checkpoint write and restore, the step times before and after the
+    reshard, and its peak memory."""
+    import tempfile
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.costmodel import Workload
+    from repro_torch.core.plans import Placement, get_plan
+    from repro_torch.data import Loader, PackedDataset
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.launch.replan import build_cli_topology, recover
+    from repro_torch.launch.reshard_check import (copy_to, host_state,
+                                                  leaves_equal)
+    from repro_torch.models import Model
+    from repro_torch.train import reshard_checkpoint, reshard_state, train
+
+    cfg = get_config("gpt2m")
+    S, L, K = cfg.max_seq_len, cfg.n_layers, ELASTIC_STEPS
+    rng = np.random.default_rng(SEED + 3)
+    ds = PackedDataset(rng.integers(0, cfg.vocab_size,
+                                    ((K + 2) * TRAIN_BATCH, S + 1))
+                       .astype(np.int32), S)
+    loader = Loader(ds, global_batch=TRAIN_BATCH, seed=SEED)
+    tcfg = TrainConfig(microbatches=ELASTIC_MICRO)
+    model = Model(cfg, device="cuda")
+    needs = ["flash_attn_fwd", "flash_attn_bwd"]
+    a_step = {"flash_attn_fwd": 2 * L, "flash_attn_bwd": L}
+    staged = make_pipeline_mesh((1, 1, 1), ("pod", "data", "model"), 1,
+                                stage_layers=ELASTIC_SPLIT,
+                                schedule="interleaved")
+    layouts = {"pipeshard": (staged, Placement(
+        (0,), stage_layers=ELASTIC_SPLIT, schedule="interleaved"),
+        ELASTIC_MICRO)}
+    for flat in ("fsdp", "zero2", "data"):
+        layouts[flat] = (mesh, Placement((0,)), 1)
+    out = {}
+
+    def expect(name, counts, steps):
+        """steps: (plan, steps) of the phase's counted training."""
+        for kname, n in a_step.items():
+            want = sum(n * layouts[p][2] * k for p, k in steps)
+            if counts[kname] != want:
+                fail(f"phase {name}: {counts[kname]} {kname} launches, want "
+                     f"{want}: {n} a microbatch of a step over {steps}")
+
+    def train_on(plan, **kw):
+        m, place, _ = layouts[plan]
+        return train(model, tcfg, loader, log_every=0, plan=plan, mesh=m,
+                     stage_layers=place.stage_layers,
+                     schedule=place.schedule, **kw)
+
+    def reshard(name, src, dst, ckpt_dir):
+        def phase():
+            res = train_on(src, steps=K, ckpt_dir=ckpt_dir,
+                           params=model.init(torch.Generator(
+                               device="cuda").manual_seed(SEED)))
+            src_rec = {"losses": res.losses, "step_s": res.step_times,
+                       "save_s": res.save_times}
+            del res
+            t0 = time.perf_counter()
+            p_r, o_r, step0 = reshard_checkpoint(
+                ckpt, model, get_plan(dst), layouts[dst][0],
+                placement=layouts[dst][1])
+            reshard_s = time.perf_counter() - t0
+            after = train_on(dst, steps=K + 1, start_step=K,
+                             params=copy_to(p_r, "cuda"),
+                             opt_state=copy_to(o_r, "cuda"), sharded=True)
+            return src_rec, p_r, o_r, step0, reshard_s, after
+
+        ckpt = os.path.join(ckpt_dir, f"step_{K:08d}")
+        (src_rec, p_r, o_r, step0, reshard_s, after), counts = run_phase(
+            torch, ops, name, phase, needs)
+        expect(name, counts, ((src, K), (dst, 1)))
+        peak = PHASES[name]["peak_bytes"]
+        gb = _dir_bytes(ckpt) / 1e9
+        t0 = time.perf_counter()
+        host = host_state(ckpt, model)
+        read_s = time.perf_counter() - t0
+        ref_p, ref_o = reshard_state(*host, get_plan(dst), cfg,
+                                     layouts[dst][0],
+                                     placement=layouts[dst][1],
+                                     device="cuda")
+        (p_ok, p_diff), (o_ok, o_diff) = leaves_equal(p_r, ref_p), \
+            leaves_equal(o_r, ref_o)
+        del p_r, o_r, ref_p, ref_o
+        torch.cuda.empty_cache()
+        control = train_on(dst, steps=K + 1, start_step=K,
+                           params=copy_to(host[0], "cuda"),
+                           opt_state=copy_to(host[1], "cuda"))
+        rec = {"src": src, "dst": dst, "step": step0,
+               "src_losses": src_rec["losses"],
+               "step_s_before": src_rec["step_s"],
+               "step_s_after": after.step_times,
+               "loss_resharded": after.losses,
+               "loss_control": control.losses,
+               "params_bitexact": p_ok, "opt_bitexact": o_ok,
+               "max_param_diff": p_diff, "max_opt_diff": o_diff,
+               "ckpt_gb": gb, "write_s": src_rec["save_s"],
+               "reshard_s": reshard_s, "host_read_s": read_s,
+               "peak_bytes": peak, "launches": counts}
+        log(f"{name}: {src} -> {dst} at step {step0}: params bit-exact "
+            f"{p_ok} (max diff {p_diff}), moments {o_ok} ({o_diff}); loss "
+            f"after {after.losses} vs control {control.losses}")
+        log(f"{name}: checkpoint {gb:.3f} GB written in "
+            f"{src_rec['save_s']} s (gather, write, sha256); restored onto "
+            f"{dst} in {reshard_s:.2f} s (read, sha256, cut), host read "
+            f"{read_s:.2f} s; step before {src_rec['step_s']} s, after "
+            f"{after.step_times} s; peak memory {peak / 2**30:.2f} GiB, on "
+            f"{card}")
+        if not (p_ok and o_ok):
+            fail(f"{name}: resharded state not bit-exact against "
+                 f"reshard_state (params {p_diff}, moments {o_diff})")
+        if after.losses != control.losses:
+            fail(f"{name}: loss after the reshard {after.losses} != the "
+                 f"control's {control.losses}")
+        del control, after
+        torch.cuda.empty_cache()
+        return rec, host
+
+    # the first phase's checkpoints, which elastic-recover resumes: a
+    # TemporaryDirectory, so a failed check leaves no 4 GB behind
+    with tempfile.TemporaryDirectory(prefix="elastic_pipe_") as keep:
+        out["elastic_reshard_pipe"], host = reshard(
+            "elastic-reshard-pipe", "pipeshard", "fsdp", keep)
+        with tempfile.TemporaryDirectory() as flat_dir:
+            out["elastic_reshard_flat"], _ = reshard(
+                "elastic-reshard-flat", "zero2", "pipeshard", flat_dir)
+
+        topo = build_cli_topology("full", ELASTIC_GPUS, 20.2, 3.0)
+        wl = Workload(cfg, S, TRAIN_BATCH, steps_per_epoch=K + 2,
+                      microbatches=ELASTIC_MICRO)
+        run, counts = run_phase(
+            torch, ops, "elastic-recover",
+            lambda: recover(model, topo, ELASTIC_DEAD, wl, tcfg, loader,
+                            ckpt_dir=keep, steps=K + 2, save=False,
+                            log_fn=lambda m: log(f"  elastic-recover: {m}")),
+            needs)
+        rp = run.replan
+        if (rp.technique, rp.sites_old) != ELASTIC_WINNER:
+            fail(f"elastic-recover: the survivor search picked {rp.technique}@"
+                 f"{rp.sites_old}, the reference {ELASTIC_WINNER}")
+        expect("elastic-recover", counts, ((rp.technique, 2),))
+        control = train_on(rp.technique, steps=K + 2, start_step=K,
+                           params=copy_to(host[0], "cuda"),
+                           opt_state=copy_to(host[1], "cuda"))
+        out["elastic_recover"] = {
+            "winner": f"{rp.technique}@{rp.sites_old}", "tflops": rp.tflops,
+            "resumed_from": run.resumed_from, "search_s": run.search_s,
+            "reshard_s": run.reshard_s, "recovery_s": run.recovery_s,
+            "losses": run.result.losses, "loss_control": control.losses,
+            "step_s": run.result.step_times,
+            "peak_bytes": PHASES["elastic-recover"]["peak_bytes"],
+            "launches": counts}
+        log(f"elastic-recover: winner {rp.technique}@{rp.sites_old} "
+            f"({rp.tflops:.2f} model-TFLOP/s) resumed from step "
+            f"{run.resumed_from}; search_s {run.search_s:.4f}, reshard_s "
+            f"{run.reshard_s:.2f}, recovery_s {run.recovery_s:.2f}; losses "
+            f"{run.result.losses} vs control {control.losses}; steps "
+            f"{run.result.step_times} s; peak memory "
+            f"{PHASES['elastic-recover']['peak_bytes'] / 2**30:.2f} GiB, on "
+            f"{card}")
+        if run.resumed_from != K or run.result.losses != control.losses:
+            fail(f"elastic-recover: resumed from {run.resumed_from}, losses "
+                 f"{run.result.losses} vs the control's {control.losses}")
+    del run, control, host, model
+    torch.cuda.empty_cache()
     return out
 
 

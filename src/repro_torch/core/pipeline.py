@@ -154,6 +154,18 @@ def validate_stages(cfg, stack, n_stages: int,
     return None if virt == 1 else (L // n_chunks,) * n_chunks
 
 
+def pipeline_split(cfg, stack, n_stages: int, stage_layers=None,
+                   schedule: str = "gpipe") -> Tuple[int, ...]:
+    """The per-chunk split a pipeline runs: ``stage_layers`` checked by
+    ``validate_stages``, or the even split of the stack (layers, or the
+    hybrid family's groups) into the schedule's chunks."""
+    _, virt = parse_schedule(schedule)
+    n_chunks = n_stages * virt
+    return validate_stages(cfg, stack, n_stages, stage_layers,
+                           schedule=schedule) \
+        or (stack_length(cfg, stack) // n_chunks,) * n_chunks
+
+
 def stage_gather_index(split, n_stages: int, virt: int = 1):
     """Gather index + validity mask realizing a per-chunk layer split:
     stage s holds its chunks (chunk ``c = k * n_stages + s``, ``k <

@@ -247,22 +247,24 @@ def spec_axes(spec: Spec) -> Tuple[str, ...]:
 # --------------------------------------------------------------------- #
 
 class Mesh:
-    """The world's ranks laid out over named axes, seen as the
+    """Ranks of the world laid out over named axes, seen as the
     reference's mesh: ``axis_names`` and ``shape`` (axis -> size), so the
     plans' spec functions take it as they take a ``MeshSpec``; plus this
     rank's coordinate on each axis and one process group for every set
     of axes.
 
-    ``grid`` holds every rank of the world once: in row-major order for
-    the flat plans, with permuted pod blocks for a pipeline's
-    ``stage_order``.  A group ranks its members by global rank
+    ``grid`` holds ranks of the world, each at most once: every rank in
+    row-major order for the flat plans, with permuted pod blocks for a
+    pipeline's ``stage_order``, or the ranks a placement runs on (the
+    reference's ``devices=``; the survivors of a failed site).  A rank
+    outside the grid has no coordinate (``coord`` is None) and takes no
+    step.  A group ranks its members by global rank
     (``torch.distributed.new_group``), which is their coordinate order,
     major axis first, the order in which a spec entry such as ``("pod",
-    "data")`` splits a dim, wherever the grid keeps its ranks ascending
-    along the group's axes: every group but the stage axis of a permuted
-    grid (``members`` gives the coordinate order).  Every group is made
-    here, by every rank in the same order, as ``torch.distributed``
-    requires.
+    "data")`` splits a dim, so the grid keeps its ranks ascending along
+    every axis but the stage axis, whose permuted order ``members``
+    gives.  Every group is made here, by every rank of the world in the
+    same order, outside ranks too, as ``torch.distributed`` requires.
     """
 
     def __init__(self, grid, axis_names):
@@ -270,13 +272,22 @@ class Mesh:
         grid = np.asarray(grid, dtype=np.int64)
         self.grid = grid
         self.shape: Dict[str, int] = dict(zip(self.axis_names, grid.shape))
-        if grid.ndim != len(self.axis_names) or \
-                grid.size != dist.get_world_size() or \
-                not np.array_equal(np.sort(grid.ravel()),
-                                   np.arange(grid.size)):
-            raise ValueError(f"the mesh must lay every rank of the world "
-                             f"out once, got {grid.tolist()}")
-        self.coord: Dict[str, int] = self.coord_of(dist.get_rank())
+        flat = np.sort(grid.ravel())
+        if grid.ndim != len(self.axis_names) or not flat.size or \
+                flat[0] < 0 or flat[-1] >= dist.get_world_size() or \
+                np.any(flat[1:] == flat[:-1]):
+            raise ValueError(f"the mesh must lay ranks of the world out at "
+                             f"most once each, got {grid.tolist()}")
+        for i, a in enumerate(self.axis_names):
+            if a != "stage" and np.any(np.diff(grid, axis=i) <= 0):
+                raise ValueError(f"the mesh's ranks must ascend along axis "
+                                 f"{a!r}, got {grid.tolist()}")
+        self.ranks: Tuple[int, ...] = tuple(int(r) for r in flat)
+        # the rank that writes and logs for the mesh
+        self.first_rank: int = self.ranks[0]
+        me = dist.get_rank()
+        self.coord: Optional[Dict[str, int]] = \
+            self.coord_of(me) if me in self.ranks else None
         self._groups: Dict[Tuple[str, ...], Any] = {}
         n = len(self.axis_names)
         for k in range(1, n + 1):
@@ -287,6 +298,15 @@ class Mesh:
                     -1, int(np.prod([grid.shape[i] for i in keep])))
                 cur, _ = dist.new_subgroups_by_enumeration(sub.tolist())
                 self._groups[axes] = cur
+
+    @property
+    def holds_me(self) -> bool:
+        """Whether this rank is one of the mesh's."""
+        return self.coord is not None
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (not of the world)."""
+        dist.barrier(group=self._groups[self.axis_names])
 
     def coord_of(self, rank: int) -> Dict[str, int]:
         """A rank's coordinate on each axis."""

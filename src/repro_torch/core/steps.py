@@ -417,6 +417,15 @@ def _is_layer(path: str) -> bool:
     return path.startswith("layers/")
 
 
+def stage_local_specs(param_specs):
+    """A pipeline's local layout's cuts: the plan's specs with no stack
+    dim cut over the stage axis (a stage holds its rows of the first)."""
+    return tree_map_with_path(
+        lambda path, spec: tuple(None if e == STAGE_AXIS else e
+                                 for e in spec)
+        if _is_layer(path) else spec, param_specs)
+
+
 class PipelineStep:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
     under a pipeline plan on a ``(stage, data, model)`` mesh.
@@ -438,7 +447,7 @@ class PipelineStep:
                  mesh: Mesh, *, stage_layers=None, schedule: str = "gpipe",
                  carrier_dtype=torch.float32, donate: bool = False):
         from repro_torch.core.pipeline import (
-            StageRunner, stack_length, stage_rows, validate_stages)
+            StageRunner, pipeline_split, stack_length, stage_rows)
         if STAGE_AXIS not in mesh.shape:
             raise ValueError(f"plan {plan.name!r} needs a mesh with a "
                              f"{STAGE_AXIS!r} axis (launch.mesh"
@@ -451,19 +460,15 @@ class PipelineStep:
         self._shapes = model.init(torch.Generator(), device="meta")
         # the stack: layers, or the hybrid family's groups
         self.length = stack_length(cfg, self._shapes["layers"])
-        self.split = validate_stages(cfg, self._shapes["layers"], S,
-                                     stage_layers, schedule=schedule) \
-            or (self.length // (S * v),) * (S * v)
+        self.split = pipeline_split(cfg, self._shapes["layers"], S,
+                                    stage_layers, schedule)
         self.rows = [stage_rows(self.split, S, v, s) for s in range(S)]
         self.stage = mesh.coord[STAGE_AXIS]
         self.param_specs = plan.param_specs(self._shapes, cfg, mesh)
         # the local layout's cuts (no stack dim is cut over the stage
         # axis: the stage holds its rows of the first) and AdamW's (a
         # stage's rows summed over the stage axis in its norm)
-        self.local_specs = tree_map_with_path(
-            lambda path, spec: tuple(None if e == STAGE_AXIS else e
-                                     for e in spec)
-            if _is_layer(path) else spec, self.param_specs)
+        self.local_specs = stage_local_specs(self.param_specs)
         self.update_specs = tree_map_with_path(
             lambda path, spec: (STAGE_AXIS,) + tuple(spec[1:])
             if _is_layer(path) else spec, self.local_specs)

@@ -9,7 +9,9 @@ selection onto it: one pod block per selected site, each site's GPUs
 split over (data, model), the blocks in the order of ``sites``.  The
 process group must be initialized first (``torch.distributed
 .init_process_group``: NCCL on the card, gloo on the CPU), and the mesh
-covers its whole world.  A pipeline plan reshapes that mesh into
+covers its whole world, or the ``ranks`` a placement runs on (the
+reference's ``devices=``: after a site fails, its survivors' ranks,
+``train.replan.placement_devices``).  A pipeline plan reshapes that mesh into
 ``("stage", "data", "model")`` by ``core.pipeline.pipeline_mesh``
 (``make_pipeline_mesh``, ``placement_pipeline_mesh``): the stage axis
 absorbs the pod axis, in the placement's stage order, then splits data.
@@ -33,6 +35,15 @@ def make_host_mesh(shape: Sequence[int], axes: Sequence[str], *,
     grid = np.arange(int(np.prod(shape))) if grid is None \
         else np.asarray(grid)
     return Mesh(grid.reshape(shape), axes)
+
+
+def _ranks(n: int, ranks) -> np.ndarray:
+    """The ``n`` ranks a mesh lays out: ``ranks``, or the whole world."""
+    ranks = np.arange(dist.get_world_size()) if ranks is None \
+        else np.asarray(ranks, dtype=np.int64)
+    if ranks.size != n:
+        raise ValueError(f"the mesh needs {n} ranks, got {ranks.size}")
+    return ranks
 
 
 # --------------------------------------------------------------------- #
@@ -65,58 +76,66 @@ def topology_mesh_spec(topo: Topology,
 
 def make_topology_mesh(topo: Topology,
                        sites: Optional[Sequence[int]] = None, *,
-                       model: int = 1) -> Mesh:
-    """Mesh over the world's ranks shaped after a topology site
+                       model: int = 1, ranks=None) -> Mesh:
+    """Mesh over the world's ranks, or over ``ranks`` (the selected
+    sites' GPUs, site after site), shaped after a topology site
     selection; rank blocks follow the order of ``sites``."""
     shape, axes = topology_mesh_spec(topo, sites, model=model)
     n = shape[0] * shape[1] * shape[2]
-    if n != dist.get_world_size():
+    if ranks is None and n != dist.get_world_size():
         raise ValueError(f"topology selection needs {n} ranks, the world "
                          f"has {dist.get_world_size()}")
-    return make_host_mesh(shape, axes)
+    return make_host_mesh(shape, axes, grid=_ranks(n, ranks))
 
 
 def make_pipeline_mesh(shape: Sequence[int], axes: Sequence[str],
                        n_stages: int, *, stage_order=None,
-                       stage_layers=None, schedule: str = "gpipe") -> Mesh:
+                       stage_layers=None, schedule: str = "gpipe",
+                       ranks=None) -> Mesh:
     """The ``(stage, data, model)`` mesh ``core.pipeline.pipeline_mesh``
-    makes of the world's ranks laid out row-major as ``shape`` over
-    ``axes`` (a sub-tuple of ``("pod", "data", "model")``)."""
+    makes of the world's ranks, or of ``ranks``, laid out row-major as
+    ``shape`` over ``axes`` (a sub-tuple of ``("pod", "data",
+    "model")``)."""
     from repro_torch.core.pipeline import STAGED_AXES, pipeline_mesh
     n = int(np.prod(shape))
-    if n != dist.get_world_size():
+    if ranks is None and n != dist.get_world_size():
         raise ValueError(f"mesh {tuple(shape)} needs {n} ranks, the world "
                          f"has {dist.get_world_size()}")
-    grid = pipeline_mesh(np.arange(n).reshape(tuple(shape)), axes,
+    grid = pipeline_mesh(_ranks(n, ranks).reshape(tuple(shape)), axes,
                          n_stages, stage_order=stage_order,
                          stage_layers=stage_layers, schedule=schedule)
     return make_host_mesh(grid.shape, STAGED_AXES, grid=grid)
 
 
 def placement_pipeline_mesh(topo: Topology, placement, *,
-                            model: int = 1) -> Mesh:
+                            model: int = 1, ranks=None) -> Mesh:
     """Realize a searched pipeline ``core.plans.Placement`` as a staged
     mesh: one pod block per placed site, the blocks permuted into the
     placement's stage order, and its ``stage_layers`` (when present)
     shape-checked against the stage count.  Pass the same
     ``placement.stage_layers`` and ``schedule`` to
-    ``core.steps.build_train_step``."""
+    ``core.steps.build_train_step``.  ``ranks``: the placed sites' GPUs,
+    site after site in ``placement.sites`` order (default the world)."""
     shape, axes = topology_mesh_spec(topo, placement.sites, model=model)
     return make_pipeline_mesh(shape, axes, placement.n_stages,
                               stage_order=placement.pod_permutation(),
                               stage_layers=placement.stage_layers,
-                              schedule=placement.schedule)
+                              schedule=placement.schedule, ranks=ranks)
 
 
 def placement_mesh(topo: Topology, plan, placement, *,
-                   model: int = 1) -> Mesh:
+                   model: int = 1, ranks=None) -> Mesh:
     """Realize any searched ``core.plans.Placement`` for a plan: the
     staged mesh for a pipeline plan (``placement_pipeline_mesh``), the
     plain topology mesh over the placement's site subset for a flat one
-    (data, zero2, shard, shard_zero)."""
+    (data, zero2, shard, shard_zero, fsdp), over ``ranks`` (the placed
+    sites' GPUs, ``train.replan.placement_devices``; default the
+    world)."""
     if plan.pipeline:
-        return placement_pipeline_mesh(topo, placement, model=model)
-    return make_topology_mesh(topo, placement.sites, model=model)
+        return placement_pipeline_mesh(topo, placement, model=model,
+                                       ranks=ranks)
+    return make_topology_mesh(topo, placement.sites, model=model,
+                              ranks=ranks)
 
 
 # NVIDIA H100 80GB HBM3 (SXM, 700.00 W power limit) roofline constants,
@@ -124,3 +143,33 @@ def placement_mesh(topo: Topology, plan, placement, *,
 PEAK_FLOPS_BF16 = 989e12      # FLOP/s, dense bf16 tensor cores
 HBM_BW = 3.35e12              # bytes/s, HBM3
 NVLINK_BW = 450e9             # bytes/s each way (NVLink 4, 18 links)
+
+
+def init_world(device: str = "cuda"):
+    """Join the ``torch.distributed`` world this process was started in,
+    and return this rank's device: under ``torch.distributed.run``
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) NCCL on
+    ``cuda:LOCAL_RANK``, or gloo with ``device="cpu"``; started alone, a
+    world of one.
+
+    Raises:
+        RuntimeError: ``device="cuda"`` and no card.
+    """
+    import os
+
+    import torch
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass --device cpu to run "
+                               "on the CPU")
+        dev = torch.device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    else:
+        dev, backend = torch.device(device), "gloo"
+    if "RANK" in os.environ:
+        dist.init_process_group(backend)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return dev

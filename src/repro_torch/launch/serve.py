@@ -36,7 +36,6 @@ stage).  Rank 0 prints.
         --arch phi3.5-moe-42b-a6.6b --reduced --device cpu --kv-dtype int8
 """
 import argparse
-import os
 import zlib
 
 from repro_torch.configs import ARCH_CONFIGS
@@ -121,22 +120,14 @@ def main(argv=None) -> dict:
 def _serve_on_mesh(args):
     """Serve under ``args.plan`` on this rank; rank 0's result, None on
     the other ranks."""
-    import torch
     import torch.distributed as dist
 
     from repro_torch.core.plans import get_plan
-    from repro_torch.launch.mesh import make_host_mesh, make_pipeline_mesh
+    from repro_torch.launch.mesh import (init_world, make_host_mesh,
+                                         make_pipeline_mesh)
 
-    local = int(os.environ.get("LOCAL_RANK", 0))
-    device = f"cuda:{local}" if args.device == "cuda" else args.device
-    backend = "gloo" if device == "cpu" else "nccl"
-    if backend == "nccl":
-        torch.cuda.set_device(device)     # raises without a card
-    if "RANK" in os.environ:
-        dist.init_process_group(backend)
-    else:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
+    device = init_world(args.device)      # raises without a card
+    backend = dist.get_backend()
     try:
         shape = tuple(int(x) for x in args.mesh.split(","))
         axes = ("pod", "data", "model")[-len(shape):]

@@ -39,7 +39,6 @@ even).
 """
 import argparse
 import dataclasses
-import os
 
 from repro_torch.configs import ARCH_CONFIGS
 from repro_torch.core.plans import PLANS
@@ -118,28 +117,19 @@ def main(argv=None):
 
 
 def _train_on_mesh(args, cfg, tcfg, loader):
-    """Train under ``args.plan`` on this rank; rank 0's result, None on
-    the other ranks."""
-    import torch
+    """Train under ``args.plan`` on this rank; the mesh's first rank's
+    result, None on the other ranks."""
     import torch.distributed as dist
 
     from repro_torch.core.plans import get_plan
-    from repro_torch.launch.mesh import make_host_mesh, make_pipeline_mesh
+    from repro_torch.launch.mesh import (init_world, make_host_mesh,
+                                         make_pipeline_mesh)
     from repro_torch.models import Model, trains_through_kernels
     from repro_torch.train import train
 
-    local = int(os.environ.get("LOCAL_RANK", 0))
-    device = f"cuda:{local}" if args.device == "cuda" else args.device
-    model = Model(cfg, device=device,          # raises without a card
-                  use_kernels=trains_through_kernels(cfg))
-    backend = "nccl" if model.device.type == "cuda" else "gloo"
-    if model.device.type == "cuda":
-        torch.cuda.set_device(model.device)
-    if "RANK" in os.environ:
-        dist.init_process_group(backend)
-    else:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
+    device = init_world(args.device)           # raises without a card
+    model = Model(cfg, device=device, use_kernels=trains_through_kernels(cfg))
+    backend = dist.get_backend()
     try:
         shape = tuple(int(x) for x in args.mesh.split(","))
         axes = ("pod", "data", "model")[-len(shape):]
@@ -151,7 +141,7 @@ def _train_on_mesh(args, cfg, tcfg, loader):
                                       schedule=args.schedule)
         else:
             mesh = make_host_mesh(shape, axes)
-        main = dist.get_rank() == 0
+        main = dist.get_rank() == mesh.first_rank
         if main:
             print(f"{cfg.name} [{cfg.family}] "
                   f"{cfg.param_count() / 1e6:.1f}M params | plan="

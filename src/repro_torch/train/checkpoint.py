@@ -16,6 +16,9 @@ Durability contract, the reference's:
 
 Tensors go to the host as numpy arrays; numpy has no bfloat16, so the
 port checkpoints its fp32 masters and int32 step (bf16 leaves raise).
+The shards are written, hashed and read in threads, one a file, and
+each member, stored uncompressed by ``np.savez``, is read straight into
+its array (``_read_npz``): a gpt2m checkpoint is 4.26 GB.
 Under a plan ``train/loop.py`` gathers the params and moments into the
 one-device layout first (a pipeline's stages included), and rank 0
 writes them.
@@ -26,6 +29,9 @@ import hashlib
 import json
 import os
 import shutil
+import struct
+import zipfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -79,6 +85,7 @@ def save_checkpoint(ckpt_dir: str, step: int, params, opt_state=None, *,
         trees["opt"] = opt_state
     manifest: Dict[str, Any] = {"step": step, "files": {},
                                 "checksums": {}, "extra": extra or {}}
+    jobs = []
     for name, tree in trees.items():
         flat = {k: v.detach().cpu().numpy()
                 for k, v in flatten(tree).items()}
@@ -88,9 +95,17 @@ def save_checkpoint(ckpt_dir: str, step: int, params, opt_state=None, *,
             if not ks:
                 continue
             fname = f"{name}_{i:02d}.npz"
-            np.savez(os.path.join(tmp, fname), **{k: flat[k] for k in ks})
             manifest["files"].setdefault(name, []).append(fname)
-            manifest["checksums"][fname] = sha256(os.path.join(tmp, fname))
+            jobs.append((fname, {k: flat[k] for k in ks}))
+
+    def write(job) -> str:
+        fname, arrays = job
+        np.savez(os.path.join(tmp, fname), **arrays)
+        return sha256(os.path.join(tmp, fname))
+
+    with ThreadPoolExecutor(max_workers=len(jobs) or 1) as pool:
+        for (fname, _), digest in zip(jobs, pool.map(write, jobs)):
+            manifest["checksums"][fname] = digest
     mpath = os.path.join(tmp, "manifest.json")
     with open(mpath, "w") as f:
         json.dump(manifest, f)
@@ -132,14 +147,16 @@ def verify_checkpoint(path: str) -> Dict[str, Any]:
     with open(mpath) as f:
         manifest = json.load(f)
     sums = manifest.get("checksums", {})
-    for name, fnames in manifest.get("files", {}).items():
-        for fname in fnames:
-            fpath = os.path.join(path, fname)
-            if not os.path.isfile(fpath):
-                raise ValueError(f"{path}: shard {fname} listed in the "
-                                 f"manifest is missing")
-            want = sums.get(fname)
-            if want is not None and sha256(fpath) != want:
+    fnames = [f for fs in manifest.get("files", {}).values() for f in fs]
+    for fname in fnames:
+        if not os.path.isfile(os.path.join(path, fname)):
+            raise ValueError(f"{path}: shard {fname} listed in the "
+                             f"manifest is missing")
+    checked = [f for f in fnames if sums.get(f) is not None]
+    with ThreadPoolExecutor(max_workers=len(checked) or 1) as pool:
+        got = pool.map(lambda f: sha256(os.path.join(path, f)), checked)
+        for fname, digest in zip(checked, got):
+            if digest != sums[fname]:
                 raise ValueError(f"{path}: shard {fname} fails its "
                                  f"sha256 check — truncated or corrupt")
     return manifest
@@ -154,13 +171,66 @@ def load_manifest(path: str, *, verify: bool = True) -> Dict[str, Any]:
         return json.load(f)
 
 
+def _read_member(f, info: zipfile.ZipInfo) -> np.ndarray:
+    """One ``.npy`` member of an open zip file, stored uncompressed as
+    ``np.savez`` writes it (C order, no objects, a version 1 or 2
+    header), read by one ``readinto`` into a new array.
+
+    Raises:
+        ValueError: a compressed member, another layout, or a truncated
+            or corrupt one.
+    """
+    where = f"{f.name}: member {info.filename}"
+    if info.compress_type != zipfile.ZIP_STORED:
+        raise ValueError(f"{where} is compressed; checkpoints are written "
+                         f"by np.savez, uncompressed")
+    f.seek(info.header_offset)
+    head = f.read(30)
+    if head[:4] != b"PK\x03\x04":
+        raise ValueError(f"{where} has no local zip header — truncated or "
+                         f"corrupt")
+    n, m = struct.unpack("<HH", head[26:30])
+    f.seek(info.header_offset + 30 + n + m)
+    version = np.lib.format.read_magic(f)
+    if version == (1, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_1_0(f)
+    elif version == (2, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_2_0(f)
+    else:
+        raise ValueError(f"{where} has an .npy header of version "
+                         f"{version}, not one np.savez writes here")
+    if fortran or dtype.hasobject:
+        raise ValueError(f"{where} is in Fortran order or holds objects; "
+                         f"checkpoints hold C-order numbers")
+    arr = np.empty(shape, dtype)
+    if arr.nbytes and f.readinto(arr.reshape(-1).view(np.uint8)) \
+            != arr.nbytes:
+        raise ValueError(f"{where} is truncated")
+    return arr
+
+
+def _read_npz(path: str) -> Dict[str, np.ndarray]:
+    """Every array of one ``.npz`` shard, by key, each member read
+    straight into its array (``np.load`` takes a member through
+    ``zipfile`` 256 KiB at a time: several times slower,
+    ``launch/checkpoint_io.py``)."""
+    with zipfile.ZipFile(path) as z:
+        infos = z.infolist()
+    with open(path, "rb") as f:
+        return {info.filename[:-4] if info.filename.endswith(".npy")
+                else info.filename: _read_member(f, info) for info in infos}
+
+
 def read_flat(path: str, manifest: Dict[str, Any], name: str
               ) -> Dict[str, np.ndarray]:
-    """Every array of the ``name`` shards ("params" or "opt"), by key."""
+    """Every array of the ``name`` shards ("params" or "opt"), by key,
+    the shards read in threads."""
+    fnames = manifest["files"].get(name, [])
     flat: Dict[str, np.ndarray] = {}
-    for fname in manifest["files"].get(name, []):
-        with np.load(os.path.join(path, fname)) as z:
-            flat.update({k: z[k] for k in z.files})
+    with ThreadPoolExecutor(max_workers=len(fnames) or 1) as pool:
+        for arrays in pool.map(lambda f: _read_npz(os.path.join(path, f)),
+                               fnames):
+            flat.update(arrays)
     return flat
 
 
@@ -173,7 +243,7 @@ def _load(path, flat, name, like, allow_cast: bool):
         if arr.shape != tuple(leaf.shape):
             raise ValueError(f"{key}: ckpt {arr.shape} != "
                              f"{tuple(leaf.shape)}")
-        t = torch.from_numpy(np.array(arr))      # a writable host copy
+        t = torch.from_numpy(arr if arr.flags.writeable else np.array(arr))
         if t.dtype != leaf.dtype and not allow_cast:
             raise ValueError(
                 f"{key}: checkpoint dtype {t.dtype} != template "

@@ -28,6 +28,8 @@ class TrainResult:
     this rank's blocks of them."""
     losses: List[float] = field(default_factory=list)
     step_times: List[float] = field(default_factory=list)
+    # seconds of each checkpoint save (gather, write, hash, barrier)
+    save_times: List[float] = field(default_factory=list)
     metrics_last: Dict[str, float] = field(default_factory=dict)
     params: Any = None
     opt_state: Any = None
@@ -54,7 +56,8 @@ def train(model: Model, tcfg: TrainConfig, loader, *, steps: int,
           on_step_failure: Optional[Callable[[int], None]] = None,
           log_fn: Callable[[str], None] = print,
           plan=None, mesh=None, stage_layers=None,
-          schedule: str = "gpipe", donate: bool = False) -> TrainResult:
+          schedule: str = "gpipe", donate: bool = False,
+          sharded: bool = False) -> TrainResult:
     """Train ``model`` on ``loader.batch_at(i)`` for steps ``start_step``
     to ``steps - 1`` on the model's device.  Fresh params come from
     ``tcfg.seed``.
@@ -65,16 +68,22 @@ def train(model: Model, tcfg: TrainConfig, loader, *, steps: int,
     ``on_step_failure`` is called with the absolute step before each step;
     an exception it raises leaves ``train`` with the partial
     ``TrainResult`` as its ``result`` attribute.  ``ckpt_every`` saves
-    after every such number of steps, and ``ckpt_dir`` also at the end.
+    after every such number of steps, and ``ckpt_dir`` also at the end
+    (once, where the two fall on the same step).
 
     ``plan`` (a ``core.plans.PLANS`` name or ``Plan``) runs every step
     under that plan on ``mesh`` (``launch.mesh.make_host_mesh``); every
-    rank of the mesh calls ``train`` alike.  ``params`` and
-    ``opt_state``, when given, are in the one-device layout, and each
-    rank keeps its blocks; each step takes this rank's slice of
-    ``loader.batch_at(i)`` by its place on the batch axes.  Checkpoints
-    are gathered into the one-device layout and written by rank 0, so
-    any plan, or one device, restores them; only rank 0 logs.
+    rank of the mesh calls ``train`` alike, and no other rank.
+    ``params`` and ``opt_state``, when given, are in the one-device
+    layout, and each rank keeps its blocks; with ``sharded`` they are
+    this rank's blocks already, in the plan's layout
+    (``train.reshard.reshard_checkpoint``), and are used as they are.
+    Each step takes this rank's slice of ``loader.batch_at(i)`` by its
+    place on the batch axes.  Checkpoints are gathered into the
+    one-device layout and written by the mesh's first rank
+    (``Mesh.first_rank``), the mesh's ranks waiting for each other
+    after, so any plan, or one device, restores them; only that rank
+    logs.
 
     ``stage_layers`` and ``schedule`` (pipeline plans, the reference's
     keywords): a searched ``Placement``'s per-chunk layer split and
@@ -90,6 +99,9 @@ def train(model: Model, tcfg: TrainConfig, loader, *, steps: int,
     step_fn = build_train_step(model, tcfg, plan=plan, mesh=mesh,
                                stage_layers=stage_layers, schedule=schedule,
                                donate=donate)
+    if sharded and (plan is None or params is None):
+        raise ValueError("sharded=True takes a plan and this rank's params "
+                         "in its layout")
     if params is None:
         params = model.init(torch.Generator(device=model.device)
                             .manual_seed(tcfg.seed))
@@ -98,20 +110,30 @@ def train(model: Model, tcfg: TrainConfig, loader, *, steps: int,
         if opt_state is None:
             opt_state = init_adamw(params)
     else:
-        main = dist.get_rank() == 0
-        params = step_fn.shard_params(params)
-        opt_state = step_fn.init_opt_state() if opt_state is None \
-            else step_fn.shard_opt_state(opt_state)
+        if not mesh.holds_me:
+            raise ValueError(f"rank {dist.get_rank()} is not on the mesh "
+                             f"{mesh.grid.tolist()}: it takes no step")
+        main = dist.get_rank() == mesh.first_rank
+        if sharded:
+            if opt_state is None:
+                opt_state = step_fn.init_opt_state()
+        else:
+            params = step_fn.shard_params(params)
+            opt_state = step_fn.init_opt_state() if opt_state is None \
+                else step_fn.shard_opt_state(opt_state)
 
     def save(step: int) -> None:
+        t0 = time.perf_counter()
         if plan is None:
             save_checkpoint(ckpt_dir, step, params, opt_state)
-            return
-        full_p = step_fn.gather_params(params)
-        full_o = step_fn.gather_opt_state(opt_state)
-        if main:
-            save_checkpoint(ckpt_dir, step, full_p, full_o)
-        dist.barrier()
+        else:
+            full_p = step_fn.gather_params(params)
+            full_o = step_fn.gather_opt_state(opt_state)
+            if main:
+                save_checkpoint(ckpt_dir, step, full_p, full_o)
+            del full_p, full_o
+            mesh.barrier()
+        result.save_times.append(time.perf_counter() - t0)
 
     first = loader.batch_at(start_step)
     flops = model_flops_per_step(
@@ -144,7 +166,8 @@ def train(model: Model, tcfg: TrainConfig, loader, *, steps: int,
         if ckpt_dir and ckpt_every and (i + 1) % ckpt_every == 0:
             save(i + 1)
     result.metrics_last = {k: float(v) for k, v in metrics.items()}
-    if ckpt_dir:
-        save(steps)
+    if ckpt_dir and not (ckpt_every and steps > start_step
+                         and steps % ckpt_every == 0):
+        save(steps)                  # unless the last step saved it
     result.params, result.opt_state = params, opt_state
     return result
