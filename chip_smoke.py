@@ -26,6 +26,19 @@ it serves five models at full width with random weights from a seed:
     attention block of 32 heads of 80) through both engines: kernels 3,
     A and 6.
 
+Then the Multi-head Latent Attention models and phi4-mini, one at a
+time: minicpm3-4b (62 layers, d_model 2560, 40 heads, q/k of 96 over v
+of 64) at full size through both engines (``mla-engine``,
+``mla-continuous``, bf16 cache); deepseek-v2-236b (d_model 5120, 128
+heads at (192, 128), top-6 of 160 experts and 2 shared) at full width,
+cut to 2 of its 60 layers (``dsv2-engine``; the top-6 combine run twice
+for the same bits); phi4-mini-3.8b at full size with the int8 cache
+(``phi4mini-engine``): kernels A at its split head dims and at 128, B
+and 6 (also at the latents' widths); and minicpm3 at full width, 8
+layers, three training steps through the plain versions
+(``train-mla``).  Kernel A is held at (96, 64) and (192, 128) beside
+SDPA, naming the backend SDPA picked.
+
 Then it calibrates the card as a site of the paper's TACC-TACC cluster
 for gpt2m through ``repro_torch.launch.calibrate`` (kernel micro-bench
 through kernels 5 and A, host ring, least-squares fit, plan search
@@ -324,11 +337,28 @@ CAL_FLASH_HEADS, CAL_FLASH_BS = (4, 2, 64), (1, 128)
 # Engine prefill (8 x 64)
 RMS_FP32_RTOL = 1e-5
 RMS_DS, RMS_ROWS = (2560, 3072, 4096), (8, 257, 512)
+# ...and the MLA latents' widths: kv_norm's 256 and q_norm's 768
+# (minicpm3-4b), kv_norm's 512 and q_norm's 1536 (deepseek-v2-236b)
+RMS_MLA_DS = (256, 512, 768, 1536)
 # the slice-5 models: llama3.2-3b at full width and depth; phi3.5-MoE at
 # full width, cut to MOE_LAYERS of its 32 layers (10.7 B parameters, 43
 # GB in fp32; all 32 would need ~167 GB in fp32, 84 GB in bf16)
 LLAMA, MOE, MOE_LAYERS = "llama3.2-3b", "phi3.5-moe-42b-a6.6b", 8
 NORM_ATTN = ("rmsnorm", "flash_attn_fwd")
+# the MLA phases: minicpm3-4b at full width and depth through both
+# engines (the bf16 cache: MLA's latent cache is not quantized);
+# deepseek-v2-236b at full width cut to DSV2_LAYERS of its 60 layers (a
+# layer holds ~3.97 B parameters, the embedding and head 1.05 B: 2
+# layers are ~36 GB in fp32, all 60 ~958 GB); phi4-mini-3.8b at full
+# size with the int8 cache; and minicpm3 training at full width cut to
+# TRAIN_MLA_LAYERS layers, TRAIN_MLA_STEPS steps of FAM_BATCH x FAM_SEQ
+# random tokens through the plain versions (kernel A has no backward at
+# (96, 64)).  Kernel A at the split head dims is held at the Engine
+# prefill and the ContinuousEngine's longest prompt, MLA_FLASH_SHAPES.
+MINICPM, DSV2, DSV2_LAYERS = "minicpm3-4b", "deepseek-v2-236b", 2
+PHI4 = "phi4-mini-3.8b"
+TRAIN_MLA_LAYERS, TRAIN_MLA_STEPS = 8, 3
+MLA_FLASH_SHAPES = ((8, 64), (1, 256))
 
 # ~1 ms at the H100's clocks: longer than the host takes to enqueue any
 # one function timed here
@@ -451,45 +481,80 @@ def scan_err(torch, got, want) -> float:
 # kernel phases
 # --------------------------------------------------------------------- #
 
-def check_flash(torch, F, H, KV, D, shapes):
+def sdpa_backend(torch, fn):
+    """(backend, kernel): the device kernel that took longest in a trace
+    of one ``fn`` (an SDPA call) and the SDPA backend its name tells;
+    ("not measured", None) when the trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spent = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spent[e.name] = spent.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    if not spent:
+        return "not measured", None
+    name = max(spent, key=spent.get)
+    low = name.lower()
+    backend = ("cudnn" if "cudnn" in low else "efficient" if "fmha" in low
+               else "flash" if "flash" in low else "math")
+    return backend, name[:120]
+
+
+def check_flash(torch, F, H, KV, D, shapes, Dv=None):
     """Kernel A against its plain version, causal, with H query heads over
-    KV key/value heads of D, at prefill shapes ``(B, S)``."""
+    KV key/value heads, q and k of D and v of ``Dv`` (default D), at
+    prefill shapes ``(B, S)``; SDPA on the same tensors beside it, with
+    the backend it picked."""
     from repro_torch.kernels import flash_attention as fa
 
+    Dv = D if Dv is None else Dv
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows, worst = [], 0.0
     for B, S in shapes:
-        q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda")
-                   .to(torch.bfloat16) for h in (H, KV, KV))
+        q, k, v = (torch.randn((B, S, h, d), generator=g, device="cuda")
+                   .to(torch.bfloat16) for h, d in ((H, D), (KV, D),
+                                                    (KV, Dv)))
         got = fa.flash_attention_cuda(q, k, v, causal=True)
         want = fa.flash_attention_plain(q, k, v, causal=True)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
+        what = f"H={H} KV={KV} D={D}" + (f" Dv={Dv}" if Dv != D else "")
         if not err <= KERNEL_ATOL:
-            fail(f"flash_attn_fwd H={H} KV={KV} D={D} B={B} S={S}: "
-                 f"max_abs_err {err} > {KERNEL_ATOL}")
+            fail(f"flash_attn_fwd {what} B={B} S={S}: max_abs_err {err} > "
+                 f"{KERNEL_ATOL}")
         worst = max(worst, err)
         qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pairs = S * (S + 1) // 2                 # visible causal pairs
-        flops = 4 * D * pairs * B * H
-        # bf16 q and output at H heads, k and v at KV heads
-        b_ms, b_by = bound(2 * B * S * (2 * H + 2 * KV) * D, flops)
+        flops = 2 * (D + Dv) * pairs * B * H     # Q K^T and P V
+        # bf16 q (D) and output (Dv) at H heads, k (D) and v (Dv) at KV
+        b_ms, b_by = bound(2 * B * S * (H + KV) * (D + Dv), flops)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qT, kT, vT, is_causal=True, enable_gqa=KV != H)
+
+        backend, sdpa_kernel = sdpa_backend(torch, sdpa)
         row = {
-            "B": B, "S": S, "H": H, "KV": KV, "D": D, "max_abs_err": err,
+            "B": B, "S": S, "H": H, "KV": KV, "D": D, "Dv": Dv,
+            "max_abs_err": err,
             "ms": time_ms(torch, lambda: fa.flash_attention_cuda(
                 q, k, v, causal=True)),
             "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
                 q, k, v, causal=True), iters=5),
-            "library_ms": time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qT, kT, vT, is_causal=True, enable_gqa=KV != H)),
+            "library_ms": time_ms(torch, sdpa),
+            "library_backend": backend, "library_kernel": sdpa_kernel,
             "bound_ms": b_ms, "bound_by": b_by}
         rows.append(add_rates(row, flops))
-        log(f"flash_attn_fwd H={H} KV={KV} D={D} B={B:2d} S={S:5d} "
-            f"err={err:.3e} "
+        log(f"flash_attn_fwd {what} B={B:2d} S={S:5d} err={err:.3e} "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-            f"sdpa_ms={row['library_ms']:.4f} bound_ms={b_ms:.5f} "
-            f"({b_by}) {row['tflops']:.1f} TFLOP/s, "
+            f"sdpa_ms={row['library_ms']:.4f} ({backend}: {sdpa_kernel}) "
+            f"bound_ms={b_ms:.5f} ({b_by}) {row['tflops']:.1f} TFLOP/s, "
             f"{row['x_library']:.2f}x SDPA, {row['x_bound']:.1f}x bound")
     return rows, worst
 
@@ -687,7 +752,7 @@ def check_rmsnorm(torch, F, floor_ms):
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows_out, worst = [], 0.0
-    shapes = [(rows, d) for d in RMS_DS for rows in RMS_ROWS]
+    shapes = [(rows, d) for d in RMS_DS + RMS_MLA_DS for rows in RMS_ROWS]
     for dtype in (torch.bfloat16, torch.float32):
         for rows, d in shapes:
             x = (torch.randn((rows, d), generator=g, device="cuda") * 3
@@ -1136,21 +1201,21 @@ def check_ssm_logits(torch, Model, cfg, params, batch):
     return out
 
 
-def check_moe_logits(torch, Model, cfg, params, batch):
-    """First-step logits of the MoE model (int8 KV), kernel path against
-    the fp32 plain path on the card.  Two correct bf16 paths may route a
-    near-tie token to different experts, so the kernel path is held to a
-    control: it may be no farther from the fp32 plain path than
-    ``NOISE_FACTOR`` times the bf16 plain path is (as ``train-parity``
-    holds its gradients)."""
+def check_moe_logits(torch, Model, cfg, params, batch, kv="int8"):
+    """First-step logits of the MoE model (``kv`` cache, int8 by
+    default), kernel path against the fp32 plain path on the card.  Two
+    correct bf16 paths may route a near-tie token to different experts,
+    so the kernel path is held to a control: it may be no farther from
+    the fp32 plain path than ``NOISE_FACTOR`` times the bf16 plain path
+    is (as ``train-parity`` holds its gradients)."""
     import dataclasses
 
-    k = first_step(torch, Model(cfg, device="cuda"), params, batch, "int8")
+    k = first_step(torch, Model(cfg, device="cuda"), params, batch, kv)
     p = first_step(torch, Model(cfg, device="cuda", use_kernels=False),
-                   params, batch, "int8", k[2])
+                   params, batch, kv, k[2])
     f = first_step(torch, Model(dataclasses.replace(cfg, dtype="float32"),
                                 device="cuda", use_kernels=False),
-                   params, batch, "int8", k[2])
+                   params, batch, kv, k[2])
     control = compare_logits(torch, f"{cfg.name} control: bf16 plain vs "
                              f"fp32 plain", p, f, 1.0)
     share = {step: NOISE_FACTOR * v["max_abs_err"] / v["max_abs_logit"]
@@ -1239,6 +1304,183 @@ def slice5_phases(torch, np, ops, card):
         del model, params, eng
         torch.cuda.empty_cache()
     return out, logits
+
+
+def check_combine_bits(torch, cfg, params):
+    """Layer 0's MoE at the config's top-k on one bf16 input [ENGINE_BATCH,
+    ENGINE_PROMPT, d_model], run twice: the ordered combine must give the
+    same bits."""
+    from repro_torch.models import moe as moe_mod
+
+    p = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn((ENGINE_BATCH, ENGINE_PROMPT, cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        a, _ = moe_mod.moe_forward(x, p, cfg)
+        b, _ = moe_mod.moe_forward(x, p, cfg)
+    torch.cuda.synchronize()
+    if not torch.isfinite(a).all():
+        fail(f"{cfg.name} MoE layer: non-finite output")
+    if not torch.equal(a, b):
+        fail(f"{cfg.name} MoE layer at top-{cfg.moe.top_k}: two runs on "
+             f"one input gave other bits")
+    log(f"{cfg.name} MoE layer 0 at top-{cfg.moe.top_k} of "
+        f"{cfg.moe.n_experts} experts, {x.shape[0] * x.shape[1]} tokens: "
+        f"two runs bit-equal")
+    return {"top_k": cfg.moe.top_k, "tokens": x.shape[0] * x.shape[1],
+            "bit_equal": True}
+
+
+def mla_phases(torch, np, ops, card):
+    """Phases ``mla-engine`` and ``mla-continuous`` (minicpm3-4b at full
+    size, bf16 cache), ``dsv2-engine`` (deepseek-v2-236b at full width,
+    ``DSV2_LAYERS`` layers, bf16 cache) and ``phi4mini-engine``
+    (phi4-mini-3.8b at full size, int8 cache), one model on the card at a
+    time, then ``train-mla``.  Every Engine phase must launch kernel 6
+    (4L + 1) times a forward pass with MLA (the block's two norms,
+    ``q_norm`` and ``kv_norm`` a layer, and the final norm), 2L + 1
+    without, kernel A L times (its prefill) and, with the int8 cache,
+    kernel B L times a decode step.  Returns (records, first-step logit
+    checks)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import flatten
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+
+    rng = np.random.default_rng(SEED + 6)
+    out, logits = {}, {}
+    for tag, arch, layers, kv in (("mla", MINICPM, None, "fp32"),
+                                  ("dsv2", DSV2, DSV2_LAYERS, "fp32"),
+                                  ("phi4mini", PHI4, None, "int8")):
+        mcfg = get_config(arch)
+        if layers:
+            log(f"{arch}: depth cut to {layers} of {mcfg.n_layers} layers "
+                f"(all {mcfg.n_layers} hold "
+                f"{mcfg.param_count() / 1e9:.1f} B parameters, "
+                f"{4 * mcfg.param_count() / 1e9:.0f} GB in fp32: more than "
+                f"one card); width unchanged")
+            mcfg = dataclasses.replace(mcfg, n_layers=layers)
+        L = mcfg.n_layers
+        model = Model(mcfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        n_params = sum(t.numel() for t in flatten(params).values())
+        log(f"{arch}: {L} layers, {n_params / 1e9:.3f} B parameters, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        batch = {"tokens": rng.integers(4, mcfg.vocab_size,
+                                        (ENGINE_BATCH, ENGINE_PROMPT),
+                                        dtype=np.int64)}
+        if mcfg.moe is not None:
+            logits[arch] = check_moe_logits(torch, Model, mcfg, params,
+                                            batch, kv)
+            out[f"{tag}_combine"] = check_combine_bits(torch, mcfg, params)
+        else:
+            k = first_step(torch, model, params, batch, kv)
+            p = first_step(torch, Model(mcfg, device="cuda",
+                                        use_kernels=False),
+                           params, batch, kv, k[2])
+            logits[arch] = compare_logits(
+                torch, f"{arch} logits kernel vs plain", k, p, LOGIT_RTOL)
+            del k, p
+        norms = 4 * L + 1 if mcfg.mla is not None else 2 * L + 1
+        needs = NORM_ATTN + (("int8kv_decode",) if kv == "int8" else ())
+        name = f"{tag}-engine"
+        rec = engine_phase(torch, np, ops, name, model, params, batch, needs,
+                           card, kv_dtype=kv)
+        want = {"rmsnorm": norms * ENGINE_GEN, "flash_attn_fwd": L,
+                "int8kv_decode": L * (ENGINE_GEN - 1) if kv == "int8"
+                else 0}
+        for kname, n in want.items():
+            if rec["launches"][kname] != n:
+                fail(f"phase {name}: {rec['launches'][kname]} {kname} "
+                     f"launches, want {n}")
+        out[f"{tag}_engine"] = rec
+        if tag == "mla":
+            eng = Engine(model, batch_size=ENGINE_BATCH,
+                         max_len=ENGINE_PROMPT + ENGINE_GEN + 8, kv_dtype=kv)
+            prof = profile_window(
+                torch, lambda: eng.generate(params, batch, n_tokens=8,
+                                            timing=False), OUR_KERNELS)
+            log_profile("mla-engine, prefill + 7 decode steps", prof)
+            out["profile_mla_engine"] = prof
+            del eng
+            rec = continuous_phase(
+                torch, np, ops, "mla-continuous", model, params, rng,
+                CONT_LENS[1] + CONT_GEN + 8, NORM_ATTN, card, kv_dtype=kv)
+            # one forward pass a request's prefill and a decode step
+            passes = CONT_REQUESTS + rec["decode_steps"]
+            want = {"rmsnorm": norms * passes,
+                    "flash_attn_fwd": L * CONT_REQUESTS}
+            for kname, n in want.items():
+                if rec["launches"][kname] != n:
+                    fail(f"phase mla-continuous: {rec['launches'][kname]} "
+                         f"{kname} launches, want {n}")
+            out["mla_continuous"] = rec
+        out[f"{tag}_params"] = n_params
+        out[f"{tag}_layers"] = L
+        del model, params
+        torch.cuda.empty_cache()
+    out["train_mla"] = train_mla_phase(torch, np, ops, card)
+    return out, logits
+
+
+def train_mla_phase(torch, np, ops, card):
+    """Phase ``train-mla``: minicpm3-4b at full width cut to
+    ``TRAIN_MLA_LAYERS`` layers, ``TRAIN_MLA_STEPS`` steps of FAM_BATCH x
+    FAM_SEQ random tokens through ``train()`` as ``launch/train.py``
+    drives it: ``use_kernels=trains_through_kernels(cfg)``, which is False
+    for MLA (kernel A has no backward at (96, 64)), so no kernel may
+    launch; the losses must be finite."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import Loader, PackedDataset
+    from repro_torch.models import Model, trains_through_kernels
+    from repro_torch.train import model_flops_per_step, train
+
+    full = get_config(MINICPM)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_MLA_LAYERS,
+                              max_seq_len=max(full.max_seq_len, FAM_SEQ))
+    if trains_through_kernels(cfg):
+        fail(f"{MINICPM}: expected the launchers to train MLA through the "
+             f"plain versions")
+    log(f"train-mla: {MINICPM} at full width, reduced: {TRAIN_MLA_LAYERS} "
+        f"of {full.n_layers} layers, {cfg.param_count() / 1e9:.3f} B "
+        f"params; batch {FAM_BATCH} x {FAM_SEQ} random tokens, "
+        f"{TRAIN_MLA_STEPS} steps; the kernels' plain versions")
+    model = Model(cfg, device="cuda", use_kernels=trains_through_kernels(cfg))
+    rng = np.random.default_rng(SEED + 3)
+    ds = PackedDataset(rng.integers(
+        0, cfg.vocab_size, (TRAIN_MLA_STEPS * FAM_BATCH, FAM_SEQ + 1))
+        .astype(np.int32), FAM_SEQ)
+    loader = Loader(ds, global_batch=FAM_BATCH, seed=SEED)
+    tokens = FAM_BATCH * FAM_SEQ
+    flops = model_flops_per_step(cfg, tokens)
+    res, counts = run_phase(
+        torch, ops, "train-mla",
+        lambda: train(model, TrainConfig(), loader, steps=TRAIN_MLA_STEPS,
+                      log_every=0, donate=True), [])
+    if any(counts.values()):
+        fail(f"train-mla: the plain path launched kernels {counts}")
+    if not all(np.isfinite(res.losses)):
+        fail(f"train-mla: non-finite losses {res.losses}")
+    step_s = res.avg_step_time
+    rec = {"layers": TRAIN_MLA_LAYERS, "losses": res.losses,
+           "step_s": res.step_times,
+           "avg_step_s_steps_2_to_3": step_s,
+           "tokens_per_s": tokens / step_s,
+           "model_tflops": flops / step_s / 1e12,
+           "peak_bytes": PHASES["train-mla"]["peak_bytes"],
+           "launches": counts}
+    log(f"train-mla: losses {res.losses}; step {step_s * 1e3:.1f} ms (steps "
+        f"2 to {TRAIN_MLA_STEPS}), {tokens / step_s:.0f} tokens/s, 6ND "
+        f"{rec['model_tflops']:.2f} TFLOP/s, peak memory "
+        f"{rec['peak_bytes'] / 2**30:.2f} GiB, on {card}")
+    del res, model
+    torch.cuda.empty_cache()
+    return rec
 
 
 def check_ssm_layer(torch, cfg, params):
@@ -1336,7 +1578,7 @@ def continuous_phase(torch, np, ops, name, model, params, rng, max_len,
             "ttft_p50_s": float(np.percentile(ttft, 50)),
             "ttft_max_s": ttft[-1], "tokens_per_s": st.tokens_per_s,
             "mean_occupancy": st.mean_occupancy, "total_s": st.total_s,
-            "launches": counts}
+            "decode_steps": len(st.occupancy), "launches": counts}
 
 
 def report_fit(name, topo, wl, cal, residual, n_samples):
@@ -2479,7 +2721,7 @@ def log_profile(name, prof):
 # kernel 5's row-major library time, kernel B's time with its lse; and
 # the training shape
 EXTRAS = ("tflops", "x_library", "x_bound", "library_row_major_ms",
-          "with_lse_ms")
+          "with_lse_ms", "library_backend")
 TRAIN_AT = {"B": 8, "S": 1024, "H": 16, "D": 64}
 # the port's CUDA functions in a trace, by the kernel they belong to (a
 # call of kernel B launches int8kv_combine_kernel after the split kernel
@@ -2565,6 +2807,15 @@ def main() -> None:
             ((mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim),
              ((8, 64), (1, 257)))):
         rows, err = check_flash(torch, F, *heads, shapes)
+        flash_rows, flash_err = flash_rows + rows, max(flash_err, err)
+    # MLA's split head dims, q and k of nope + rope over v: minicpm3-4b
+    # (96, 64) over 40 heads, deepseek-v2-236b (192, 128) over 128
+    for arch in (MINICPM, DSV2):
+        c = get_config(arch)
+        rows, err = check_flash(
+            torch, F, c.n_heads, c.n_kv_heads,
+            c.mla.nope_head_dim + c.mla.rope_head_dim, MLA_FLASH_SHAPES,
+            Dv=c.mla.v_head_dim)
         flash_rows, flash_err = flash_rows + rows, max(flash_err, err)
     bwd_rows, bwd_err = check_flash_bwd(torch, F)
     # (B, Sk, fills): the engines' decode caches, rows partly filled
@@ -2687,6 +2938,20 @@ def main() -> None:
             for k in at128:
                 at128[k] += rec["launches"][k]
     e2e.update(slice5)
+    mla, logits_mla = mla_phases(torch, np, ops, card)
+    stage("MLA and phi4-mini serving, MLA training")
+    logit_err.update(logits_mla)
+    # kernel A's launches at each split head-dim pair, and at 128
+    at_split = {
+        "96x64": mla["mla_engine"]["launches"]["flash_attn_fwd"]
+        + mla["mla_continuous"]["launches"]["flash_attn_fwd"],
+        "192x128": mla["dsv2_engine"]["launches"]["flash_attn_fwd"]}
+    for rec in mla.values():
+        if isinstance(rec, dict) and "launches" in rec:
+            add(rec["launches"])
+    for k in at128:
+        at128[k] += mla["phi4mini_engine"]["launches"][k]
+    e2e.update(mla)
 
     calib = calibrate_phases(torch, ops, card)
     for key in ("calibrate", "calibrate_wide"):
@@ -2723,7 +2988,7 @@ def main() -> None:
 
     def at_head_dim(rows, at, launches):
         """The row of a kernel at head_dim 128 and its launches in the
-        slice-5 phases (the only ones at that head dim)."""
+        phases at that head dim (llama3.2, phi3.5-MoE, phi4-mini)."""
         return {"128": summary(rows, at) | {"launches": launches}}
 
     def entry(name, route_src, replaces, rows, worst, at, **extra):
@@ -2743,7 +3008,11 @@ def main() -> None:
               train_shape=summary(flash_rows, TRAIN_AT),
               by_head_dim=at_head_dim(
                   flash_rows, {"B": 8, "S": 64, "H": 24, "D": 128},
-                  at128["flash_attn_fwd"])),
+                  at128["flash_attn_fwd"]) | {
+                  f"{dk}x{dv}": summary(
+                      flash_rows, {"B": 8, "S": 64, "D": dk, "Dv": dv})
+                  | {"launches": at_split[f"{dk}x{dv}"]}
+                  for dk, dv in ((96, 64), (192, 128))}),
         entry("flash_attn_bwd", "src/repro_torch/csrc/flash_attn_bwd.cu",
               "src/repro/kernels/flash_attention.py:77", bwd_rows, bwd_err,
               TRAIN_AT, differentiates="src/repro/models/attention.py:36"),
@@ -2773,6 +3042,9 @@ def main() -> None:
               {"rows": 512, "d": 3072, "dtype": "bfloat16"},
               decode=summary(rms_rows, {"rows": 8, "d": 3072,
                                         "dtype": "bfloat16"}),
+              mla_widths={d: summary(rms_rows, {"rows": 512, "d": d,
+                                                "dtype": "bfloat16"})
+                          for d in RMS_MLA_DS},
               launch_floor_ms=floor_ms),
     ]
     details = os.environ.get("SMOKE_DETAILS")

@@ -1,31 +1,36 @@
 """Config registry of the port: the paper's three GPT-2 models, the
-dense llama3.2-3b, the MoE phi3.5-moe-42b-a6.6b, the SSM model
-falcon-mamba-7b and the hybrid zamba2-2.7b.
+dense llama3.2-3b, phi4-mini-3.8b and llama3-405b, the MoE
+phi3.5-moe-42b-a6.6b, the SSM model falcon-mamba-7b, the hybrid
+zamba2-2.7b, and the Multi-head Latent Attention models minicpm3-4b
+(dense) and deepseek-v2-236b (MoE).
 
-The reference registry also holds MLA, encoder-decoder and vision
-architectures and two more dense ones; those are ROADMAP queue 1, item
-10 ("the other model families") and raise here until they are ported.
+The reference registry also holds an encoder-decoder and a vision
+architecture; those are ROADMAP queue 1, item 10 ("the other model
+families") and raise here until they are ported.
 """
 from repro_torch.configs.base import (
-    ModelConfig, MoEConfig, SSMConfig, TrainConfig,
+    MLAConfig, ModelConfig, MoEConfig, SSMConfig, TrainConfig,
 )
+from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK_V2_236B
 from repro_torch.configs.falcon_mamba_7b import CONFIG as FALCON_MAMBA_7B
 from repro_torch.configs.gpt2 import (
     GPT2_LARGE, GPT2_LARGE_REDUCED, GPT2_MEDIUM,
 )
 from repro_torch.configs.llama3_2_3b import CONFIG as LLAMA3_2_3B
+from repro_torch.configs.llama3_405b import CONFIG as LLAMA3_405B
+from repro_torch.configs.minicpm3_4b import CONFIG as MINICPM3_4B
 from repro_torch.configs.phi35_moe_42b import CONFIG as PHI35_MOE_42B
+from repro_torch.configs.phi4_mini_3_8b import CONFIG as PHI4_MINI_3_8B
 from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2_2_7B
 
 ARCH_CONFIGS = {c.name: c for c in (GPT2_MEDIUM, GPT2_LARGE,
                                     GPT2_LARGE_REDUCED, LLAMA3_2_3B,
                                     PHI35_MOE_42B, FALCON_MAMBA_7B,
-                                    ZAMBA2_2_7B)}
+                                    ZAMBA2_2_7B, MINICPM3_4B,
+                                    DEEPSEEK_V2_236B, PHI4_MINI_3_8B,
+                                    LLAMA3_405B)}
 
-_NOT_PORTED = (
-    "minicpm3-4b", "phi-3-vision-4.2b", "llama3-405b", "phi4-mini-3.8b",
-    "whisper-small", "deepseek-v2-236b",
-)
+_NOT_PORTED = ("phi-3-vision-4.2b", "whisper-small")
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -40,5 +45,5 @@ def get_config(arch_id: str) -> ModelConfig:
                    f"{sorted(ARCH_CONFIGS)}")
 
 
-__all__ = ["ARCH_CONFIGS", "ModelConfig", "MoEConfig", "SSMConfig",
-           "TrainConfig", "get_config"]
+__all__ = ["ARCH_CONFIGS", "MLAConfig", "ModelConfig", "MoEConfig",
+           "SSMConfig", "TrainConfig", "get_config"]

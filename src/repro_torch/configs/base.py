@@ -1,15 +1,15 @@
 """Model and training configuration for the PyTorch port.
 
 A copy of the fields of ``repro.configs.base.ModelConfig`` that the
-dense, MoE, SSM and hybrid families read, with the same names, defaults
-and ``reduced()`` rule, so a port config and a reference config built
-the same way compare equal field by field; and of ``TrainConfig``, field
-for field.  The other families' sub-configs (MLA, the encoder and vision
-extras) are not ported yet.  The plans' runtime fields of the
-reference's config (``moe_dispatch_axes``, ``moe_expert_axis``) are
-not fields here: the port's plans tell the model how to route
-(``models.moe.Dispatch``) and what the model axis cuts
-(``core.sharding.ModelAxis``).
+dense, MoE, SSM and hybrid families read, Multi-head Latent Attention
+(``MLAConfig``, MiniCPM3 and DeepSeek-V2) included, with the same names,
+defaults and ``reduced()`` rule, so a port config and a reference config
+built the same way compare equal field by field; and of ``TrainConfig``,
+field for field.  The encoder and vision extras are not ported yet.
+The plans' runtime fields of the reference's config
+(``moe_dispatch_axes``, ``moe_expert_axis``) are not fields here: the
+port's plans tell the model how to route (``models.moe.Dispatch``) and
+what the model axis cuts (``core.sharding.ModelAxis``).
 """
 from __future__ import annotations
 
@@ -17,6 +17,21 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 Family = str  # "dense" | "moe" | "ssm" | "hybrid" are ported
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3 style).
+
+    K/V are compressed into a ``kv_lora_rank``-dim latent that is what gets
+    cached at decode time; a decoupled RoPE key of ``rope_head_dim`` is
+    cached alongside.  Queries may also be low-rank (``q_lora_rank``).
+    """
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0            # 0 => full-rank queries
+    rope_head_dim: int = 64         # decoupled rope key dim (all heads')
+    nope_head_dim: int = 128        # per-head non-rope dim
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -59,6 +74,7 @@ class ModelConfig:
     activation: str = "silu"        # "silu" (SwiGLU) | "gelu" (plain MLP)
     tie_embeddings: bool = False
     sliding_window: int = 0         # 0 => full causal attention
+    mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2): apply the shared attention block every k-th layer
@@ -77,10 +93,20 @@ class ModelConfig:
         d = c.d_model
         emb = c.vocab_size * d * (1 if c.tie_embeddings else 2)
         per_attn = per_mlp = per_ssm = 0
-        if c.family != "ssm":
+        if c.family != "ssm" and c.mla is not None:
+            m = c.mla
+            qdim = m.nope_head_dim + m.rope_head_dim
+            q_in = m.q_lora_rank or d
+            per_attn = (d * m.q_lora_rank + q_in * c.n_heads * qdim
+                        + d * (m.kv_lora_rank + m.rope_head_dim)
+                        + m.kv_lora_rank * c.n_heads
+                        * (m.nope_head_dim + m.v_head_dim)
+                        + c.n_heads * m.v_head_dim * d)
+        elif c.family != "ssm":
             hd = c.head_dim
             per_attn = d * (c.n_heads * hd) + 2 * d * (c.n_kv_heads * hd) \
                 + (c.n_heads * hd) * d
+        if c.family != "ssm":
             per_mlp = (3 if c.activation == "silu" else 2) * d * c.d_ff
         if c.family == "moe":
             if c.moe is None:
@@ -121,8 +147,10 @@ class ModelConfig:
         """Smoke-test variant: 2 layers, d_model<=256, <=4 heads (head_dim
         d_model // n_heads, so 64; the ssm family recomputes it the same
         way from 4 heads), SSM state 8 and chunk 16, a hybrid group of 2,
-        and for MoE 4 experts, top-2, expert d_ff <= 256 and a capacity
-        factor of 2.0 (no drops, so forward, prefill and decode agree)."""
+        for MLA a latent of 32 and full-rank queries of 32 + 16 (rope)
+        dims over values of 32, and for MoE 4 experts, top-2, expert d_ff
+        <= 256 and a capacity factor of 2.0 (no drops, so forward,
+        prefill and decode agree)."""
         d = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4) or 4
         kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else n_heads
@@ -134,6 +162,10 @@ class ModelConfig:
             max_seq_len=1024,
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else 0)
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=0,
+                                  rope_head_dim=16, nope_head_dim=32,
+                                  v_head_dim=32)
         if self.moe is not None:
             kw["moe"] = replace(self.moe, n_experts=4, top_k=2,
                                 n_shared_experts=min(

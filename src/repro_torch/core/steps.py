@@ -68,7 +68,9 @@ through the stages in the schedule's order, backwards included:
     every stage.
 
 The families the port does not have raise in ``Model`` (ROADMAP queue
-1, item 10).
+1, item 10).  Multi-head Latent Attention (MiniCPM3, DeepSeek-V2) runs
+on one device only: under a plan it raises (``refuse_mla``; ROADMAP
+queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -140,6 +142,20 @@ def _grad_fn(model: Model, tcfg: TrainConfig, loss_fn) -> Callable:
     return grad_fn
 
 
+MLA_UNDER_PLANS = "ROADMAP queue 1, item 13: MLA under the plans"
+
+
+def refuse_mla(model: Model, plan) -> None:
+    """Raise for an MLA model under a plan: its latent cache has no
+    ``cache_spec`` and its heads no cut over the ``model`` axis yet."""
+    if model.cfg.mla is not None:
+        name = plan if isinstance(plan, str) else plan.name
+        raise NotImplementedError(
+            f"{model.cfg.name} attends by Multi-head Latent Attention, "
+            f"which runs on one device only; under plan {name!r} it waits "
+            f"for {MLA_UNDER_PLANS}")
+
+
 def build_train_step(model: Model, tcfg: TrainConfig, *,
                      plan: Union[None, str, Plan] = None,
                      mesh: Optional[Mesh] = None, stage_layers=None,
@@ -158,6 +174,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, *,
     model.model_axis = model.fsdp = model.dispatch = None
     if plan is None:
         return _one_device_step(model, tcfg, donate)
+    refuse_mla(model, plan)
     plan = get_plan(plan) if isinstance(plan, str) else plan
     if mesh is None:
         raise ValueError(f"plan {plan.name!r} needs a mesh "

@@ -1,6 +1,9 @@
 // Flash attention forward for Hopper (sm_90a), bf16 in and out, fp32
 // online softmax, on the tensor cores, at head_dim 64 (GPT-2), 80
-// (zamba2's shared attention) and 128 (llama3.2-3b, phi3.5-MoE).
+// (zamba2's shared attention) and 128 (llama3.2-3b, phi3.5-MoE,
+// phi4-mini), and at Multi-head Latent Attention's split head dims, q and
+// k of DK over v of DV: (96, 64) for MiniCPM3 and (192, 128) for
+// DeepSeek-V2 (nope + rope dims over the value dims).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention_bhsd / _flash_kernel), which the reference serves
@@ -8,22 +11,27 @@
 //
 // What bounds it on the H100: at the path's shapes (gpt2m at head_dim 64,
 // zamba2's shared attention at 80, llama3.2-3b and phi3.5-MoE at 128, S
-// up to 1024) attention does 4*S*S*D/2 flops per head against 4*S*D*2
-// bytes, far above the card's ~295 flop/byte bf16 ridge: it is bound by
-// operations, so both products run as bf16 mma.sync with fp32
-// accumulators (an FA2-class design; wgmma and TMA are later work).
+// up to 1024) attention does 2*(DK+DV)*S*S/2 flops per head against
+// 2*S*(DK+DV)*2 bytes, far above the card's ~295 flop/byte bf16 ridge:
+// it is bound by operations, so both products run as bf16 mma.sync with
+// fp32 accumulators (an FA2-class design; wgmma and TMA are later work).
 //
 // Design:
 //  * one block of 4 warps per (q tile of 64 rows, head, batch); each warp
 //    owns 16 query rows.  A loop over key tiles of 64 replaces the TPU's
 //    sequential grid axis, with the running max m, the denominator l and
 //    the output accumulator in registers;
-//  * Q is copied to shared memory once and held for the whole loop as
-//    ldmatrix A fragments in registers (unscaled bf16);
+//  * Q is copied to shared memory once.  At DK <= 128 it is held for the
+//    whole loop as ldmatrix A fragments in registers (unscaled bf16, DK/4
+//    words a thread); at DK = 192 those 48 words on top of the DV/2 = 64
+//    accumulators and 32 scores would spill, so each key tile reads Q's
+//    fragments from shared memory a 16-wide chunk at a time (4 words),
+//    one more ldmatrix beside each chunk's K fragments;
 //  * K and V tiles are double-buffered in shared memory by 16-byte
 //    cp.async: tile t+1 is in flight while tile t is computed.  Rows are
 //    padded by 16 bytes, so ldmatrix reads them without bank conflicts
-//    at 64, 80 and 128 (flash_attn_mma.cuh);
+//    at 64, 80, 96, 128 and 192 (flash_attn_mma.cuh).  V keeps its own
+//    width DV: nothing is padded to DK;
 //  * S = Q K^T: K's B fragments by ldmatrix; O += P V: P's A fragments
 //    are S's accumulators packed to bf16 in registers (no P tile goes
 //    through shared memory), V's B fragments by ldmatrix.trans.  P goes
@@ -51,18 +59,20 @@
 //  * q, k, v and o are addressed by strides (multiples of 8 elements,
 //    16-byte aligned), so the model's [B, S, H, D] layout, and views of a
 //    fused [B, S, 3, H, D] projection, are read in place; GQA through
-//    h / group.  O is staged through the warp's own Q rows and written
-//    16 bytes a lane;
+//    h / group.  O (DV wide) is staged through the warp's own Q rows (DK
+//    >= DV wide) and written 16 bytes a lane;
 //  * for training, an optional fp32 lse [B, H, Sq] receives each row's
-//    logsumexp m * scale + log(max(l, 1e-30)) of the scaled scores, which
-//    the backward kernels (flash_attn_bwd.cu) recompute P from; serving
-//    passes null and nothing more is written.
-// Shared memory: Q (64 rows) and two stages of K and V (64 rows each) of
-// HD + 8 bf16: 46,080 bytes at 64, 56,320 at 80, 87,040 at 128, dynamic,
-// the limit raised once per instantiation.  Registers hold HD/4 Q
-// fragment words, 32 scores and HD/2 accumulators a thread: ptxas gives
-// 163 and 172 registers at 64 and 80, and at 128 all 255 with 36 bytes
-// of spills.
+//    logsumexp m * scale + log(max(l, 1e-30)) of the scaled scores (scale
+//    = 1/sqrt(DK)), which the backward kernels (flash_attn_bwd.cu)
+//    recompute P from; serving passes null and nothing more is written.
+// Shared memory: Q (64 rows) and two stages of K (64 rows each) of DK + 8
+// bf16, two stages of V of DV + 8: 46,080 bytes at (64, 64), 56,320 at
+// (80, 80), 87,040 at (128, 128), 58,368 at (96, 64) and 111,616 at
+// (192, 128), dynamic, the limit raised once per instantiation.
+// Registers hold DK/4 Q fragment words (DK <= 128), 32 scores and DV/2
+// accumulators a thread: ptxas gives 163 and 172 registers at 64 and 80,
+// and at 128 all 255 with 36 bytes of spills (chip_smoke.py prints every
+// instantiation's count from the build's ptxas log).
 #include "flash_attn_mma.cuh"
 
 namespace {
@@ -71,12 +81,13 @@ constexpr int FWD_BQ = 64;            // query rows per block, 16 a warp
 constexpr int FWD_BK = 64;            // keys per tile
 constexpr int FWD_NT = 128;           // 4 warps
 
-template <int HD>
+template <int DK, int DV>
 constexpr int fwd_smem_bytes() {
-  return (FWD_BQ + 4 * FWD_BK) * (HD + 8) * (int)sizeof(bf16);
+  return ((FWD_BQ + 2 * FWD_BK) * (DK + 8) + 2 * FWD_BK * (DV + 8)) *
+         (int)sizeof(bf16);
 }
 
-template <int HD>
+template <int DK, int DV>
 __global__ void __launch_bounds__(FWD_NT)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -87,14 +98,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  long long o_sb, long long o_ss, long long o_sh,
                  float scale, int causal, int window,
                  float* __restrict__ lse) {
-  constexpr int LD = HD + 8;
-  constexpr int KC = HD / 16;         // 16-wide chunks of the head dim
-  constexpr int DN = HD / 8;          // 8-wide output tiles
+  constexpr int LDK = DK + 8;
+  constexpr int LDV = DV + 8;
+  constexpr int KC = DK / 16;         // 16-wide chunks of q's and k's dim
+  constexpr int DN = DV / 8;          // 8-wide output tiles
   constexpr int NJ = FWD_BK / 8;      // 8-key score tiles
+  constexpr bool Q_REGS = DK <= 128;  // Q's fragments held in registers
+  static_assert(DV <= DK, "O is staged in the warp's Q rows");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);    // [BQ][LD]
-  bf16* ks = qs + FWD_BQ * LD;                      // [2][BK][LD]
-  bf16* vs = ks + 2 * FWD_BK * LD;                  // [2][BK][LD]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);    // [BQ][LDK]
+  bf16* ks = qs + FWD_BQ * LDK;                     // [2][BK][LDK]
+  bf16* vs = ks + 2 * FWD_BK * LDK;                 // [2][BK][LDV]
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -119,9 +133,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * k_sb + kvh * k_sh;
   const bf16* vb = v + b * v_sb + kvh * v_sh;
 
-  load_tile<HD, FWD_BQ, FWD_NT>(qs, qb, q_ss, q0, Sq, tid);
-  load_tile<HD, FWD_BK, FWD_NT>(ks, kb, k_ss, k_lo, Sk, tid);
-  load_tile<HD, FWD_BK, FWD_NT>(vs, vb, v_ss, k_lo, Sk, tid);
+  load_tile<DK, FWD_BQ, FWD_NT>(qs, qb, q_ss, q0, Sq, tid);
+  load_tile<DK, FWD_BK, FWD_NT>(ks, kb, k_ss, k_lo, Sk, tid);
+  load_tile<DV, FWD_BK, FWD_NT>(vs, vb, v_ss, k_lo, Sk, tid);
   cp_async_commit();
 
   const float sl2 = scale * LOG2E;
@@ -132,15 +146,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int dn = 0; dn < DN; ++dn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-  uint32_t qf[KC][4];
+  uint32_t qf[Q_REGS ? KC : 1][4];
+  // this lane's ldmatrix row of the warp's 16 Q rows
+  const bf16* qrow = qs + (warp * 16 + (lane & 15)) * LDK + (lane >> 4) * 8;
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = k_lo + it * FWD_BK;
     const int cur = it & 1;
     if (it + 1 < n_tiles) {
-      load_tile<HD, FWD_BK, FWD_NT>(ks + (cur ^ 1) * FWD_BK * LD, kb, k_ss,
+      load_tile<DK, FWD_BK, FWD_NT>(ks + (cur ^ 1) * FWD_BK * LDK, kb, k_ss,
                                     k0 + FWD_BK, Sk, tid);
-      load_tile<HD, FWD_BK, FWD_NT>(vs + (cur ^ 1) * FWD_BK * LD, vb, v_ss,
+      load_tile<DV, FWD_BK, FWD_NT>(vs + (cur ^ 1) * FWD_BK * LDV, vb, v_ss,
                                     k0 + FWD_BK, Sk, tid);
       cp_async_commit();
       cp_async_wait<1>();
@@ -148,13 +164,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
-      const bf16* p = qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+    if constexpr (Q_REGS) {
+      if (it == 0) {
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc) ldsm_x4(qf[kc], p + kc * 16);
+        for (int kc = 0; kc < KC; ++kc) ldsm_x4(qf[kc], qrow + kc * 16);
+      }
     }
-    const bf16* kt = ks + cur * FWD_BK * LD;
-    const bf16* vt = vs + cur * FWD_BK * LD;
+    const bf16* kt = ks + cur * FWD_BK * LDK;
+    const bf16* vt = vs + cur * FWD_BK * LDV;
 
     // S = Q K^T, 16 rows x 64 keys a warp
     float s[NJ][4];
@@ -164,17 +181,25 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
     {
       // matrices (keys 16jp..+7 | +8..+15) x (dims lo | hi of the chunk)
-      const bf16* p = kt + ((lane & 7) + ((lane >> 4) << 3)) * LD +
+      const bf16* p = kt + ((lane & 7) + ((lane >> 4) << 3)) * LDK +
                       ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc)
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t qa[4];
+        if constexpr (Q_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kc][e];
+        } else {
+          ldsm_x4(qa, qrow + kc * 16);
+        }
 #pragma unroll
         for (int jp = 0; jp < NJ / 2; ++jp) {
           uint32_t bfr[4];
-          ldsm_x4(bfr, p + 16 * jp * LD + 16 * kc);
-          mma_bf16(s[2 * jp], qf[kc], bfr[0], bfr[1]);
-          mma_bf16(s[2 * jp + 1], qf[kc], bfr[2], bfr[3]);
+          ldsm_x4(bfr, p + 16 * jp * LDK + 16 * kc);
+          mma_bf16(s[2 * jp], qa, bfr[0], bfr[1]);
+          mma_bf16(s[2 * jp + 1], qa, bfr[2], bfr[3]);
         }
+      }
     }
 
     const bool edge =
@@ -229,7 +254,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // O += P V: P from the score accumulators, V by ldmatrix.trans
     {
       // matrices (keys lo | hi of the chunk) x (dims 16dp..+7 | +8..+15)
-      const bf16* p = vt + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD +
+      const bf16* p = vt + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LDV +
                       ((lane >> 4) << 3);
 #pragma unroll
       for (int kk = 0; kk < FWD_BK / 16; ++kk) {
@@ -238,7 +263,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int dp = 0; dp < DN / 2; ++dp) {
           uint32_t bfr[4];
-          ldsm_x4_t(bfr, p + 16 * kk * LD + 16 * dp);
+          ldsm_x4_t(bfr, p + 16 * kk * LDV + 16 * dp);
           mma_bf16(acc[2 * dp], pa, bfr[0], bfr[1]);
           mma_bf16(acc[2 * dp + 1], pa, bfr[2], bfr[3]);
           mma_bf16(acc[2 * dp], pl, bfr[0], bfr[1]);
@@ -260,8 +285,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float den_a = fmaxf(l[0], 1e-30f);
   const float den_b = fmaxf(l[1], 1e-30f);
-  // the warp's own 16 Q rows are free: its fragments are in registers
-  store_rows16<HD>(qs + warp * 16 * LD, acc, 1.f / den_a, 1.f / den_b,
+  // the warp's own 16 Q rows are free (its last reads of them are
+  // behind the loop's final __syncthreads), and hold its 16 O rows
+  store_rows16<DV>(qs + warp * 16 * LDK, acc, 1.f / den_a, 1.f / den_b,
                    o + b * o_sb + h * o_sh, o_ss, q0 + warp * 16, Sq, lane);
   if (lse != nullptr && t == 0) {
     float* lp = lse + ((long long)b * gridDim.x + h) * Sq;
@@ -270,7 +296,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch(cudaStream_t stream, const void* q, const void* k, const void* v,
            void* o, int B, int H, int group, int Sq, int Sk,
            long long q_sb, long long q_ss, long long q_sh,
@@ -281,13 +307,14 @@ int launch(cudaStream_t stream, const void* q, const void* k, const void* v,
   static bool limit_set = false;
   if (!limit_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        fwd_smem_bytes<HD>());
+        flash_fwd_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fwd_smem_bytes<DK, DV>());
     if (e != cudaSuccess) return (int)e;
     limit_set = true;
   }
   dim3 grid(H, B, (Sq + FWD_BQ - 1) / FWD_BQ);
-  flash_fwd_kernel<HD><<<grid, FWD_NT, fwd_smem_bytes<HD>(), stream>>>(
+  flash_fwd_kernel<DK, DV>
+      <<<grid, FWD_NT, fwd_smem_bytes<DK, DV>(), stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, group, Sq,
       Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,
       o_sh, scale, causal, window, lse);
@@ -296,16 +323,17 @@ int launch(cudaStream_t stream, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q: [B, Sq, H, D], k/v: [B, Sk, KV, D], o: [B, Sq, H, D], bf16, with
-// element strides for the batch, sequence and head axes (multiples of 8;
-// last axis contiguous; 16-byte aligned); D = head_dim is 64, 80 or
-// 128.  lse is null (serving) or an fp32
-// [B, H, Sq] contiguous buffer for each row's logsumexp (training).
-// Returns the cudaError_t of the launch (cudaErrorInvalidValue for any
-// other head dim or a bad shape).
+// q: [B, Sq, H, DK], k: [B, Sk, KV, DK], v: [B, Sk, KV, DV], o: [B, Sq,
+// H, DV], bf16, with element strides for the batch, sequence and head
+// axes (multiples of 8; last axis contiguous; 16-byte aligned); (DK, DV)
+// = (head_dim, head_dim_v) is (64, 64), (80, 80), (128, 128), (96, 64)
+// or (192, 128).  lse is null (serving) or an fp32 [B, H, Sq]
+// contiguous buffer for each row's logsumexp (training).  Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for any other pair
+// of head dims or a bad shape).
 extern "C" int flash_attn_fwd_bf16(
     const void* q, const void* k, const void* v, void* o,
-    int B, int H, int KV, int Sq, int Sk, int head_dim,
+    int B, int H, int KV, int Sq, int Sk, int head_dim, int head_dim_v,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -314,14 +342,17 @@ extern "C" int flash_attn_fwd_bf16(
   if (B <= 0 || B > 65535 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
       (Sq + FWD_BQ - 1) / FWD_BQ > 65535)
     return (int)cudaErrorInvalidValue;
-#define FLASH_LAUNCH(HDV)                                                   \
-  if (head_dim == HDV)                                                      \
-    return launch<HDV>((cudaStream_t)stream, q, k, v, o, B, H, H / KV, Sq,  \
-                       Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,  \
-                       v_sh, o_sb, o_ss, o_sh, scale, causal, window, lse);
-  FLASH_LAUNCH(64)
-  FLASH_LAUNCH(80)
-  FLASH_LAUNCH(128)
+#define FLASH_LAUNCH(DKV, DVV)                                              \
+  if (head_dim == DKV && head_dim_v == DVV)                                 \
+    return launch<DKV, DVV>((cudaStream_t)stream, q, k, v, o, B, H, H / KV, \
+                            Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,     \
+                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale,      \
+                            causal, window, lse);
+  FLASH_LAUNCH(64, 64)
+  FLASH_LAUNCH(80, 80)
+  FLASH_LAUNCH(128, 128)
+  FLASH_LAUNCH(96, 64)
+  FLASH_LAUNCH(192, 128)
 #undef FLASH_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

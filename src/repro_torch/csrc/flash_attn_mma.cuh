@@ -14,8 +14,9 @@
 // their gradients feed the next mma from registers.
 //
 // Tiles live in shared memory as rows of HD bf16 padded by 8 (16 bytes):
-// the row strides 144, 176 and 272 bytes (HD = 64, 80, 128) put the 8
-// rows an ldmatrix phase reads on 8 distinct groups of 4 banks.
+// the row strides 144, 176, 208, 272 and 400 bytes (HD = 64, 80, 96, 128,
+// 192) put the 8 rows an ldmatrix phase reads on 8 distinct groups of 4
+// banks.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

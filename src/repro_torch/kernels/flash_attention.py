@@ -16,16 +16,17 @@ function, in the model's ``[B, S, H, D]`` layout:
     ``chip_smoke.py`` holds the kernel against it on the card.
   * ``flash_attention_cuda`` — the CUDA C++ kernel in
     ``csrc/flash_attn_fwd.cu`` (bf16 on the tensor cores; head_dim 64,
-    80 or 128; masks by index, which is what arange positions give; the
-    logsumexp on request).
+    80 or 128, and Multi-head Latent Attention's split head dims, q and
+    k of Dk over v of Dv, (96, 64) and (192, 128); masks by index, which
+    is what arange positions give; the logsumexp on request).
   * ``flash_attention_bwd_plain`` — the recompute backward in PyTorch:
     ``P = exp(S * scale - lse)``, ``dV = P^T dO``, ``dS = P * (dO V^T -
     D)`` with ``D = rowsum(dO * O)``, ``dQ = dS K * scale``, ``dK = dS^T
     Q * scale``, the group's heads summed into ``dK``/``dV``.
   * ``flash_attention_bwd_cuda`` — the same in ``csrc/flash_attn_bwd.cu``
     (bf16 on the tensor cores, no atomics; head_dim 64 or 80; 128,
-    which llama3.2-3b and phi3.5-MoE need, is refused until ROADMAP
-    queue 2, item 7 brings it).
+    which llama3.2-3b and phi3.5-MoE need, and the split head dims are
+    refused until ROADMAP queue 2, item 7 brings them).
 
 ``FlashAttention`` is the ``torch.autograd.Function`` over them: its
 forward keeps the logsumexp and its backward recomputes from it, by the
@@ -36,15 +37,17 @@ answers that.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-# the kernels' instantiations: GPT-2, zamba2 and, forward only, llama3.2
-# and phi3.5-MoE
-FWD_HEAD_DIMS = (64, 80, 128)
+# the kernels' instantiations, (Dk, Dv) of q/k and of v: GPT-2, zamba2
+# and, forward only, llama3.2, phi3.5-MoE and phi4-mini at 128, MiniCPM3
+# at (96, 64) and DeepSeek-V2 at (192, 128)
+FWD_HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (96, 64), (192, 128))
 BWD_HEAD_DIMS = (64, 80)
 NO_BACKWARD_AT = "ROADMAP queue 2, item 7"
 
@@ -152,7 +155,7 @@ def _lib():
     fn = _build.library("flash_attn_fwd").flash_attn_fwd_bf16
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I] + [L] * 12 + [
+        fn.argtypes = [P, P, P, P] + [I] * 7 + [L] * 12 + [
             ctypes.c_float, I, I, P, P]
         fn.restype = ctypes.c_int
     return fn
@@ -169,13 +172,16 @@ def _bwd_lib():
     return fn
 
 
-def check_backward_head_dim(D: int) -> None:
-    """Raise for a head dim the backward kernel was not built for."""
-    if D not in BWD_HEAD_DIMS:
+def check_backward_head_dim(D: int, Dv: Optional[int] = None) -> None:
+    """Raise for head dims the backward kernel was not built for: q/k's
+    ``D`` and v's ``Dv`` (default ``D``)."""
+    Dv = D if Dv is None else Dv
+    if D != Dv or D not in BWD_HEAD_DIMS:
         raise NotImplementedError(
-            f"kernel A's backward is built for head_dim in {BWD_HEAD_DIMS}, "
-            f"not {D}: training at this head dim waits for {NO_BACKWARD_AT}"
-            f" (use_kernels=False trains through the plain attention)")
+            f"kernel A's backward is built for head_dim in {BWD_HEAD_DIMS} "
+            f"(q, k and v alike), not (Dk, Dv) = ({D}, {Dv}): training at "
+            f"these head dims waits for {NO_BACKWARD_AT} (use_kernels=False"
+            f" trains through the plain attention)")
 
 
 def _check_operand(name: str, t: torch.Tensor) -> None:
@@ -183,11 +189,10 @@ def _check_operand(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-    if t.dim() != 4 or t.shape[-1] not in FWD_HEAD_DIMS \
-            or t.stride(-1) != 1:
-        raise ValueError(f"{name} must be [B, S, heads, D] with D in "
-                         f"{FWD_HEAD_DIMS} and a contiguous last axis, got "
-                         f"{tuple(t.shape)} strides {t.stride()}")
+    if t.dim() != 4 or t.stride(-1) != 1:
+        raise ValueError(f"{name} must be [B, S, heads, D] with a "
+                         f"contiguous last axis, got {tuple(t.shape)} "
+                         f"strides {t.stride()}")
     if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
         raise ValueError(f"{name} needs strides in multiples of 8 elements "
                          f"and 16-byte alignment for 16-byte row copies, "
@@ -195,30 +200,39 @@ def _check_operand(name: str, t: torch.Tensor) -> None:
 
 
 def _check_qkv(q, k, v):
+    """q [B, Sq, H, Dk], k [B, Sk, KV, Dk], v [B, Sk, KV, Dv] with (Dk,
+    Dv) one of ``FWD_HEAD_DIMS``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t)
-    B, _, H, D = q.shape
-    KV = k.shape[2]
-    if v.shape != k.shape or k.shape[0] != B or k.shape[-1] != D or H % KV:
+    B, _, H, Dk = q.shape
+    KV, Dv = k.shape[2], v.shape[-1]
+    if v.shape[:3] != k.shape[:3] or k.shape[0] != B or k.shape[-1] != Dk \
+            or H % KV:
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if (Dk, Dv) not in FWD_HEAD_DIMS:
+        raise ValueError(
+            f"kernel A is built for (Dk, Dv) in {FWD_HEAD_DIMS} (q and k "
+            f"of Dk, v of Dv; D in 64, 80, 128 where they are equal), got "
+            f"({Dk}, {Dv})")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          return_lse: bool = False):
-    """Launch kernel A.  q: [B, Sq, H, D]; k/v: [B, Sk, KV, D], bf16
-    CUDA tensors, D = 64, 80 or 128; masks by index.  Returns [B, Sq, H, D]
-    bf16, and with ``return_lse`` also the fp32 logsumexp [B, H, Sq]
-    (serving asks for none, and the kernel then writes none)."""
+    """Launch kernel A.  q: [B, Sq, H, Dk]; k: [B, Sk, KV, Dk]; v: [B, Sk,
+    KV, Dv], bf16 CUDA tensors, (Dk, Dv) one of ``FWD_HEAD_DIMS``; masks
+    by index; scores scaled by 1/sqrt(Dk).  Returns [B, Sq, H, Dv] bf16,
+    and with ``return_lse`` also the fp32 logsumexp [B, H, Sq] (serving
+    asks for none, and the kernel then writes none)."""
     _check_qkv(q, k, v)
     B, Sq, H, D = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 B, H, KV, Sq, Sk, D, *q.stride()[:3], *k.stride()[:3],
+                 B, H, KV, Sq, Sk, D, Dv, *q.stride()[:3], *k.stride()[:3],
                  *v.stride()[:3], *o.stride()[:3],
                  1.0 / (D ** 0.5), int(causal), int(window),
                  None if lse is None else lse.data_ptr(), stream)
@@ -237,7 +251,7 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     D = 64 or 80; lse: the forward's fp32 [B, H, Sq].  Returns (dq, dk,
     dv) bf16, contiguous."""
     _check_qkv(q, k, v)
-    check_backward_head_dim(q.shape[-1])
+    check_backward_head_dim(q.shape[-1], v.shape[-1])
     for name, t in (("o", o), ("do", do)):
         _check_operand(name, t)
         if t.shape != q.shape:
@@ -278,7 +292,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
         if q.is_cuda:     # refuse before the forward, not in the backward
-            check_backward_head_dim(q.shape[-1])
+            check_backward_head_dim(q.shape[-1], v.shape[-1])
         fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
         o, lse = fwd(q, k, v, causal=causal, window=window, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)

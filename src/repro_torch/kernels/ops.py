@@ -73,9 +73,11 @@ def _refuse_grad(name: str, *tensors) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """Causal / windowed GQA attention by index.  q: [B, Sq, H, D];
-    k/v: [B, Sk, KV, D].  Returns [B, Sq, H, D] in q.dtype,
-    differentiable through kernel A's backward."""
+    """Causal / windowed GQA attention by index.  q: [B, Sq, H, Dk];
+    k: [B, Sk, KV, Dk]; v: [B, Sk, KV, Dv] (Dv = Dk but for MLA's split
+    head dims); scores scaled by 1/sqrt(Dk).  Returns [B, Sq, H, Dv] in
+    q.dtype, differentiable through kernel A's backward where it is built
+    (head dims 64 and 80; elsewhere the card refuses a gradient)."""
     on_card = _on_card(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

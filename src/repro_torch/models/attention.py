@@ -1,7 +1,10 @@
 """Attention of the dense and MoE families and of the hybrid family's
-shared block (port of the non-MLA part of
-``repro/models/attention.py``): full-sequence attention, decode over
-ring-buffered KV caches (fp32/bf16 or int8), and the GPT-2 biases.
+shared block (port of ``repro/models/attention.py``): full-sequence
+attention, decode over ring-buffered KV caches (fp32/bf16 or int8), the
+GPT-2 biases, and Multi-head Latent Attention (MiniCPM3, DeepSeek-V2:
+full-sequence attention over per-head k and v decompressed from a
+latent, and an absorbed-matmul decode over the ring-buffered latent
+cache).
 
 Where the reference's jitted steps donate a cache and return a new one,
 the port writes into the cache's tensors in place (``_append_token``,
@@ -11,11 +14,15 @@ new ``index`` tensor.  One device is the case of one block of the ring
 
 Kernels: on a CUDA tensor, full-sequence causal attention goes through
 kernel A (``kernels/flash_attention.py``), forward and, when a gradient
-is taken, backward, and int8-KV decode through kernel B
-(``kernels/quantized.py``).  ``use_kernels=False`` runs their plain
-PyTorch versions instead, with autograd through the plain attention (the
-on-card parity checks of ``chip_smoke.py``); on the CPU the plain
-versions always run, through the same autograd Function as the kernels.
+is taken, backward (MLA's at its split head dims, q and k of
+``nope_head_dim + rope_head_dim`` over v of ``v_head_dim``, forward
+only), int8-KV decode through kernel B (``kernels/quantized.py``), and
+MLA's ``q_norm`` and ``kv_norm`` through kernel 6.  MLA's decode is
+plain PyTorch, as the reference computes it outside any Pallas kernel.
+``use_kernels=False`` runs their plain PyTorch versions instead, with
+autograd through the plain attention (the on-card parity checks of
+``chip_smoke.py``); on the CPU the plain versions always run, through
+the same autograd Function as the kernels.
 
 Under a plan that shards weights (``model_axis``), full-sequence
 attention runs this rank's heads: the input enters through Megatron's
@@ -36,19 +43,20 @@ the ranks' partials by their log-sum-exp (``merge_blocks``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.core.sharding import (
     ModelAxis, all_gather, copy_to_model, reduce_from_model,
 )
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.quantized import int8kv_attention_plain, live_lse
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_norm, apply_rope, dense_init
 
 NEG_INF = -1e30
 
@@ -510,3 +518,169 @@ def attention_decode(x, params, cfg: ModelConfig, *, cache,
     if cut:
         o = o[:, :, axis.rank * h_local:(axis.rank + 1) * h_local]
     return _out(o, params, axis if cut else None), cache
+
+
+# --------------------------------------------------------------------- #
+# Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2), one device: the
+# plans refuse it (ROADMAP queue 1, item 13)
+# --------------------------------------------------------------------- #
+
+class MLACache(NamedTuple):
+    """Ring-buffered latent cache: per token the ``kv_lora_rank`` latent
+    and the decoupled rope key, shared by every head (MLA's memory
+    win over a KV cache of ``2 * n_heads * head_dim`` a token)."""
+    c_kv: torch.Tensor       # [B, S, R] latent
+    k_rope: torch.Tensor     # [B, S, rope_head_dim]
+    index: torch.Tensor      # int32 next write position: scalar or [B]
+
+    @property
+    def capacity(self) -> int:
+        return self.c_kv.shape[1]
+
+    def valid(self, batch: int):
+        return _ring_valid(self.index, batch, self.capacity)
+
+
+def init_mla_cache(batch: int, capacity: int, mla: MLAConfig, dtype, *,
+                   lead=(), device="cpu") -> MLACache:
+    lead = tuple(lead)
+    return MLACache(
+        c_kv=torch.zeros(lead + (batch, capacity, mla.kv_lora_rank),
+                         dtype=dtype, device=device),
+        k_rope=torch.zeros(lead + (batch, capacity, mla.rope_head_dim),
+                           dtype=dtype, device=device),
+        index=torch.zeros(lead, dtype=torch.int32, device=device))
+
+
+def init_mla(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
+    """The reference's MLA leaves, shapes and laws: a low-rank query
+    (``w_dq``, ``q_norm``) when ``q_lora_rank`` is set, the query's
+    up-projection ``w_uq`` to nope + rope dims a head, the latent's
+    down-projection ``w_dkv`` and ``kv_norm``, the shared rope key
+    ``w_kr``, the per-head up-projections ``w_uk`` and ``w_uv`` and
+    ``wo``."""
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    kw = dict(lead=lead, device=device)
+    lead = tuple(lead)
+    p = {}
+    q_in = d
+    if m.q_lora_rank:
+        p["w_dq"] = dense_init(generator, (d, m.q_lora_rank), d, **kw)
+        p["q_norm"] = torch.ones(lead + (m.q_lora_rank,), device=device)
+        q_in = m.q_lora_rank
+    p["w_uq"] = dense_init(generator,
+                           (q_in, H, m.nope_head_dim + m.rope_head_dim),
+                           q_in, **kw)
+    p["w_dkv"] = dense_init(generator, (d, m.kv_lora_rank), d, **kw)
+    p["kv_norm"] = torch.ones(lead + (m.kv_lora_rank,), device=device)
+    p["w_kr"] = dense_init(generator, (d, m.rope_head_dim), d, **kw)
+    p["w_uk"] = dense_init(generator, (H, m.kv_lora_rank, m.nope_head_dim),
+                           m.kv_lora_rank, **kw)
+    p["w_uv"] = dense_init(generator, (H, m.kv_lora_rank, m.v_head_dim),
+                           m.kv_lora_rank, **kw)
+    p["wo"] = dense_init(generator, (H, m.v_head_dim, d), H * m.v_head_dim,
+                         **kw)
+    return p
+
+
+def _mla_q(x, params, cfg: ModelConfig, positions, use_kernels: bool):
+    """(q_nope [B, S, H, nope], q_rope [B, S, H, rope] rotated)."""
+    m, dt = cfg.mla, x.dtype
+    if "w_dq" in params:
+        cq = apply_norm(x @ params["w_dq"].to(dt), {"scale": params["q_norm"]},
+                        "rmsnorm", cfg.norm_eps, use_kernels=use_kernels)
+    else:
+        cq = x
+    q = _proj(cq, params["w_uq"])
+    return (q[..., :m.nope_head_dim],
+            apply_rope(q[..., m.nope_head_dim:], positions, cfg.rope_theta))
+
+
+def _mla_latent(x, params, cfg: ModelConfig, positions, use_kernels: bool):
+    """(c_kv [B, S, R] normed, k_rope [B, S, rope] rotated): what the
+    cache keeps."""
+    dt = x.dtype
+    c_kv = apply_norm(x @ params["w_dkv"].to(dt), {"scale": params["kv_norm"]},
+                      "rmsnorm", cfg.norm_eps, use_kernels=use_kernels)
+    k_rope = apply_rope((x @ params["w_kr"].to(dt))[:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_full(x, params, cfg: ModelConfig, positions, window: int,
+              use_kernels: bool):
+    """(output, c_kv, k_rope) of full-sequence MLA: each head's k and v
+    decompressed from the latent, k with the shared rope key, causal
+    attention at (Dk, Dv) = (nope + rope, v_head_dim), kernel A on the
+    card, then ``wo``.  ``positions`` None means arange, the index masks
+    kernel A takes."""
+    pos = torch.arange(x.shape[1], device=x.device)[None] \
+        if positions is None else positions
+    q_nope, q_rope = _mla_q(x, params, cfg, pos, use_kernels)
+    c_kv, k_rope = _mla_latent(x, params, cfg, pos, use_kernels)
+    dt = x.dtype
+    B, S, H, _ = q_nope.shape
+    k_nope = torch.einsum("bsr,hrk->bshk", c_kv, params["w_uk"].to(dt))
+    v = torch.einsum("bsr,hrk->bshk", c_kv, params["w_uv"].to(dt))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, k_rope.shape[-1])], dim=-1)
+    o = chunked_attention(q, k, v, causal=True, window=window,
+                          q_positions=positions, kv_positions=positions,
+                          use_kernels=use_kernels)
+    return _out(o, params), c_kv, k_rope
+
+
+def mla_forward(x, params, cfg: ModelConfig, *,
+                positions: Optional[torch.Tensor] = None, window: int = 0,
+                use_kernels: bool = True):
+    """Full-sequence MLA (training)."""
+    return _mla_full(x, params, cfg, positions, window, use_kernels)[0]
+
+
+def mla_prefill(x, params, cfg: ModelConfig, *,
+                positions: Optional[torch.Tensor] = None, cache: MLACache,
+                window: int = 0, use_kernels: bool = True):
+    """``mla_forward``, and the prompt's latent and rope key fill the
+    cache in place (the last ``capacity`` of them in slot = pos %
+    capacity layout when the prompt is longer, as the reference rolls
+    them).  The latent is computed once, where the reference computes it
+    again for the cache: the same values, and one ``kv_norm`` a layer."""
+    out, c_kv, k_rope = _mla_full(x, params, cfg, positions, window,
+                                  use_kernels)
+    S = x.shape[1]
+    _ring_fill(cache.c_kv, c_kv, S, WHOLE_RING)
+    _ring_fill(cache.k_rope, k_rope, S, WHOLE_RING)
+    return out, cache._replace(index=torch.full_like(cache.index, S))
+
+
+def mla_decode(x, params, cfg: ModelConfig, *, cache: MLACache,
+               window: int = 0, use_kernels: bool = True):
+    """Absorbed-matmul decode of one token x [B, 1, d]: its latent and
+    rope key are written at its ring slot (in place), and the scores are
+    computed in latent space, ``(q_nope W_uk) c_kv^T + q_rope k_rope^T``
+    in fp32 over the filled slots, so no head's k or v is ever
+    decompressed; the context comes back through ``W_uv`` and ``wo``.
+    ``window`` is the ring's: the cache's capacity."""
+    m, dt = cfg.mla, x.dtype
+    B = x.shape[0]
+    pos = _decode_positions(cache.index)
+    q_nope, q_rope = _mla_q(x, params, cfg, pos, use_kernels)    # [B,1,H,*]
+    c_new, r_new = _mla_latent(x, params, cfg, pos, use_kernels)
+    slot = torch.remainder(cache.index, cache.capacity)
+    _append_token(cache.c_kv, c_new, slot)
+    _append_token(cache.k_rope, r_new, slot)
+    cache = cache._replace(index=cache.index + 1)
+    q_lat = torch.einsum("bqhk,hrk->bqhr", q_nope, params["w_uk"].to(dt))
+    # a host scalar: a tensor made on the host here would cost a copy to
+    # the card, and a wait for its stream, every layer of every step
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    c_kv = cache.c_kv.float()
+    s = torch.einsum("bqhr,bsr->bhqs", q_lat.float(), c_kv)
+    s = s + torch.einsum("bqhk,bsk->bhqs", q_rope.float(),
+                         cache.k_rope.float())
+    s = (s * scale).masked_fill(~cache.valid(B)[:, None, None, :], NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", w, c_kv)
+    o = torch.einsum("bqhr,hrk->bqhk", ctx.to(dt), params["w_uv"].to(dt))
+    return _out(o, params), cache

@@ -1,10 +1,13 @@
 """Per-layer blocks (port of the dense, MoE, SSM and hybrid parts of
 ``repro/models/blocks.py``): init, forward, prefill and decode for the
-dense pre-norm block, the MoE block (phi3.5-MoE: attention, then the
-routed experts in place of the MLP), the Mamba1 block (falcon-mamba) and
-the Mamba2 block (zamba2, whose shared attention block is a dense
-block).  ``use_kernels`` reaches every norm (kernel 6 for RMSNorm on the
-card), attention and scan.
+dense pre-norm block, the MoE block (phi3.5-MoE, DeepSeek-V2: attention,
+then the routed experts in place of the MLP), the Mamba1 block
+(falcon-mamba) and the Mamba2 block (zamba2, whose shared attention
+block is a dense block).  The dense and MoE blocks attend by Multi-head
+Latent Attention (leaf ``mla``) where the config has an ``MLAConfig``
+(MiniCPM3, DeepSeek-V2), by GQA (leaf ``attn``) otherwise.
+``use_kernels`` reaches every norm (kernel 6 for RMSNorm on the card),
+attention and scan.
 
 Every ``init_*`` makes its leaves with a leading ``lead`` shape, so
 ``lead=(n_layers,)`` gives the stacked ``[L, ...]`` layout the reference
@@ -32,6 +35,45 @@ from repro_torch.models.layers import (
 )
 
 
+def _init_attention(generator, cfg: ModelConfig, **kw):
+    """{"mla": ...} for an MLA config, else {"attn": ...}."""
+    if cfg.mla is not None:
+        return {"mla": attn.init_mla(generator, cfg, **kw)}
+    return {"attn": attn.init_attention(generator, cfg, **kw)}
+
+
+def _attention_forward(h, p, cfg: ModelConfig, *, positions, window,
+                       use_kernels, model_axis):
+    if cfg.mla is not None:
+        return attn.mla_forward(h, p["mla"], cfg, positions=positions,
+                                window=window, use_kernels=use_kernels)
+    return attn.attention_forward(h, p["attn"], cfg, positions=positions,
+                                  window=window, use_kernels=use_kernels,
+                                  model_axis=model_axis)
+
+
+def _attention_prefill(h, p, cfg: ModelConfig, *, positions, cache, window,
+                       use_kernels, model_axis, blocks):
+    if cfg.mla is not None:
+        return attn.mla_prefill(h, p["mla"], cfg, positions=positions,
+                                cache=cache, window=window,
+                                use_kernels=use_kernels)
+    return attn.attention_prefill(h, p["attn"], cfg, positions=positions,
+                                  cache=cache, window=window,
+                                  use_kernels=use_kernels,
+                                  model_axis=model_axis, blocks=blocks)
+
+
+def _attention_decode(h, p, cfg: ModelConfig, *, cache, window, use_kernels,
+                      model_axis, blocks):
+    if cfg.mla is not None:
+        return attn.mla_decode(h, p["mla"], cfg, cache=cache, window=window,
+                               use_kernels=use_kernels)
+    return attn.attention_decode(h, p["attn"], cfg, cache=cache,
+                                 window=window, use_kernels=use_kernels,
+                                 model_axis=model_axis, blocks=blocks)
+
+
 def init_dense_block(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
     kw = dict(lead=lead, device=device)
     return {
@@ -39,7 +81,7 @@ def init_dense_block(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
         "norm2": init_norm(cfg.d_model, cfg.norm, **kw),
         "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.activation,
                         **kw),
-        "attn": attn.init_attention(generator, cfg, **kw),
+        **_init_attention(generator, cfg, **kw),
     }
 
 
@@ -61,9 +103,8 @@ def dense_block_forward(x, p, cfg: ModelConfig, *, positions=None,
     """``model_axis`` (``core.sharding.ModelAxis``): the plan's cut of
     the heads and the MLP over the ``model`` axis, None on one device."""
     h = _norm(x, p["norm1"], cfg, use_kernels)
-    x = x + attn.attention_forward(h, p["attn"], cfg, positions=positions,
-                                   window=window, use_kernels=use_kernels,
-                                   model_axis=model_axis)
+    x = x + _attention_forward(h, p, cfg, positions=positions, window=window,
+                               use_kernels=use_kernels, model_axis=model_axis)
     return _mlp_residual(x, p, cfg, use_kernels, model_axis)
 
 
@@ -74,10 +115,9 @@ def dense_block_prefill(x, p, cfg: ModelConfig, *, positions=None, cache,
     in ``dense_block_forward``, and ``blocks`` (``attention.RingBlocks``)
     says which ring slots this rank's cache holds."""
     h = _norm(x, p["norm1"], cfg, use_kernels)
-    a, cache = attn.attention_prefill(h, p["attn"], cfg, positions=positions,
-                                      cache=cache, window=window,
-                                      use_kernels=use_kernels,
-                                      model_axis=model_axis, blocks=blocks)
+    a, cache = _attention_prefill(h, p, cfg, positions=positions, cache=cache,
+                                  window=window, use_kernels=use_kernels,
+                                  model_axis=model_axis, blocks=blocks)
     return _mlp_residual(x + a, p, cfg, use_kernels, model_axis), cache
 
 
@@ -86,15 +126,15 @@ def dense_block_decode(x, p, cfg: ModelConfig, *, cache, window: int = 0,
                        blocks=attn.WHOLE_RING):
     """``model_axis`` and ``blocks``: as ``dense_block_prefill``'s."""
     h = _norm(x, p["norm1"], cfg, use_kernels)
-    a, cache = attn.attention_decode(h, p["attn"], cfg, cache=cache,
-                                     window=window, use_kernels=use_kernels,
-                                     model_axis=model_axis, blocks=blocks)
+    a, cache = _attention_decode(h, p, cfg, cache=cache, window=window,
+                                 use_kernels=use_kernels,
+                                 model_axis=model_axis, blocks=blocks)
     return _mlp_residual(x + a, p, cfg, use_kernels, model_axis), cache
 
 
 # --------------------------------------------------------------------- #
-# MoE (phi3.5-moe: norm -> attention -> residual, norm -> experts ->
-# residual)
+# MoE (phi3.5-moe, deepseek-v2: norm -> attention -> residual, norm ->
+# experts -> residual)
 # --------------------------------------------------------------------- #
 
 def init_moe_block(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
@@ -103,7 +143,7 @@ def init_moe_block(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
         "norm1": init_norm(cfg.d_model, cfg.norm, **kw),
         "norm2": init_norm(cfg.d_model, cfg.norm, **kw),
         "moe": moe_mod.init_moe(generator, cfg, **kw),
-        "attn": attn.init_attention(generator, cfg, **kw),
+        **_init_attention(generator, cfg, **kw),
     }
 
 
@@ -120,9 +160,8 @@ def moe_block_forward(x, p, cfg: ModelConfig, *, positions=None,
                       model_axis=None, dispatch=None):
     """Returns (x, aux)."""
     h = _norm(x, p["norm1"], cfg, use_kernels)
-    x = x + attn.attention_forward(h, p["attn"], cfg, positions=positions,
-                                   window=window, use_kernels=use_kernels,
-                                   model_axis=model_axis)
+    x = x + _attention_forward(h, p, cfg, positions=positions, window=window,
+                               use_kernels=use_kernels, model_axis=model_axis)
     return _moe_residual(x, p, cfg, use_kernels, model_axis, dispatch)
 
 
@@ -133,10 +172,9 @@ def moe_block_prefill(x, p, cfg: ModelConfig, *, positions=None, cache,
     """``model_axis`` and ``blocks``: as ``dense_block_prefill``'s;
     ``dispatch``: as ``moe_block_forward``'s."""
     h = _norm(x, p["norm1"], cfg, use_kernels)
-    a, cache = attn.attention_prefill(h, p["attn"], cfg, positions=positions,
-                                      cache=cache, window=window,
-                                      use_kernels=use_kernels,
-                                      model_axis=model_axis, blocks=blocks)
+    a, cache = _attention_prefill(h, p, cfg, positions=positions, cache=cache,
+                                  window=window, use_kernels=use_kernels,
+                                  model_axis=model_axis, blocks=blocks)
     return _moe_residual(x + a, p, cfg, use_kernels, model_axis,
                          dispatch)[0], cache
 
@@ -146,9 +184,9 @@ def moe_block_decode(x, p, cfg: ModelConfig, *, cache, window: int = 0,
                      blocks=attn.WHOLE_RING, dispatch=None):
     """As ``moe_block_prefill``, for one token."""
     h = _norm(x, p["norm1"], cfg, use_kernels)
-    a, cache = attn.attention_decode(h, p["attn"], cfg, cache=cache,
-                                     window=window, use_kernels=use_kernels,
-                                     model_axis=model_axis, blocks=blocks)
+    a, cache = _attention_decode(h, p, cfg, cache=cache, window=window,
+                                 use_kernels=use_kernels,
+                                 model_axis=model_axis, blocks=blocks)
     return _moe_residual(x + a, p, cfg, use_kernels, model_axis,
                          dispatch)[0], cache
 

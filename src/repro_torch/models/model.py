@@ -70,8 +70,8 @@ from repro_torch.models.layers import (
 )
 
 Params = Dict[str, Any]
-Cache = Union[attn_mod.KVCache, attn_mod.QuantKVCache, ssm_mod.SSMState,
-              Dict[str, Any]]
+Cache = Union[attn_mod.KVCache, attn_mod.QuantKVCache, attn_mod.MLACache,
+              ssm_mod.SSMState, Dict[str, Any]]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -92,11 +92,13 @@ _BLOCKS = {
 
 def trains_through_kernels(cfg: ModelConfig) -> bool:
     """Whether every kernel a training step of ``cfg`` reaches has a
-    backward on the card.  Only kernel A has one, so only the dense
-    family with LayerNorm (GPT-2) trains through the kernels; the
-    launchers train the others with ``use_kernels=False`` (their kernels'
-    wrappers raise when a gradient is taken; ROADMAP queue 2, item 7)."""
-    return cfg.family == "dense" and cfg.norm == "layernorm"
+    backward on the card.  Only kernel A has one, at head dims 64 and 80
+    (not MLA's split ones), so only the dense family with LayerNorm
+    (GPT-2) trains through the kernels; the launchers train the others
+    with ``use_kernels=False`` (their kernels' wrappers raise when a
+    gradient is taken; ROADMAP queue 2, item 7)."""
+    return cfg.family == "dense" and cfg.norm == "layernorm" \
+        and cfg.mla is None
 
 
 def unstack(tree) -> List:
@@ -128,9 +130,10 @@ def _restack(cache, layer_caches):
 
 
 class Model:
-    """Functional model around a ModelConfig: the dense (GPT-2, llama),
-    ``moe`` (phi3.5-MoE), ``ssm`` (falcon-mamba) and ``hybrid`` (zamba2)
-    families.
+    """Functional model around a ModelConfig: the dense (GPT-2, llama,
+    phi4-mini, MiniCPM3), ``moe`` (phi3.5-MoE, DeepSeek-V2), ``ssm``
+    (falcon-mamba) and ``hybrid`` (zamba2) families, with Multi-head
+    Latent Attention where the config has an ``MLAConfig``.
 
     ``device`` defaults to "cuda" and raises when no card is present.
     ``use_kernels=False`` runs the kernels' plain PyTorch versions (the
@@ -390,10 +393,11 @@ class Model:
                    seq_blocks: int = 1, channel_blocks: int = 1,
                    depth: Optional[int] = None, device=None) -> Cache:
         """Decode cache, leaves stacked on the layer axis (``[G, ...]``
-        and ``[G, k, ...]`` for the hybrid family).  ``kv_dtype='fp32'``
-        keeps k/v in the compute dtype (the reference's name); 'int8' is
-        the quantized cache decode runs through kernel B, for the dense
-        and MoE families only, as in the reference.
+        and ``[G, k, ...]`` for the hybrid family; the latent
+        ``MLACache`` for an MLA config).  ``kv_dtype='fp32'`` keeps k/v
+        in the compute dtype (the reference's name); 'int8' is the
+        quantized cache decode runs through kernel B, for the dense and
+        MoE families without MLA only, as in the reference.
 
         Under a serving plan a rank holds ``rows`` of the ``batch`` rows,
         one of ``seq_blocks`` blocks of the ring's slots, its part of the
@@ -414,10 +418,13 @@ class Model:
         if kv_dtype not in ("fp32", "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}; expected "
                              f"'fp32' or 'int8'")
-        if kv_dtype == "int8" and cfg.family not in ("dense", "moe"):
+        if kv_dtype == "int8" and (cfg.family not in ("dense", "moe")
+                                   or cfg.mla is not None):
             raise ValueError(
                 "kv_dtype='int8' needs a plain-GQA attention cache; "
-                f"family {cfg.family!r} stores no quantizable k/v tensors")
+                f"family {cfg.family!r}"
+                + (" with MLA" if cfg.mla is not None else "")
+                + " stores no quantizable k/v tensors")
         ssm_kw = dict(device=dev, channel_blocks=channel_blocks)
         if cfg.family == "ssm":
             return ssm_mod.init_ssm_state(cfg, batch, dt,
@@ -434,6 +441,9 @@ class Model:
                     dt, lead=(G,), device=dev),
             }
         lead = (depth or cfg.n_layers,)
+        if cfg.mla is not None:
+            return attn_mod.init_mla_cache(batch, cap, cfg.mla, dt,
+                                           lead=lead, device=dev)
         if kv_dtype == "int8":
             return attn_mod.init_quant_kv_cache(
                 batch, cap, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim,

@@ -3,7 +3,8 @@ router and sort-based capacity dispatch.
 
 Tokens are sorted by their assigned expert (stable), packed into a
 fixed-capacity ``[E, C, d]`` buffer, run through every expert's SwiGLU
-as batched products and scattered back weighted by the router.  The
+as batched products and combined back weighted by the router, each
+token's contributions added in the reference's order for any top_k.  The
 products are plain matrix products, which the reference leaves to XLA
 outside Pallas; here they are batched ``matmul``s (cuBLAS on the
 card).
@@ -181,16 +182,25 @@ def moe_forward(x, params, cfg: ModelConfig, *,
         E_l * cap, d)
 
     contrib = out_buf[slot] * (sorted_gate * keep)[:, None].to(dt)
-    # the combine: each token receives its top_k contributions into a
-    # zero row.  With top_k = 2 (phi3.5-MoE, every reduced config) that is
-    # 0 + a + b, which rounds once whichever lands first, so the card's
-    # unordered index_add_ gives the bits of the reference's ordered
-    # scatter; for top_k > 2 the order would matter.  Cut over the model
-    # axis, a token's two experts sit on one rank (0 + a + b there, zeros
-    # elsewhere) or on two (a on one, b on the other): the sum over the
-    # axis adds a + b once more and zeros, exactly, so the bits hold
-    out = torch.zeros((T, d), dtype=dt, device=dev).index_add(
-        0, sorted_token, contrib)
+    # the combine: each token's top_k contributions are added into a zero
+    # row one at a time in the reference's scatter order, ascending sorted
+    # position, which is ascending expert id (the stable sort keeps a
+    # token's k distinct experts in that order): gathered as [T, k, d],
+    # then 0 + c_0 + c_1 + ... in the model dtype, the same bits on the
+    # card and the CPU in every run (an unordered index_add_ would round
+    # in another order at top_k > 2: DeepSeek-V2's 6).  Cut over the
+    # model axis, another rank's experts add zeros, exactly, and the sum
+    # over the axis adds the ranks' partial sums: at top_k = 2 (phi3.5-
+    # MoE) a token's two experts sit on one rank (0 + a + b there, zeros
+    # elsewhere) or on two (a on one, b on the other), so the bits of one
+    # device hold; at a larger top_k the partial sums may round apart
+    # from one device's order (no plan runs such a model yet)
+    at = torch.empty_like(order)
+    at[order] = torch.arange(T * k, device=dev)
+    parts = contrib[torch.sort(at.view(T, k), dim=-1).values]   # [T, k, d]
+    out = torch.zeros((T, d), dtype=dt, device=dev)
+    for j in range(k):
+        out = out + parts[:, j]
     if cut:
         out = reduce_from_model(out, model_axis)
 

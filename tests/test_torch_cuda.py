@@ -86,10 +86,37 @@ def test_flash_kernel_head_dim_80(cuda_device, B, S, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dk,dv,B,S,H", [
+    (96, 64, 8, 64, 40), (96, 64, 1, 257, 4),
+    (192, 128, 8, 64, 16), (192, 128, 1, 257, 4)])
+def test_flash_kernel_split_head_dims(cuda_device, dk, dv, B, S, H):
+    """Multi-head Latent Attention's pairs, q and k of dk over v of dv
+    (MiniCPM3 (96, 64), DeepSeek-V2 (192, 128)): output [B, S, H, dv] and
+    the logsumexp, scaled by 1/sqrt(dk), against the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(dk + S)
+    q, k = (torch.randn((B, S, H, dk), generator=g, device=cuda_device)
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((B, S, H, dv), generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    got, lse = tfa.flash_attention_cuda(q, k, v, causal=True,
+                                        return_lse=True)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, H, dv)
+    want, want_lse = tfa.flash_attention_plain(q, k, v, causal=True,
+                                               return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=BF16_ATOL)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=LSE_ATOL)
+
+
+@pytest.mark.cuda
 def test_flash_kernel_refuses_other_head_dims(cuda_device):
     q = torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="D in"):
         tfa.flash_attention_cuda(q, q, q)
+    v = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match=r"\(96, 128\)"):
+        tfa.flash_attention_cuda(q, q, v)
 
 
 def _scan_close(got, want):

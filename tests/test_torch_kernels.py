@@ -435,16 +435,22 @@ def test_kernels_without_backward_refuse_gradients_on_card(monkeypatch,
 
 
 def test_flash_backward_refuses_head_dim_128():
-    """Kernel A's forward is built for head_dim 128, its backward is not:
-    a training run at 128 on the card is refused before the forward,
-    naming the ROADMAP item, instead of reaching a template that was
-    never instantiated."""
+    """Kernel A's forward is built for head_dim 128 and for MLA's split
+    head dims, its backward is not: a training run at those on the card
+    is refused before the forward, naming the ROADMAP item, instead of
+    reaching a template that was never instantiated."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 7"):
         tfa.check_backward_head_dim(128)
+    for dk, dv in ((96, 64), (192, 128), (64, 80)):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 2, item 7"):
+            tfa.check_backward_head_dim(dk, dv)
     for D in tfa.BWD_HEAD_DIMS:
         tfa.check_backward_head_dim(D)
-    assert set(tfa.BWD_HEAD_DIMS) < set(tfa.FWD_HEAD_DIMS)
-    assert 128 in tfa.FWD_HEAD_DIMS and 128 in tq.HEAD_DIMS
+        tfa.check_backward_head_dim(D, D)
+    assert {(D, D) for D in tfa.BWD_HEAD_DIMS} < set(tfa.FWD_HEAD_DIMS)
+    assert (128, 128) in tfa.FWD_HEAD_DIMS and 128 in tq.HEAD_DIMS
+    assert {(96, 64), (192, 128)} < set(tfa.FWD_HEAD_DIMS)
 
 
 # Kernel A's CUDA sources cannot be compiled here; these read them.

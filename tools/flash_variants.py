@@ -46,7 +46,7 @@ def variants(src: str):
                   "constexpr int FWD_BQ = 128;")
     warps8 = edit(warps8, "constexpr int FWD_NT = 128;",
                   "constexpr int FWD_NT = 256;")
-    warps8 = edit(warps8, "  FLASH_LAUNCH(80)\n", "")
+    warps8 = edit(warps8, "  FLASH_LAUNCH(80, 80)\n", "")
     return {"committed": (src, (64, 80, 128)), "one-P": (one_p, (64, 80, 128)),
             "8-warps": (warps8, (64, 128))}
 
@@ -63,7 +63,7 @@ def build(name, text, out_dir, build_mod):
         raise SystemExit(f"nvcc failed for {name}:\n{r.stdout}{r.stderr}")
     fn = ctypes.CDLL(lib).flash_attn_fwd_bf16
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, P, P, P, I, I, I, I, I, I] + [L] * 12 + [
+    fn.argtypes = [P, P, P, P] + [I] * 7 + [L] * 12 + [
         ctypes.c_float, I, I, P, P]
     fn.restype = ctypes.c_int
     return fn
@@ -89,7 +89,7 @@ def main() -> None:
             B, Sq, H, D = q.shape
             o = torch.empty_like(q)
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     B, H, k.shape[2], Sq, k.shape[1], D, *q.stride()[:3],
+                     B, H, k.shape[2], Sq, k.shape[1], D, D, *q.stride()[:3],
                      *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                      D ** -0.5, 1, 0, None,
                      torch.cuda.current_stream().cuda_stream)
