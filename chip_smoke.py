@@ -39,6 +39,17 @@ layers, three training steps through the plain versions
 (``train-mla``).  Kernel A is held at (96, 64) and (192, 128) beside
 SDPA, naming the backend SDPA picked.
 
+Then the encoder-decoder: whisper-small at full size (12 encoder and 12
+decoder layers, d_model 768, 12 heads of 64, 1500 frames, random frames
+[8, 1500, 768] x 0.02 from the seed) through ``Engine`` (batch 8, prompt
+64, 32 new tokens, ``whisper-engine``: kernel A 36 times a prefill, the
+encoder's and the cross-attention's non-causal), and three training
+steps of 8 x 448 tokens over 8 x 1500 frames through kernel A and its
+backward (``train-whisper``), one step's loss and gradients held to the
+plain path with an fp32 control (``whisper-parity``).  Kernel A and its
+backward are held non-causal at the model's shapes (Sq of 1, 64, 448 and
+1500 over 1500 keys) beside SDPA, naming its backend.
+
 Then it calibrates the card as a site of the paper's TACC-TACC cluster
 for gpt2m through ``repro_torch.launch.calibrate`` (kernel micro-bench
 through kernels 5 and A, host ring, least-squares fit, plan search
@@ -89,7 +100,8 @@ shard with the int8 cache (kernel B with its log-sum-exp, the merge of
 the ring's blocks) and through ``ContinuousEngine`` (int8, 8 slots, 16
 requests), and llama3.2-3b at full size with the int8 cache under shard
 (``serve-*``): each phase's tokens held to the one-device engine's on
-the same weights and prompts, three runs timed.  Then, once each after
+the same weights and prompts, three runs timed (``serve-fsdp`` and
+``serve-shard-continuous`` one).  Then, once each after
 its one-device yardstick: gpt2L under pipeshard on one stage of two
 chunks (16 and 14 layers) through ``Engine`` (fp32 KV) and
 ``ContinuousEngine`` (int8; ``serve-pipeshard``,
@@ -98,9 +110,10 @@ KV), falcon-mamba-7b and zamba2-2.7b (chunks of 5 and 4 of its 9
 groups) at full width under shard and under pipeshard
 (``serve-moe-shard``, ..., ``serve-hybrid-pipeshard``): kernels A, B,
 3, 4 and 6 as the families use them.  Then elasticity, gpt2m at full
-size (batch 8 of 1024 tokens, ``TrainConfig`` defaults), in the same
-process group: two steps under pipeshard on one stage (interleaved,
-chunks of 13 and 11 layers, four microbatches), a checkpoint, and
+width cut to 12 of its 24 layers (batch 8 of 1024 tokens,
+``TrainConfig`` defaults), in the same process group: two steps under
+pipeshard on one stage (interleaved, chunks of 7 and 5 layers, four
+microbatches), a checkpoint, and
 ``reshard_checkpoint`` onto fsdp (``elastic-reshard-pipe``); the same
 from zero2 onto that pipeshard layout (``elastic-reshard-flat``); and
 the recovery mode of ``launch/replan.py`` on a two-site topology with
@@ -108,7 +121,7 @@ site V2 dead, from the first phase's checkpoint, onto the survivor
 search's winner (``elastic-recover``).  The resharded params and AdamW
 moments must be bit-equal to the host-side reference re-placement and
 every loss after a reshard bit-equal to a control that restored the same
-checkpoint without the reshard code; kernel A launches 48 forward and 24
+checkpoint without the reshard code; kernel A launches 24 forward and 12
 backward a microbatch of a step; each phase prints its checkpoint
 writes and restores (seconds, GB), its step times before and after, and
 its peak memory.
@@ -266,9 +279,10 @@ FAM_LOSS1_RTOL, FAM_LOSS_RTOL = 1e-5, 1e-3
 PIPE_MICRO = 4
 PIPE_PHASES = (("gpipe", None), ("1f1b", None), ("interleaved", (16, 14)))
 PIPE_LOSS1_RTOL, PIPE_LOSS_RTOL = 1e-4, 2e-3
-# the elastic phases: gpt2m at full size (TrainConfig's defaults: remat,
-# bf16 compute over fp32 params), batch 8 of 1024 random tokens, over
-# NCCL at a world of one.  elastic-reshard-pipe trains ELASTIC_STEPS
+# the elastic phases: gpt2m at full width cut to ELASTIC_LAYERS of its 24
+# layers (a checkpoint of half the bytes: its write and restores take
+# most of a phase), TrainConfig's defaults (remat, bf16 compute over fp32
+# params), batch 8 of 1024 random tokens, over NCCL at a world of one.  elastic-reshard-pipe trains ELASTIC_STEPS
 # steps under pipeshard on one stage, interleaved, the uneven split
 # ELASTIC_SPLIT, ELASTIC_MICRO microbatches, checkpoints, reshards the
 # checkpoint onto fsdp and takes one more step; elastic-reshard-flat the
@@ -279,8 +293,10 @@ PIPE_LOSS1_RTOL, PIPE_LOSS_RTOL = 1e-4, 2e-3
 # reference re-placement (``train.reshard.reshard_state``), and every
 # loss after a reshard bit-equal to a control that restored the same
 # checkpoint without the reshard code.  The reference's search picks
-# ELASTIC_WINNER for this workload (tests/test_torch_elastic.py).
-ELASTIC_STEPS, ELASTIC_MICRO, ELASTIC_SPLIT = 2, 4, (13, 11)
+# ELASTIC_WINNER for this workload at 24 layers (tests/test_torch_elastic
+# .py), and the port's at 12 and 8 too.
+ELASTIC_STEPS, ELASTIC_MICRO, ELASTIC_SPLIT = 2, 4, (7, 5)
+ELASTIC_LAYERS = sum(ELASTIC_SPLIT)
 ELASTIC_GPUS, ELASTIC_DEAD, ELASTIC_WINNER = "A30;A30", (1,), ("data", (0,))
 # the serve phases: gpt2L at full size through ``Engine`` (batch 8,
 # prompt 64, 32 new tokens) under each flat plan over NCCL at a world of
@@ -297,6 +313,10 @@ ELASTIC_GPUS, ELASTIC_DEAD, ELASTIC_WINNER = "A30;A30", (1,), ("data", (0,))
 # the logits of prefill and of every decode step, teacher-forced on the
 # one-device tokens, within SERVE_LOGIT_RTOL of the largest logit.
 SERVE_RUNS, SERVE_LOGIT_RTOL = 3, 1e-2
+# ...but these serve once (their first run's tokens and every check as
+# before): the two longest of the phases, cut to pay for the whisper
+# stage's seconds
+SERVE_ONE_RUN = ("serve-fsdp", "serve-shard-continuous")
 # (phase, arch, plan, KV dtype, engine)
 SERVE_PHASES = tuple((f"serve-{p}", PLAN_ARCH, p, "fp32", "engine")
                      for p in PLAN_NAMES) + (
@@ -368,6 +388,21 @@ SLEEP_CYCLES = 2_000_000
 FLOOR_CYCLES = 10
 SEED = 0
 ENGINE_BATCH, ENGINE_PROMPT, ENGINE_GEN = 8, 64, 32
+# the encoder-decoder: whisper-small at full size (12 encoder and 12
+# decoder layers, d_model 768, 12 heads of 64, 1500 frames), one model on
+# the card.  Kernel A non-causal at its attention's shapes, batch 8, H =
+# KV = 12, D = 64, (Sq, Sk): the cross-attention at the Engine prompt
+# and at the training length over the frames, the encoder's
+# self-attention, and a single query row over every frame (the edge of a
+# query tile; 1500 = 23 x 64 + 28 ends on the edge of a key tile); its
+# backward at the training cross-attention and the encoder.  Training:
+# WHISPER_STEPS steps of ENGINE_BATCH x WHISPER_SEQ tokens (whisper's
+# longest text) over ENGINE_BATCH x 1500 frames.
+WHISPER, WHISPER_HEADS = "whisper-small", (12, 12, 64)
+WHISPER_FWD = tuple((ENGINE_BATCH, sq, 1500) for sq in (64, 448, 1500, 1))
+WHISPER_BWD = tuple((ENGINE_BATCH, sq, 1500) + WHISPER_HEADS
+                    for sq in (448, 1500))
+WHISPER_SEQ, WHISPER_STEPS = 448, 3
 CONT_SLOTS, CONT_REQUESTS, CONT_LENS, CONT_GEN = 8, 16, (16, 256), 32
 # the scans' shapes: Engine prefill (8 x 64), ContinuousEngine's one
 # request at a time at its prompt's length (1 x 16 to 256), a ragged
@@ -506,52 +541,70 @@ def sdpa_backend(torch, fn):
     return backend, name[:120]
 
 
-def check_flash(torch, F, H, KV, D, shapes, Dv=None):
-    """Kernel A against its plain version, causal, with H query heads over
-    KV key/value heads, q and k of D and v of ``Dv`` (default D), at
-    prefill shapes ``(B, S)``; SDPA on the same tensors beside it, with
-    the backend it picked."""
+def _lengths(shape):
+    """(B, Sq, Sk) of a shape ``(B, S)`` (Sq = Sk) or ``(B, Sq, Sk)``, and
+    the row keys that name it."""
+    if len(shape) == 2:
+        B, S = shape
+        return B, S, S, {"B": B, "S": S}
+    B, Sq, Sk = shape
+    return B, Sq, Sk, {"B": B, "Sq": Sq, "Sk": Sk}
+
+
+def check_flash(torch, F, H, KV, D, shapes, Dv=None, causal=True):
+    """Kernel A against its plain version, causal or not, with H query
+    heads over KV key/value heads, q and k of D and v of ``Dv`` (default
+    D), at shapes ``(B, S)`` or ``(B, Sq, Sk)``; SDPA on the same tensors
+    beside it, with the backend it picked."""
     from repro_torch.kernels import flash_attention as fa
 
     Dv = D if Dv is None else Dv
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows, worst = [], 0.0
-    for B, S in shapes:
-        q, k, v = (torch.randn((B, S, h, d), generator=g, device="cuda")
-                   .to(torch.bfloat16) for h, d in ((H, D), (KV, D),
-                                                    (KV, Dv)))
-        got = fa.flash_attention_cuda(q, k, v, causal=True)
-        want = fa.flash_attention_plain(q, k, v, causal=True)
+    for shape in shapes:
+        B, Sq, Sk, at = _lengths(shape)
+        q, k, v = (torch.randn((B, n, h, d), generator=g, device="cuda")
+                   .to(torch.bfloat16) for n, h, d in ((Sq, H, D),
+                                                       (Sk, KV, D),
+                                                       (Sk, KV, Dv)))
+        got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        what = f"H={H} KV={KV} D={D}" + (f" Dv={Dv}" if Dv != D else "")
+        what = f"H={H} KV={KV} D={D}" + (f" Dv={Dv}" if Dv != D else "") \
+            + ("" if causal else " non-causal")
+        where = " ".join(f"{k}={v}" for k, v in at.items())
         if not err <= KERNEL_ATOL:
-            fail(f"flash_attn_fwd {what} B={B} S={S}: max_abs_err {err} > "
+            fail(f"flash_attn_fwd {what} {where}: max_abs_err {err} > "
                  f"{KERNEL_ATOL}")
         worst = max(worst, err)
         qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        pairs = S * (S + 1) // 2                 # visible causal pairs
+        # visible pairs: the causal triangle, or every query and key
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
         flops = 2 * (D + Dv) * pairs * B * H     # Q K^T and P V
         # bf16 q (D) and output (Dv) at H heads, k (D) and v (Dv) at KV
-        b_ms, b_by = bound(2 * B * S * (H + KV) * (D + Dv), flops)
+        b_ms, b_by = bound(2 * B * (Sq * H + Sk * KV) * (D + Dv), flops)
 
         def sdpa():
             return F.scaled_dot_product_attention(
-                qT, kT, vT, is_causal=True, enable_gqa=KV != H)
+                qT, kT, vT, is_causal=causal, enable_gqa=KV != H)
 
         backend, sdpa_kernel = sdpa_backend(torch, sdpa)
         row = {
-            "B": B, "S": S, "H": H, "KV": KV, "D": D, "Dv": Dv,
-            "max_abs_err": err,
+            **at, "H": H, "KV": KV, "D": D, "Dv": Dv, "max_abs_err": err,
             "ms": time_ms(torch, lambda: fa.flash_attention_cuda(
-                q, k, v, causal=True)),
+                q, k, v, causal=causal)),
             "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
-                q, k, v, causal=True), iters=5),
+                q, k, v, causal=causal), iters=5),
             "library_ms": time_ms(torch, sdpa),
             "library_backend": backend, "library_kernel": sdpa_kernel,
             "bound_ms": b_ms, "bound_by": b_by}
+        if not causal:
+            row["causal"] = False
         rows.append(add_rates(row, flops))
-        log(f"flash_attn_fwd {what} B={B:2d} S={S:5d} err={err:.3e} "
+        where = f"B={B:2d} S={Sq:5d}" if causal else \
+            f"B={B:2d} Sq={Sq:4d} Sk={Sk:4d}"
+        log(f"flash_attn_fwd {what} {where} err={err:.3e} "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"sdpa_ms={row['library_ms']:.4f} ({backend}: {sdpa_kernel}) "
             f"bound_ms={b_ms:.5f} ({b_by}) {row['tflops']:.1f} TFLOP/s, "
@@ -559,29 +612,47 @@ def check_flash(torch, F, H, KV, D, shapes, Dv=None):
     return rows, worst
 
 
-def check_flash_bwd(torch, F):
+def check_flash_bwd(torch, F, shapes=BWD_SHAPES, causal=True):
     """Kernel A's backward against its plain version on the same bf16
-    inputs and the forward kernel's lse, causal, at ``BWD_SHAPES``; the
-    forward's lse against the plain logsumexp; SDPA's backward (same
-    mask) as the yardstick."""
+    inputs and the forward kernel's lse and output (as training runs
+    them, ``FlashAttention``: the bf16 output where causal, the fp32 one
+    where not), causal at ``(B, S, H, KV, D)`` shapes or not at ``(B, Sq,
+    Sk, H, KV, D)`` ones; the forward's lse (and fp32 output) against
+    the plain logsumexp (and fp32 output); SDPA's backward (same mask) as
+    the yardstick."""
     from repro_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rows, worst = [], 0.0
-    for B, S, H, KV, D in BWD_SHAPES:
-        q, k, v, do = (torch.randn((B, S, h, D), generator=g, device="cuda")
-                       .to(torch.bfloat16) for h in (H, KV, KV, H))
-        o, lse = fa.flash_attention_cuda(q, k, v, causal=True,
-                                         return_lse=True)
-        _, lse_plain = fa.flash_attention_plain(q, k, v, causal=True,
-                                                return_lse=True)
-        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
-        want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse)
+    for shape in shapes:
+        B, Sq, Sk, at = _lengths(shape[:-3])
+        H, KV, D = shape[-3:]
+        q, k, v, do = (torch.randn((B, n, h, D), generator=g, device="cuda")
+                       .to(torch.bfloat16) for n, h in ((Sq, H), (Sk, KV),
+                                                        (Sk, KV), (Sq, H)))
+        o32 = None if causal else torch.empty(q.shape, dtype=torch.float32,
+                                              device="cuda")
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                         return_lse=True, o32=o32)
+        o_plain, lse_plain = fa.flash_attention_plain(
+            q, k, v, causal=causal, return_lse=True,
+            out_dtype=torch.float32)
+        if o32 is not None:
+            o = o32
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                            causal=causal)
         torch.cuda.synchronize()
-        what = f"flash_attn_bwd B={B} S={S} H={H} KV={KV} D={D}"
+        what = "flash_attn_bwd " + " ".join(
+            f"{k}={v}" for k, v in at.items()) + f" H={H} KV={KV} D={D}" \
+            + ("" if causal else " non-causal")
         lse_err = float((lse - lse_plain).abs().max())
         if not lse_err <= LSE_ATOL:
             fail(f"{what}: lse max_abs_err {lse_err} > {LSE_ATOL}")
+        o32_err = None if o32 is None else float((o - o_plain).abs().max())
+        if o32 is not None and not o32_err <= KERNEL_ATOL:
+            fail(f"{what}: fp32 output max_abs_err {o32_err} > "
+                 f"{KERNEL_ATOL}")
         err, rel = 0.0, {}
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             if not torch.isfinite(a).all():
@@ -595,34 +666,50 @@ def check_flash_bwd(torch, F):
         worst = max(worst, err)
         qT, kT, vT = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qT, kT, vT, is_causal=True,
-                                             enable_gqa=KV != H)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qT, kT, vT, is_causal=causal, enable_gqa=KV != H)
+
+        out = sdpa()
         doT = do.transpose(1, 2).contiguous()
-        pairs = S * (S + 1) // 2                 # visible causal pairs
+        # visible pairs: the causal triangle, or every query and key
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
         # bf16 q, o, dO and dq at H heads, k, v, dk, dv at KV heads, fp32
-        # lse; five causal products (S, dP, dV, dK, dQ) of 2 D flops a pair
-        n_bytes = 2 * B * S * D * (4 * H + 4 * KV) + 4 * B * H * S
+        # lse (and o in fp32 where not causal); five products (S, dP, dV,
+        # dK, dQ) of 2 D flops a pair
+        n_bytes = 2 * B * D * (4 * H * Sq + 4 * KV * Sk) + 4 * B * H * Sq \
+            + (0 if causal else 2 * B * Sq * H * D)
         flops = 10 * D * pairs * B * H
         b_ms, b_by = bound(n_bytes, flops)
         row = {
-            "B": B, "S": S, "H": H, "KV": KV, "D": D, "max_abs_err": err,
+            **at, "H": H, "KV": KV, "D": D, "max_abs_err": err,
             "rel_err": rel, "lse_max_abs_err": lse_err,
             "ms": time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
-                q, k, v, o, do, lse)),
+                q, k, v, o, do, lse, causal=causal)),
             "plain_ms": time_ms(torch, lambda: fa.flash_attention_bwd_plain(
-                q, k, v, o, do, lse), iters=3, warmup=1),
+                q, k, v, o, do, lse, causal=causal), iters=3, warmup=1),
             "library_ms": time_ms(torch, lambda: torch.autograd.grad(
                 out, (qT, kT, vT), doT, retain_graph=True)),
             "fwd_lse_ms": time_ms(torch, lambda: fa.flash_attention_cuda(
-                q, k, v, causal=True, return_lse=True)),
+                q, k, v, causal=causal, return_lse=True, o32=o32)),
             "bound_ms": b_ms, "bound_by": b_by}
+        if not causal:
+            row["causal"] = False
+            row["o32_max_abs_err"] = o32_err
+            row["library_backend"] = sdpa_backend(
+                torch, lambda: torch.autograd.grad(
+                    out, (qT, kT, vT), doT, retain_graph=True))[0]
         rows.append(add_rates(row, flops))
         log(f"{what} err={err:.3e} rel dq/dk/dv="
             f"{rel['dq']:.2e}/{rel['dk']:.2e}/{rel['dv']:.2e} "
-            f"lse_err={lse_err:.2e} ms={row['ms']:.4f} "
+            f"lse_err={lse_err:.2e} "
+            + ("" if causal else f"o32_err={o32_err:.2e} ")
+            + f"ms={row['ms']:.4f} "
             f"plain_ms={row['plain_ms']:.4f} "
-            f"sdpa_bwd_ms={row['library_ms']:.4f} "
-            f"fwd_with_lse_ms={row['fwd_lse_ms']:.4f} bound_ms={b_ms:.5f} "
+            f"sdpa_bwd_ms={row['library_ms']:.4f}"
+            + (f" ({row['library_backend']}) " if not causal else " ")
+            + f"fwd_with_lse_ms={row['fwd_lse_ms']:.4f} bound_ms={b_ms:.5f} "
             f"({b_by}) {row['tflops']:.1f} TFLOP/s of the five products, "
             f"{row['x_library']:.2f}x SDPA's backward, "
             f"{row['x_bound']:.1f}x bound")
@@ -1483,6 +1570,168 @@ def train_mla_phase(torch, np, ops, card):
     return rec
 
 
+def whisper_phases(torch, np, ops, card):
+    """Phases ``whisper-engine`` and ``train-whisper``: whisper-small at
+    full size.  ``Engine`` (batch 8, prompt 64, 32 new tokens, the cache
+    in the compute dtype) over frames [8, 1500, 768] x 0.02 from the
+    seed, as ``launch/serve.py`` makes them: kernel A 36 times a prefill
+    (12 encoder layers, 12 causal self-attentions, 12 non-causal
+    cross-attentions over the frames), none a decode step (the cached
+    cross K/V is read by the plain ``decode_attention``, as the
+    reference's jnp one).  The prefill's and the first decode step's
+    logits held to ``use_kernels=False``.  Then ``WHISPER_STEPS`` steps
+    of the one-device training step (remat: kernel A 12 + 2 x 24 forward
+    launches and 36 backward a step, the encoder outside the remat), and
+    one step's loss and gradients held to the plain path with the fp32
+    control (``check_train_parity``, phase ``whisper-parity``).  A traced
+    generate and a traced step.  Returns (records, first-step logit
+    checks)."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.convert import flatten
+    from repro_torch.core.steps import build_train_step, value_and_grad
+    from repro_torch.models import Model, trains_through_kernels
+    from repro_torch.optim import init_adamw
+    from repro_torch.serve import Engine
+    from repro_torch.train import model_flops_per_step
+
+    cfg = get_config(WHISPER)
+    F = cfg.enc_seq_len
+    # kernel A's attentions a forward pass: the encoder's, and each
+    # decoder layer's self- and cross-attention
+    A = cfg.n_enc_layers + 2 * cfg.n_layers
+    if not trains_through_kernels(cfg):
+        fail(f"{WHISPER}: expected training through kernel A's backward")
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(t.numel() for t in flatten(params).values())
+    log(f"{WHISPER}: {cfg.n_enc_layers} encoder and {cfg.n_layers} decoder "
+        f"layers, {cfg.param_count() / 1e6:.1f} M parameters by "
+        f"param_count, {n_params / 1e6:.1f} M leaves (biases, norms and "
+        f"the position tables), "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    rng = np.random.default_rng(SEED + 8)
+    batch = {"tokens": rng.integers(4, cfg.vocab_size,
+                                    (ENGINE_BATCH, ENGINE_PROMPT),
+                                    dtype=np.int64),
+             "frames": np.asarray(rng.standard_normal(
+                 (ENGINE_BATCH, F, cfg.d_model)) * 0.02, np.float32)}
+    out, logits = {"whisper_params": n_params}, {}
+    k = first_step(torch, model, params, batch, "fp32")
+    p = first_step(torch, Model(cfg, device="cuda", use_kernels=False),
+                   params, batch, "fp32", k[2])
+    logits[WHISPER] = compare_logits(
+        torch, f"{WHISPER} logits kernel vs plain", k, p, LOGIT_RTOL)
+    del k, p
+    rec = engine_phase(torch, np, ops, "whisper-engine", model, params,
+                       batch, ["flash_attn_fwd"], card, kv_dtype="fp32")
+    want = dict.fromkeys(ops.KERNELS, 0) | {"flash_attn_fwd": A}
+    if rec["launches"] != want:
+        fail(f"phase whisper-engine: launches {rec['launches']}, want "
+             f"{want} (kernel A 12 + 12 + 12 a prefill)")
+    rec["peak_bytes"] = PHASES["whisper-engine"]["peak_bytes"]
+    out["whisper_engine"] = rec
+    eng = Engine(model, batch_size=ENGINE_BATCH,
+                 max_len=ENGINE_PROMPT + ENGINE_GEN + 8)
+    prof = profile_window(
+        torch, lambda: eng.generate(params, batch, n_tokens=8,
+                                    timing=False), OUR_KERNELS)
+    log_profile("whisper-engine, prefill + 7 decode steps", prof)
+    out["profile_whisper_engine"] = prof
+    del eng, params
+
+    # training: random text over random frames, one batch a step
+    B, S = ENGINE_BATCH, WHISPER_SEQ
+
+    def train_batch():
+        t = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                            device="cuda")
+        f = torch.as_tensor(np.asarray(rng.standard_normal(
+            (B, F, cfg.d_model)) * 0.02, np.float32), device="cuda")
+        return {"tokens": t, "labels": t, "frames": f}
+
+    batches = [train_batch() for _ in range(WHISPER_STEPS + 1)]
+    tcfg = TrainConfig()
+    step = build_train_step(model, tcfg, donate=True)
+    state = [model.init(torch.Generator(device="cuda").manual_seed(SEED))]
+    state.append(init_adamw(state[0]))
+    needs = ["flash_attn_fwd", "flash_attn_bwd"]
+    # remat reruns each decoder layer's two attentions in the backward;
+    # the encoder runs once, outside it
+    per_step = dict.fromkeys(ops.KERNELS, 0) | {
+        "flash_attn_fwd": A + 2 * cfg.n_layers, "flash_attn_bwd": A}
+
+    def expect(name, counts, steps):
+        want = {k: n * steps for k, n in per_step.items()}
+        if counts != want:
+            fail(f"phase {name}: launches {counts}, want {want}")
+
+    def run_steps():
+        losses, times = [], []
+        for b in batches[:WHISPER_STEPS]:
+            t0 = time.perf_counter()
+            params, opt, metrics = step(*state, b)
+            state[:] = params, opt
+            losses.append(float(metrics["loss"]))      # waits for the step
+            times.append(time.perf_counter() - t0)
+        return losses, times
+
+    (losses, times), counts = run_phase(torch, ops, "train-whisper",
+                                        run_steps, needs)
+    expect("train-whisper", counts, WHISPER_STEPS)
+    if not all(np.isfinite(losses)):
+        fail(f"train-whisper: non-finite losses {losses}")
+    tokens = B * S
+    flops = model_flops_per_step(cfg, tokens)
+    step_s = float(np.mean(times[1:]))
+    rate = flops / step_s / 1e12
+    out["train_whisper"] = {
+        "batch": B, "seq": S, "frames": F, "steps": WHISPER_STEPS,
+        "losses": losses, "step_s": times,
+        "avg_step_s_steps_2_to_3": step_s, "tokens_per_s": tokens / step_s,
+        "model_tflops": rate, "peak_bytes": PHASES["train-whisper"][
+            "peak_bytes"], "launches": counts}
+    log(f"train-whisper: losses {losses}; step {step_s * 1e3:.1f} ms (steps "
+        f"2 to {WHISPER_STEPS}), {tokens / step_s:.0f} text tokens/s, 6ND "
+        f"{rate:.2f} TFLOP/s (N the parameters, D the text tokens), peak "
+        f"memory {out['train_whisper']['peak_bytes'] / 2**30:.2f} GiB, on "
+        f"{card}")
+    prof = profile_window(
+        torch, lambda: step(*state, batches[-1]), OUR_KERNELS)
+    log_profile("train-whisper, one step", prof)
+    out["profile_train_whisper"] = prof
+    del state, step
+    torch.cuda.empty_cache()
+
+    # whisper-parity: one step's loss and gradients, fresh params
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    paths = {"kernel": model,
+             "plain": Model(cfg, device="cuda", use_kernels=False),
+             "fp32": Model(dataclasses.replace(cfg, dtype="float32"),
+                           device="cuda", use_kernels=False)}
+    grads, losses = {}, {}
+    for name, m in paths.items():
+        def vg(m=m):
+            return value_and_grad(lambda p, b: m.loss(p, b), params,
+                                  batches[0])
+        if name == "kernel":
+            (loss, _, g), counts = run_phase(torch, ops, "whisper-parity",
+                                             vg, needs)
+            expect("whisper-parity", counts, 1)
+            out["whisper_parity_launches"] = counts
+        else:
+            loss, _, g = vg()
+        losses[name], grads[name] = float(loss), flatten(g)
+        del g
+        torch.cuda.empty_cache()
+    out["whisper_parity"] = check_train_parity(grads, losses,
+                                               "whisper-parity")
+    del grads, params, model, paths
+    torch.cuda.empty_cache()
+    return out, logits
+
+
 def check_ssm_layer(torch, cfg, params):
     """Layer 0 of an SSM or hybrid model at full width in fp32 (its
     parameters are fp32; so is x), kernel path against plain path on the
@@ -1711,19 +1960,20 @@ def _cosine(a, b) -> float:
     return float(a @ b) / den if den > 0 else 1.0
 
 
-def check_train_parity(grads, losses):
+def check_train_parity(grads, losses, name="train-parity"):
     """Loss, global gradient norm and each leaf's cosine of the kernel
     path against the fp32 plain path, held to ``NOISE_FACTOR`` times the
     bf16 plain path's distance from it (the control); the loss also
-    directly against the bf16 plain path."""
+    directly against the bf16 plain path.  ``name``: the check's name in
+    its messages."""
     k, p, f = (losses[n] for n in ("kernel", "plain", "fp32"))
     if not all(map(lambda x: x == x and abs(x) < float("inf"), (k, p, f))):
-        fail(f"train-parity: non-finite loss {losses}")
+        fail(f"{name}: non-finite loss {losses}")
     if not abs(k - p) <= TRAIN_LOSS_RTOL * abs(p):
-        fail(f"train-parity: loss {k} vs plain {p}, beyond {TRAIN_LOSS_RTOL} "
+        fail(f"{name}: loss {k} vs plain {p}, beyond {TRAIN_LOSS_RTOL} "
              f"relative")
     if not abs(k - f) <= NOISE_FACTOR * abs(p - f) + TRAIN_NORM_FLOOR * abs(f):
-        fail(f"train-parity: loss {k} is {abs(k - f)} from fp32 {f}; the "
+        fail(f"{name}: loss {k} is {abs(k - f)} from fp32 {f}; the "
              f"bf16 plain path is {abs(p - f)} from it")
     norms = {n: float(sum(g.double().square().sum()
                           for g in grads[n].values()) ** 0.5)
@@ -1731,7 +1981,7 @@ def check_train_parity(grads, losses):
     nk, np_, nf = norms["kernel"], norms["plain"], norms["fp32"]
     if not abs(nk - nf) <= NOISE_FACTOR * abs(np_ - nf) \
             + TRAIN_NORM_FLOOR * nf:
-        fail(f"train-parity: grad norm {nk} is {abs(nk - nf)} from fp32 "
+        fail(f"{name}: grad norm {nk} is {abs(nk - nf)} from fp32 "
              f"{nf}; the bf16 plain path is {abs(np_ - nf)} from it")
     leaves, worst = {}, 0.0
     for key, gf in grads["fp32"].items():
@@ -1744,16 +1994,16 @@ def check_train_parity(grads, losses):
         allowed = NOISE_FACTOR * (1 - cp) + TRAIN_COS_FLOOR
         worst = max(worst, (1 - ck) / allowed)
         if not 1 - ck <= allowed:
-            fail(f"train-parity {key}: 1 - cos(kernel, fp32) = {1 - ck} > "
+            fail(f"{name} {key}: 1 - cos(kernel, fp32) = {1 - ck} > "
                  f"{NOISE_FACTOR} x (1 - cos(plain, fp32) = {1 - cp}) + "
                  f"{TRAIN_COS_FLOOR}")
-    log(f"train-parity: loss kernel {k:.6f} plain {p:.6f} fp32 {f:.6f}; "
+    log(f"{name}: loss kernel {k:.6f} plain {p:.6f} fp32 {f:.6f}; "
         f"grad norm kernel {nk:.6f} plain {np_:.6f} fp32 {nf:.6f}")
     for key, r in leaves.items():
         log(f"  {key}: cos(kernel, fp32) {r['cos_kernel_fp32']:.6f} "
             f"cos(plain, fp32) {r['cos_plain_fp32']:.6f} cos(kernel, plain) "
             f"{r['cos_kernel_plain']:.6f}")
-    log(f"train-parity: worst leaf uses {worst:.3f} of its allowance")
+    log(f"{name}: worst leaf uses {worst:.3f} of its allowance")
     return {"losses": losses, "grad_norms": norms, "leaves": leaves,
             "worst_leaf_share_of_allowance": worst}
 
@@ -2109,6 +2359,7 @@ def serve_phases(torch, np, ops, card, mesh):
                                      batch, reqs, kv, kind, needs, card, L,
                                      max_len, cont_len, eng=eng,
                                      runs=1 if plan == "pipeshard"
+                                     or name in SERVE_ONE_RUN
                                      else SERVE_RUNS)
             rec.update(compare_served(torch, steps, sharding, name, model,
                                       (params, local), batch, reqs, kv,
@@ -2423,6 +2674,7 @@ def elastic_phases(torch, np, ops, card, mesh):
     of a step (remat).  Each prints the seconds and GB of every
     checkpoint write and restore, the step times before and after the
     reshard, and its peak memory."""
+    import dataclasses
     import tempfile
 
     from repro_torch.configs import TrainConfig, get_config
@@ -2436,7 +2688,7 @@ def elastic_phases(torch, np, ops, card, mesh):
     from repro_torch.models import Model
     from repro_torch.train import reshard_checkpoint, reshard_state, train
 
-    cfg = get_config("gpt2m")
+    cfg = dataclasses.replace(get_config("gpt2m"), n_layers=ELASTIC_LAYERS)
     S, L, K = cfg.max_seq_len, cfg.n_layers, ELASTIC_STEPS
     rng = np.random.default_rng(SEED + 3)
     ds = PackedDataset(rng.integers(0, cfg.vocab_size,
@@ -2847,6 +3099,15 @@ def main() -> None:
     ssd_rows, ssd_err = check_ssd(torch, zcfg, sfu)
     mm_rows, mm_err = check_int8_matmul(torch, sm_hz)
     stage("kernel checks")
+    # kernel A and its backward non-causal at Sq != Sk: whisper-small's
+    # encoder and cross-attention
+    cross_rows, err = check_flash(torch, F, *WHISPER_HEADS, WHISPER_FWD,
+                                  causal=False)
+    flash_err = max(flash_err, err)
+    cross_bwd_rows, err = check_flash_bwd(torch, F, WHISPER_BWD,
+                                          causal=False)
+    bwd_err = max(bwd_err, err)
+    stage("kernel A non-causal checks")
 
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
@@ -2952,6 +3213,13 @@ def main() -> None:
     for k in at128:
         at128[k] += mla["phi4mini_engine"]["launches"][k]
     e2e.update(mla)
+    whisper, logits_whisper = whisper_phases(torch, np, ops, card)
+    stage("whisper-small serving and training")
+    logit_err.update(logits_whisper)
+    for key in ("whisper_engine", "train_whisper"):
+        add(whisper[key]["launches"])
+    add(whisper["whisper_parity_launches"])
+    e2e.update(whisper)
 
     calib = calibrate_phases(torch, ops, card)
     for key in ("calibrate", "calibrate_wide"):
@@ -2991,6 +3259,14 @@ def main() -> None:
         phases at that head dim (llama3.2, phi3.5-MoE, phi4-mini)."""
         return {"128": summary(rows, at) | {"launches": launches}}
 
+    def noncausal(rows):
+        """Kernel A's (or its backward's) non-causal rows, each with its
+        shape."""
+        keys = ("B", "Sq", "Sk", "H", "KV", "D", "max_abs_err",
+                "lse_max_abs_err", "o32_max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms") + EXTRAS
+        return [{k: r[k] for k in keys if k in r} for r in rows]
+
     def entry(name, route_src, replaces, rows, worst, at, **extra):
         row = pick(rows, at)
         return {"name": name, "route": "cuda", "source": route_src,
@@ -3012,10 +3288,19 @@ def main() -> None:
                   f"{dk}x{dv}": summary(
                       flash_rows, {"B": 8, "S": 64, "D": dk, "Dv": dv})
                   | {"launches": at_split[f"{dk}x{dv}"]}
-                  for dk, dv in ((96, 64), (192, 128))}),
+                  for dk, dv in ((96, 64), (192, 128))},
+              noncausal=noncausal(cross_rows),
+              whisper_launches=sum(
+                  whisper[key]["launches"]["flash_attn_fwd"]
+                  for key in ("whisper_engine", "train_whisper"))
+              + whisper["whisper_parity_launches"]["flash_attn_fwd"]),
         entry("flash_attn_bwd", "src/repro_torch/csrc/flash_attn_bwd.cu",
               "src/repro/kernels/flash_attention.py:77", bwd_rows, bwd_err,
-              TRAIN_AT, differentiates="src/repro/models/attention.py:36"),
+              TRAIN_AT, differentiates="src/repro/models/attention.py:36",
+              noncausal=noncausal(cross_bwd_rows),
+              whisper_launches=whisper["train_whisper"]["launches"][
+                  "flash_attn_bwd"]
+              + whisper["whisper_parity_launches"]["flash_attn_bwd"]),
         entry("int8kv_decode", "src/repro_torch/csrc/int8kv_attn.cu",
               "src/repro/kernels/quantized.py:145", int8_rows, int8_err,
               {"B": 8, "Sk": 1024, "D": 64,
@@ -3055,6 +3340,8 @@ def main() -> None:
                        "build_s": build_s,
                        "flash_attn_fwd": flash_rows,
                        "flash_attn_bwd": bwd_rows,
+                       "flash_attn_fwd_noncausal": cross_rows,
+                       "flash_attn_bwd_noncausal": cross_bwd_rows,
                        "int8kv_decode": int8_rows, "ssd_scan": ssd_rows,
                        "mamba1_scan": m1_rows, "int8_matmul": mm_rows,
                        "rmsnorm": rms_rows, "launch_floor_ms": floor_ms,

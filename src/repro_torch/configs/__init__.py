@@ -1,12 +1,13 @@
 """Config registry of the port: the paper's three GPT-2 models, the
 dense llama3.2-3b, phi4-mini-3.8b and llama3-405b, the MoE
 phi3.5-moe-42b-a6.6b, the SSM model falcon-mamba-7b, the hybrid
-zamba2-2.7b, and the Multi-head Latent Attention models minicpm3-4b
-(dense) and deepseek-v2-236b (MoE).
+zamba2-2.7b, the Multi-head Latent Attention models minicpm3-4b
+(dense) and deepseek-v2-236b (MoE), and the encoder-decoder
+whisper-small.
 
-The reference registry also holds an encoder-decoder and a vision
-architecture; those are ROADMAP queue 1, item 10 ("the other model
-families") and raise here until they are ported.
+The reference registry also holds a vision architecture; it is ROADMAP
+queue 1, item 10 ("the other model families") and raises here until it
+is ported.
 """
 from repro_torch.configs.base import (
     MLAConfig, ModelConfig, MoEConfig, SSMConfig, TrainConfig,
@@ -21,6 +22,7 @@ from repro_torch.configs.llama3_405b import CONFIG as LLAMA3_405B
 from repro_torch.configs.minicpm3_4b import CONFIG as MINICPM3_4B
 from repro_torch.configs.phi35_moe_42b import CONFIG as PHI35_MOE_42B
 from repro_torch.configs.phi4_mini_3_8b import CONFIG as PHI4_MINI_3_8B
+from repro_torch.configs.whisper_small import CONFIG as WHISPER_SMALL
 from repro_torch.configs.zamba2_2_7b import CONFIG as ZAMBA2_2_7B
 
 ARCH_CONFIGS = {c.name: c for c in (GPT2_MEDIUM, GPT2_LARGE,
@@ -28,9 +30,9 @@ ARCH_CONFIGS = {c.name: c for c in (GPT2_MEDIUM, GPT2_LARGE,
                                     PHI35_MOE_42B, FALCON_MAMBA_7B,
                                     ZAMBA2_2_7B, MINICPM3_4B,
                                     DEEPSEEK_V2_236B, PHI4_MINI_3_8B,
-                                    LLAMA3_405B)}
+                                    LLAMA3_405B, WHISPER_SMALL)}
 
-_NOT_PORTED = ("phi-3-vision-4.2b", "whisper-small")
+_NOT_PORTED = ("phi-3-vision-4.2b",)
 
 
 def get_config(arch_id: str) -> ModelConfig:

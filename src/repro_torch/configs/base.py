@@ -1,11 +1,11 @@
 """Model and training configuration for the PyTorch port.
 
 A copy of the fields of ``repro.configs.base.ModelConfig`` that the
-dense, MoE, SSM and hybrid families read, Multi-head Latent Attention
-(``MLAConfig``, MiniCPM3 and DeepSeek-V2) included, with the same names,
-defaults and ``reduced()`` rule, so a port config and a reference config
-built the same way compare equal field by field; and of ``TrainConfig``,
-field for field.  The encoder and vision extras are not ported yet.
+dense, MoE, SSM, hybrid and encoder-decoder families read, Multi-head
+Latent Attention (``MLAConfig``, MiniCPM3 and DeepSeek-V2) included, with
+the same names, defaults and ``reduced()`` rule, so a port config and a
+reference config built the same way compare equal field by field; and of
+``TrainConfig``, field for field.  The vision extras are not ported yet.
 The plans' runtime fields of the reference's config
 (``moe_dispatch_axes``, ``moe_expert_axis``) are not fields here: the
 port's plans tell the model how to route (``models.moe.Dispatch``) and
@@ -16,7 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Optional
 
-Family = str  # "dense" | "moe" | "ssm" | "hybrid" are ported
+Family = str  # "dense" | "moe" | "ssm" | "hybrid" | "encdec" are ported
 
 
 @dataclass(frozen=True)
@@ -79,6 +79,9 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2): apply the shared attention block every k-th layer
     hybrid_attn_every: int = 0      # 0 => no interleaved attention
+    # enc-dec (whisper): encoder depth + frontend stub shape
+    n_enc_layers: int = 0
+    enc_seq_len: int = 0            # precomputed frame embeddings length
     dtype: str = "bfloat16"         # compute dtype over fp32 params
     source: str = ""
 
@@ -131,7 +134,13 @@ class ModelConfig:
             layers = c.n_layers * (per_ssm + 2 * d) + shared + n_attn * d
         else:
             layers = c.n_layers * (per_attn + per_mlp + 2 * d)
-        return emb + layers + d
+        enc = 0
+        if c.family == "encdec":
+            # encoder layers + decoder cross-attention
+            enc_layer = 4 * d * d \
+                + (3 if c.activation == "silu" else 2) * d * c.d_ff + 2 * d
+            enc = c.n_enc_layers * enc_layer + c.n_layers * 4 * d * d
+        return emb + layers + enc + d
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: shared + top_k experts only)."""
@@ -150,7 +159,8 @@ class ModelConfig:
         for MLA a latent of 32 and full-rank queries of 32 + 16 (rope)
         dims over values of 32, and for MoE 4 experts, top-2, expert d_ff
         <= 256 and a capacity factor of 2.0 (no drops, so forward,
-        prefill and decode agree)."""
+        prefill and decode agree); an encoder-decoder keeps 2 encoder
+        layers over 32 frames."""
         d = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4) or 4
         kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else n_heads
@@ -178,6 +188,9 @@ class ModelConfig:
                                 chunk=16)
         if self.hybrid_attn_every:
             kw["hybrid_attn_every"] = 2
+        if self.family == "encdec":
+            kw["n_enc_layers"] = 2
+            kw["enc_seq_len"] = 32
         return replace(self, **kw)
 
 

@@ -68,9 +68,9 @@ through the stages in the schedule's order, backwards included:
     every stage.
 
 The families the port does not have raise in ``Model`` (ROADMAP queue
-1, item 10).  Multi-head Latent Attention (MiniCPM3, DeepSeek-V2) runs
-on one device only: under a plan it raises (``refuse_mla``; ROADMAP
-queue 1, item 13).
+1, item 10).  Multi-head Latent Attention (MiniCPM3, DeepSeek-V2) and
+the encoder-decoder (whisper) run on one device only: under a plan they
+raise (``refuse_under_plans``; ROADMAP queue 1, items 13 and 14).
 """
 from __future__ import annotations
 
@@ -156,6 +156,23 @@ def refuse_mla(model: Model, plan) -> None:
             f"for {MLA_UNDER_PLANS}")
 
 
+ENCDEC_UNDER_PLANS = ("ROADMAP queue 1, item 14: the encoder-decoder "
+                      "under the plans")
+
+
+def refuse_under_plans(model: Model, plan) -> None:
+    """Raise for a model that runs on one device only, under a plan: MLA
+    (``refuse_mla``), and the encoder-decoder, whose encoder, frames and
+    cross-attention cache have no cut over a mesh yet."""
+    refuse_mla(model, plan)
+    if model.cfg.family == "encdec":
+        name = plan if isinstance(plan, str) else plan.name
+        raise NotImplementedError(
+            f"{model.cfg.name} is an encoder-decoder, which runs on one "
+            f"device only; under plan {name!r} it waits for "
+            f"{ENCDEC_UNDER_PLANS}")
+
+
 def build_train_step(model: Model, tcfg: TrainConfig, *,
                      plan: Union[None, str, Plan] = None,
                      mesh: Optional[Mesh] = None, stage_layers=None,
@@ -174,7 +191,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, *,
     model.model_axis = model.fsdp = model.dispatch = None
     if plan is None:
         return _one_device_step(model, tcfg, donate)
-    refuse_mla(model, plan)
+    refuse_under_plans(model, plan)
     plan = get_plan(plan) if isinstance(plan, str) else plan
     if mesh is None:
         raise ValueError(f"plan {plan.name!r} needs a mesh "

@@ -22,7 +22,19 @@
 //
 // Design (three launches, no atomics, so the gradients are the same from
 // run to run):
-//  1. delta: D = rowsum(dO * O) in fp32, one warp per (b, i, h) row.
+//  1. delta: D = rowsum(dO * O) in fp32, one warp per (b, i, h) row, from
+//     the forward's output in fp32 (the training forward writes it beside
+//     the bf16 one for non-causal attention: FlashAttention in
+//     kernels/flash_attention.py) or in bf16.  D stands for
+//     sum_j P_ij dP_ij, and each row of dS = P * (dP - D) sums to 0 only
+//     with D that close: the part common to every key then cancels out of
+//     dQ.  Where the keys and values are an encoder's output, whose rows
+//     attention has averaged towards one vector (whisper's
+//     cross-attention), that part is large, and D from the bf16-rounded O
+//     puts 2^-9 of it into dQ (whisper-small at full size on the H100:
+//     1 - cos 0.022 for the gradient of the norm before the
+//     cross-attention against the fp32 path, the bf16 plain path's
+//     0.0009).
 //  2. dK/dV: one block of 4 warps per (key tile of 64, KV head, batch),
 //     each warp owning 16 keys, looping over the group's query heads and
 //     over the query tiles the causal mask and window let see the tile.
@@ -76,9 +88,17 @@ constexpr int dq_smem_bytes() {
 
 // D[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]; one warp per row,
 // rows ordered (b, i, h) so neighbouring warps read neighbouring memory.
-template <int HD>
+__device__ __forceinline__ float2 pair_of(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float2 pair_of(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+template <int HD, typename OT>
 __global__ void __launch_bounds__(NT)
-bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+bwd_delta_kernel(const OT* __restrict__ o, const bf16* __restrict__ dout,
                  float* __restrict__ delta, int H, int Sq, long long rows,
                  long long o_sb, long long o_ss, long long o_sh,
                  long long d_sb, long long d_ss, long long d_sh) {
@@ -88,14 +108,12 @@ bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   const int h = (int)(row % H);
   const int i = (int)((row / H) % Sq);
   const long long b = row / ((long long)H * Sq);
-  const bf16* op = o + b * o_sb + (long long)i * o_ss + h * o_sh;
+  const OT* op = o + b * o_sb + (long long)i * o_ss + h * o_sh;
   const bf16* dp = dout + b * d_sb + (long long)i * d_ss + h * d_sh;
   float acc = 0.f;
   for (int d = 2 * lane; d < HD; d += 64) {
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(op + d));
-    const float2 c =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dp + d));
+    const float2 a = pair_of(op + d);
+    const float2 c = pair_of(dp + d);
     acc = fmaf(a.x, c.x, acc);
     acc = fmaf(a.y, c.y, acc);
   }
@@ -479,8 +497,8 @@ cudaError_t raise_smem_limit(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int HD>
-int launch_all(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+template <int HD, typename OT>
+int launch_all(const bf16* q, const bf16* k, const bf16* v, const OT* o,
                const bf16* dout, const float* lse, float* delta, bf16* dq,
                bf16* dk, bf16* dv, int B, int H, int KV, int Sq, int Sk,
                const long long* st, float scale, int causal, int window,
@@ -496,10 +514,10 @@ int launch_all(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
     limits_set = true;
   }
   const long long rows = (long long)B * Sq * H;
-  bwd_delta_kernel<HD><<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT,
-                         0, stream>>>(o, dout, delta, H, Sq, rows, st[9],
-                                      st[10], st[11], st[12], st[13],
-                                      st[14]);
+  bwd_delta_kernel<HD, OT>
+      <<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT, 0, stream>>>(
+          o, dout, delta, H, Sq, rows, st[9], st[10], st[11], st[12], st[13],
+          st[14]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int group = H / KV;
@@ -523,8 +541,10 @@ int launch_all(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
 
 // q, o, dO, dq: [B, Sq, H, D]; k, v, dk, dv: [B, Sk, KV, D]; bf16 with
 // element strides for the batch, sequence and head axes (multiples of 8;
-// last axis contiguous; 16-byte aligned); lse (the forward's) and delta
-// (scratch): fp32 [B, H, Sq] contiguous.  D = head_dim is 64 or 80.
+// last axis contiguous; 16-byte aligned), but o, which is fp32 where
+// o_fp32 is nonzero (its strides in its own elements, even); lse (the
+// forward's) and delta (scratch): fp32 [B, H, Sq] contiguous.  D =
+// head_dim is 64 or 80.
 // Returns the first nonzero cudaError_t of the three launches
 // (cudaErrorInvalidValue for any other head dim or a bad shape).
 extern "C" int flash_attn_bwd_bf16(
@@ -539,7 +559,7 @@ extern "C" int flash_attn_bwd_bf16(
     long long dq_sb, long long dq_ss, long long dq_sh,
     long long dk_sb, long long dk_ss, long long dk_sh,
     long long dv_sb, long long dv_ss, long long dv_sh,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, int o_fp32, void* stream) {
   if (B <= 0 || B > 65535 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
       (Sq + BQ - 1) / BQ > 65535 || (Sk + BK - 1) / BK > 65535)
     return (int)cudaErrorInvalidValue;
@@ -547,13 +567,15 @@ extern "C" int flash_attn_bwd_bf16(
                             v_sb,  v_ss,  v_sh,  o_sb,  o_ss,  o_sh,
                             d_sb,  d_ss,  d_sh,  dq_sb, dq_ss, dq_sh,
                             dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh};
-#define BWD_LAUNCH(HDV)                                                      \
-  launch_all<HDV>((const bf16*)q, (const bf16*)k, (const bf16*)v,            \
-                  (const bf16*)o, (const bf16*)dout, lse, delta, (bf16*)dq,  \
-                  (bf16*)dk, (bf16*)dv, B, H, KV, Sq, Sk, st, scale, causal, \
-                  window, (cudaStream_t)stream)
-  if (head_dim == 64) return BWD_LAUNCH(64);
-  if (head_dim == 80) return BWD_LAUNCH(80);
+#define BWD_LAUNCH(HDV, OT)                                                  \
+  launch_all<HDV, OT>((const bf16*)q, (const bf16*)k, (const bf16*)v,        \
+                      (const OT*)o, (const bf16*)dout, lse, delta,           \
+                      (bf16*)dq, (bf16*)dk, (bf16*)dv, B, H, KV, Sq, Sk, st, \
+                      scale, causal, window, (cudaStream_t)stream)
+  if (head_dim == 64)
+    return o_fp32 ? BWD_LAUNCH(64, float) : BWD_LAUNCH(64, bf16);
+  if (head_dim == 80)
+    return o_fp32 ? BWD_LAUNCH(80, float) : BWD_LAUNCH(80, bf16);
 #undef BWD_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -64,15 +64,19 @@
 //  * for training, an optional fp32 lse [B, H, Sq] receives each row's
 //    logsumexp m * scale + log(max(l, 1e-30)) of the scaled scores (scale
 //    = 1/sqrt(DK)), which the backward kernels (flash_attn_bwd.cu)
-//    recompute P from; serving passes null and nothing more is written.
+//    recompute P from, and an optional fp32 o32 [B, Sq, H, DV] receives
+//    O before its bf16 rounding (float2 stores from the accumulators),
+//    whose rowsum with dO is the backward's D; serving passes null for
+//    both and nothing more is written.
 // Shared memory: Q (64 rows) and two stages of K (64 rows each) of DK + 8
 // bf16, two stages of V of DV + 8: 46,080 bytes at (64, 64), 56,320 at
 // (80, 80), 87,040 at (128, 128), 58,368 at (96, 64) and 111,616 at
 // (192, 128), dynamic, the limit raised once per instantiation.
 // Registers hold DK/4 Q fragment words (DK <= 128), 32 scores and DV/2
-// accumulators a thread: ptxas gives 163 and 172 registers at 64 and 80,
-// and at 128 all 255 with 36 bytes of spills (chip_smoke.py prints every
-// instantiation's count from the build's ptxas log).
+// accumulators a thread: ptxas gives 168 and 175 registers at 64 and 80,
+// 185 at (96, 64), and at 128 and (192, 128) all 255 with 16 bytes of
+// spills each (chip_smoke.py prints every instantiation's count from the
+// build's ptxas log).
 #include "flash_attn_mma.cuh"
 
 namespace {
@@ -97,7 +101,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  long long v_sb, long long v_ss, long long v_sh,
                  long long o_sb, long long o_ss, long long o_sh,
                  float scale, int causal, int window,
-                 float* __restrict__ lse) {
+                 float* __restrict__ lse, float* __restrict__ o32) {
   constexpr int LDK = DK + 8;
   constexpr int LDV = DV + 8;
   constexpr int KC = DK / 16;         // 16-wide chunks of q's and k's dim
@@ -285,14 +289,28 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float den_a = fmaxf(l[0], 1e-30f);
   const float den_b = fmaxf(l[1], 1e-30f);
+  const float inv_a = 1.f / den_a, inv_b = 1.f / den_b;
   // the warp's own 16 Q rows are free (its last reads of them are
   // behind the loop's final __syncthreads), and hold its 16 O rows
-  store_rows16<DV>(qs + warp * 16 * LDK, acc, 1.f / den_a, 1.f / den_b,
+  store_rows16<DV>(qs + warp * 16 * LDK, acc, inv_a, inv_b,
                    o + b * o_sb + h * o_sh, o_ss, q0 + warp * 16, Sq, lane);
   if (lse != nullptr && t == 0) {
     float* lp = lse + ((long long)b * gridDim.x + h) * Sq;
     if (row_a < Sq) lp[row_a] = m[0] * scale + logf(den_a);
     if (row_b < Sq) lp[row_b] = m[1] * scale + logf(den_b);
+  }
+  if (o32 != nullptr) {   // O in fp32 too, contiguous [B, Sq, H, DV]
+    const long long at = ((long long)b * Sq * gridDim.x + h) * DV + 2 * t;
+    const long long row_stride = (long long)gridDim.x * DV;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      if (row_a < Sq)
+        *reinterpret_cast<float2*>(o32 + at + row_a * row_stride + 8 * dn) =
+            make_float2(acc[dn][0] * inv_a, acc[dn][1] * inv_a);
+      if (row_b < Sq)
+        *reinterpret_cast<float2*>(o32 + at + row_b * row_stride + 8 * dn) =
+            make_float2(acc[dn][2] * inv_b, acc[dn][3] * inv_b);
+    }
   }
 }
 
@@ -303,7 +321,7 @@ int launch(cudaStream_t stream, const void* q, const void* k, const void* v,
            long long k_sb, long long k_ss, long long k_sh,
            long long v_sb, long long v_ss, long long v_sh,
            long long o_sb, long long o_ss, long long o_sh,
-           float scale, int causal, int window, float* lse) {
+           float scale, int causal, int window, float* lse, float* o32) {
   static bool limit_set = false;
   if (!limit_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -317,7 +335,7 @@ int launch(cudaStream_t stream, const void* q, const void* k, const void* v,
       <<<grid, FWD_NT, fwd_smem_bytes<DK, DV>(), stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, group, Sq,
       Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,
-      o_sh, scale, causal, window, lse);
+      o_sh, scale, causal, window, lse, o32);
   return (int)cudaGetLastError();
 }
 
@@ -328,7 +346,9 @@ int launch(cudaStream_t stream, const void* q, const void* k, const void* v,
 // axes (multiples of 8; last axis contiguous; 16-byte aligned); (DK, DV)
 // = (head_dim, head_dim_v) is (64, 64), (80, 80), (128, 128), (96, 64)
 // or (192, 128).  lse is null (serving) or an fp32 [B, H, Sq]
-// contiguous buffer for each row's logsumexp (training).  Returns the
+// contiguous buffer for each row's logsumexp (training); o32 is null or
+// an fp32 [B, Sq, H, DV] contiguous buffer for O before its bf16
+// rounding (training: the backward's rowsum(dO * O)).  Returns the
 // cudaError_t of the launch (cudaErrorInvalidValue for any other pair
 // of head dims or a bad shape).
 extern "C" int flash_attn_fwd_bf16(
@@ -338,7 +358,8 @@ extern "C" int flash_attn_fwd_bf16(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    float scale, int causal, int window, float* lse, void* stream) {
+    float scale, int causal, int window, float* lse, float* o32,
+    void* stream) {
   if (B <= 0 || B > 65535 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
       (Sq + FWD_BQ - 1) / FWD_BQ > 65535)
     return (int)cudaErrorInvalidValue;
@@ -347,7 +368,7 @@ extern "C" int flash_attn_fwd_bf16(
     return launch<DKV, DVV>((cudaStream_t)stream, q, k, v, o, B, H, H / KV, \
                             Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,     \
                             v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale,      \
-                            causal, window, lse);
+                            causal, window, lse, o32);
   FLASH_LAUNCH(64, 64)
   FLASH_LAUNCH(80, 80)
   FLASH_LAUNCH(128, 128)

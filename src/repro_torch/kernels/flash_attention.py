@@ -29,8 +29,20 @@ function, in the model's ``[B, S, H, D]`` layout:
     refused until ROADMAP queue 2, item 7 brings them).
 
 ``FlashAttention`` is the ``torch.autograd.Function`` over them: its
-forward keeps the logsumexp and its backward recomputes from it, by the
-kernels on a CUDA tensor and by the plain versions on a CPU one.  The
+forward keeps the logsumexp and the output, and its backward recomputes
+from them, by the kernels on a CUDA tensor and by the plain versions on
+a CPU one.  The backward's ``D = rowsum(dO * O)`` stands for ``sum_j
+P_ij dP_ij``, and the part of the keys common to every key cancels out
+of dQ only where D is that close: from the bf16-rounded output, 2^-9 of
+that part stays in dQ, which is large where the keys and values are an
+encoder's output that attention has averaged towards one vector
+(whisper's cross-attention; ``csrc/flash_attn_bwd.cu``).  So where the
+attention is not causal (the encoder-decoder's) the forward keeps its
+output in fp32 for D.  Causal attention keeps D from the output in its
+own dtype, as before the encoder-decoder came: the fp32 output moves a
+bf16 run's gradients by bf16 noise only there (~1% of a leaf, either
+way against the reference's) and would move every causal training
+run's bits.  The
 sources say what bounds each kernel on the H100 and how its design
 answers that.
 """
@@ -55,11 +67,11 @@ NO_BACKWARD_AT = "ROADMAP queue 2, item 7"
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           q_positions=None, kv_positions=None,
                           q_chunk: int = 512, k_chunk: int = 1024,
-                          return_lse: bool = False):
+                          return_lse: bool = False, out_dtype=None):
     """q: [B, Sq, H, Dk]; k: [B, Sk, KV, Dk]; v: [B, Sk, KV, Dv];
-    H % KV == 0.  Returns [B, Sq, H, Dv] in q.dtype, and with
-    ``return_lse`` also the fp32 logsumexp [B, H, Sq] of each row's
-    scaled scores, ``m + log(max(l, 1e-30))``."""
+    H % KV == 0.  Returns [B, Sq, H, Dv] in ``out_dtype`` (default
+    q.dtype), and with ``return_lse`` also the fp32 logsumexp [B, H, Sq]
+    of each row's scaled scores, ``m + log(max(l, 1e-30))``."""
     B, Sq, H, Dk = q.shape
     Sk, KV, Dv = v.shape[1], v.shape[2], v.shape[3]
     group = H // KV
@@ -102,7 +114,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         out = o / den[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, cq, H, Dv))
         lses.append((m + torch.log(den)).reshape(B, H, cq))
-    out = torch.cat(outs, dim=1).to(q.dtype)
+    out = torch.cat(outs, dim=1).to(out_dtype or q.dtype)
     if return_lse:
         return out, torch.cat(lses, dim=2)
     return out
@@ -111,9 +123,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
                               window: int = 0, q_chunk: int = 512):
     """Gradients of ``flash_attention_plain`` (index masks) recomputed from
-    its logsumexp, in fp32 over q chunks.  q/o/do: [B, Sq, H, D]; k/v:
-    [B, Sk, KV, D]; lse: [B, H, Sq] fp32.  Returns (dq, dk, dv) in the
-    dtypes of q, k and v."""
+    its logsumexp, in fp32 over q chunks.  q/o/do: [B, Sq, H, D] (o, the
+    forward's output, in fp32 or q's dtype); k/v: [B, Sk, KV, D]; lse:
+    [B, H, Sq] fp32.  Returns (dq, dk, dv) in the dtypes of q, k and
+    v."""
     B, Sq, H, Dk = q.shape
     Sk, KV, Dv = v.shape[1], v.shape[2], v.shape[3]
     group = H // KV
@@ -156,7 +169,7 @@ def _lib():
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [P, P, P, P] + [I] * 7 + [L] * 12 + [
-            ctypes.c_float, I, I, P, P]
+            ctypes.c_float, I, I, P, P, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -167,7 +180,7 @@ def _bwd_lib():
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [P] * 10 + [I] * 6 + [L] * 24 + [
-            ctypes.c_float, I, I, P]
+            ctypes.c_float, I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -184,11 +197,14 @@ def check_backward_head_dim(D: int, Dv: Optional[int] = None) -> None:
             f" trains through the plain attention)")
 
 
-def _check_operand(name: str, t: torch.Tensor) -> None:
+def _check_operand(name: str, t: torch.Tensor,
+                   dtypes=(torch.bfloat16,)) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be "
+                        f"{' or '.join(str(d)[6:] for d in dtypes)}, got "
+                        f"{t.dtype}")
     if t.dim() != 4 or t.stride(-1) != 1:
         raise ValueError(f"{name} must be [B, S, heads, D] with a "
                          f"contiguous last axis, got {tuple(t.shape)} "
@@ -218,15 +234,24 @@ def _check_qkv(q, k, v):
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         return_lse: bool = False):
+                         return_lse: bool = False, o32=None):
     """Launch kernel A.  q: [B, Sq, H, Dk]; k: [B, Sk, KV, Dk]; v: [B, Sk,
     KV, Dv], bf16 CUDA tensors, (Dk, Dv) one of ``FWD_HEAD_DIMS``; masks
     by index; scores scaled by 1/sqrt(Dk).  Returns [B, Sq, H, Dv] bf16,
     and with ``return_lse`` also the fp32 logsumexp [B, H, Sq] (serving
-    asks for none, and the kernel then writes none)."""
+    asks for none, and the kernel then writes none).  ``o32``: a
+    contiguous fp32 [B, Sq, H, Dv] tensor on q's device that receives
+    the output before its bf16 rounding (training's backward reads it)."""
     _check_qkv(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if o32 is not None and (o32.dtype != torch.float32
+                            or o32.device != q.device
+                            or o32.shape != (B, Sq, H, Dv)
+                            or not o32.is_contiguous()):
+        raise ValueError(f"o32 must be a contiguous fp32 {(B, Sq, H, Dv)} "
+                         f"tensor on {q.device}, got {o32.dtype} "
+                         f"{tuple(o32.shape)} on {o32.device}")
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
@@ -235,7 +260,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                  B, H, KV, Sq, Sk, D, Dv, *q.stride()[:3], *k.stride()[:3],
                  *v.stride()[:3], *o.stride()[:3],
                  1.0 / (D ** 0.5), int(causal), int(window),
-                 None if lse is None else lse.data_ptr(), stream)
+                 None if lse is None else lse.data_ptr(),
+                 None if o32 is None else o32.data_ptr(), stream)
     _build.check(err, "flash_attn_fwd_bf16")
     flash_attention_cuda.launches += 1
     return (o, lse) if return_lse else o
@@ -248,12 +274,14 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
                              window: int = 0):
     """Launch kernel A's backward (three kernels: rowsum(dO * O), dK/dV,
     dQ).  q/o/do: [B, Sq, H, D]; k/v: [B, Sk, KV, D], bf16 CUDA tensors,
-    D = 64 or 80; lse: the forward's fp32 [B, H, Sq].  Returns (dq, dk,
-    dv) bf16, contiguous."""
+    but o, the forward's output, in fp32 (``flash_attention_cuda``'s
+    ``o32``, for an exact rowsum) or bf16; D = 64 or 80; lse: the
+    forward's fp32 [B, H, Sq].  Returns (dq, dk, dv) bf16, contiguous."""
     _check_qkv(q, k, v)
     check_backward_head_dim(q.shape[-1], v.shape[-1])
+    _check_operand("o", o, (torch.bfloat16, torch.float32))
+    _check_operand("do", do)
     for name, t in (("o", o), ("do", do)):
-        _check_operand(name, t)
         if t.shape != q.shape:
             raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
                              f"got {tuple(t.shape)}")
@@ -274,7 +302,8 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                      B, H, KV, Sq, Sk, D, *strides, 1.0 / (D ** 0.5),
-                     int(causal), int(window), stream)
+                     int(causal), int(window),
+                     int(o.dtype == torch.float32), stream)
     _build.check(err, "flash_attn_bwd_bf16")
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
@@ -285,17 +314,28 @@ flash_attention_bwd_cuda.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """Attention by index masks with a recompute backward: the forward
-    keeps (q, k, v, o, lse), the backward recomputes P from lse.  Both
-    directions launch the kernels on CUDA tensors and run the plain
-    versions on CPU tensors."""
+    keeps (q, k, v, the output, lse), the output in fp32 where the
+    attention is not causal (the module's docstring says why), and the
+    backward recomputes P from lse.  Both directions launch the kernels
+    on CUDA tensors and run the plain versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
         if q.is_cuda:     # refuse before the forward, not in the backward
             check_backward_head_dim(q.shape[-1], v.shape[-1])
-        fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
-        o, lse = fwd(q, k, v, causal=causal, window=window, return_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
+            o32 = None if causal else torch.empty(
+                q.shape[:3] + v.shape[3:], dtype=torch.float32,
+                device=q.device)
+            o, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window, return_lse=True,
+                                          o32=o32)
+            kept = o if o32 is None else o32
+        else:
+            kept, lse = flash_attention_plain(
+                q, k, v, causal=causal, window=window, return_lse=True,
+                out_dtype=None if causal else torch.float32)
+            o = kept.to(q.dtype)
+        ctx.save_for_backward(q, k, v, kept, lse)
         ctx.causal, ctx.window = causal, window
         return o
 

@@ -1,8 +1,11 @@
 """Serving launcher of the port: batched prefill + decode of a ported
 model (gpt2m/gpt2L/gpt2l, llama3.2-3b, phi3.5-moe-42b-a6.6b,
-falcon-mamba-7b, zamba2-2.7b) on one device, fixed-batch by default,
-continuous batching with ``--continuous``.  Weights are random, from
-seed 0.
+falcon-mamba-7b, zamba2-2.7b, whisper-small, ...) on one device,
+fixed-batch by default, continuous batching with ``--continuous``.
+Weights are random, from seed 0; whisper-small's frames too, [batch,
+1500, 768] x 0.02 from the prompts' generator, as the reference's
+launcher makes them (fixed-batch and one device only: the
+encoder-decoder has no continuous batching and no plan).
 
 With ``--plan`` (a ``core.plans.PLANS`` key: data, zero2, shard,
 shard_zero, fsdp or pipeshard; every family serves under each) and
@@ -34,6 +37,9 @@ stage).  Rank 0 prints.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch phi3.5-moe-42b-a6.6b --reduced --device cpu --kv-dtype int8
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch whisper-small --reduced --device cpu --batch 2 --gen 8
 """
 import argparse
 import zlib
@@ -210,6 +216,10 @@ def _serve(args, device=None, mesh=None, where: str = "", main=True):
     batch = {"tokens": np.asarray(
         rng.integers(4, min(cfg.vocab_size, 400),
                      (args.batch, args.prompt_len)), np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = np.asarray(
+            rng.standard_normal((args.batch, cfg.enc_seq_len, cfg.d_model))
+            * 0.02, np.float32)
     eng = Engine(model, batch_size=args.batch, max_len=max_len,
                  window=args.window, temperature=args.temperature,
                  kv_dtype=args.kv_dtype, **on)

@@ -2,9 +2,13 @@
 in-repo synthetic corpus (or ``--data-dir``), on one device or under an
 execution plan, the counterpart of ``repro.launch.train``.
 
-``--arch`` takes any ported architecture (dense, MoE, SSM, hybrid); on
-the card the families whose kernels have no backward train through the
-plain versions (``models.trains_through_kernels``).  Without ``--plan``
+``--arch`` takes any ported architecture of a token-only family (dense,
+MoE, SSM, hybrid); on the card the families whose kernels have no
+backward train through the plain versions
+(``models.trains_through_kernels``).  The encoder-decoder (whisper)
+raises: the Loader feeds tokens alone, and the family needs frames
+beside them, as the reference's launcher cannot train it either
+(``Model.loss`` on a batch with ``frames`` trains it).  Without ``--plan``
 it trains on one device.  With ``--plan`` (a ``core.plans.PLANS`` key:
 data, zero2, shard, shard_zero, fsdp, pipeshard) and ``--mesh`` it runs
 on every rank of a
@@ -85,6 +89,12 @@ def main(argv=None):
     from repro_torch.models import Model, trains_through_kernels
     from repro_torch.train import model_flops_per_step, train
 
+    if get_config(args.arch).family == "encdec":
+        raise NotImplementedError(
+            f"{args.arch} is an encoder-decoder: a training batch needs "
+            f"frames beside its tokens, and this launcher's Loader feeds "
+            f"tokens alone (as the reference's does); train it through "
+            f"Model.loss on batches with 'frames'")
     texts = list(load_text_dir(args.data_dir)) if args.data_dir else \
         list(synthetic_wikipedia(args.docs, seed=args.seed))
     tok = Tokenizer.train(texts, args.vocab)

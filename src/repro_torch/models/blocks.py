@@ -1,9 +1,10 @@
-"""Per-layer blocks (port of the dense, MoE, SSM and hybrid parts of
-``repro/models/blocks.py``): init, forward, prefill and decode for the
-dense pre-norm block, the MoE block (phi3.5-MoE, DeepSeek-V2: attention,
-then the routed experts in place of the MLP), the Mamba1 block
-(falcon-mamba) and the Mamba2 block (zamba2, whose shared attention
-block is a dense block).  The dense and MoE blocks attend by Multi-head
+"""Per-layer blocks (port of ``repro/models/blocks.py``): init, forward,
+prefill and decode for the dense pre-norm block, the MoE block
+(phi3.5-MoE, DeepSeek-V2: attention, then the routed experts in place of
+the MLP), the Mamba1 block (falcon-mamba), the Mamba2 block (zamba2,
+whose shared attention block is a dense block), and whisper's decoder
+block (self-attention, cross-attention over the encoder's output, MLP)
+and encoder block (bidirectional self-attention, MLP).  The dense and MoE blocks attend by Multi-head
 Latent Attention (leaf ``mla``) where the config has an ``MLAConfig``
 (MiniCPM3, DeepSeek-V2), by GQA (leaf ``attn``) otherwise.
 ``use_kernels`` reaches every norm (kernel 6 for RMSNorm on the card),
@@ -25,6 +26,8 @@ prefill and decode of the blocks with attention also take the ring's
 ``blocks`` (``attention.RingBlocks``) of a serving plan.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -272,3 +275,120 @@ def mamba2_block_decode(x, p, cfg: ModelConfig, *, cache,
     y, new = ssm_mod.mamba2_decode(h, p["mamba"], cfg, state=cache,
                                    model_axis=model_axis)
     return x + y, _store(cache, new)
+
+
+# --------------------------------------------------------------------- #
+# whisper decoder block (self-attn + cross-attn + mlp); every
+# full-sequence attention goes through ``attention.chunked_attention``:
+# the self-attention causal, the cross-attention over ``enc_out`` not
+# --------------------------------------------------------------------- #
+
+def init_encdec_block(generator, cfg: ModelConfig, *, lead=(),
+                      device="cpu"):
+    kw = dict(lead=lead, device=device)
+    return {
+        "norm1": init_norm(cfg.d_model, cfg.norm, **kw),
+        "self_attn": attn.init_attention(generator, cfg, **kw),
+        "norm2": init_norm(cfg.d_model, cfg.norm, **kw),
+        "cross_attn": attn.init_attention(generator, cfg, **kw),
+        "norm3": init_norm(cfg.d_model, cfg.norm, **kw),
+        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.activation,
+                        **kw),
+    }
+
+
+def _cross_kv(enc_out, p):
+    """The cross-attention's k and v [B, F, KV, D] of the encoder's
+    output."""
+    dt = enc_out.dtype
+    return (attn._proj(enc_out, p["wk"]) + p["bk"].to(dt),
+            attn._proj(enc_out, p["wv"]) + p["bv"].to(dt))
+
+
+def _cross_attention(h, p, k, v, use_kernels: bool):
+    """Non-causal attention of the decoder's queries over every frame:
+    kernel A at Sq = the text length, Sk = the frames."""
+    q = attn._proj(h, p["wq"]) + p["bq"].to(h.dtype)
+    o = attn.chunked_attention(q, k, v, causal=False,
+                               use_kernels=use_kernels)
+    return attn._out(o, p)
+
+
+def _cross_attention_cached(h, p, k, v):
+    """Decode-time cross attention against the cached k and v of the
+    frames (plain PyTorch, as the reference's jnp ``decode_attention``)."""
+    q = attn._proj(h, p["wq"]) + p["bq"].to(h.dtype)
+    valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
+    return attn._out(attn.decode_attention(q, k, v, valid), p)
+
+
+def _cross_mlp(x, p, cfg: ModelConfig, k, v, use_kernels: bool):
+    """The block after its self-attention: cross-attention, then MLP,
+    each behind its norm and residual."""
+    h = _norm(x, p["norm2"], cfg, use_kernels)
+    x = x + _cross_attention(h, p["cross_attn"], k, v, use_kernels)
+    h = _norm(x, p["norm3"], cfg, use_kernels)
+    return x + apply_mlp(h, p["mlp"], cfg.activation)
+
+
+def encdec_block_forward(x, p, cfg: ModelConfig, *, enc_out, positions=None,
+                         use_kernels: bool = True, **_):
+    h = _norm(x, p["norm1"], cfg, use_kernels)
+    x = x + attn.attention_forward(h, p["self_attn"], cfg,
+                                   positions=positions, causal=True,
+                                   use_kernels=use_kernels)
+    k, v = _cross_kv(enc_out, p["cross_attn"])
+    return _cross_mlp(x, p, cfg, k, v, use_kernels)
+
+
+def encdec_block_prefill(x, p, cfg: ModelConfig, *, enc_out, cache,
+                         positions=None, use_kernels: bool = True, **_):
+    """Fills the layer's cache in place: ``self`` with the prompt's k/v,
+    ``cross_k`` and ``cross_v`` with the frames' (the k and v the
+    cross-attention attends over)."""
+    h = _norm(x, p["norm1"], cfg, use_kernels)
+    a, self_cache = attn.attention_prefill(h, p["self_attn"], cfg,
+                                           positions=positions,
+                                           cache=cache["self"],
+                                           use_kernels=use_kernels)
+    k, v = _cross_kv(enc_out, p["cross_attn"])
+    cache["cross_k"].copy_(k)
+    cache["cross_v"].copy_(v)
+    x = _cross_mlp(x + a, p, cfg, k, v, use_kernels)
+    return x, dict(cache, self=self_cache)
+
+
+def encdec_block_decode(x, p, cfg: ModelConfig, *, cache,
+                        use_kernels: bool = True, **_):
+    h = _norm(x, p["norm1"], cfg, use_kernels)
+    a, self_cache = attn.attention_decode(h, p["self_attn"], cfg,
+                                          cache=cache["self"],
+                                          use_kernels=use_kernels)
+    x = x + a
+    h = _norm(x, p["norm2"], cfg, use_kernels)
+    x = x + _cross_attention_cached(h, p["cross_attn"], cache["cross_k"],
+                                    cache["cross_v"])
+    h = _norm(x, p["norm3"], cfg, use_kernels)
+    x = x + apply_mlp(h, p["mlp"], cfg.activation)
+    return x, dict(cache, self=self_cache)
+
+
+# whisper encoder block: bidirectional self-attn + mlp
+def init_encoder_block(generator, cfg: ModelConfig, *, lead=(),
+                       device="cpu"):
+    kw = dict(lead=lead, device=device)
+    return {
+        "norm1": init_norm(cfg.d_model, cfg.norm, **kw),
+        "attn": attn.init_attention(generator, cfg, **kw),
+        "norm2": init_norm(cfg.d_model, cfg.norm, **kw),
+        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.activation,
+                        **kw),
+    }
+
+
+def encoder_block_forward(x, p, cfg: ModelConfig, *,
+                          use_kernels: bool = True):
+    h = _norm(x, p["norm1"], cfg, use_kernels)
+    x = x + attn.attention_forward(h, p["attn"], cfg, causal=False,
+                                   use_kernels=use_kernels)
+    return _mlp_residual(x, p, cfg, use_kernels)

@@ -1,20 +1,25 @@
-"""Model assembly for the dense, MoE, SSM and hybrid families (port of
-``repro/models/model.py``): embeddings -> stacked layers -> head, with
-forward, loss, prefill and decode.  The MoE family's per-layer
+"""Model assembly for the dense, MoE, SSM, hybrid and encoder-decoder
+families (port of ``repro/models/model.py``): embeddings -> stacked
+layers -> head, with forward, loss, prefill and decode.  The MoE family's per-layer
 load-balance losses are summed over the stack into ``Model.loss``, as
 the reference's ``run_stack`` sums them; serving ignores them.
 
 Layer parameters and caches keep the reference's stacked layout:
 ``[L, ...]``, and for the hybrid family ``layers/blocks`` as ``[G, k,
 ...]`` (G groups of k Mamba2 layers), ``layers/gates`` as ``[G]`` and one
-``shared`` dense block applied at the head of every group.  Where the
+``shared`` dense block applied at the head of every group.  The
+encoder-decoder family (whisper) adds ``encoder/layers`` [L_enc, ...],
+``encoder/norm`` and ``encoder/pos/table``: ``_encode`` runs the encoder
+over a batch's ``frames`` once a forward pass (or prefill), and every
+decoder layer attends over its output.  Where the
 reference scans over the stack, the port runs a Python loop over layer
 slices, and ``remat`` wraps each block in ``torch.utils.checkpoint``
 where the reference wraps it in ``jax.checkpoint``.  Caches are updated
 in place (the reference donates them to its jitted steps instead); a
-cache is a NamedTuple of tensors, or for the hybrid family a dict
-``{"ssm": SSMState [G, k, ...], "attn": KVCache [G, ...]}``, and
-``map_cache`` (``core.sharding``) walks either.
+cache is a NamedTuple of tensors, or a dict: for the hybrid family
+``{"ssm": SSMState [G, k, ...], "attn": KVCache [G, ...]}``, for the
+encoder-decoder ``{"self": KVCache [L, ...], "cross_k", "cross_v": [L,
+B, F, H, D]}``, and ``map_cache`` (``core.sharding``) walks either.
 
 Under a plan, ``core.steps.build_train_step`` sets three attributes
 (all None by default, so every one-device path is unchanged) and hands
@@ -87,6 +92,8 @@ _BLOCKS = {
             blocks.ssm_block_prefill, blocks.ssm_block_decode),
     "hybrid": (blocks.init_mamba2_block, blocks.mamba2_block_forward,
                blocks.mamba2_block_prefill, blocks.mamba2_block_decode),
+    "encdec": (blocks.init_encdec_block, blocks.encdec_block_forward,
+               blocks.encdec_block_prefill, blocks.encdec_block_decode),
 }
 
 
@@ -94,10 +101,11 @@ def trains_through_kernels(cfg: ModelConfig) -> bool:
     """Whether every kernel a training step of ``cfg`` reaches has a
     backward on the card.  Only kernel A has one, at head dims 64 and 80
     (not MLA's split ones), so only the dense family with LayerNorm
-    (GPT-2) trains through the kernels; the launchers train the others
-    with ``use_kernels=False`` (their kernels' wrappers raise when a
-    gradient is taken; ROADMAP queue 2, item 7)."""
-    return cfg.family == "dense" and cfg.norm == "layernorm" \
+    (GPT-2) and the encoder-decoder (whisper, heads of 64) train through
+    the kernels; the launchers train the others with
+    ``use_kernels=False`` (their kernels' wrappers raise when a gradient
+    is taken; ROADMAP queue 2, item 7)."""
+    return cfg.family in ("dense", "encdec") and cfg.norm == "layernorm" \
         and cfg.mla is None
 
 
@@ -115,15 +123,18 @@ def unstack(tree) -> List:
 
 
 def _cache_layer(cache, i: int):
-    """Layer ``i`` of a stacked cache NamedTuple (views, no copies)."""
-    return type(cache)(*(leaf[i] for leaf in cache))
+    """Layer ``i`` of a stacked cache (views, no copies)."""
+    return map_cache(lambda _, leaf: leaf[i], cache)
 
 
 def _restack(cache, layer_caches):
     """The stacked cache after a pass over its layers.  k/v and recurrent
     states were written in place; only the per-layer ring indices of an
     attention cache are new tensors."""
-    if "index" not in cache._fields:
+    if isinstance(cache, dict):
+        return {k: _restack(v, [c[k] for c in layer_caches])
+                for k, v in cache.items()}
+    if not isinstance(cache, tuple) or "index" not in cache._fields:
         return cache
     return cache._replace(
         index=torch.stack([c.index for c in layer_caches]))
@@ -132,8 +143,9 @@ def _restack(cache, layer_caches):
 class Model:
     """Functional model around a ModelConfig: the dense (GPT-2, llama,
     phi4-mini, MiniCPM3), ``moe`` (phi3.5-MoE, DeepSeek-V2), ``ssm``
-    (falcon-mamba) and ``hybrid`` (zamba2) families, with Multi-head
-    Latent Attention where the config has an ``MLAConfig``.
+    (falcon-mamba), ``hybrid`` (zamba2) and ``encdec`` (whisper)
+    families, with Multi-head Latent Attention where the config has an
+    ``MLAConfig``.
 
     ``device`` defaults to "cuda" and raises when no card is present.
     ``use_kernels=False`` runs the kernels' plain PyTorch versions (the
@@ -193,6 +205,14 @@ class Model:
         else:
             params["layers"] = init_block(generator, cfg,
                                           lead=(cfg.n_layers,), device=dev)
+        if cfg.family == "encdec":
+            params["encoder"] = {
+                "layers": blocks.init_encoder_block(
+                    generator, cfg, lead=(cfg.n_enc_layers,), device=dev),
+                "norm": init_norm(cfg.d_model, cfg.norm, device=dev),
+                "pos": init_learned_positions(generator, cfg.enc_seq_len,
+                                              cfg.d_model, device=dev),
+            }
         return params
 
     # ----------------------------------------------------------------- #
@@ -238,6 +258,30 @@ class Model:
         key = "embed" if cfg.tie_embeddings else "lm_head"
         return unembed(x, self._use(key, params[key]), self.compute_dtype,
                        model_axis)
+
+    def _encode(self, params, batch) -> torch.Tensor:
+        """Whisper's encoder over the batch's precomputed frame
+        embeddings ``frames`` [B, F, d] (a stub frontend): the learned
+        positions, the encoder layers (bidirectional attention through
+        kernel A), the final norm.  [B, F, d] in the compute dtype."""
+        cfg, dt = self.cfg, self.compute_dtype
+        enc = params["encoder"]
+        x = torch.as_tensor(batch["frames"], device=self.device).to(dt)
+        x = x + enc["pos"]["table"][: x.shape[1]].to(dt)
+        for p in unstack(enc["layers"]):
+            x = blocks.encoder_block_forward(x, p, cfg,
+                                             use_kernels=self.use_kernels)
+        return apply_norm(x, enc["norm"], cfg.norm, cfg.norm_eps,
+                          use_kernels=self.use_kernels)
+
+    def _encoder_kw(self, params, batch) -> Dict[str, Any]:
+        """The block functions' ``enc_out`` of the encoder-decoder family:
+        the encoder's output of ``batch``, computed here once for every
+        decoder layer, so a layer's recompute under remat reads it and
+        does not rerun the encoder; none for the other families."""
+        if self.cfg.family != "encdec":
+            return {}
+        return {"enc_out": self._encode(params, batch)}
 
     def _run(self, params, x, cache, step: int, kw, remat: bool = False):
         """One pass over the layers with the family's block function
@@ -315,8 +359,9 @@ class Model:
         ``forward``, tensor-parallel under ``model_axis``."""
         axis = self.model_axis
         x, positions = self._embed_inputs(params, batch, axis)
-        x, _, aux = self._run(params, x, None, _FORWARD,
-                              self._plan_kw(positions, window), remat=remat)
+        kw = self._plan_kw(positions, window)
+        kw.update(self._encoder_kw(params, batch))
+        x, _, aux = self._run(params, x, None, _FORWARD, kw, remat=remat)
         return self._head(params, x, axis), aux
 
     def _plan_kw(self, positions, window: int) -> Dict[str, Any]:
@@ -340,9 +385,9 @@ class Model:
         """Final hidden states [B, S, d] before the final norm (the
         reference's ``run_stack`` output)."""
         x, positions = self._embed_inputs(params, batch)
-        x, _, _ = self._run(params, x, None, _FORWARD,
-                            dict(positions=positions, window=0,
-                                 use_kernels=self.use_kernels))
+        x, _, _ = self._run(params, x, None, _FORWARD, dict(
+            positions=positions, window=0, use_kernels=self.use_kernels,
+            **self._encoder_kw(params, batch)))
         return x
 
     # the pieces a pipeline stage runs (``core.pipeline.StageRunner``)
@@ -394,7 +439,10 @@ class Model:
                    depth: Optional[int] = None, device=None) -> Cache:
         """Decode cache, leaves stacked on the layer axis (``[G, ...]``
         and ``[G, k, ...]`` for the hybrid family; the latent
-        ``MLACache`` for an MLA config).  ``kv_dtype='fp32'`` keeps k/v
+        ``MLACache`` for an MLA config; for the encoder-decoder the
+        self-attention's ``KVCache`` beside ``cross_k`` and ``cross_v``
+        [L, B, F, H, D] in the compute dtype, filled at prefill).
+        ``kv_dtype='fp32'`` keeps k/v
         in the compute dtype (the reference's name); 'int8' is the
         quantized cache decode runs through kernel B, for the dense and
         MoE families without MLA only, as in the reference.
@@ -430,6 +478,16 @@ class Model:
             return ssm_mod.init_ssm_state(cfg, batch, dt,
                                           lead=(depth or cfg.n_layers,),
                                           **ssm_kw)
+        if cfg.family == "encdec":
+            shape = (depth or cfg.n_layers, batch, cfg.enc_seq_len,
+                     cfg.n_heads, cfg.head_dim)
+            return {
+                "self": attn_mod.init_kv_cache(
+                    batch, cap, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim,
+                    dt, lead=shape[:1], device=dev),
+                "cross_k": torch.zeros(shape, dtype=dt, device=dev),
+                "cross_v": torch.zeros(shape, dtype=dt, device=dev),
+            }
         if cfg.family == "hybrid":
             G, k = self._groups
             G = depth or G
@@ -475,7 +533,8 @@ class Model:
         ``blocks``: the ring's blocks under a serving plan."""
         x, positions = self._embed_inputs(params, batch, self.model_axis)
         x, cache = self.serve_layers(params, x, cache, window=window,
-                                     positions=positions, blocks=blocks)
+                                     positions=positions, blocks=blocks,
+                                     **self._encoder_kw(params, batch))
         return self.serve_logits(params, x, last_pos), cache
 
     def decode_step(self, params, cache: Cache, tokens, *, window: int = 0,
@@ -507,15 +566,19 @@ class Model:
         return x
 
     def serve_layers(self, params, x, cache: Cache, *, decode: bool = False,
-                     window: int = 0, positions=None, blocks=None
-                     ) -> Tuple[torch.Tensor, Cache]:
+                     window: int = 0, positions=None, blocks=None,
+                     enc_out=None) -> Tuple[torch.Tensor, Cache]:
         """``(x, cache)`` after the prefill (or one ``decode`` step) of
         the layers of ``params["layers"]`` (a sub-stack, with the hybrid
         family's ``shared`` block) on ``cache``, whose stack holds the
-        same layers."""
+        same layers.  ``enc_out``: the encoder's output an
+        encoder-decoder's prefill attends over (its decode reads the
+        cache's)."""
         kw = self._serve_kw(blocks, window=window)
         if not decode:
             kw["positions"] = positions
+        if enc_out is not None:
+            kw["enc_out"] = enc_out
         x, cache, _ = self._run(params, x, cache,
                                 _DECODE if decode else _PREFILL, kw)
         return x, cache

@@ -19,6 +19,8 @@ Without ``plan`` and ``mesh`` they run on one device.  With them
 the mesh runs the engine on the same requests and returns the whole
 batch's tokens; it takes this rank's blocks of the params
 (``shard_params``).
+An encoder-decoder's batch carries its ``frames`` beside the prompt
+tokens: ``Engine`` encodes them once a batch, in the prefill.
 On the card, prefill attention runs kernel A, int8-KV decode runs kernel
 B, every RMSNorm runs kernel 6, and the prefill scans of the SSM and
 hybrid families run kernels 4 and 3 (``kernels/ops.py``).
@@ -149,7 +151,8 @@ class Engine(_Served):
     @torch.no_grad()
     def generate(self, params, batch: Dict[str, Any], n_tokens: int, *,
                  seed: int = 0, timing: bool = True) -> Dict[str, Any]:
-        """batch: prompt tokens [B, S].  Returns the generated token
+        """batch: prompt tokens [B, S] (and an encoder-decoder's
+        ``frames`` [B, F, d]).  Returns the generated token
         matrix [B, n_tokens] (numpy) and timing stats.
 
         ``timing=False`` skips the per-step sync and host copy, so decode
@@ -335,13 +338,20 @@ class ContinuousEngine(_Served):
     family when an expert overflows its capacity in either engine's
     batches (prefill batches differ: one padded request here, the whole
     batch there), where a dropped token changes what follows; they equal
-    the reference ``ContinuousEngine``'s in that case too."""
+    the reference ``ContinuousEngine``'s in that case too.
+
+    The encoder-decoder family raises, as in the reference: a request
+    would need its own frames beside its prompt."""
 
     def __init__(self, model: Model, *, slots: int, max_len: int,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  kv_dtype: str = "fp32", eos_id: int = -1, pad_id: int = 0,
                  detokenize: Optional[Callable[[Any], Any]] = None,
                  device="cuda", plan=None, mesh=None, stage_layers=None):
+        if model.cfg.family == "encdec":
+            raise NotImplementedError(
+                f"continuous batching serves token-only prompts; family "
+                f"{model.cfg.family!r} needs per-request modality extras")
         self.device = _check_model_device(model, device)
         self.model = model
         self.plan = _serve_plan(model, plan, mesh, max_len,

@@ -41,7 +41,7 @@ from repro_torch.core.sharding import (
     FsdpGather, Mesh, all_gather, shard_tree, slice_leaf, tree_map_with_path,
 )
 from repro_torch.core.steps import (
-    _dispatch, _local_rows, _model_axis, refuse_mla,
+    _dispatch, _local_rows, _model_axis, refuse_under_plans,
 )
 from repro_torch.models.attention import WHOLE_RING, RingBlocks
 from repro_torch.models.model import Cache, Model, map_cache
@@ -80,12 +80,13 @@ class ServePlan:
 
     ``stage_layers`` (pipeshard): the layers (the hybrid family's groups)
     of each chunk, ``v`` chunks a stage for ``v * stages`` entries; None
-    is the even split, one chunk a stage.  An MLA model raises
-    (``core.steps.refuse_mla``: ROADMAP queue 1, item 13)."""
+    is the even split, one chunk a stage.  An MLA model and an
+    encoder-decoder raise (``core.steps.refuse_under_plans``: ROADMAP
+    queue 1, items 13 and 14)."""
 
     def __init__(self, model: Model, plan: Union[str, Plan], mesh: Mesh, *,
                  max_len: int, window: int = 0, stage_layers=None):
-        refuse_mla(model, plan)
+        refuse_under_plans(model, plan)
         plan = get_plan(plan) if isinstance(plan, str) else plan
         cfg = model.cfg
         self.model, self.plan, self.mesh = model, plan, mesh

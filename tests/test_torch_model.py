@@ -67,7 +67,7 @@ def test_configs_match_reference(name, reduced):
 
 def test_other_families_raise():
     with pytest.raises(NotImplementedError, match="item 10"):
-        tconfigs.get_config("whisper-small")
+        tconfigs.get_config("phi-3-vision-4.2b")
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 

@@ -360,11 +360,12 @@ def test_staged_specs_equal_reference(arch):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek-v2-236b", "item 13"), ("whisper-small", "item 10")])
+    ("deepseek-v2-236b", "item 13"), ("whisper-small", "item 14")])
 def test_pipeshard_refuses_with_its_roadmap_item(arch, item):
     """pipeshard runs every family the port has (the MoE, SSM and hybrid
-    ones in ``test_torch_plan_families.py``); the families it does not
-    have raise, and so do the MLA models (one device only)."""
+    ones in ``test_torch_plan_families.py``) but the ones that run on one
+    device only: the MLA models (item 13) and the encoder-decoder (item
+    14) raise."""
     with pytest.raises(NotImplementedError, match=item):
         build_train_step(TModel(tconfigs.get_config(arch).reduced(),
                                 device="cpu"), TrainConfig(),

@@ -253,11 +253,12 @@ def test_the_groupings_drop_other_tokens(drop_reference):
 
 @pytest.mark.parametrize("arch,plan,item", [
     ("deepseek-v2-236b", "fsdp", "item 13"),
-    ("whisper-small", "shard", "item 10"),
+    ("whisper-small", "shard", "item 14"),
     ("phi-3-vision-4.2b", "pipeshard", "item 10"),
     ("minicpm3-4b", "data", "item 13")])
 def test_families_not_ported_raise_with_their_roadmap_item(arch, plan, item):
-    """The families the port does not have (item 10), and the MLA models
+    """The families the port does not have (item 10), the encoder-decoder
+    under any plan (item 14: it runs on one device only), and the MLA models
     under any plan (item 13: they run on one device only)."""
     with pytest.raises(NotImplementedError, match=item):
         build_train_step(TModel(tconfigs.get_config(arch).reduced(),
@@ -266,6 +267,21 @@ def test_families_not_ported_raise_with_their_roadmap_item(arch, plan, item):
 
 @pytest.mark.parametrize("family", ["mla", "encdec", "vlm"])
 def test_model_of_another_family_raises_with_its_roadmap_item(family):
+    """A family the port does not have raises, naming item 10; the
+    encoder-decoder is ported: it builds on the CPU and runs a forward
+    pass (its parity with the reference: ``test_torch_encdec.py``)."""
+    if family == "encdec":
+        cfg = tconfigs.get_config("whisper-small").reduced()
+        model = TModel(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        logits = model.forward(params, {
+            "tokens": rng.integers(4, cfg.vocab_size, (2, 8)),
+            "frames": rng.standard_normal(
+                (2, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)})
+        assert tuple(logits.shape) == (2, 8, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
+        return
     cfg = dataclasses.replace(tconfigs.get_config("gpt2m").reduced(),
                               family=family)
     with pytest.raises(NotImplementedError, match="item 10"):

@@ -64,7 +64,7 @@ def build(name, text, out_dir, build_mod):
     fn = ctypes.CDLL(lib).flash_attn_fwd_bf16
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [P, P, P, P] + [I] * 7 + [L] * 12 + [
-        ctypes.c_float, I, I, P, P]
+        ctypes.c_float, I, I, P, P, P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -91,7 +91,7 @@ def main() -> None:
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      B, H, k.shape[2], Sq, k.shape[1], D, D, *q.stride()[:3],
                      *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-                     D ** -0.5, 1, 0, None,
+                     D ** -0.5, 1, 0, None, None,
                      torch.cuda.current_stream().cuda_stream)
             _build.check(err, "flash_attn_fwd_bf16")
             return o
