@@ -50,6 +50,23 @@ plain path with an fp32 control (``whisper-parity``).  Kernel A and its
 backward are held non-causal at the model's shapes (Sq of 1, 64, 448 and
 1500 over 1500 keys) beside SDPA, naming its backend.
 
+Kernel A is held at (96, 96) and kernel B at head_dim 96, phi-3-vision's
+heads, at its Engine's shapes (8 x (576 + 64) positions; a cache of 680
+slots filled 640 to 671) and beside SDPA.  After the elastic phases,
+in their process group, the vision-language model: phi-3-vision-4.2b at
+full size (32 layers, d_model 3072, 32 heads of 96, random patches [8,
+576, 1024] x 0.02 from the seed) through ``Engine`` with the bf16 and
+the int8 cache (``vlm-engine``, ``vlm-int8``: kernel A 32 times a
+prefill, 6 65 times a forward pass, B 32 times a decode step), then
+under pipeshard on one stage (``serve-vlm-pipeshard``, tokens equal to
+``vlm-int8``'s); and at full width cut to 8 layers, three training
+steps of 8 x (576 patches + 448 text tokens) through the plain versions
+(``train-vlm``, the step-1 loss held to an fp32 control) and the same
+under pipeshard, four microbatches (``fam-vlm-pipe``, held to
+``train-vlm``).  ``serve-shard``, ``serve-shard_zero``,
+``serve-shard-int8`` and ``serve-llama-shard`` serve once, to pay for
+it.
+
 Then it calibrates the card as a site of the paper's TACC-TACC cluster
 for gpt2m through ``repro_torch.launch.calibrate`` (kernel micro-bench
 through kernels 5 and A, host ring, least-squares fit, plan search
@@ -100,8 +117,8 @@ shard with the int8 cache (kernel B with its log-sum-exp, the merge of
 the ring's blocks) and through ``ContinuousEngine`` (int8, 8 slots, 16
 requests), and llama3.2-3b at full size with the int8 cache under shard
 (``serve-*``): each phase's tokens held to the one-device engine's on
-the same weights and prompts, three runs timed (``serve-fsdp`` and
-``serve-shard-continuous`` one).  Then, once each after
+the same weights and prompts, three runs timed (``SERVE_ONE_RUN``'s
+six one).  Then, once each after
 its one-device yardstick: gpt2L under pipeshard on one stage of two
 chunks (16 and 14 layers) through ``Engine`` (fp32 KV) and
 ``ContinuousEngine`` (int8; ``serve-pipeshard``,
@@ -315,8 +332,9 @@ ELASTIC_GPUS, ELASTIC_DEAD, ELASTIC_WINNER = "A30;A30", (1,), ("data", (0,))
 SERVE_RUNS, SERVE_LOGIT_RTOL = 3, 1e-2
 # ...but these serve once (their first run's tokens and every check as
 # before): the two longest of the phases, cut to pay for the whisper
-# stage's seconds
-SERVE_ONE_RUN = ("serve-fsdp", "serve-shard-continuous")
+# stage's seconds, and the next four, cut to pay for the VLM stage's
+SERVE_ONE_RUN = ("serve-fsdp", "serve-shard-continuous", "serve-shard",
+                 "serve-shard_zero", "serve-shard-int8", "serve-llama-shard")
 # (phase, arch, plan, KV dtype, engine)
 SERVE_PHASES = tuple((f"serve-{p}", PLAN_ARCH, p, "fp32", "engine")
                      for p in PLAN_NAMES) + (
@@ -403,6 +421,31 @@ WHISPER_FWD = tuple((ENGINE_BATCH, sq, 1500) for sq in (64, 448, 1500, 1))
 WHISPER_BWD = tuple((ENGINE_BATCH, sq, 1500) + WHISPER_HEADS
                     for sq in (448, 1500))
 WHISPER_SEQ, WHISPER_STEPS = 448, 3
+# the vision-language model: phi-3-vision-4.2b at full size (32 layers,
+# d_model 3072, 32 heads of 96 over 32 KV heads, 576 patches of 1024
+# features, random patches x 0.02 from the seed), one model on the card;
+# its Engine's cache holds the patches, the prompt and the new tokens
+# (VLM_LEN).  Kernel A at (96, 96), causal, batch 8: the Engine prefill
+# of 576 + 64 positions, a 256-token prefill and a ragged 577; kernel B
+# at 96 over 32 KV heads: the Engine's int8 cache of VLM_LEN slots
+# filled P + 64 to P + 95 (its 31 decode steps), a 1024-slot cache and
+# mixed masks.  Training at full width cut to TRAIN_VLM_LAYERS of its 32
+# layers (the 8-layer model, its AdamW state and gradients: ~18 GB),
+# TRAIN_VLM_STEPS steps of ENGINE_BATCH x (576 patches + TRAIN_VLM_SEQ
+# text tokens) through the plain versions (no backward at 96 and for
+# RMSNorm), then under pipeshard on one stage, PIPE_MICRO microbatches,
+# held to it as the gpt2L pipe phases are.
+VLM = "phi-3-vision-4.2b"
+VLM_PATCHES = 576
+VLM_LEN = VLM_PATCHES + ENGINE_PROMPT + ENGINE_GEN + 8
+VLM_FLASH_SHAPES = ((ENGINE_BATCH, VLM_PATCHES + ENGINE_PROMPT), (1, 256),
+                    (1, VLM_PATCHES + 1))
+VLM_INT8_CASES = ((ENGINE_BATCH, VLM_LEN, (VLM_PATCHES + ENGINE_PROMPT,
+                                           VLM_PATCHES + ENGINE_PROMPT
+                                           + ENGINE_GEN - 1)),
+                  (ENGINE_BATCH, 1024, (17, 290)),
+                  (ENGINE_BATCH, VLM_LEN, "mixed"))
+TRAIN_VLM_LAYERS, TRAIN_VLM_SEQ, TRAIN_VLM_STEPS = 8, 448, 3
 CONT_SLOTS, CONT_REQUESTS, CONT_LENS, CONT_GEN = 8, 16, (16, 256), 32
 # the scans' shapes: Engine prefill (8 x 64), ContinuousEngine's one
 # request at a time at its prompt's length (1 x 16 to 256), a ragged
@@ -1207,13 +1250,14 @@ def kernel_of(event_name, ours):
                 None)
 
 
-def first_step(torch, m, params, batch, kv_dtype, tok=None):
+def first_step(torch, m, params, batch, kv_dtype, tok=None,
+               capacity=ENGINE_PROMPT + 8):
     """(prefill logits, decode logits, fed token) of one model on the
     engine batch; the decode step feeds ``tok`` (or the prefill's greedy
-    token), so that two paths decode the same token."""
+    token), so that two paths decode the same token.  ``capacity``: the
+    cache's positions (a VLM's holds its patches too)."""
     with torch.no_grad():
-        cache = m.init_cache(ENGINE_BATCH, ENGINE_PROMPT + 8,
-                             kv_dtype=kv_dtype)
+        cache = m.init_cache(ENGINE_BATCH, capacity, kv_dtype=kv_dtype)
         pre, cache = m.prefill(params, batch, cache)
         if tok is None:
             tok = torch.argmax(pre, -1)[:, None]
@@ -1732,6 +1776,208 @@ def whisper_phases(torch, np, ops, card):
     return out, logits
 
 
+def vlm_phases(torch, np, ops, card, mesh):
+    """Phases ``vlm-engine``, ``vlm-int8``, ``serve-vlm-pipeshard``,
+    ``train-vlm`` and ``fam-vlm-pipe`` in the process group of
+    ``plan_phases`` on its mesh of one rank: phi-3-vision-4.2b at full
+    size through ``Engine`` (batch 8, prompt 64 after the 576 patches,
+    32 new tokens; the cache in the compute dtype, then int8), kernel A
+    L times a prefill at (96, 96), kernel 6 2L + 1 times a forward pass
+    and, with the int8 cache, kernel B L times a decode step at 96; the
+    prefill's and the first decode step's logits of both caches held to
+    ``use_kernels=False``; one traced int8 generate; the int8 Engine
+    under pipeshard on one stage, its tokens held to ``vlm-int8``'s.
+    Then the model at full width cut to ``TRAIN_VLM_LAYERS`` layers:
+    ``TRAIN_VLM_STEPS`` one-device steps of 8 x (576 patches +
+    ``TRAIN_VLM_SEQ`` text tokens) through the plain versions, the
+    step-1 loss held to an fp32 control, then the same steps under
+    pipeshard (one stage, ``PIPE_MICRO`` microbatches, 1F1B), held to
+    them.  Returns (records, each with its launches; first-step logit
+    checks; the traced generate)."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.convert import flatten
+    from repro_torch.core import sharding
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.models import Model, trains_through_kernels
+    from repro_torch.optim import init_adamw
+    from repro_torch.serve import Engine
+    from repro_torch.serve import steps
+    from repro_torch.train import model_flops_per_step
+
+    t_all = time.perf_counter()
+    cfg = get_config(VLM)
+    L, P = cfg.n_layers, cfg.n_patches
+    if P != VLM_PATCHES or cfg.head_dim != 96:
+        fail(f"{VLM}: expected {VLM_PATCHES} patches and heads of 96")
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(t.numel() for t in flatten(params).values())
+    log(f"{VLM}: {L} layers, {cfg.param_count() / 1e9:.3f} B parameters by "
+        f"param_count, {n_params / 1e9:.3f} B leaves, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    rng = np.random.default_rng(SEED + 12)
+
+    def patches(B):
+        return np.asarray(rng.standard_normal((B, P, cfg.vision_dim))
+                          * 0.02, np.float32)
+
+    batch = {"tokens": rng.integers(4, cfg.vocab_size,
+                                    (ENGINE_BATCH, ENGINE_PROMPT),
+                                    dtype=np.int64),
+             "patch_embeds": patches(ENGINE_BATCH)}
+    out, logits = {}, {}
+    plain = Model(cfg, device="cuda", use_kernels=False)
+    for kv in ("fp32", "int8"):
+        k = first_step(torch, model, params, batch, kv,
+                       capacity=P + ENGINE_PROMPT + 8)
+        p = first_step(torch, plain, params, batch, kv, k[2],
+                       capacity=P + ENGINE_PROMPT + 8)
+        logits[f"{VLM} {kv}"] = compare_logits(
+            torch, f"{VLM} logits kernel vs plain ({kv} cache)", k, p,
+            LOGIT_RTOL)
+        del k, p
+    del plain
+    # kernel 6 a forward pass: two norms a layer and the final one
+    norms = (2 * L + 1) * ENGINE_GEN
+    toks = {}
+    for name, kv in (("vlm-engine", "fp32"), ("vlm-int8", "int8")):
+        needs = NORM_ATTN + (("int8kv_decode",) if kv == "int8" else ())
+        rec, toks[kv] = serve_runs(torch, np, ops, name, model, params,
+                                   batch, [], kv, "engine", needs, card, L,
+                                   VLM_LEN, 0, runs=1)
+        if rec["launches"]["rmsnorm"] != norms:
+            fail(f"phase {name}: {rec['launches']['rmsnorm']} rmsnorm "
+                 f"launches, want {norms} (2L + 1 a forward pass)")
+        out[name.replace("-", "_")] = rec
+    eng = Engine(model, batch_size=ENGINE_BATCH, max_len=VLM_LEN,
+                 kv_dtype="int8")
+    prof = profile_window(
+        torch, lambda: eng.generate(params, batch, n_tokens=8,
+                                    timing=False), OUR_KERNELS)
+    log_profile("vlm-int8, prefill + 7 decode steps", prof)
+    del eng
+
+    # the int8 Engine under pipeshard on one stage, against vlm-int8
+    staged = make_pipeline_mesh((1, 1, 1), ("pod", "data", "model"), 1)
+    name = "serve-vlm-pipeshard"
+    eng = Engine(model, batch_size=ENGINE_BATCH, max_len=VLM_LEN,
+                 kv_dtype="int8", plan="pipeshard", mesh=staged)
+    local = eng.shard_params(params)
+    rec, got = serve_runs(torch, np, ops, name, model, local, batch, [],
+                          "int8", "engine", NORM_ATTN + ("int8kv_decode",),
+                          card, L, VLM_LEN, 0, eng=eng, runs=1)
+    rec.update(compare_served(torch, steps, sharding, name, model,
+                              (params, local), batch, [], "int8", "engine",
+                              eng, toks["int8"], got))
+    if not rec["tokens_bit_equal"]:
+        fail(f"{name}: tokens differ from vlm-int8's")
+    out["serve_vlm_pipeshard"] = rec
+    del eng, local, model, params
+    torch.cuda.empty_cache()
+    log(f"vlm serving: {time.perf_counter() - t_all:.1f}s")
+
+    # training at full width, depth cut
+    t_train = time.perf_counter()
+    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_VLM_LAYERS)
+    if trains_through_kernels(tcfg):
+        fail(f"{VLM}: expected training through the plain versions")
+    B, S = ENGINE_BATCH, TRAIN_VLM_SEQ
+    log(f"train-vlm: {VLM} at full width, reduced: {TRAIN_VLM_LAYERS} of "
+        f"{L} layers, {tcfg.param_count() / 1e9:.3f} B params; batch {B} x "
+        f"({P} patches + {S} text tokens), {TRAIN_VLM_STEPS} steps; the "
+        f"kernels' plain versions")
+    model = Model(tcfg, device="cuda", use_kernels=False)
+
+    def train_batch():
+        t = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                            device="cuda")
+        return {"tokens": t, "labels": t, "patch_embeds": torch.as_tensor(
+            patches(B), device="cuda")}
+
+    batches = [train_batch() for _ in range(TRAIN_VLM_STEPS)]
+    with torch.no_grad():
+        fresh = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        f32 = Model(dataclasses.replace(tcfg, dtype="float32"),
+                    device="cuda", use_kernels=False)
+        control = float(f32.loss(fresh, batches[0], remat=False)[0])
+        del fresh, f32
+    torch.cuda.empty_cache()
+    text = B * S
+    flops = model_flops_per_step(tcfg, text)
+
+    def run_steps(name, step, state):
+        def go():
+            losses, times = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                p_, o_, metrics = step(*state, b)
+                state[:] = p_, o_
+                losses.append(float(metrics["loss"]))
+                times.append(time.perf_counter() - t0)
+            return losses, times
+
+        (losses, times), counts = run_phase(torch, ops, name, go, [])
+        if any(counts.values()):
+            fail(f"{name}: the plain path launched kernels {counts}")
+        if not all(np.isfinite(losses)):
+            fail(f"{name}: non-finite losses {losses}")
+        step_s = float(np.mean(times[1:]))
+        rec = {"layers": TRAIN_VLM_LAYERS, "batch": B, "patches": P,
+               "text": S, "losses": losses, "step_s": times,
+               "avg_step_s_steps_2_to_3": step_s,
+               "text_tokens_per_s": text / step_s,
+               "model_tflops": flops / step_s / 1e12,
+               "peak_bytes": PHASES[name]["peak_bytes"], "launches": counts}
+        log(f"{name}: losses {losses}; step {step_s * 1e3:.1f} ms (steps 2 "
+            f"to {TRAIN_VLM_STEPS}), {text / step_s:.0f} text tokens/s, 6ND "
+            f"{rec['model_tflops']:.2f} TFLOP/s (D the text tokens), peak "
+            f"memory {rec['peak_bytes'] / 2**30:.2f} GiB, on {card}")
+        return rec
+
+    state = [model.init(torch.Generator(device="cuda").manual_seed(SEED))]
+    state.append(init_adamw(state[0]))
+    one = run_steps("train-vlm", build_train_step(model, TrainConfig(),
+                                                  donate=True), state)
+    rel = abs(one["losses"][0] - control) / abs(control)
+    one["fp32_control_loss"], one["loss1_rel_to_fp32"] = control, rel
+    log(f"train-vlm: step-1 loss {one['losses'][0]} against the fp32 "
+        f"control's {control}: {rel:.3e} relative ({TRAIN_LOSS_RTOL})")
+    if not rel <= TRAIN_LOSS_RTOL:
+        fail(f"train-vlm: step-1 loss {one['losses'][0]} vs fp32 {control}")
+    out["train_vlm"] = one
+    del state
+    torch.cuda.empty_cache()
+
+    staged = make_pipeline_mesh((1, 1, 1), ("pod", "data", "model"), 1,
+                                schedule="1f1b")
+    step = build_train_step(model, TrainConfig(microbatches=PIPE_MICRO),
+                            plan="pipeshard", mesh=staged, schedule="1f1b",
+                            donate=True)
+    state = [step.shard_params(model.init(
+        torch.Generator(device="cuda").manual_seed(SEED)))]
+    state.append(step.init_opt_state())
+    sharding.reset_collective_counts()
+    rec = run_steps("fam-vlm-pipe", step, state)
+    rec["collectives_a_step"] = collectives_a_step(torch, TRAIN_VLM_STEPS)
+    rel = [abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                              one["losses"])]
+    rec["loss_rel_diff"] = rel
+    log(f"fam-vlm-pipe: held to train-vlm ({one['losses']}) within "
+        f"{PIPE_LOSS1_RTOL} at step 1 and {PIPE_LOSS_RTOL} after: relative "
+        f"differences {rel}")
+    if not (rel[0] <= PIPE_LOSS1_RTOL and max(rel) <= PIPE_LOSS_RTOL):
+        fail(f"fam-vlm-pipe: losses {rec['losses']} vs {one['losses']}")
+    out["fam_vlm_pipe"] = rec
+    del state, step, model, batches
+    torch.cuda.empty_cache()
+    log(f"vlm training: {time.perf_counter() - t_train:.1f}s; the VLM "
+        f"stage {time.perf_counter() - t_all:.1f}s")
+    return out, logits, {"params": n_params, "profile_vlm_int8": prof}
+
+
 def check_ssm_layer(torch, cfg, params):
     """Layer 0 of an SSM or hybrid model at full width in fp32 (its
     parameters are fp32; so is x), kernel path against plain path on the
@@ -2178,8 +2424,10 @@ def plan_phases(torch, np, ops, card):
     """Phases ``train-gpt2L`` and ``plan-<name>`` for each flat plan:
     gpt2L trains ``PLAN_STEPS`` steps through ``train()`` on one device
     and under each plan on a mesh of one rank over NCCL, then the pipe
-    phases (``pipe_phases``) and the family phases (``family_phases``)
-    in the same process group.  One more step of the one device, of
+    phases (``pipe_phases``), the family phases (``family_phases``), the
+    serve, elastic and VLM phases (``vlm_phases``; its logit checks and
+    trace under ``vlm_logits`` and ``vlm_info``) in the same process
+    group.  One more step of the one device, of
     shard_zero (the plan with the most layout work) and of fsdp is traced
     after its counted phase."""
     import torch.distributed as dist
@@ -2287,6 +2535,9 @@ def plan_phases(torch, np, ops, card):
         out.update(serve_phases(torch, np, ops, card, mesh))
         out.update(serve_family_phases(torch, np, ops, card, mesh))
         out.update(elastic_phases(torch, np, ops, card, mesh))
+        vlm, out["vlm_logits"], out["vlm_info"] = vlm_phases(
+            torch, np, ops, card, mesh)
+        out.update(vlm)
     finally:
         dist.destroy_process_group()
     del ref_params
@@ -2970,10 +3221,10 @@ def log_profile(name, prof):
 
 
 # keys a kernel row may add: kernel A's rates and ratios (add_rates),
-# kernel 5's row-major library time, kernel B's time with its lse; and
-# the training shape
+# kernel 5's row-major library time, kernel B's time with its lse and
+# SDPA's over the dequantized cache; and the training shape
 EXTRAS = ("tflops", "x_library", "x_bound", "library_row_major_ms",
-          "with_lse_ms", "library_backend")
+          "with_lse_ms", "sdpa_dequant_ms", "library_backend")
 TRAIN_AT = {"B": 8, "S": 1024, "H": 16, "D": 64}
 # the port's CUDA functions in a trace, by the kernel they belong to (a
 # call of kernel B launches int8kv_combine_kernel after the split kernel
@@ -3069,6 +3320,11 @@ def main() -> None:
             c.mla.nope_head_dim + c.mla.rope_head_dim, MLA_FLASH_SHAPES,
             Dv=c.mla.v_head_dim)
         flash_rows, flash_err = flash_rows + rows, max(flash_err, err)
+    # phi-3-vision's heads of 96 (MHA, 32 heads): kernel A at (96, 96)
+    vcfg = get_config(VLM)
+    rows, err = check_flash(torch, F, vcfg.n_heads, vcfg.n_kv_heads,
+                            vcfg.head_dim, VLM_FLASH_SHAPES)
+    flash_rows, flash_err = flash_rows + rows, max(flash_err, err)
     bwd_rows, bwd_err = check_flash_bwd(torch, F)
     # (B, Sk, fills): the engines' decode caches, rows partly filled
     # (Engine: 104 slots, ContinuousEngine: 296 at head_dim 128), 1024
@@ -3086,6 +3342,10 @@ def main() -> None:
                                   (8, 296, (17, 288)), (8, 296, "mixed")),
                                  SEED + 9)
         int8_rows, int8_err = int8_rows + rows, max(int8_err, err)
+    # kernel B at phi-3-vision's head_dim 96
+    rows, err = check_int8kv(torch, F, vcfg.n_heads, vcfg.n_kv_heads,
+                             vcfg.head_dim, VLM_INT8_CASES, SEED + 13)
+    int8_rows, int8_err = int8_rows + rows, max(int8_err, err)
     floor_ms = launch_floor_ms(torch)
     log(f"minimal launch (torch.cuda._sleep({FLOOR_CYCLES})): "
         f"{floor_ms:.4f} ms")
@@ -3233,15 +3493,24 @@ def main() -> None:
     add(training["train_parity_launches"])
     e2e.update(training)
     plans = plan_phases(torch, np, ops, card)
-    stage("gpt2L under the plans and the pipeline")
+    stage("gpt2L under the plans and the pipeline, serving under the "
+          "plans, elasticity and the VLM")
+    logit_err.update(plans.pop("vlm_logits"))
+    vlm_info = plans.pop("vlm_info")
     for rec in plans.values():
         add(rec["launches"])
+    # kernel A's launches at (96, 96) and B's at 96: the VLM's serving
+    at96 = {k: sum(plans[p]["launches"][k] for p in (
+        "vlm_engine", "vlm_int8", "serve_vlm_pipeshard"))
+        for k in ("flash_attn_fwd", "int8kv_decode")}
     for key in ("serve_one_llama_engine_int8", "serve_llama_shard",
                 "serve_one_moe_engine_int8", "serve_moe_shard",
                 "serve_moe_pipeshard"):
         for k in at128:
             at128[k] += plans[key]["launches"][k]
     e2e.update(plans)
+    e2e["vlm_params"] = vlm_info["params"]
+    e2e["profile_vlm_int8"] = vlm_info["profile_vlm_int8"]
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
 
     def pick(rows, at):
@@ -3254,10 +3523,12 @@ def main() -> None:
                 "library_ms") + EXTRAS
         return {k: row[k] for k in keys if k in row} | {"at": at}
 
-    def at_head_dim(rows, at, launches):
+    def at_head_dim(rows, at, launches, at_96, launches_96):
         """The row of a kernel at head_dim 128 and its launches in the
-        phases at that head dim (llama3.2, phi3.5-MoE, phi4-mini)."""
-        return {"128": summary(rows, at) | {"launches": launches}}
+        phases at that head dim (llama3.2, phi3.5-MoE, phi4-mini), and
+        at 96 (phi-3-vision)."""
+        return {"128": summary(rows, at) | {"launches": launches},
+                "96": summary(rows, at_96) | {"launches": launches_96}}
 
     def noncausal(rows):
         """Kernel A's (or its backward's) non-causal rows, each with its
@@ -3284,7 +3555,9 @@ def main() -> None:
               train_shape=summary(flash_rows, TRAIN_AT),
               by_head_dim=at_head_dim(
                   flash_rows, {"B": 8, "S": 64, "H": 24, "D": 128},
-                  at128["flash_attn_fwd"]) | {
+                  at128["flash_attn_fwd"],
+                  {"B": ENGINE_BATCH, "S": VLM_PATCHES + ENGINE_PROMPT,
+                   "D": 96, "Dv": 96}, at96["flash_attn_fwd"]) | {
                   f"{dk}x{dv}": summary(
                       flash_rows, {"B": 8, "S": 64, "D": dk, "Dv": dv})
                   | {"launches": at_split[f"{dk}x{dv}"]}
@@ -3307,7 +3580,9 @@ def main() -> None:
                "live_keys": int8_rows[1]["live_keys"]},
               by_head_dim=at_head_dim(
                   int8_rows, {"B": 8, "Sk": 1024, "H": 24, "D": 128},
-                  at128["int8kv_decode"]),
+                  at128["int8kv_decode"],
+                  {"B": ENGINE_BATCH, "Sk": VLM_LEN, "D": 96,
+                   "fills": VLM_INT8_CASES[0][2]}, at96["int8kv_decode"]),
               launch_floor_ms=floor_ms),
         entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
               "src/repro/kernels/mamba_scan.py:72", ssd_rows, ssd_err,

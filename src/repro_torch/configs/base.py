@@ -1,12 +1,12 @@
 """Model and training configuration for the PyTorch port.
 
 A copy of the fields of ``repro.configs.base.ModelConfig`` that the
-dense, MoE, SSM, hybrid and encoder-decoder families read, Multi-head
-Latent Attention (``MLAConfig``, MiniCPM3 and DeepSeek-V2) included, with
-the same names, defaults and ``reduced()`` rule, so a port config and a
-reference config built the same way compare equal field by field; and of
-``TrainConfig``, field for field.  The vision extras are not ported yet.
-The plans' runtime fields of the reference's config
+dense, MoE, SSM, hybrid, encoder-decoder and vision-language families
+read, Multi-head Latent Attention (``MLAConfig``, MiniCPM3 and
+DeepSeek-V2) included, with the same names, defaults and ``reduced()``
+rule, so a port config and a reference config built the same way compare
+equal field by field; and of ``TrainConfig``, field for field.  The
+plans' runtime fields of the reference's config
 (``moe_dispatch_axes``, ``moe_expert_axis``) are not fields here: the
 port's plans tell the model how to route (``models.moe.Dispatch``) and
 what the model axis cuts (``core.sharding.ModelAxis``).
@@ -16,7 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Optional
 
-Family = str  # "dense" | "moe" | "ssm" | "hybrid" | "encdec" are ported
+Family = str  # "dense" | "moe" | "ssm" | "hybrid" | "encdec" | "vlm"
 
 
 @dataclass(frozen=True)
@@ -82,6 +82,9 @@ class ModelConfig:
     # enc-dec (whisper): encoder depth + frontend stub shape
     n_enc_layers: int = 0
     enc_seq_len: int = 0            # precomputed frame embeddings length
+    # vlm (phi-3-vision): stub vision frontend shape
+    vision_dim: int = 0             # patch embedding dim fed to the projector
+    n_patches: int = 0
     dtype: str = "bfloat16"         # compute dtype over fp32 params
     source: str = ""
 
@@ -140,7 +143,10 @@ class ModelConfig:
             enc_layer = 4 * d * d \
                 + (3 if c.activation == "silu" else 2) * d * c.d_ff + 2 * d
             enc = c.n_enc_layers * enc_layer + c.n_layers * 4 * d * d
-        return emb + layers + enc + d
+        vlm = 0
+        if c.family == "vlm":
+            vlm = c.vision_dim * d + d * d  # 2-layer projector
+        return emb + layers + enc + vlm + d
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: shared + top_k experts only)."""
@@ -160,7 +166,8 @@ class ModelConfig:
         dims over values of 32, and for MoE 4 experts, top-2, expert d_ff
         <= 256 and a capacity factor of 2.0 (no drops, so forward,
         prefill and decode agree); an encoder-decoder keeps 2 encoder
-        layers over 32 frames."""
+        layers over 32 frames, a vision-language model 8 patches of 64
+        features."""
         d = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4) or 4
         kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else n_heads
@@ -191,6 +198,9 @@ class ModelConfig:
         if self.family == "encdec":
             kw["n_enc_layers"] = 2
             kw["enc_seq_len"] = 32
+        if self.family == "vlm":
+            kw["vision_dim"] = 64
+            kw["n_patches"] = 8
         return replace(self, **kw)
 
 

@@ -25,9 +25,11 @@ backwards explicitly, in the order its schedule gives:
     as its successor chunk's gradient has arrived).  A handoff made in
     tick ``t`` is used from tick ``t + 1``;
   * ``StageRunner`` runs one stage's part of the timeline: the first
-    stage embeds, the last runs the final norm, the head and ``lm_loss``
-    for each microbatch with the whole batch's token count as the
-    denominator, so the microbatch losses add up to the batch's loss.
+    stage embeds (the VLM's patches through its projector too, so the
+    hidden states carry P + S positions), the last runs the final norm,
+    the head and ``lm_loss`` for each microbatch with the whole batch's
+    token count as the denominator, so the microbatch losses add up to
+    the batch's loss.
     Activations go forward and their gradients back between neighbours,
     the sends and receives of a tick paired in one ``batch_isend_irecv``
     (``core.sharding.exchange``); a handoff between two chunks of one
@@ -445,6 +447,7 @@ class StageRunner:
     # ---------------------------------------------------------------- #
     def run(self, params, batch, denom):
         from repro_torch.core.sharding import exchange
+        from repro_torch.models.model import n_prefix
         model, S, s = self.model, self.S, self.s
         cfg = model.cfg
         head_key = "embed" if cfg.tie_embeddings else "lm_head"
@@ -457,9 +460,10 @@ class StageRunner:
         # the hybrid's shared block: each chunk's own leaves of it
         shared = [live(params["shared"]) if "shared" in params else None
                   for _ in chunks]
-        # the embedding's and the head's own leaves (one table twice when
+        # the embedding's (with the position table and the VLM's
+        # projector) and the head's own leaves (one table twice when
         # tied), so that each accumulates its own gradient
-        emb = live({k: params[k] for k in ("embed", "pos_embed")
+        emb = live({k: params[k] for k in ("embed", "pos_embed", "projector")
                     if k in params}) if s == 0 else None
         head = live({"final_norm": params["final_norm"],
                      head_key: params[head_key]}) if s == S - 1 else None
@@ -476,7 +480,9 @@ class StageRunner:
         mbs = [{k: v[i * b:(i + 1) * b] for k, v in batch.items()}
                for i in range(self.m)]
         d = cfg.d_model
-        S_len = batch["tokens"].shape[1]
+        # the hidden states' length: the VLM's patches stand before the
+        # text
+        S_len = batch["tokens"].shape[1] + n_prefix(cfg, batch)
         dev = model.device
         cdt = model.compute_dtype
         sums = torch.zeros(5, dtype=torch.float32, device=dev)
@@ -646,6 +652,7 @@ class StageServer:
     def prefill(self, params, batch, cache, *, window: int = 0,
                 last_pos=None, blocks=None):
         """(logits [B_r, V] of this rank's rows, filled cache)."""
+        from repro_torch.models.model import n_prefix
         model = self.model
         tokens = batch["tokens"]
         positions = batch.get("positions")
@@ -655,7 +662,10 @@ class StageServer:
         def embed():
             return model.embed_stage(params, batch)[0]
 
-        return self._run(params, cache, embed, tuple(tokens.shape[:2]),
+        # the VLM's patches stand before the prompt
+        rows_seq = (tokens.shape[0],
+                    tokens.shape[1] + n_prefix(model.cfg, batch))
+        return self._run(params, cache, embed, rows_seq,
                          dict(window=window, positions=positions,
                               blocks=blocks), last_pos)
 

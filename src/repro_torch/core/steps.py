@@ -1,6 +1,6 @@
 """Train steps: on one device, and under every plan of ``PLANS`` (data,
 zero2, shard, shard_zero, fsdp, pipeshard) on ``torch.distributed``, for
-the dense, MoE, SSM and hybrid families (port of
+the dense, vision-language, MoE, SSM and hybrid families (port of
 ``repro/core/steps.py:build_train_step``).
 
 ``build_train_step`` returns ``step(params, opt_state, batch) -> (params,
@@ -67,10 +67,19 @@ through the stages in the schedule's order, backwards included:
     hybrid family's groups are the stack, and its shared block runs in
     every stage.
 
-The families the port does not have raise in ``Model`` (ROADMAP queue
-1, item 10).  Multi-head Latent Attention (MiniCPM3, DeepSeek-V2) and
-the encoder-decoder (whisper) run on one device only: under a plan they
-raise (``refuse_under_plans``; ROADMAP queue 1, items 13 and 14).
+The vision-language family (phi-3-vision) is the dense family behind a
+projector: a batch carries ``patch_embeds`` [B, P, vision_dim], cut with
+the tokens over the batch axes (``_local_rows``, the ``grad_accum``
+microbatches), and the projector's leaves are whole under every plan
+but fsdp, which gathers them at their use.  Under shard and shard_zero
+every model rank computes the projector whole on the whole residual
+gradient (the layers' f sums it over the axis), so its gradient is one
+device's, reduced over the data axes as ``pos_embed``'s is where its
+table stays whole; under pipeshard the first stage holds its gradient
+and the others add zeros.  Multi-head Latent Attention (MiniCPM3,
+DeepSeek-V2) and the encoder-decoder (whisper) run on one device only:
+under a plan they raise (``refuse_under_plans``; ROADMAP queue 1, items
+13 and 14).
 """
 from __future__ import annotations
 
@@ -88,7 +97,7 @@ from repro_torch.core.sharding import (
     gather_tree, reduce_scatter, shard_tree, slice_leaf, spec_axes,
     tree_map_with_path,
 )
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, scored_labels
 from repro_torch.models.moe import Dispatch
 from repro_torch.optim import AdamWState, adamw_update, lr_at
 from repro_torch.optim.adamw import tree_leaves, tree_map
@@ -595,7 +604,8 @@ class PipelineStep:
         axes = self.batch_axes(batch["tokens"].shape[0])
         self.model.dispatch = _dispatch(self.model, mesh, axes, whole=True)
         local = self.local_batch(batch)
-        count = (torch.as_tensor(local["labels"])[:, 1:] >= 0).sum()
+        count = (scored_labels(self.model.cfg,
+                               torch.as_tensor(local["labels"])) >= 0).sum()
         if axes:
             count = all_reduce(count, mesh.group(axes))
         denom = torch.clamp(count, min=1)

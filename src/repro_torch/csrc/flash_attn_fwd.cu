@@ -1,9 +1,9 @@
 // Flash attention forward for Hopper (sm_90a), bf16 in and out, fp32
 // online softmax, on the tensor cores, at head_dim 64 (GPT-2), 80
-// (zamba2's shared attention) and 128 (llama3.2-3b, phi3.5-MoE,
-// phi4-mini), and at Multi-head Latent Attention's split head dims, q and
-// k of DK over v of DV: (96, 64) for MiniCPM3 and (192, 128) for
-// DeepSeek-V2 (nope + rope dims over the value dims).
+// (zamba2's shared attention), 96 (phi-3-vision) and 128 (llama3.2-3b,
+// phi3.5-MoE, phi4-mini), and at Multi-head Latent Attention's split head
+// dims, q and k of DK over v of DV: (96, 64) for MiniCPM3 and (192, 128)
+// for DeepSeek-V2 (nope + rope dims over the value dims).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention_bhsd / _flash_kernel), which the reference serves
@@ -70,13 +70,14 @@
 //    both and nothing more is written.
 // Shared memory: Q (64 rows) and two stages of K (64 rows each) of DK + 8
 // bf16, two stages of V of DV + 8: 46,080 bytes at (64, 64), 56,320 at
-// (80, 80), 87,040 at (128, 128), 58,368 at (96, 64) and 111,616 at
-// (192, 128), dynamic, the limit raised once per instantiation.
-// Registers hold DK/4 Q fragment words (DK <= 128), 32 scores and DV/2
-// accumulators a thread: ptxas gives 168 and 175 registers at 64 and 80,
-// 185 at (96, 64), and at 128 and (192, 128) all 255 with 16 bytes of
-// spills each (chip_smoke.py prints every instantiation's count from the
-// build's ptxas log).
+// (80, 80), 66,560 at (96, 96), 87,040 at (128, 128), 58,368 at (96, 64)
+// and 111,616 at (192, 128), dynamic, the limit raised once per
+// instantiation.  Registers hold DK/4 Q fragment words (DK <= 128), 32
+// scores and DV/2 accumulators a thread: ptxas gives 168 and 175
+// registers at 64 and 80, 185 at (96, 64), and at 128 and (192, 128) all
+// 255 with 16 bytes of spills each; (96, 96) holds 24 Q words and 48
+// accumulators, between (80, 80) and (128, 128) (chip_smoke.py prints
+// every instantiation's count from the build's ptxas log).
 #include "flash_attn_mma.cuh"
 
 namespace {
@@ -344,8 +345,8 @@ int launch(cudaStream_t stream, const void* q, const void* k, const void* v,
 // q: [B, Sq, H, DK], k: [B, Sk, KV, DK], v: [B, Sk, KV, DV], o: [B, Sq,
 // H, DV], bf16, with element strides for the batch, sequence and head
 // axes (multiples of 8; last axis contiguous; 16-byte aligned); (DK, DV)
-// = (head_dim, head_dim_v) is (64, 64), (80, 80), (128, 128), (96, 64)
-// or (192, 128).  lse is null (serving) or an fp32 [B, H, Sq]
+// = (head_dim, head_dim_v) is (64, 64), (80, 80), (96, 96), (128, 128),
+// (96, 64) or (192, 128).  lse is null (serving) or an fp32 [B, H, Sq]
 // contiguous buffer for each row's logsumexp (training); o32 is null or
 // an fp32 [B, Sq, H, DV] contiguous buffer for O before its bf16
 // rounding (training: the backward's rowsum(dO * O)).  Returns the
@@ -371,6 +372,7 @@ extern "C" int flash_attn_fwd_bf16(
                             causal, window, lse, o32);
   FLASH_LAUNCH(64, 64)
   FLASH_LAUNCH(80, 80)
+  FLASH_LAUNCH(96, 96)
   FLASH_LAUNCH(128, 128)
   FLASH_LAUNCH(96, 64)
   FLASH_LAUNCH(192, 128)

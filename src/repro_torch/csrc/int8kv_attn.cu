@@ -44,12 +44,24 @@
 //  * scores: thread (key, quarter) converts its quarter of the key's
 //    int8 row once and dots it with every head's fp32 q (pre-scaled by
 //    1/sqrt(D) * log2e); two shuffles finish the sum; the per-token k
-//    scale multiplies each score once; exp2f throughout;
+//    scale multiplies each score once; exp2f throughout.  A quarter is
+//    D/4 bytes: one or two 16-byte chunks at D = 64 and 128, three
+//    8-byte chunks at D = 96, whose 24-byte quarters start on 8-byte
+//    boundaries only (the thread map below says why it is this one);
 //  * softmax: warp h keeps head h's running max and sum, two keys a
 //    lane; p is written with the per-token v scale folded in;
 //  * P.V: thread (4 dims, key phase) runs an unrolled loop over its keys
 //    of the tile from shared memory, for every head, with no global load
-//    inside; the key phases meet in shared memory at the end;
+//    inside; the key phases meet in shared memory at the end.  D/4 dim
+//    quads take NT / (D/4) phases: 16 at 64, 8 at 128; at 96 the 24
+//    quads take 10 phases on 240 of the 256 threads (the other 16 sit
+//    P.V out), phase p the keys p, p + 10, ... of the tile (7 or 6 of
+//    its 64).  Other maps at 96 would cost more: 6 dims a thread (16
+//    phases) reads int8 rows on 2-byte boundaries, 12 dims (32 phases)
+//    needs 48 KB of shared memory to meet the phases, and rows padded to
+//    128 with zero q lanes would read or stage a third more bytes, where
+//    the kernel is bound by bytes; this map reads 96 bytes a row, as the
+//    cache holds them;
 //  * with one split the CTA writes o = acc / max(l, 1e-30); with more,
 //    each split writes (m, l, acc[D]) per head in fp32 to a workspace
 //    and int8kv_combine_kernel merges them in split order,
@@ -118,18 +130,26 @@ __device__ __forceinline__ void s8x4(uint32_t w, float* f) {
 
 template <int HD>
 struct Layout {
+  static_assert(HD == 64 || HD == 96 || HD == 128, "head_dim 64, 96, 128");
   // K and V rows in shared memory: at HD = 128 padded to 144 bytes, so
   // the two keys of a scores quarter-warp fall on distinct banks; at 64
-  // the rows are adjacent (two rows fill the 32 banks)
+  // the rows are adjacent (two rows fill the 32 banks); at 96 too: the
+  // 8-byte reads of a half-warp (4 keys x 4 quarters, 96-byte rows,
+  // 24-byte quarters) fall on 32 distinct banks
   static constexpr int RS = HD == 128 ? HD + 16 : HD;
   // q as fp32, 16-float chunks padded to 20: the four quarters' chunks
   // of one head fall on distinct banks
   static constexpr int QS = HD / 16 * 20;
   static constexpr int NQ = HD / 4;        // dim quads (P.V)
-  static constexpr int NP = NT / NQ;       // key phases (P.V): 8 or 16
-  static constexpr int KPP = TILE / NP;    // keys a phase a tile: 8 or 4
-  static constexpr int CPT = HD / 64;      // 16-byte chunks a scores thread
+  static constexpr int NP = NT / NQ;       // key phases (P.V): 16, 10, 8
+  static constexpr int KPP = (TILE + NP - 1) / NP;  // keys a phase: 4, 7, 8
+  // a scores thread's quarter of a row: CPT chunks of CW bytes
+  static constexpr int CW = HD % 64 == 0 ? 16 : 8;
+  static constexpr int CPT = HD / 4 / CW;  // 1, 3 or 2
 };
+
+// Offset in sm.q of q's dim d: 16-float chunks padded to 20
+__device__ __forceinline__ int q_at(int d) { return (d >> 4) * 20 + (d & 15); }
 
 template <int HD>
 struct Smem {
@@ -204,7 +224,7 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
         h < ng ? __bfloat162float(q[b * q_sb + (h0 + h) * q_sh + d]) *
                      (scale * LOG2E)
                : 0.f;
-    sm.q[h * Lo::QS + (d >> 4) * 20 + (d & 15)] = f;
+    sm.q[h * Lo::QS + q_at(d)] = f;
   }
   const bool split_live = __syncthreads_or(any);
   bool row_dead = false;
@@ -277,15 +297,26 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
     const int j0 = start + t * TILE;
 
     {  // scores of the tile's keys for every head
-      float kf[16 * Lo::CPT];
+      constexpr int WPC = Lo::CW / 4;      // int8x4 words a chunk
+      float kf[HD / 4];
 #pragma unroll
       for (int u = 0; u < Lo::CPT; ++u) {
-        const int4 w = *reinterpret_cast<const int4*>(
-            &sm.u.kv.k[slot][kj * Lo::RS + (sub * Lo::CPT + u) * 16]);
-        const uint32_t ws[4] = {(uint32_t)w.x, (uint32_t)w.y, (uint32_t)w.z,
-                                (uint32_t)w.w};
+        const int8_t* row =
+            &sm.u.kv.k[slot][kj * Lo::RS + sub * (HD / 4) + u * Lo::CW];
+        uint32_t ws[WPC];
+        if constexpr (Lo::CW == 16) {
+          const int4 w = *reinterpret_cast<const int4*>(row);
+          ws[0] = (uint32_t)w.x;
+          ws[1] = (uint32_t)w.y;
+          ws[2] = (uint32_t)w.z;
+          ws[3] = (uint32_t)w.w;
+        } else {
+          const uint2 w = *reinterpret_cast<const uint2*>(row);
+          ws[0] = w.x;
+          ws[1] = w.y;
+        }
 #pragma unroll
-        for (int x = 0; x < 4; ++x) s8x4(ws[x], &kf[u * 16 + x * 4]);
+        for (int x = 0; x < WPC; ++x) s8x4(ws[x], &kf[u * Lo::CW + x * 4]);
       }
       float dot[GMAX];
 #pragma unroll
@@ -295,10 +326,11 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
           for (int u = 0; u < Lo::CPT; ++u)
 #pragma unroll
-            for (int x = 0; x < 4; ++x) {
+            for (int x = 0; x < WPC; ++x) {
+              const int d = sub * (HD / 4) + u * Lo::CW + x * 4;
               const float4 qv = *reinterpret_cast<const float4*>(
-                  &sm.q[h * Lo::QS + (sub * Lo::CPT + u) * 20 + x * 4]);
-              const float* kk = &kf[u * 16 + x * 4];
+                  &sm.q[h * Lo::QS + q_at(d)]);
+              const float* kk = &kf[u * Lo::CW + x * 4];
               dot[h] = fmaf(qv.x, kk[0], dot[h]);
               dot[h] = fmaf(qv.y, kk[1], dot[h]);
               dot[h] = fmaf(qv.z, kk[2], dot[h]);
@@ -353,6 +385,7 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     // P.V: this thread's 4 dims over its keys of the tile, every head
+    // (at 96, the threads past the last phase hold no dims)
 #pragma unroll
     for (int h = 0; h < GMAX; ++h) {
       if (h < ng) {
@@ -361,19 +394,22 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) acc[h][e] *= c;
       }
     }
+    if (NT % Lo::NQ == 0 || kp < Lo::NP) {
 #pragma unroll
-    for (int k = 0; k < Lo::KPP; ++k) {
-      const int j = kp + Lo::NP * k;
-      const uint32_t w = *reinterpret_cast<const uint32_t*>(
-          &sm.u.kv.v[slot][j * Lo::RS + 4 * dq]);
-      float v[4];
-      s8x4(w, v);
+      for (int k = 0; k < Lo::KPP; ++k) {
+        const int j = kp + Lo::NP * k;
+        if (TILE % Lo::NP != 0 && j >= TILE) break;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            &sm.u.kv.v[slot][j * Lo::RS + 4 * dq]);
+        float v[4];
+        s8x4(w, v);
 #pragma unroll
-      for (int h = 0; h < GMAX; ++h) {
-        if (h < ng) {
-          const float p = sm.p[h][j];
+        for (int h = 0; h < GMAX; ++h) {
+          if (h < ng) {
+            const float p = sm.p[h][j];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[h][e] = fmaf(p, v[e], acc[h][e]);
+            for (int e = 0; e < 4; ++e) acc[h][e] = fmaf(p, v[e], acc[h][e]);
+          }
         }
       }
     }
@@ -389,7 +425,7 @@ int8kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 #pragma unroll
   for (int h = 0; h < GMAX; ++h)
-    if (h < ng)
+    if (h < ng && kp < Lo::NP)
       *reinterpret_cast<float4*>(&sm.u.red[kp][h][4 * dq]) =
           make_float4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
   __syncthreads();
@@ -470,8 +506,8 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq,
 // q: [B, 1, H, D] bf16 (batch and head strides given); kq/vq:
 // [B, Sk, KV, D] int8, 16-byte aligned, and ks/vs: [B, Sk, KV] fp32,
 // contiguous; valid: [B, Sk] bool; o: [B, 1, H, D] bf16; lse: null, or
-// an fp32 [B, H] for each (row, head)'s log-sum-exp; D = head_dim is 64
-// or 128.  Sk is cut into `splits` ranges of `kps` keys (a multiple of
+// an fp32 [B, H] for each (row, head)'s log-sum-exp; D = head_dim is 64,
+// 96 or 128.  Sk is cut into `splits` ranges of `kps` keys (a multiple of
 // 64, at most 2048; the last range may be shorter).  With splits > 1,
 // ws_ml [B, H, splits, 2] and ws_acc [B, H, splits, D] are fp32 scratch
 // and a second launch merges them.  Returns the first launch error
@@ -490,6 +526,9 @@ extern "C" int int8kv_decode_bf16(
   cudaStream_t st = (cudaStream_t)stream;
   if (head_dim == 64)
     return launch<64>(q, kq, ks, vq, vs, valid, o, lse, ws_ml, ws_acc, B, H,
+                      KV, Sk, splits, kps, q_sb, q_sh, o_sb, o_sh, scale, st);
+  if (head_dim == 96)
+    return launch<96>(q, kq, ks, vq, vs, valid, o, lse, ws_ml, ws_acc, B, H,
                       KV, Sk, splits, kps, q_sb, q_sh, o_sb, o_sh, scale, st);
   if (head_dim == 128)
     return launch<128>(q, kq, ks, vq, vs, valid, o, lse, ws_ml, ws_acc, B, H,

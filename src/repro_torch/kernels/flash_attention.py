@@ -16,9 +16,10 @@ function, in the model's ``[B, S, H, D]`` layout:
     ``chip_smoke.py`` holds the kernel against it on the card.
   * ``flash_attention_cuda`` — the CUDA C++ kernel in
     ``csrc/flash_attn_fwd.cu`` (bf16 on the tensor cores; head_dim 64,
-    80 or 128, and Multi-head Latent Attention's split head dims, q and
-    k of Dk over v of Dv, (96, 64) and (192, 128); masks by index, which
-    is what arange positions give; the logsumexp on request).
+    80, 96 (phi-3-vision) or 128, and Multi-head Latent Attention's
+    split head dims, q and k of Dk over v of Dv, (96, 64) and (192, 128);
+    masks by index, which is what arange positions give; the logsumexp
+    on request).
   * ``flash_attention_bwd_plain`` — the recompute backward in PyTorch:
     ``P = exp(S * scale - lse)``, ``dV = P^T dO``, ``dS = P * (dO V^T -
     D)`` with ``D = rowsum(dO * O)``, ``dQ = dS K * scale``, ``dK = dS^T
@@ -57,9 +58,10 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 # the kernels' instantiations, (Dk, Dv) of q/k and of v: GPT-2, zamba2
-# and, forward only, llama3.2, phi3.5-MoE and phi4-mini at 128, MiniCPM3
-# at (96, 64) and DeepSeek-V2 at (192, 128)
-FWD_HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (96, 64), (192, 128))
+# and, forward only, llama3.2, phi3.5-MoE and phi4-mini at 128,
+# phi-3-vision at 96, MiniCPM3 at (96, 64) and DeepSeek-V2 at (192, 128)
+FWD_HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (96, 96), (96, 64),
+                 (192, 128))
 BWD_HEAD_DIMS = (64, 80)
 NO_BACKWARD_AT = "ROADMAP queue 2, item 7"
 
@@ -229,8 +231,8 @@ def _check_qkv(q, k, v):
     if (Dk, Dv) not in FWD_HEAD_DIMS:
         raise ValueError(
             f"kernel A is built for (Dk, Dv) in {FWD_HEAD_DIMS} (q and k "
-            f"of Dk, v of Dv; D in 64, 80, 128 where they are equal), got "
-            f"({Dk}, {Dv})")
+            f"of Dk, v of Dv; D in 64, 80, 96, 128 where they are equal), "
+            f"got ({Dk}, {Dv})")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,

@@ -18,7 +18,8 @@ versions of one function, in the model's layout:
     ``chip_smoke.py`` holds the kernel against it on the card.
   * ``int8kv_attention_cuda`` — the CUDA C++ kernel in
     ``csrc/int8kv_attn.cu``, built for one query row (Sq = 1), bf16 q,
-    head_dim 64 (GPT-2) or 128 (llama3.2-3b, phi3.5-MoE): one CTA per
+    head_dim 64 (GPT-2), 96 (phi-3-vision) or 128 (llama3.2-3b,
+    phi3.5-MoE): one CTA per
     (kv head, batch row, split of Sk) over the whole GQA group, tiles
     with no live key skipped, the splits merged in order by a second
     small kernel.  ``int8kv_splits`` picks the splits.  The source says
@@ -48,7 +49,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)    # kernel B's instantiations
+HEAD_DIMS = (64, 96, 128)    # kernel B's instantiations
 
 
 def quantize(x, *, block: int = 128, axis: int = -1):
@@ -161,7 +162,7 @@ def int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale, valid, *,
                           with_lse: bool = False):
     """Launch kernel B.  q: [B, 1, H, D] bf16; k_q/v_q: [B, Sk, KV, D]
     int8, k_scale/v_scale: [B, Sk, KV] fp32 and valid: [B, Sk] bool, all
-    contiguous CUDA tensors; D = 64 or 128.  Returns [B, 1, H, D] bf16;
+    contiguous CUDA tensors; D = 64, 96 or 128.  Returns [B, 1, H, D] bf16;
     ``with_lse`` also the fp32 [B, H] log-sum-exp of each (row, head)'s
     live scores, natural-log units (-inf for a row with no live key),
     as ``int8kv_attention_plain`` gives it."""

@@ -101,6 +101,10 @@ def _rank(rank: int, args, store: str) -> None:
         rng = np.random.default_rng(0)
         batch = {k: rng.integers(0, cfg.vocab_size, (args.batch, args.seq))
                  for k in ("tokens", "labels")}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = np.asarray(rng.standard_normal(
+                (args.batch, cfg.n_patches, cfg.vision_dim)) * 0.02,
+                np.float32)
 
         def fresh(model):
             gen = torch.Generator(device=model.device).manual_seed(0)
@@ -196,7 +200,8 @@ def main(argv=None) -> None:
                     help="(pod, data, model) shape; default 1,2,2 for a "
                          "world of 4, else 1,world,1")
     ap.add_argument("--arch", default="gpt2m", choices=sorted(ARCH_CONFIGS),
-                    help="any ported architecture: dense, MoE, SSM, hybrid")
+                    help="any ported architecture: dense, MoE, SSM, hybrid, "
+                         "VLM")
     ap.add_argument("--plans", default=",".join(PLANS),
                     help="comma-separated repro_torch.core.plans.PLANS keys "
                          "(default all)")

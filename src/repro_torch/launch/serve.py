@@ -5,7 +5,10 @@ fixed-batch by default, continuous batching with ``--continuous``.
 Weights are random, from seed 0; whisper-small's frames too, [batch,
 1500, 768] x 0.02 from the prompts' generator, as the reference's
 launcher makes them (fixed-batch and one device only: the
-encoder-decoder has no continuous batching and no plan).
+encoder-decoder has no continuous batching and no plan), and
+phi-3-vision-4.2b's patch embeddings, [batch, 576, 1024] x 0.02
+(fixed-batch; its cache holds the 576 patches beside the prompt and the
+new tokens, where the reference's launcher sizes it for the text alone).
 
 With ``--plan`` (a ``core.plans.PLANS`` key: data, zero2, shard,
 shard_zero, fsdp or pipeshard; every family serves under each) and
@@ -40,6 +43,9 @@ stage).  Rank 0 prints.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch whisper-small --reduced --device cpu --batch 2 --gen 8
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi-3-vision-4.2b --reduced --device cpu --kv-dtype int8
 """
 import argparse
 import zlib
@@ -185,7 +191,9 @@ def _serve(args, device=None, mesh=None, where: str = "", main=True):
         on["stage_layers"] = _split(args)
 
     rng = np.random.default_rng(0)
-    max_len = args.prompt_len + args.gen + 8
+    # the VLM's prefill fills its patches before the prompt
+    max_len = args.prompt_len + args.gen + 8 + (
+        cfg.n_patches if cfg.family == "vlm" else 0)
     header = (f"{cfg.name} [{cfg.family}] device={model.device} "
               f"batch={args.batch} kv={args.kv_dtype}{where}")
     log = print if main else (lambda *a: None)
@@ -216,6 +224,10 @@ def _serve(args, device=None, mesh=None, where: str = "", main=True):
     batch = {"tokens": np.asarray(
         rng.integers(4, min(cfg.vocab_size, 400),
                      (args.batch, args.prompt_len)), np.int32)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = np.asarray(
+            rng.standard_normal((args.batch, cfg.n_patches, cfg.vision_dim))
+            * 0.02, np.float32)
     if cfg.family == "encdec":
         batch["frames"] = np.asarray(
             rng.standard_normal((args.batch, cfg.enc_seq_len, cfg.d_model))

@@ -6,9 +6,11 @@ execution plan, the counterpart of ``repro.launch.train``.
 MoE, SSM, hybrid); on the card the families whose kernels have no
 backward train through the plain versions
 (``models.trains_through_kernels``).  The encoder-decoder (whisper)
-raises: the Loader feeds tokens alone, and the family needs frames
-beside them, as the reference's launcher cannot train it either
-(``Model.loss`` on a batch with ``frames`` trains it).  Without ``--plan``
+and the vision-language model (phi-3-vision) raise: the Loader feeds
+tokens alone, and these families need frames or patch embeddings beside
+them, as the reference's launcher cannot train them either
+(``Model.loss`` on a batch with ``frames`` or ``patch_embeds`` trains
+them).  Without ``--plan``
 it trains on one device.  With ``--plan`` (a ``core.plans.PLANS`` key:
 data, zero2, shard, shard_zero, fsdp, pipeshard) and ``--mesh`` it runs
 on every rank of a
@@ -89,12 +91,15 @@ def main(argv=None):
     from repro_torch.models import Model, trains_through_kernels
     from repro_torch.train import model_flops_per_step, train
 
-    if get_config(args.arch).family == "encdec":
+    extra = {"encdec": ("an encoder-decoder", "frames"),
+             "vlm": ("a vision-language model", "patch_embeds")}.get(
+        get_config(args.arch).family)
+    if extra is not None:
         raise NotImplementedError(
-            f"{args.arch} is an encoder-decoder: a training batch needs "
-            f"frames beside its tokens, and this launcher's Loader feeds "
-            f"tokens alone (as the reference's does); train it through "
-            f"Model.loss on batches with 'frames'")
+            f"{args.arch} is {extra[0]}: a training batch needs "
+            f"{extra[1]} beside its tokens, and this launcher's Loader "
+            f"feeds tokens alone (as the reference's does); train it "
+            f"through Model.loss on batches with {extra[1]!r}")
     texts = list(load_text_dir(args.data_dir)) if args.data_dir else \
         list(synthetic_wikipedia(args.docs, seed=args.seed))
     tok = Tokenizer.train(texts, args.vocab)

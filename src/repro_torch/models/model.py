@@ -1,6 +1,7 @@
-"""Model assembly for the dense, MoE, SSM, hybrid and encoder-decoder
-families (port of ``repro/models/model.py``): embeddings -> stacked
-layers -> head, with forward, loss, prefill and decode.  The MoE family's per-layer
+"""Model assembly for the dense, MoE, SSM, hybrid, encoder-decoder and
+vision-language families (port of ``repro/models/model.py``):
+embeddings -> stacked layers -> head, with forward, loss, prefill and
+decode.  The MoE family's per-layer
 load-balance losses are summed over the stack into ``Model.loss``, as
 the reference's ``run_stack`` sums them; serving ignores them.
 
@@ -11,7 +12,13 @@ Layer parameters and caches keep the reference's stacked layout:
 encoder-decoder family (whisper) adds ``encoder/layers`` [L_enc, ...],
 ``encoder/norm`` and ``encoder/pos/table``: ``_encode`` runs the encoder
 over a batch's ``frames`` once a forward pass (or prefill), and every
-decoder layer attends over its output.  Where the
+decoder layer attends over its output.  The vision-language family
+(phi-3-vision) is the dense stack behind a ``projector`` (``w1``
+[vision_dim, d], ``w2`` [d, d]): a batch's precomputed ``patch_embeds``
+[B, P, vision_dim] go through ``w1``, the tanh GELU in fp32 and ``w2``,
+and the P projected patches stand before the text, the positions running
+over the whole ``[patches; text]`` sequence (``_embed_inputs``); the
+loss scores text token i at position P + i - 1 (``lm_loss``).  Where the
 reference scans over the stack, the port runs a Python loop over layer
 slices, and ``remat`` wraps each block in ``torch.utils.checkpoint``
 where the reference wraps it in ``jax.checkpoint``.  Caches are updated
@@ -70,8 +77,8 @@ from repro_torch.models import blocks
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import Dispatch
 from repro_torch.models.layers import (
-    apply_norm, embed, init_embedding, init_learned_positions, init_norm,
-    lookup_rows, unembed,
+    apply_norm, dense_init, embed, init_embedding, init_learned_positions,
+    init_norm, lookup_rows, unembed,
 )
 
 Params = Dict[str, Any]
@@ -86,6 +93,8 @@ _FORWARD, _PREFILL, _DECODE = 1, 2, 3
 _BLOCKS = {
     "dense": (blocks.init_dense_block, blocks.dense_block_forward,
               blocks.dense_block_prefill, blocks.dense_block_decode),
+    "vlm": (blocks.init_dense_block, blocks.dense_block_forward,
+            blocks.dense_block_prefill, blocks.dense_block_decode),
     "moe": (blocks.init_moe_block, blocks.moe_block_forward,
             blocks.moe_block_prefill, blocks.moe_block_decode),
     "ssm": (blocks.init_ssm_block, blocks.ssm_block_forward,
@@ -102,7 +111,8 @@ def trains_through_kernels(cfg: ModelConfig) -> bool:
     backward on the card.  Only kernel A has one, at head dims 64 and 80
     (not MLA's split ones), so only the dense family with LayerNorm
     (GPT-2) and the encoder-decoder (whisper, heads of 64) train through
-    the kernels; the launchers train the others with
+    the kernels; the launchers train the others (the VLM's heads of 96
+    too) with
     ``use_kernels=False`` (their kernels' wrappers raise when a gradient
     is taken; ROADMAP queue 2, item 7)."""
     return cfg.family in ("dense", "encdec") and cfg.norm == "layernorm" \
@@ -143,9 +153,9 @@ def _restack(cache, layer_caches):
 class Model:
     """Functional model around a ModelConfig: the dense (GPT-2, llama,
     phi4-mini, MiniCPM3), ``moe`` (phi3.5-MoE, DeepSeek-V2), ``ssm``
-    (falcon-mamba), ``hybrid`` (zamba2) and ``encdec`` (whisper)
-    families, with Multi-head Latent Attention where the config has an
-    ``MLAConfig``.
+    (falcon-mamba), ``hybrid`` (zamba2), ``encdec`` (whisper) and ``vlm``
+    (phi-3-vision) families, with Multi-head Latent Attention where the
+    config has an ``MLAConfig``.
 
     ``device`` defaults to "cuda" and raises when no card is present.
     ``use_kernels=False`` runs the kernels' plain PyTorch versions (the
@@ -157,8 +167,8 @@ class Model:
                  use_kernels: bool = True):
         if cfg.family not in _BLOCKS:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP queue "
-                f"1, item 10); the port serves {sorted(_BLOCKS)}")
+                f"family {cfg.family!r} is not one of the reference's "
+                f"families; the port serves {sorted(_BLOCKS)}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_kernels = use_kernels
@@ -213,6 +223,13 @@ class Model:
                 "pos": init_learned_positions(generator, cfg.enc_seq_len,
                                               cfg.d_model, device=dev),
             }
+        if cfg.family == "vlm":
+            params["projector"] = {
+                "w1": dense_init(generator, (cfg.vision_dim, cfg.d_model),
+                                 cfg.vision_dim, device=dev),
+                "w2": dense_init(generator, (cfg.d_model, cfg.d_model),
+                                 cfg.d_model, device=dev),
+            }
         return params
 
     # ----------------------------------------------------------------- #
@@ -231,11 +248,15 @@ class Model:
     def _embed_inputs(self, params, batch, model_axis=None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Returns (x, positions); positions stay None when the batch
-        gives none (arange, the serving case the flash kernel takes)."""
+        gives none (arange, the serving case the flash kernel takes).
+        For the vision-language family x is ``[patches; text]``
+        (``_patches``), and given positions cover both."""
         dt = self.compute_dtype
         tokens = self._tokens(batch["tokens"])
         x = embed(tokens, self._use("embed", params["embed"]), dt,
                   model_axis)
+        if self.cfg.family == "vlm":
+            x = torch.cat([self._patches(params, batch), x], dim=1)
         positions = batch.get("positions")
         if positions is not None:
             positions = torch.as_tensor(positions, device=self.device)
@@ -250,6 +271,19 @@ class Model:
                     else table[: x.shape[1]][None]
             x = x + pe.to(dt)
         return x, positions
+
+    def _patches(self, params, batch) -> torch.Tensor:
+        """The vision-language family's prefix [B, P, d] in the compute
+        dtype: the batch's ``patch_embeds`` [B, P, vision_dim] through
+        the projector, ``w1``, the tanh GELU in fp32 (``jax.nn.gelu``'s
+        default), ``w2``.  Whole on every rank under a plan (its specs
+        cut it over no model axis); under fsdp gathered at its use."""
+        dt = self.compute_dtype
+        proj = self._use("projector", params["projector"])
+        p = torch.as_tensor(batch["patch_embeds"], device=self.device).to(dt)
+        p = torch.einsum("bpv,vd->bpd", p, proj["w1"].to(dt))
+        p = torch.nn.functional.gelu(p.float(), approximate="tanh").to(dt)
+        return torch.einsum("bpd,de->bpe", p, proj["w2"].to(dt))
 
     def _head(self, params, x, model_axis=None) -> torch.Tensor:
         cfg = self.cfg
@@ -395,7 +429,7 @@ class Model:
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The first stage's embedding: ``(x, positions)`` of ``batch``
         under ``model_axis``; ``params`` needs ``embed`` (and
-        ``pos_embed``) only."""
+        ``pos_embed``, the ``projector``) only."""
         return self._embed_inputs(params, batch, self.model_axis)
 
     def run_layers(self, layers, x, *, positions=None, remat: bool = False,
@@ -444,8 +478,10 @@ class Model:
         [L, B, F, H, D] in the compute dtype, filled at prefill).
         ``kv_dtype='fp32'`` keeps k/v
         in the compute dtype (the reference's name); 'int8' is the
-        quantized cache decode runs through kernel B, for the dense and
-        MoE families without MLA only, as in the reference.
+        quantized cache decode runs through kernel B, for the dense,
+        vision-language and MoE families without MLA only, as in the
+        reference.  A vision-language model's prefill fills its P patches
+        and the prompt, so ``capacity`` covers P + prompt + new tokens.
 
         Under a serving plan a rank holds ``rows`` of the ``batch`` rows,
         one of ``seq_blocks`` blocks of the ring's slots, its part of the
@@ -466,7 +502,7 @@ class Model:
         if kv_dtype not in ("fp32", "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}; expected "
                              f"'fp32' or 'int8'")
-        if kv_dtype == "int8" and (cfg.family not in ("dense", "moe")
+        if kv_dtype == "int8" and (cfg.family not in ("dense", "vlm", "moe")
                                    or cfg.mla is not None):
             raise ValueError(
                 "kv_dtype='int8' needs a plain-GQA attention cache; "
@@ -669,17 +705,36 @@ def _vocab_parallel(logits32, labels_safe, axis: ModelAxis):
     return lse, label_logit, all_reduce(arg, axis.group, "min")
 
 
+def n_prefix(cfg: ModelConfig, batch) -> int:
+    """Positions before the text: the vision-language family's P patches
+    (``batch["patch_embeds"]`` [B, P, vision_dim]), 0 for the others."""
+    if cfg.family != "vlm":
+        return 0
+    return batch["patch_embeds"].shape[1]
+
+
+def scored_labels(cfg: ModelConfig, labels):
+    """The labels ``lm_loss`` scores: shifted one on, as the reference's
+    causal LM; whole for the vision-language family, whose text token i
+    is predicted at position P + i - 1 of the ``[patches; text]``
+    sequence."""
+    return labels if cfg.family == "vlm" else labels[:, 1:]
+
+
 def lm_loss(cfg: ModelConfig, logits, batch, aux, *,
             model_axis: Optional[ModelAxis] = None, batch_group=None,
             denom: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal-LM objective (port of ``repro/models/model.py:lm_loss``):
-    cross-entropy of ``logits[:, :-1]`` against ``labels[:, 1:]``, plus a
-    1e-4 z-loss on the logsumexp, plus ``aux``; labels below 0 are
-    masked.  The label's logit is a gather where the reference contracts
-    a one-hot, which keeps a vocab-sharded axis partitioned; on one
-    device only the value matters, and the one-hot would be an fp32
-    [B, S, V] tensor (1.65 GB for gpt2m at batch 8, seq 1024).
+    cross-entropy of ``logits[:, :-1]`` against ``labels[:, 1:]`` (for
+    the vision-language family, of the logits from position P - 1 on
+    against every text label: ``scored_labels``), plus a 1e-4 z-loss on
+    the logsumexp, plus ``aux``; labels below 0 are masked, and the
+    denominator counts the scored labels.  The label's logit is a
+    gather where the reference contracts a one-hot, which keeps a
+    vocab-sharded axis partitioned; on one device only the value
+    matters, and the one-hot would be an fp32 [B, S, V] tensor (1.65 GB
+    for gpt2m at batch 8, seq 1024).
 
     ``model_axis`` with ``vocab``: the logits are this rank's vocab
     columns (``_vocab_parallel``).  ``batch_group``: the ranks that split
@@ -692,8 +747,9 @@ def lm_loss(cfg: ModelConfig, logits, batch, aux, *,
     the next token, so on Loader batches position i is scored against
     token i + 2, as in the reference (ROADMAP queue 3)."""
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
-    logits = logits[:, :-1]
-    labels = labels[:, 1:]
+    logits = logits[:, n_prefix(cfg, batch) - 1:-1] if cfg.family == "vlm" \
+        else logits[:, :-1]
+    labels = scored_labels(cfg, labels)
     mask = labels >= 0
     labels_safe = torch.where(mask, labels, 0)
     logits32 = logits.float()

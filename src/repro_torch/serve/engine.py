@@ -20,7 +20,10 @@ the mesh runs the engine on the same requests and returns the whole
 batch's tokens; it takes this rank's blocks of the params
 (``shard_params``).
 An encoder-decoder's batch carries its ``frames`` beside the prompt
-tokens: ``Engine`` encodes them once a batch, in the prefill.
+tokens: ``Engine`` encodes them once a batch, in the prefill.  A
+vision-language model's batch carries ``patch_embeds`` [B, P,
+vision_dim]: the prefill fills the cache with the P projected patches
+and the prompt, so ``max_len`` must cover P + prompt + new tokens.
 On the card, prefill attention runs kernel A, int8-KV decode runs kernel
 B, every RMSNorm runs kernel 6, and the prefill scans of the SSM and
 hybrid families run kernels 4 and 3 (``kernels/ops.py``).
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.model import Model, map_cache
+from repro_torch.models.model import Model, map_cache, n_prefix
 from repro_torch.serve.steps import (
     ServePlan, decode_slots_step, insert_step, prefill_step, serve_step,
 )
@@ -152,11 +155,20 @@ class Engine(_Served):
     def generate(self, params, batch: Dict[str, Any], n_tokens: int, *,
                  seed: int = 0, timing: bool = True) -> Dict[str, Any]:
         """batch: prompt tokens [B, S] (and an encoder-decoder's
-        ``frames`` [B, F, d]).  Returns the generated token
-        matrix [B, n_tokens] (numpy) and timing stats.
+        ``frames`` [B, F, d], a vision-language model's ``patch_embeds``
+        [B, P, vision_dim]).  Returns the generated token matrix [B,
+        n_tokens] (numpy) and timing stats.  Raises where the cache
+        (``max_len`` positions, no window) cannot hold a vision-language
+        model's patches, prompt and new tokens.
 
         ``timing=False`` skips the per-step sync and host copy, so decode
         steps queue back to back; only the loop total is measured."""
+        P = n_prefix(self.model.cfg, batch)
+        S = batch["tokens"].shape[1]
+        if P and not self.window and P + S + n_tokens - 1 > self.max_len:
+            raise ValueError(f"a cache of {self.max_len} positions cannot "
+                             f"hold {P} patches, {S} prompt tokens and "
+                             f"{n_tokens - 1} more")
         stats = ServeStats(n_slots=self.batch_size)
         gen = None
         if self.temperature > 0:
@@ -340,15 +352,16 @@ class ContinuousEngine(_Served):
     batch there), where a dropped token changes what follows; they equal
     the reference ``ContinuousEngine``'s in that case too.
 
-    The encoder-decoder family raises, as in the reference: a request
-    would need its own frames beside its prompt."""
+    The encoder-decoder and vision-language families raise, as in the
+    reference: a request would need its own frames or patches beside its
+    prompt."""
 
     def __init__(self, model: Model, *, slots: int, max_len: int,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  kv_dtype: str = "fp32", eos_id: int = -1, pad_id: int = 0,
                  detokenize: Optional[Callable[[Any], Any]] = None,
                  device="cuda", plan=None, mesh=None, stage_layers=None):
-        if model.cfg.family == "encdec":
+        if model.cfg.family in ("vlm", "encdec"):
             raise NotImplementedError(
                 f"continuous batching serves token-only prompts; family "
                 f"{model.cfg.family!r} needs per-request modality extras")

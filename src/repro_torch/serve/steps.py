@@ -2,7 +2,10 @@
 ``build_serve_step``, ``build_insert_step`` and
 ``build_decode_slots_step`` (``repro/core/steps.py``), on one device and
 under every plan of ``core.plans.PLANS`` (``ServePlan``), for the dense,
-MoE, SSM and hybrid families.
+vision-language, MoE, SSM and hybrid families.  A vision-language
+batch's ``patch_embeds`` are cut with its rows, and its cache, whose
+``max_len`` covers the patches too, takes ``cache_spec``'s layout as any
+KV cache does.
 
 PyTorch runs eagerly, so each step is a plain function rather than a
 compiled one, and the caches the reference donates are updated in place

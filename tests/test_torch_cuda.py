@@ -111,9 +111,12 @@ def test_flash_kernel_split_head_dims(cuda_device, dk, dv, B, S, H):
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_other_head_dims(cuda_device):
-    q = torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=cuda_device)
+    """Head dims kernel A is not built for raise: 112 (96 is since
+    phi-3-vision), and q and k of 96 over v of 128."""
+    x = torch.zeros((1, 8, 2, 112), dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="D in"):
-        tfa.flash_attention_cuda(q, q, q)
+        tfa.flash_attention_cuda(x, x, x)
+    q = torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=cuda_device)
     v = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match=r"\(96, 128\)"):
         tfa.flash_attention_cuda(q, q, v)
@@ -366,6 +369,11 @@ def test_flash_backward_kernel_refuses_bad_operands(cuda_device):
     q, k, v, do = _bwd_inputs(cuda_device, 1, 16, 2, 2, 64, seed=1)
     o, lse = tfa.flash_attention_cuda(q, k, v, return_lse=True)
     with pytest.raises(ValueError, match="D in"):
+        z = torch.zeros((1, 16, 2, 112), dtype=torch.bfloat16,
+                        device=cuda_device)
+        tfa.flash_attention_bwd_cuda(z, z, z, z, z, lse)
+    # 96 has a forward (phi-3-vision) and no backward yet
+    with pytest.raises(NotImplementedError, match="queue 2, item 7"):
         z = torch.zeros((1, 16, 2, 96), dtype=torch.bfloat16,
                         device=cuda_device)
         tfa.flash_attention_bwd_cuda(z, z, z, z, z, lse)
@@ -485,6 +493,27 @@ def test_flash_kernel_head_dim_128(cuda_device, B, S, H, KV):
     version, and its logsumexp."""
     g = torch.Generator(device=cuda_device).manual_seed(B * S + H)
     q, k, v = (torch.randn((B, S, h, 128), generator=g, device=cuda_device)
+               .to(torch.bfloat16) for h in (H, KV, KV))
+    got, lse = tfa.flash_attention_cuda(q, k, v, causal=True,
+                                        return_lse=True)
+    torch.cuda.synchronize()
+    want, wlse = tfa.flash_attention_plain(q, k, v, causal=True,
+                                           return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=BF16_ATOL)
+    torch.testing.assert_close(lse, wlse, rtol=0, atol=LSE_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV", [(8, 640, 32, 32), (1, 577, 32, 32),
+                                      (1, 257, 4, 2)])
+def test_flash_kernel_head_dim_96(cuda_device, B, S, H, KV):
+    """phi-3-vision-4.2b (32 heads of 96, MHA) at its Engine prefill of
+    576 patches and 64 tokens, a ragged prefill, and grouped-query:
+    kernel A at (96, 96) against its plain version, and its
+    logsumexp."""
+    g = torch.Generator(device=cuda_device).manual_seed(B * S + H + 96)
+    q, k, v = (torch.randn((B, S, h, 96), generator=g, device=cuda_device)
                .to(torch.bfloat16) for h in (H, KV, KV))
     got, lse = tfa.flash_attention_cuda(q, k, v, causal=True,
                                         return_lse=True)
@@ -636,7 +665,7 @@ def test_flash_kernel_tensor_core_shapes(cuda_device, B, S, H, KV, D, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("D", [64, 80, 96, 128])
 def test_flash_kernel_reads_views_of_a_fused_projection(cuda_device, D):
     """q, k and v as strided views of one [B, S, 3, H, D] tensor, read in
     place: the kernel's output equals that of contiguous copies."""
@@ -718,11 +747,13 @@ def _decode_mask(kind, B, Sk, g, device):
 @pytest.mark.parametrize("mask", ["dead", "last", "random"])
 @pytest.mark.parametrize("Sk", [1, 77, 104, 296, 1024])
 @pytest.mark.parametrize("B", [1, 8])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 96, 128])
 @pytest.mark.parametrize("group", [1, 3, 4])
 def test_int8kv_kernel_split_k_masks(cuda_device, group, D, B, Sk, mask):
-    """Kernel B against its plain version at GQA groups 1 (gpt2m), 3
-    (llama3.2) and 4 (phi3.5-MoE), over 2 kv heads, at the engines'
+    """Kernel B against its plain version at head_dim 64, 96
+    (phi-3-vision: 24 dim quads over 10 key phases) and 128, at GQA
+    groups 1 (gpt2m, phi-3-vision), 3 (llama3.2) and 4 (phi3.5-MoE),
+    over 2 kv heads, at the engines'
     cache sizes and 1024 slots (cut in 2 splits on an H100), with rows
     that have no live key (the plain version averages their values), a
     lone live slot at the end, and random non-prefix masks; a rerun gives

@@ -25,7 +25,7 @@ from repro_torch.kernels import rmsnorm as trn  # noqa: E402
 # O(1) terms (as tests/test_torch_kernels.py)
 ATOL = 2e-5
 H100_SMS = 132
-ARCHS = ["gpt2m", "llama3.2-3b", "phi3.5-moe-42b-a6.6b"]
+ARCHS = ["gpt2m", "llama3.2-3b", "phi3.5-moe-42b-a6.6b", "phi-3-vision-4.2b"]
 
 
 def _t(x):

@@ -122,14 +122,14 @@ def test_config_matches_reference(reduced):
 
 def test_full_size_and_kernels():
     """277.9 M parameters; heads of 64, so training runs through kernel A
-    and its backward on the card; the VLM is the family still refused."""
+    and its backward on the card; the VLM, the family ported after it,
+    is in the registry too."""
     cfg = tconfigs.get_config(ARCH)
     assert cfg.param_count() == 277_883_136
     assert (cfg.head_dim, cfg.head_dim) in tfa.FWD_HEAD_DIMS
     assert cfg.head_dim in tfa.BWD_HEAD_DIMS
     assert trains_through_kernels(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        tconfigs.get_config("phi-3-vision-4.2b")
+    assert tconfigs.get_config("phi-3-vision-4.2b").family == "vlm"
 
 
 def test_init_tree_matches_reference(pair):

@@ -66,8 +66,10 @@ def test_configs_match_reference(name, reduced):
 
 
 def test_other_families_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tconfigs.get_config("phi-3-vision-4.2b")
+    """The port's registry holds every architecture of the reference's
+    (the vision-language one last); an unknown one raises."""
+    assert sorted(tconfigs.ARCH_CONFIGS) == sorted(jconfigs.ARCH_CONFIGS)
+    assert tconfigs.get_config("phi-3-vision-4.2b").family == "vlm"
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 

@@ -1,5 +1,6 @@
 """Every plan of ``PLANS`` for every family the port has: fsdp, and the
-MoE, SSM and hybrid families under the flat plans and pipeshard.
+MoE, SSM, hybrid and vision-language families under the flat plans and
+pipeshard.
 
 * Numerics: gloo worlds of 1, 2 and 4 ranks, one spawn each
   (``tests/torch_plan_family_worker.py``; flat meshes (1,1,1), (1,1,2),
@@ -7,17 +8,20 @@ MoE, SSM and hybrid families under the flat plans and pipeshard.
   over a data axis of two), in fp32 on reduced configs: gpt2m under
   fsdp; phi3.5-MoE under data, zero2, shard, shard_zero and fsdp (and,
   under shard, three experts, which a model axis of two leaves whole,
-  and a shared expert, which takes the dense MLP's cut);
-  falcon-mamba and zamba2 under shard, shard_zero and fsdp (and zamba2
-  with three Mamba2 heads, which a model axis of two cannot cut, under
-  shard); falcon-mamba, zamba2 and phi3.5-MoE under pipeshard with GPipe
-  and 1F1B.  Each is held to the one-device port, which the other port
-  tests hold to the JAX reference, as ``test_torch_plans.py`` holds the
-  dense family: losses over 3 steps within 1e-5 relative, step-1
-  gradients leaf by leaf within 1e-5 of the leaf's largest value
-  (floored at ``LEAF_FLOOR`` of the largest gradient; the key bias's
-  gradient, 0 in exact arithmetic, within ``ZERO_LEAF``), the param
-  norm within 1e-6 relative, and bit-equality at world 1.  The MoE
+  and a shared expert, which takes the dense MLP's cut); falcon-mamba
+  and zamba2 under shard, shard_zero and fsdp (and zamba2 with three
+  Mamba2 heads, which a model axis of two cannot cut, under shard);
+  phi-3-vision, its batch carrying patch embeddings, under data, zero2,
+  shard, shard_zero and fsdp (the projector whole on every model rank,
+  gathered at its use under fsdp); falcon-mamba, zamba2, phi3.5-MoE and
+  phi-3-vision under pipeshard with GPipe and 1F1B. Each is held to the
+  one-device port, which the other port tests hold to the JAX reference,
+  as ``test_torch_plans.py`` holds the dense family: losses over 3 steps
+  within 1e-5 relative, step-1 gradients leaf by leaf within 1e-5 of the
+  leaf's largest value (floored at ``LEAF_FLOOR`` of the largest
+  gradient; the key bias's gradient, 0 in exact arithmetic, within
+  ``ZERO_LEAF``), the param norm within 1e-6 relative, and bit-equality
+  at world 1.  The MoE
   family routes each batch rank's tokens on their own under the flat
   plans and each microbatch as one under pipeshard, so its yardstick is
   the one-device port with ``grad_accum`` equal to the routed groups,
@@ -77,7 +81,7 @@ LEAF_FLOOR = 1e-3
 ZERO_LEAF, ZERO_LEAVES = 1e-6, ("layers/attn/bk",)
 WORLDS = (1, 2, 4)
 MOE = "phi3.5-moe-42b-a6.6b"
-FAMILY_ARCHS = (MOE, "falcon-mamba-7b", "zamba2-2.7b")
+FAMILY_ARCHS = (MOE, "falcon-mamba-7b", "zamba2-2.7b", "phi-3-vision-4.2b")
 
 
 # ------------------------------------------------------------------ #
@@ -158,8 +162,9 @@ def _ref_specs(tree):
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_staged_specs_equal_reference(arch):
-    """pipeshard's specs of the MoE, SSM and hybrid families (the
-    hybrid's two stacked dims and its ``gates``) equal the reference's,
+    """pipeshard's specs of the MoE, SSM, hybrid and vision-language
+    families (the hybrid's two stacked dims and its ``gates``, the VLM's
+    projector) equal the reference's,
     on staged meshes whose stage axis divides the stack and does not."""
     jcfg = jconfigs.get_config(arch).reduced()
     tcfg = tconfigs.get_config(arch).reduced()
@@ -254,12 +259,13 @@ def test_the_groupings_drop_other_tokens(drop_reference):
 @pytest.mark.parametrize("arch,plan,item", [
     ("deepseek-v2-236b", "fsdp", "item 13"),
     ("whisper-small", "shard", "item 14"),
-    ("phi-3-vision-4.2b", "pipeshard", "item 10"),
+    ("whisper-small", "pipeshard", "item 14"),
     ("minicpm3-4b", "data", "item 13")])
 def test_families_not_ported_raise_with_their_roadmap_item(arch, plan, item):
-    """The families the port does not have (item 10), the encoder-decoder
-    under any plan (item 14: it runs on one device only), and the MLA models
-    under any plan (item 13: they run on one device only)."""
+    """The encoder-decoder under any plan (item 14: it runs on one device
+    only), and the MLA models under any plan (item 13: they run on one
+    device only); the vision-language family runs under every plan (the
+    worlds' "vlm" cases)."""
     with pytest.raises(NotImplementedError, match=item):
         build_train_step(TModel(tconfigs.get_config(arch).reduced(),
                                 device="cpu"), TrainConfig(), plan=plan)
@@ -267,24 +273,34 @@ def test_families_not_ported_raise_with_their_roadmap_item(arch, plan, item):
 
 @pytest.mark.parametrize("family", ["mla", "encdec", "vlm"])
 def test_model_of_another_family_raises_with_its_roadmap_item(family):
-    """A family the port does not have raises, naming item 10; the
-    encoder-decoder is ported: it builds on the CPU and runs a forward
-    pass (its parity with the reference: ``test_torch_encdec.py``)."""
-    if family == "encdec":
-        cfg = tconfigs.get_config("whisper-small").reduced()
+    """A family that is not one of the reference's raises ("mla" is an
+    attention, not a family); the encoder-decoder and the
+    vision-language family are ported: each builds on the CPU and runs a
+    forward pass (their parity with the reference:
+    ``test_torch_encdec.py``, ``test_torch_vlm.py``), the VLM's logits
+    over its patches and the text."""
+    rng = np.random.default_rng(0)
+    if family in ("encdec", "vlm"):
+        arch = "whisper-small" if family == "encdec" else "phi-3-vision-4.2b"
+        cfg = tconfigs.get_config(arch).reduced()
         model = TModel(cfg, device="cpu")
         params = model.init(torch.Generator().manual_seed(0))
-        rng = np.random.default_rng(0)
-        logits = model.forward(params, {
-            "tokens": rng.integers(4, cfg.vocab_size, (2, 8)),
-            "frames": rng.standard_normal(
-                (2, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)})
-        assert tuple(logits.shape) == (2, 8, cfg.vocab_size)
+        batch = {"tokens": rng.integers(4, cfg.vocab_size, (2, 8))}
+        if family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (2, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)
+        else:
+            batch["patch_embeds"] = rng.standard_normal(
+                (2, cfg.n_patches, cfg.vision_dim)).astype(np.float32)
+        logits = model.forward(params, batch)
+        assert tuple(logits.shape) == (2, 8 + cfg.n_patches,
+                                       cfg.vocab_size)
         assert bool(torch.isfinite(logits).all())
         return
     cfg = dataclasses.replace(tconfigs.get_config("gpt2m").reduced(),
                               family=family)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError,
+                       match="not one of the reference's families"):
         TModel(cfg, device="cpu")
 
 
@@ -298,7 +314,7 @@ def test_donated_steps_repeat_the_bits(worlds):
 
 def test_every_plan_builds_for_every_family(worlds):
     built = worlds[1]["builds"]
-    assert len(built) == 4 * len(tplans.PLANS)
+    assert len(built) == 5 * len(tplans.PLANS)
     assert all(v is True for v in built.values()), \
         {k: v for k, v in built.items() if v is not True}
 
@@ -345,6 +361,9 @@ def test_model_axis_describes_each_family(worlds, world):
             "out_proj"} == set(dict(zamba["ssm_cut"]))
     for plan in ("data", "zero2"):
         assert flat["moe"][plan]["model_axis"] is None
+    vlm = flat["vlm"]["shard"]["model_axis"]
+    assert vlm["heads"] and vlm["kv_heads"] and vlm["mlp"] and vlm["vocab"]
+    assert not vlm["positions"] and not vlm["experts"]
     if world == 2:
         assert not flat["moe_e3"]["shard"]["model_axis"]["experts"]
         shared = flat["moe_shared"]["shard"]["model_axis"]

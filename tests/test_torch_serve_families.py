@@ -1,6 +1,8 @@
 """Serving under every plan for every family: the MoE, SSM and hybrid
 families under the flat plans (data, zero2, shard, shard_zero, fsdp),
-and pipeshard for the dense, MoE, SSM and hybrid families.
+the vision-language family (its batch carrying patch embeddings, its
+cache the patches too) under shard, and pipeshard for the dense, MoE,
+SSM, hybrid and vision-language families.
 
 * Reference parity: at a world of one, every family under every plan of
   ``PLANS`` gives the JAX reference ``Engine``'s tokens under the same
@@ -12,8 +14,9 @@ and pipeshard for the dense, MoE, SSM and hybrid families.
   meshes (1,1,2), (1,2,1), (1,2,2) and (1,1,4) over (pod, data, model),
   and pipeshard at 2 stages (2,1,1), at 3 stages with an uneven split,
   at (2,1,2) and (2,2,1), and at one stage of two chunks.  Both engines
-  give the one-device port's greedy tokens in both KV dtypes where the
-  family has a KV cache, every step's logits within ``FP32_LOGIT_ATOL``
+  (the vision-language family: ``Engine``, as the reference) give the
+  one-device port's greedy tokens in both KV dtypes where the family
+  has a KV cache, every step's logits within ``FP32_LOGIT_ATOL``
   (fp32 KV) or ``INT8_LOGIT_RTOL`` of the largest (int8 KV), and
   pipeshard with a model axis of one is bit-equal (a handoff is a copy).
 * The MoE family routes as the reference: each batch rank's rows on
@@ -77,7 +80,7 @@ BF16_LOGIT_RTOL = 5e-2
 AXES = ("pod", "data", "model")
 # the reference's Engine runs in the background beside the worlds, in
 # processes of this module's ``__main__``, each over these families
-REFERENCE_SPLIT = (("dense",), ("moe",), ("ssm",), ("hybrid",))
+REFERENCE_SPLIT = (("dense", "vlm"), ("moe",), ("ssm",), ("hybrid",))
 
 
 # ------------------------------------------------------------------ #
@@ -187,16 +190,16 @@ def reference_tokens(families):
         with jax.set_mesh(make_host_mesh((1, 1), ("data", "model"))):
             jp = jm.init(jax.random.key(0))
         params[name] = jax.tree.map(np.asarray, jp)
-        batch = {"tokens": worker.prompts(jm.cfg.vocab_size)["tokens"]
-                 .astype(np.int32)}
+        batch = worker.prompts(jm.cfg)
+        batch["tokens"] = batch["tokens"].astype(np.int32)
         for plan in worker.PLANS:
             axes = ("stage", "data", "model") if plan == "pipeshard" \
                 else ("data", "model")
             mesh = make_host_mesh((1,) * len(axes), axes)
             tokens[(name, plan)] = JEngine(
                 jm, jplans.get_plan(plan), mesh, batch_size=worker.BATCH,
-                max_len=worker.MAX_LEN).generate(jp, batch,
-                                                 worker.GEN)["tokens"]
+                max_len=worker.max_len(jm.cfg)).generate(
+                jp, batch, worker.GEN)["tokens"]
     return {"params": params, "tokens": tokens}
 
 
@@ -226,11 +229,11 @@ def test_engine_at_a_world_of_one_equals_reference_engine(
     from repro_torch.serve import Engine
     params, tokens = reference
     model = TModel(worker.case_config(family), device="cpu")
-    eng = Engine(model, batch_size=worker.BATCH, max_len=worker.MAX_LEN,
-                 device="cpu", plan=plan, mesh=_port_mesh(one_rank, plan))
+    eng = Engine(model, batch_size=worker.BATCH,
+                 max_len=worker.max_len(model.cfg), device="cpu", plan=plan,
+                 mesh=_port_mesh(one_rank, plan))
     got = eng.generate(eng.shard_params(params[family]),
-                       worker.prompts(model.cfg.vocab_size),
-                       worker.GEN)["tokens"]
+                       worker.prompts(model.cfg), worker.GEN)["tokens"]
     np.testing.assert_array_equal(got, tokens[(family, plan)])
 
 
@@ -295,13 +298,13 @@ def test_a_batch_as_deep_as_the_stack_raises_for_every_family(one_rank,
 
 
 def test_a_config_not_ported_is_refused():
-    """What the port still lacks raises and names its item: the
-    reference's other families (ROADMAP queue 1, item 10)."""
-    from repro_torch.configs import _NOT_PORTED, get_config
-    for arch in _NOT_PORTED:
-        with pytest.raises(NotImplementedError,
-                           match="queue 1, item 10"):
-            get_config(arch)
+    """Every config of the reference's registry is ported (the
+    vision-language one serves under shard and pipeshard in the worlds);
+    a name the registry does not hold raises."""
+    from repro_torch.configs import ARCH_CONFIGS, get_config
+    assert sorted(ARCH_CONFIGS) == sorted(jconfigs.ARCH_CONFIGS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("phi-3-vision-8b")
 
 
 def test_a_model_axis_that_cuts_the_conv_window_is_refused(worlds):
@@ -335,8 +338,8 @@ def test_engine_tokens_and_logits_equal_one_device(worlds, world):
         _close(run, one[(key[0], "engine", key[2])], key[2],
                f"world {world} mesh {m['shape']} {key}")
         n += 1
-    per_mesh = {worker.FLAT: len(worker.FLAT_CASES)
-                * len(worker.FLAT_PLANS), worker.PIPE: len(worker.CASES)}
+    per_mesh = {worker.FLAT: sum(map(len, worker.FLAT_RUNS.values())),
+                worker.PIPE: len(worker.CASES)}
     assert n == sum(per_mesh[m["kind"]] for m in _meshes(worlds, world))
 
 
@@ -383,33 +386,38 @@ def test_continuous_tokens_equal_one_device(worlds, world):
                     got[uid], w, err_msg=f"world {world} mesh "
                     f"{m['shape']} {key} request {uid}")
             n += 1
-    assert n == sum(len(worker.FLAT_CASES) * len(worker.FLAT_PLANS)
-                    if m["kind"] == worker.FLAT else len(worker.CASES)
+    assert n == sum(sum(len(p) for f, p in worker.FLAT_RUNS.items()
+                        if f in worker.CONTINUOUS)
+                    if m["kind"] == worker.FLAT else len(worker.CONTINUOUS)
                     for m in _meshes(worlds, world))
 
 
 def test_every_family_meets_every_plan_and_kv_dtype(worlds):
     """Over the worlds, each family with a KV cache serves both KV
-    dtypes through both engines under every plan it runs, and every
-    family runs pipeshard on every staged mesh and the MoE, SSM and
-    hybrid families every flat plan on every flat mesh."""
+    dtypes through both engines (the vision-language family through
+    ``Engine``) under every plan it runs, and every family runs
+    pipeshard on every staged mesh, the MoE, SSM and hybrid families
+    every flat plan on every flat mesh and the vision-language family
+    shard on every flat mesh."""
     seen = set()
+
+    def engines(name):
+        return ("engine", "cont") if name in worker.CONTINUOUS \
+            else ("engine",)
+
     for world in WORLDS:
         for m in worlds[world]["meshes"]:
             keys = {k for k in m["runs"] if k[0] != "drop"}
-            names = worker.FLAT_CASES if m["kind"] == worker.FLAT \
-                else tuple(worker.CASES)
-            plans = worker.FLAT_PLANS if m["kind"] == worker.FLAT \
-                else ("pipeshard",)
+            runs = worker.FLAT_RUNS if m["kind"] == worker.FLAT \
+                else {n: ("pipeshard",) for n in worker.CASES}
             assert {(k[0], k[1], k[3]) for k in keys} == {
-                (n, e, p) for n in names for e in ("engine", "cont")
+                (n, e, p) for n, plans in runs.items() for e in engines(n)
                 for p in plans}
             seen |= keys
     for name, kvs in worker.KV_DTYPES.items():
-        plans = worker.PLANS if name in worker.FLAT_CASES \
-            else ("pipeshard",)
+        plans = worker.FLAT_RUNS.get(name, ()) + ("pipeshard",)
         for plan in plans:
-            for kind in ("engine", "cont"):
+            for kind in engines(name):
                 assert {k[2] for k in seen if k[0] == name and k[1] == kind
                         and k[3] == plan} == set(kvs), (name, kind, plan)
 
@@ -463,7 +471,7 @@ def test_moe_routes_as_the_reference_with_drops(worlds):
 # and out_proj's partial sums; Mamba2 gathers in_proj, conv_w and conv_b
 # and adds the gated norm's mean square and out_proj's partial sums
 PER_LAYER = {"dense": (2, 2), "moe": (2, 2), "ssm": (2, 1),
-             "hybrid": (2 + 2 * 2, 2 + 2 * 3)}
+             "hybrid": (2 + 2 * 2, 2 + 2 * 3), "vlm": (2, 2)}
 
 
 def _shard_counts(worlds):
@@ -487,8 +495,9 @@ def test_shard_decode_collectives_a_layer(worlds):
     counts = _shard_counts(worlds)
     for name, (ar, ag, emb, head) in counts.items():
         assert (ar, ag) == PER_LAYER[name], (name, counts[name])
-        # the embedding's lookup (and gpt2m's position table's); the
-        # vocab-cut logits' gather
+        # the embedding's lookup (and gpt2m's position table's; the
+        # VLM's projector, whole on every rank, adds none); the vocab-cut
+        # logits' gather
         assert emb == (2 if name == "dense" else 1), name
         assert head == 1, name
 

@@ -1,8 +1,8 @@
 """One rank of the gloo worlds of ``tests/test_torch_plan_families.py``.
 
 Every rank of a world runs the flat plans of each case on the mesh of
-its world, and on worlds 2 and 4 the pipeline plan of the SSM, hybrid
-and MoE families on two stages; the world of one also runs the
+its world, and on worlds 2 and 4 the pipeline plan of the SSM, hybrid,
+MoE and vision-language families on two stages; the world of one also runs the
 one-device port of every case on the same params and batch, the
 yardstick of every world (one device computes the same bits in every
 process).  Rank 0 saves what the tests compare (``torch.save`` of plain
@@ -42,7 +42,8 @@ SSM_PLANS = ("shard", "shard_zero", "fsdp")
 # stay whole, and a shared expert, which takes the dense MLP's cut;
 # zamba2 with three heads of 128, which a model axis of two cannot cut,
 # so each rank computes its Mamba2 layers whole (the last three on the
-# world of 2 alone, a model axis of two)
+# world of 2 alone, a model axis of two); the vision-language family,
+# its batch carrying patch embeddings (``with_patches``)
 CASES = {
     "gpt2m": ("gpt2m", {}, ("fsdp",)),
     "moe": ("phi3.5-moe-42b-a6.6b", {}, FLAT_PLANS),
@@ -53,6 +54,7 @@ CASES = {
     "zamba2": ("zamba2-2.7b", {}, SSM_PLANS),
     "zamba2_nh3": ("zamba2-2.7b", {"d_model": 192, "head_dim": 128},
                    ("shard",)),
+    "vlm": ("phi-3-vision-4.2b", {}, FLAT_PLANS),
 }
 # the MoE cases route each batch rank's tokens on their own: their
 # yardstick is the one-device port with grad_accum = the batch ranks
@@ -63,7 +65,8 @@ ONLY_ON = {"moe_e3": 2, "moe_shared": 2, "zamba2_nh3": 2}
 # the pipeline's cases: zamba2 at 4 layers (2 groups, one a stage)
 PIPE_CASES = {"falcon": ("falcon-mamba-7b", {}),
               "zamba2": ("zamba2-2.7b", {"n_layers": 4}),
-              "moe": ("phi3.5-moe-42b-a6.6b", {})}
+              "moe": ("phi3.5-moe-42b-a6.6b", {}),
+              "vlm": ("phi-3-vision-4.2b", {})}
 SCHEDULES = ("gpipe", "1f1b")
 # two microbatches: 1F1B's stage 1 alternates (F B F B) where GPipe
 # runs both forwards first
@@ -112,6 +115,18 @@ def drop_batch(vocab: int):
     labels[rng.random(labels.shape) < 0.1] = -1
     return {"tokens": rng.integers(0, vocab, labels.shape),
             "labels": labels}
+
+
+def with_patches(cfg, batch):
+    """``batch`` with a vision-language model's ``patch_embeds`` [B, P,
+    vision_dim] (x 0.02, from a seed), as its launcher makes them; the
+    batch itself for the other families."""
+    if cfg.family != "vlm":
+        return batch
+    rng = np.random.default_rng(4)
+    B = batch["tokens"].shape[0]
+    return dict(batch, patch_embeds=np.asarray(rng.standard_normal(
+        (B, cfg.n_patches, cfg.vision_dim)) * 0.02, np.float32))
 
 
 def unmasked(batch):
@@ -200,7 +215,7 @@ def under_plan(cfg, tcfg, batch, plan, mesh, **kw):
 
 
 def case_batch(name: str, vocab: int):
-    batch = plan_worker.make_batch(vocab)
+    batch = with_patches(case_config(name), plan_worker.make_batch(vocab))
     return unmasked(batch) if name in MOE_ACCUM else batch
 
 
@@ -224,7 +239,7 @@ def pipe_case(name: str):
     hold equal token counts."""
     arch, kw = PIPE_CASES[name]
     cfg = config(arch, **kw)
-    batch = plan_worker.make_batch(cfg.vocab_size)
+    batch = with_patches(cfg, plan_worker.make_batch(cfg.vocab_size))
     if cfg.family == "moe":
         return cfg, unmasked(batch), MICRO
     return cfg, batch, 1
@@ -331,7 +346,7 @@ def builds():
     from repro_torch.models import Model
     out = {}
     for arch in ("gpt2m", "phi3.5-moe-42b-a6.6b", "falcon-mamba-7b",
-                 "zamba2-2.7b"):
+                 "zamba2-2.7b", "phi-3-vision-4.2b"):
         for name, plan in PLANS.items():
             mesh = make_pipeline_mesh((1, 1, 1), AXES, 1) if plan.pipeline \
                 else make_host_mesh((1, 1, 1), AXES)

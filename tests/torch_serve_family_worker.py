@@ -1,16 +1,17 @@
 """One rank of the gloo worlds of ``tests/test_torch_serve_families.py``.
 
-Every rank of a world serves reduced fp32 models of the dense, MoE, SSM
-and hybrid families through ``Engine`` and ``ContinuousEngine`` on each
-mesh of its world: the MoE, SSM and hybrid families under the flat
-plans (data, zero2, shard, shard_zero, fsdp), every family under
-pipeshard.  The world of one also runs the one-device engines on the
-same params and prompts, the yardstick of every world (one device
-computes the same bits in every process), and for the MoE drop case one
-device on each group of rows the plans route apart.  The engines' step
-functions are wrapped to record the logits of every step.  Rank 0 saves
-what the tests compare (``torch.save`` of plain Python and numpy).
-Imports no JAX.
+Every rank of a world serves reduced fp32 models of the dense, MoE, SSM,
+hybrid and vision-language families through ``Engine`` and (but the
+vision-language one, which it refuses) ``ContinuousEngine`` on each mesh
+of its world: the MoE, SSM and hybrid families under the flat plans
+(data, zero2, shard, shard_zero, fsdp), the vision-language one under
+shard, every family under pipeshard.  The world of one also runs the
+one-device engines on the same params and prompts, the yardstick of
+every world (one device computes the same bits in every process), and
+for the MoE drop case one device on each group of rows the plans route
+apart.  The engines' step functions are wrapped to record the logits of
+every step.  Rank 0 saves what the tests compare (``torch.save`` of
+plain Python and numpy).  Imports no JAX.
 
     python tests/torch_serve_family_worker.py OUT WORLD
 """
@@ -43,15 +44,27 @@ PLANS = FLAT_PLANS + ("pipeshard",)
 CASES = {"dense": ("gpt2m", {"n_layers": 4}),
          "moe": ("phi3.5-moe-42b-a6.6b", {"n_layers": 4}),
          "ssm": ("falcon-mamba-7b", {"n_layers": 4}),
-         "hybrid": ("zamba2-2.7b", {"n_layers": 8})}
+         "hybrid": ("zamba2-2.7b", {"n_layers": 8}),
+         "vlm": ("phi-3-vision-4.2b", {"n_layers": 4})}
 # the families with a KV cache serve both KV dtypes
 KV_DTYPES = {"dense": ("fp32", "int8"), "moe": ("fp32", "int8"),
-             "ssm": ("fp32",), "hybrid": ("fp32",)}
+             "ssm": ("fp32",), "hybrid": ("fp32",),
+             "vlm": ("fp32", "int8")}
+# the families under every flat plan; and each family's flat plans (the
+# vision-language one's batch carries patches, which shard cuts with the
+# rows; the plans' cut of the dense stack is the dense family's, held by
+# tests/test_torch_serve_plans.py)
 FLAT_CASES = ("moe", "ssm", "hybrid")
+FLAT_RUNS = {**{n: FLAT_PLANS for n in FLAT_CASES}, "vlm": ("shard",)}
+# the families ContinuousEngine serves: a vision-language request would
+# need its own patches beside its prompt
+CONTINUOUS = ("dense", "moe", "ssm", "hybrid")
 # batch and slots: 6, unlike every stack depth (4 layers, 4 groups, 2
 # layers a group) and the conv window (d_conv - 1 = 3), so that
 # ``cache_spec`` finds the batch; a data axis of 2 cuts them in 3
 BATCH, SLOTS, PROMPT, MAX_LEN, GEN = 6, 6, 7, 16, 5
+# the vision-language family's patches, x 0.02 from their own seed
+PATCH_SEED = 2
 CONT_LEN, BUCKETS = 32, (8, 16)
 REQUEST_LENS = (3, 9, 12, 7, 14)
 # the mesh runs of a world: (kind, (pod, data, model), stages, split
@@ -62,9 +75,9 @@ FLAT = "flat"
 PIPE = "pipeshard"
 SPLITS = {"even": None,
           "uneven3": {"dense": (2, 1, 1), "moe": (1, 2, 1), "ssm": (1, 1, 2),
-                      "hybrid": (2, 1, 1)},
+                      "hybrid": (2, 1, 1), "vlm": (1, 1, 2)},
           "chunks2": {"dense": (3, 1), "moe": (1, 3), "ssm": (2, 2),
-                      "hybrid": (1, 3)}}
+                      "hybrid": (1, 3), "vlm": (3, 1)}}
 MESHES = {1: ((PIPE, (1, 1, 1), 1, "chunks2"),),
           2: ((FLAT, (1, 1, 2), 0, None), (FLAT, (1, 2, 1), 0, None),
               (PIPE, (2, 1, 1), 2, "even")),
@@ -83,7 +96,7 @@ DROP_PLANS = ("data", "shard")
 # the collectives of one decode step: each family under shard at two
 # depths on a model axis of 2, and under pipeshard on every staged mesh
 COUNT_DEPTHS = {"dense": (4, 5), "moe": (4, 5), "ssm": (4, 5),
-                "hybrid": (8, 10)}
+                "hybrid": (8, 10), "vlm": (4, 5)}
 
 
 def case_config(name: str, **extra):
@@ -103,9 +116,23 @@ def init_params(model):
     return model.init(torch.Generator().manual_seed(0))
 
 
-def prompts(vocab: int, batch: int = BATCH):
+def max_len(cfg) -> int:
+    """The engines' cache: ``MAX_LEN``, and a vision-language model's
+    patches before the prompt."""
+    return MAX_LEN + cfg.n_patches
+
+
+def prompts(cfg, batch: int = BATCH):
+    """The prompts of a batch of ``cfg``'s model (either package's
+    config), with a vision-language model's patch embeddings."""
     rng = np.random.default_rng(0)
-    return {"tokens": rng.integers(4, vocab, (batch, PROMPT))}
+    out = {"tokens": rng.integers(4, cfg.vocab_size, (batch, PROMPT))}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = np.asarray(np.random.default_rng(
+            PATCH_SEED).standard_normal((batch, cfg.n_patches,
+                                         cfg.vision_dim)) * 0.02,
+            np.float32)
+    return out
 
 
 def requests(vocab: int):
@@ -148,11 +175,12 @@ def engine_run(model, params, kv, plan=None, mesh=None, split=None,
                batch=BATCH):
     """(tokens, logits of each step, this rank's cache layout)."""
     from repro_torch.serve import Engine
-    eng = Engine(model, batch_size=batch, max_len=MAX_LEN, kv_dtype=kv,
-                 device="cpu", plan=plan, mesh=mesh, stage_layers=split)
+    eng = Engine(model, batch_size=batch, max_len=max_len(model.cfg),
+                 kv_dtype=kv, device="cpu", plan=plan, mesh=mesh,
+                 stage_layers=split)
     with Recorder() as rec:
         out = eng.generate(eng.shard_params(params),
-                           prompts(model.cfg.vocab_size, batch), GEN)
+                           prompts(model.cfg, batch), GEN)
     res = {"tokens": out["tokens"], "logits": rec.logits}
     if plan is not None:
         res["layout"] = layout(eng, batch)
@@ -197,18 +225,19 @@ class DropCounter:
 
 def in_groups(model, params, batch, groups, kv="fp32"):
     """The one-device Engine on ``groups`` equal groups of the rows of
-    ``batch``, each a batch of its own: tokens and every step's logits
-    concatenated over the groups, and whether an expert dropped tokens
-    at prefill and at decode."""
+    ``batch`` (every leaf's), each a batch of its own: tokens and every
+    step's logits concatenated over the groups, and whether an expert
+    dropped tokens at prefill and at decode."""
     from repro_torch.serve import Engine
-    n = batch.shape[0] // groups
+    n = batch["tokens"].shape[0] // groups
     toks, logits, drops = [], [], []
     for g in range(groups):
-        eng = Engine(model, batch_size=n, max_len=MAX_LEN, kv_dtype=kv,
-                     device="cpu")
+        eng = Engine(model, batch_size=n, max_len=max_len(model.cfg),
+                     kv_dtype=kv, device="cpu")
         with Recorder() as rec, DropCounter() as dc:
             toks.append(eng.generate(
-                params, {"tokens": batch[g * n:(g + 1) * n]}, GEN)["tokens"])
+                params, {k: v[g * n:(g + 1) * n] for k, v in batch.items()},
+                GEN)["tokens"])
         logits.append(rec.logits)
         drops += dc.calls
     return {"tokens": np.concatenate(toks),
@@ -229,14 +258,14 @@ def one_device():
         params = init_params(model)
         for kv in KV_DTYPES[name]:
             out[(name, "engine", kv)] = engine_run(model, params, kv)
-            out[(name, "cont", kv)] = continuous_run(model, params, kv)
+            if name in CONTINUOUS:
+                out[(name, "cont", kv)] = continuous_run(model, params, kv)
             if name != "moe":
                 out[(name, "halves", kv)] = in_groups(
-                    model, params, prompts(model.cfg.vocab_size)["tokens"],
-                    2, kv)
+                    model, params, prompts(model.cfg), 2, kv)
     model = Model(drop_config(), device="cpu")
     params = init_params(model)
-    batch = prompts(model.cfg.vocab_size, DROP_BATCH)["tokens"]
+    batch = prompts(model.cfg, DROP_BATCH)
     for groups in DROP_GROUPS:
         out[("drop", "engine", groups)] = in_groups(model, params, batch,
                                                     groups)
@@ -269,17 +298,17 @@ def mesh_of(kind, shape, stages):
 
 
 def under_plans(kind, mesh, split_name, turn):
-    """Every case's engines on ``mesh``: under each flat plan (the
-    MoE, SSM and hybrid families) or under pipeshard (every family).
-    The Engine serves one KV dtype and the ContinuousEngine the other,
-    by ``turn``, so that each family with a KV cache meets both on each
-    world."""
+    """Every case's engines on ``mesh``: under its flat plans
+    (``FLAT_RUNS``) or under pipeshard (every family).  The Engine
+    serves one KV dtype and the ContinuousEngine the other, by ``turn``,
+    so that each family with a KV cache meets both on each world (the
+    vision-language family, which has no ContinuousEngine, meets them
+    through the Engine over the meshes)."""
     from repro_torch.core.plans import get_plan
     from repro_torch.models import Model
     out = {}
-    names = FLAT_CASES if kind == FLAT else tuple(CASES)
-    plans = FLAT_PLANS if kind == FLAT else ("pipeshard",)
-    for name in names:
+    runs = FLAT_RUNS if kind == FLAT else {n: ("pipeshard",) for n in CASES}
+    for name, plans in runs.items():
         model = Model(case_config(name), device="cpu")
         params = init_params(model)
         kvs = KV_DTYPES[name]
@@ -290,8 +319,9 @@ def under_plans(kind, mesh, split_name, turn):
             ckv = kvs[(p + turn + 1) % len(kvs)]
             out[(name, "engine", kv, plan)] = engine_run(
                 model, params, kv, plan, mesh, split)
-            out[(name, "cont", ckv, plan)] = continuous_run(
-                model, params, ckv, plan, mesh, split)
+            if name in CONTINUOUS:
+                out[(name, "cont", ckv, plan)] = continuous_run(
+                    model, params, ckv, plan, mesh, split)
     if mesh.shape.get("data", 1) > 1:
         model = Model(drop_config(), device="cpu")
         params = init_params(model)
@@ -322,10 +352,11 @@ def decode_counts(kind, mesh, split_name):
             split = None if kind == FLAT or SPLITS[split_name] is None \
                 else SPLITS[split_name][name]
             sp = ServePlan(model, "shard" if kind == FLAT else "pipeshard",
-                           mesh, max_len=MAX_LEN, stage_layers=split)
+                           mesh, max_len=max_len(model.cfg),
+                           stage_layers=split)
             params = sp.shard_params(init_params(model))
             cache = sp.init_cache(BATCH)
-            batch = prompts(model.cfg.vocab_size)
+            batch = prompts(model.cfg)
             logits, cache = prefill_step(model, params, batch, cache,
                                          plan=sp)
             tok = torch.argmax(logits, -1)[:, None]
