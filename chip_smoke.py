@@ -117,8 +117,8 @@ shard with the int8 cache (kernel B with its log-sum-exp, the merge of
 the ring's blocks) and through ``ContinuousEngine`` (int8, 8 slots, 16
 requests), and llama3.2-3b at full size with the int8 cache under shard
 (``serve-*``): each phase's tokens held to the one-device engine's on
-the same weights and prompts, three runs timed (``SERVE_ONE_RUN``'s
-six one).  Then, once each after
+the same weights and prompts, one run timed (``SERVE_ONE_RUN``: every
+flat phase).  Then, once each after
 its one-device yardstick: gpt2L under pipeshard on one stage of two
 chunks (16 and 14 layers) through ``Engine`` (fp32 KV) and
 ``ContinuousEngine`` (int8; ``serve-pipeshard``,
@@ -142,6 +142,16 @@ checkpoint without the reshard code; kernel A launches 24 forward and 12
 backward a microbatch of a step; each phase prints its checkpoint
 writes and restores (seconds, GB), its step times before and after, and
 its peak memory.
+
+Then the dry run against the card (``dryrun-vs-card``, no second
+training step): ``repro_torch.launch.dryrun`` traces one gpt2m training
+step at train-gpt2m's shape on the meta device (the kernels' shape
+rules, no launch) and one gpt2L step under shard on plan-shard's mesh of
+one rank over a fake world of one; the predicted peak must lie within
+10% of the peak the card measured for train-gpt2m's last step, that
+step's measured time at or above the roofline's max(compute, memory)
+(the H100 data sheet's constants), and the dry run's collectives equal,
+call for call and byte for byte, to one step of plan-shard's.
 
 For each model it checks that the kernel path's first-step logits agree
 with the plain path's on the card (the MoE model's against the fp32
@@ -332,9 +342,11 @@ ELASTIC_GPUS, ELASTIC_DEAD, ELASTIC_WINNER = "A30;A30", (1,), ("data", (0,))
 SERVE_RUNS, SERVE_LOGIT_RTOL = 3, 1e-2
 # ...but these serve once (their first run's tokens and every check as
 # before): the two longest of the phases, cut to pay for the whisper
-# stage's seconds, and the next four, cut to pay for the VLM stage's
+# stage's seconds, the next four, cut to pay for the VLM stage's, and the
+# last two, cut to make room for the dry run's phase
 SERVE_ONE_RUN = ("serve-fsdp", "serve-shard-continuous", "serve-shard",
-                 "serve-shard_zero", "serve-shard-int8", "serve-llama-shard")
+                 "serve-shard_zero", "serve-shard-int8", "serve-llama-shard",
+                 "serve-data", "serve-zero2")
 # (phase, arch, plan, KV dtype, engine)
 SERVE_PHASES = tuple((f"serve-{p}", PLAN_ARCH, p, "fp32", "engine")
                      for p in PLAN_NAMES) + (
@@ -362,6 +374,14 @@ SERVE_FAMILIES = (
      None),
     ("hybrid", "zamba2-2.7b", None, "fp32",
      ("ssd_scan", "flash_attn_fwd", "rmsnorm"), (5, 4)))
+# the dry run against the card (``dryrun-vs-card``): gpt2m's predicted
+# peak of one training step at train-gpt2m's shape (the meta device's,
+# ``launch/dryrun.py``) within DRYRUN_PEAK_RTOL of the peak the card
+# measured for its last step; that step no faster than the roofline's
+# max(compute, memory); gpt2L's collectives under shard on plan-shard's
+# mesh of one rank equal, call for call and byte for byte, to one step
+# of plan-shard's
+DRYRUN_PEAK_RTOL = 0.10
 # the calibration micro-bench's flash sample (calib/microbench.py):
 # (H, KV, D) and (B, S), causal; grouped-query, unlike the models here
 CAL_FLASH_HEADS, CAL_FLASH_BS = (4, 2, 64), (1, 128)
@@ -2298,6 +2318,23 @@ def train_phases(torch, np, ops, card):
                      f"{n} a step (remat runs each layer's forward twice)")
 
     out = {}
+    # one step's own peak, after warm-up: the last step's, from a reset
+    # just before it to the log line just after it (the dry run's
+    # prediction is held to it in ``dryrun-vs-card``)
+    last = {}
+
+    def before_step(i):
+        if i == TRAIN_STEPS - 1:
+            torch.cuda.synchronize()
+            last["phase_peak_before"] = torch.cuda.max_memory_allocated()
+            last["held_bytes"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+    def logged(m):
+        if "held_bytes" in last and "peak_bytes" not in last:
+            last["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"  train-gpt2m: {m}")
+
     with tempfile.TemporaryDirectory() as ckpt_dir:
         torch.cuda.reset_peak_memory_stats()
         res, counts = run_phase(
@@ -2305,9 +2342,12 @@ def train_phases(torch, np, ops, card):
             lambda: train(model, tcfg, loader, steps=TRAIN_STEPS,
                           log_every=1, ckpt_dir=ckpt_dir,
                           ckpt_every=TRAIN_CKPT_AT,
-                          log_fn=lambda m: log(f"  train-gpt2m: {m}")),
+                          on_step_failure=before_step, log_fn=logged),
             needs)
-        peak = torch.cuda.max_memory_allocated()
+        # the whole phase's peak: the larger of the two windows
+        peak = max(torch.cuda.max_memory_allocated(),
+                   last["phase_peak_before"])
+        PHASES["train-gpt2m"]["peak_bytes"] = peak
         expect("train-gpt2m", counts, TRAIN_STEPS)
         if not all(np.isfinite(res.losses)):
             fail(f"train-gpt2m: non-finite losses {res.losses}")
@@ -2322,12 +2362,16 @@ def train_phases(torch, np, ops, card):
             "tokens_per_s": tokens / step_s, "model_tflops": rate,
             "share_of_bf16_peak": rate * 1e12 / PEAK_BF16_FLOPS,
             "peak_bytes": peak, "launches": counts,
+            "step_peak_bytes": last["peak_bytes"],
+            "step_held_bytes": last["held_bytes"],
             "metrics_last": res.metrics_last}
         log(f"train-gpt2m: losses {[round(x, 4) for x in res.losses]}")
         log(f"train-gpt2m: step {step_s * 1e3:.1f} ms (steps 2 to "
             f"{TRAIN_STEPS}), {tokens / step_s:.0f} tokens/s, 6ND "
             f"{rate:.2f} TFLOP/s = {rate * 1e12 / PEAK_BF16_FLOPS:.4f} of "
-            f"989, peak memory {peak / 2**30:.2f} GiB, on {card}")
+            f"989, peak memory {peak / 2**30:.2f} GiB; step {TRAIN_STEPS} "
+            f"alone {last['peak_bytes']} bytes peak over "
+            f"{last['held_bytes']} held before it, on {card}")
 
         # where a step's time goes: one more step from the final state,
         # traced after the counted phase
@@ -2543,6 +2587,77 @@ def plan_phases(torch, np, ops, card):
     del ref_params
     torch.cuda.empty_cache()
     return out
+
+
+def dryrun_phase(torch, ops, card, training, plans):
+    """Phase ``dryrun-vs-card``: the dry run held against what
+    ``train-gpt2m`` and ``plan-shard`` measured on this card, with no
+    step of its own on the card.  Fails past ``DRYRUN_PEAK_RTOL`` on the
+    peak, below the roofline's bound on the step, and on any difference
+    in the collectives."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HBM_BYTES
+
+    def go():
+        S = get_config("gpt2m").max_seq_len
+        one = dryrun.run_one("gpt2m", ShapeConfig(
+            "train_gpt2m", S, TRAIN_BATCH, "train"), None, verbose=False)
+        S = get_config(PLAN_ARCH).max_seq_len
+        shard = dryrun.run_one(PLAN_ARCH, ShapeConfig(
+            "plan_gpt2L", S, TRAIN_BATCH, "train"), "shard",
+            mesh_shape=(1, 1, 1), verbose=False)
+        return one, shard
+
+    (one, shard), _ = run_phase(torch, ops, "dryrun-vs-card", go, [])
+    tg = training["train_gpt2m"]
+    predicted, measured = one["memory_per_device_bytes"], \
+        tg["step_peak_bytes"]
+    rel = (predicted - measured) / measured
+    log(f"dryrun-vs-card: gpt2m step peak predicted {predicted:.0f} bytes "
+        f"({predicted / 2**30:.3f} GiB; MemTracker's split "
+        f"{one['peak_split']}), measured {measured} bytes "
+        f"({measured / 2**30:.3f} GiB, {tg['step_held_bytes']} held before "
+        f"the step): {rel:+.4f} relative, gate {DRYRUN_PEAK_RTOL}")
+    step_s = tg["avg_step_s_steps_2_to_6"]
+    bound_s = max(one["compute_s"], one["memory_s"])
+    log(f"dryrun-vs-card: gpt2m roofline (predicted from the H100 data "
+        f"sheet's constants): compute {one['compute_s'] * 1e3:.3f} ms, "
+        f"memory {one['memory_s'] * 1e3:.3f} ms, collective "
+        f"{one['collective_s'] * 1e3:.3f} ms, dominant {one['dominant']}; "
+        f"measured step {step_s * 1e3:.3f} ms; roofline share of the step "
+        f"{bound_s / step_s:.4f}")
+    want = plans["plan_shard"]["collectives_a_step"]
+    log(f"dryrun-vs-card: gpt2L under shard, collectives a step: dry run "
+        + ", ".join(f"{k} {v['calls']} calls {v['bytes']} bytes"
+                    for k, v in shard["collectives"].items())
+        + "; plan-shard " + ", ".join(
+            f"{k} {v['calls']:g} calls {v['bytes']:.0f} bytes"
+            for k, v in want.items()))
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"dryrun-vs-card: {card}; total_memory {total} bytes "
+        f"({total / 1e9:.2f} GB) beside the data sheet's {HBM_BYTES:.0f}")
+    if not abs(rel) <= DRYRUN_PEAK_RTOL:
+        fail(f"dryrun-vs-card: predicted peak {predicted:.0f} vs measured "
+             f"{measured}: {rel:+.4f} relative, past {DRYRUN_PEAK_RTOL}")
+    if not step_s >= bound_s:
+        fail(f"dryrun-vs-card: measured step {step_s} s beats the "
+             f"roofline's bound {bound_s} s")
+    diff = {k: (shard["collectives"][k], v) for k, v in want.items()
+            if shard["collectives"][k]["calls"] != v["calls"]
+            or shard["collectives"][k]["bytes"] != v["bytes"]}
+    if diff:
+        fail(f"dryrun-vs-card: gpt2L shard collectives differ (dry run, "
+             f"card): {diff}")
+    return {"peak_predicted_bytes": predicted, "peak_measured_bytes": measured,
+            "peak_rel_diff": rel, "peak_split": one["peak_split"],
+            "step_s": step_s, "compute_s": one["compute_s"],
+            "memory_s": one["memory_s"], "roofline_share": bound_s / step_s,
+            "collectives_dry": shard["collectives"],
+            "collectives_card": want, "trace_s": [one["trace_s"],
+                                                  shard["trace_s"]],
+            "total_memory": total, "launches": PHASES["dryrun-vs-card"][
+                "launches"]}
 
 
 def serve_phases(torch, np, ops, card, mesh):
@@ -3509,6 +3624,9 @@ def main() -> None:
         for k in at128:
             at128[k] += plans[key]["launches"][k]
     e2e.update(plans)
+    e2e["dryrun_vs_card"] = dryrun_phase(torch, ops, card, training, plans)
+    add(e2e["dryrun_vs_card"]["launches"])
+    stage("the dry run against the card")
     e2e["vlm_params"] = vlm_info["params"]
     e2e["profile_vlm_int8"] = vlm_info["profile_vlm_int8"]
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")

@@ -4,10 +4,12 @@ phi3.5-moe-42b-a6.6b, the SSM model falcon-mamba-7b, the hybrid
 zamba2-2.7b, the Multi-head Latent Attention models minicpm3-4b
 (dense) and deepseek-v2-236b (MoE), the encoder-decoder whisper-small
 and the vision-language phi-3-vision-4.2b: every architecture of the
-reference's registry.
+reference's registry; and the four input shapes the launch tooling
+prices (``INPUT_SHAPES``, ``get_shape``).
 """
 from repro_torch.configs.base import (
-    MLAConfig, ModelConfig, MoEConfig, SSMConfig, TrainConfig,
+    INPUT_SHAPES, MLAConfig, ModelConfig, MoEConfig, ShapeConfig, SSMConfig,
+    TrainConfig,
 )
 from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK_V2_236B
 from repro_torch.configs.falcon_mamba_7b import CONFIG as FALCON_MAMBA_7B
@@ -39,5 +41,15 @@ def get_config(arch_id: str) -> ModelConfig:
                    f"{sorted(ARCH_CONFIGS)}")
 
 
-__all__ = ["ARCH_CONFIGS", "MLAConfig", "ModelConfig", "MoEConfig",
-           "SSMConfig", "TrainConfig", "get_config"]
+def get_shape(name: str) -> ShapeConfig:
+    try:
+        return INPUT_SHAPES[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown input shape {name!r}; available: {sorted(INPUT_SHAPES)}"
+        ) from None
+
+
+__all__ = ["ARCH_CONFIGS", "INPUT_SHAPES", "MLAConfig", "ModelConfig",
+           "MoEConfig", "SSMConfig", "ShapeConfig", "TrainConfig",
+           "get_config", "get_shape"]

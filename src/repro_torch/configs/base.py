@@ -5,7 +5,9 @@ dense, MoE, SSM, hybrid, encoder-decoder and vision-language families
 read, Multi-head Latent Attention (``MLAConfig``, MiniCPM3 and
 DeepSeek-V2) included, with the same names, defaults and ``reduced()``
 rule, so a port config and a reference config built the same way compare
-equal field by field; and of ``TrainConfig``, field for field.  The
+equal field by field; of ``TrainConfig``, field for field; and of
+``ShapeConfig`` and the four ``INPUT_SHAPES`` the launch tooling prices
+(``launch/dryrun.py``), unchanged.  The
 plans' runtime fields of the reference's config
 (``moe_dispatch_axes``, ``moe_expert_axis``) are not fields here: the
 port's plans tell the model how to route (``models.moe.Dispatch``) and
@@ -91,6 +93,13 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0 and self.n_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode available (native state or sliding window)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0
 
     def param_count(self) -> int:
         """Analytic parameter count, term for term the reference's
@@ -202,6 +211,23 @@ class ModelConfig:
             kw["vision_dim"] = 64
             kw["n_patches"] = 8
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524288, 1,   "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -350,6 +350,9 @@ class Mesh:
 KINDS = ("all_reduce", "reduce_scatter", "all_gather", "broadcast", "send",
          "recv")
 _COUNTS = {k: {"calls": 0, "bytes": 0} for k in KINDS}
+# the open collective trace's raw records, (kind, bytes, group or peer
+# rank), or None (``launch.collective_trace.CollectiveTrace``)
+_TRACE: Optional[list] = None
 
 
 def reset_collective_counts() -> None:
@@ -367,9 +370,13 @@ def collective_counts() -> Dict[str, Dict[str, int]]:
     return {k: dict(v) for k, v in _COUNTS.items()}
 
 
-def _count(kind: str, t: torch.Tensor, factor: int = 1) -> None:
+def _count(kind: str, t: torch.Tensor, factor: int = 1,
+           group=None) -> None:
+    n = t.numel() * t.element_size() * factor
     _COUNTS[kind]["calls"] += 1
-    _COUNTS[kind]["bytes"] += t.numel() * t.element_size() * factor
+    _COUNTS[kind]["bytes"] += n
+    if _TRACE is not None:
+        _TRACE.append((kind, n, group))
 
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
@@ -378,7 +385,7 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """All-reduce ``t`` in place over ``group``; returns ``t``."""
-    _count("all_reduce", t)
+    _count("all_reduce", t, group=group)
     dist.all_reduce(t, op=_OPS[op], group=group)
     return t
 
@@ -387,7 +394,7 @@ def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Sum ``t`` over ``group`` and return this rank's block of ``dim``
     (the blocks stacked first: one copy, none along dim 0)."""
     n = dist.get_world_size(group)
-    _count("reduce_scatter", t)
+    _count("reduce_scatter", t, group=group)
     blocks = t.contiguous() if dim == 0 else \
         torch.stack(t.chunk(n, dim)).flatten(0, 1)
     out = blocks.new_empty((blocks.shape[0] // n,) + blocks.shape[1:])
@@ -399,7 +406,7 @@ def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Concatenate the ranks' ``t`` of ``group`` along ``dim``, in group
     rank order (gathered stacked, then one copy, none along dim 0)."""
     n = dist.get_world_size(group)
-    _count("all_gather", t, n)
+    _count("all_gather", t, n, group)
     x = t.contiguous()
     out = x.new_empty((n * x.shape[0],) + x.shape[1:])
     dist.all_gather_into_tensor(out, x, group=group)
@@ -411,7 +418,7 @@ def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
 def broadcast(t: torch.Tensor, group, src: int) -> torch.Tensor:
     """``t`` of the global rank ``src`` on every rank of ``group``, in
     place; returns ``t``."""
-    _count("broadcast", t)
+    _count("broadcast", t, group=group)
     dist.broadcast(t, src=src, group=group)
     return t
 
@@ -423,10 +430,10 @@ def exchange(sends, recvs) -> None:
     ranks that send to each other in the same tick cannot deadlock."""
     ops = []
     for peer, t in sends:
-        _count("send", t)
+        _count("send", t, group=peer)
         ops.append(dist.P2POp(dist.isend, t.contiguous(), peer))
     for peer, t in recvs:
-        _count("recv", t)
+        _count("recv", t, group=peer)
         ops.append(dist.P2POp(dist.irecv, t, peer))
     for req in dist.batch_isend_irecv(ops):
         req.wait()

@@ -152,34 +152,40 @@ def _grad_fn(model: Model, tcfg: TrainConfig, loss_fn) -> Callable:
 
 
 MLA_UNDER_PLANS = "ROADMAP queue 1, item 13: MLA under the plans"
-
-
-def refuse_mla(model: Model, plan) -> None:
-    """Raise for an MLA model under a plan: its latent cache has no
-    ``cache_spec`` and its heads no cut over the ``model`` axis yet."""
-    if model.cfg.mla is not None:
-        name = plan if isinstance(plan, str) else plan.name
-        raise NotImplementedError(
-            f"{model.cfg.name} attends by Multi-head Latent Attention, "
-            f"which runs on one device only; under plan {name!r} it waits "
-            f"for {MLA_UNDER_PLANS}")
-
-
 ENCDEC_UNDER_PLANS = ("ROADMAP queue 1, item 14: the encoder-decoder "
                       "under the plans")
 
 
-def refuse_under_plans(model: Model, plan) -> None:
-    """Raise for a model that runs on one device only, under a plan: MLA
-    (``refuse_mla``), and the encoder-decoder, whose encoder, frames and
+def plan_refusal(cfg, plan) -> str:
+    """Why a model of ``cfg`` has no step under ``plan`` yet, naming the
+    ROADMAP item that brings it ("" where it has one): MLA, whose latent
+    cache has no ``cache_spec`` and its heads no cut over the ``model``
+    axis, and the encoder-decoder, whose encoder, frames and
     cross-attention cache have no cut over a mesh yet."""
-    refuse_mla(model, plan)
-    if model.cfg.family == "encdec":
-        name = plan if isinstance(plan, str) else plan.name
-        raise NotImplementedError(
-            f"{model.cfg.name} is an encoder-decoder, which runs on one "
-            f"device only; under plan {name!r} it waits for "
-            f"{ENCDEC_UNDER_PLANS}")
+    name = plan if isinstance(plan, str) else plan.name
+    if cfg.mla is not None:
+        return (f"{cfg.name} attends by Multi-head Latent Attention, which "
+                f"runs on one device only; under plan {name!r} it waits for "
+                f"{MLA_UNDER_PLANS}")
+    if cfg.family == "encdec":
+        return (f"{cfg.name} is an encoder-decoder, which runs on one device "
+                f"only; under plan {name!r} it waits for "
+                f"{ENCDEC_UNDER_PLANS}")
+    return ""
+
+
+def refuse_mla(model: Model, plan) -> None:
+    """Raise for an MLA model under a plan (``plan_refusal``)."""
+    if model.cfg.mla is not None:
+        raise NotImplementedError(plan_refusal(model.cfg, plan))
+
+
+def refuse_under_plans(model: Model, plan) -> None:
+    """Raise for a model that runs on one device only, under a plan
+    (``plan_refusal``)."""
+    reason = plan_refusal(model.cfg, plan)
+    if reason:
+        raise NotImplementedError(reason)
 
 
 def build_train_step(model: Model, tcfg: TrainConfig, *,

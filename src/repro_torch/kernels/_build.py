@@ -117,10 +117,16 @@ def library(stem: str) -> ctypes.CDLL:
 
 
 _SM_COUNT: Dict[int, int] = {}
+# the NVIDIA H100 SXM's SMs (data sheet): what the planners plan for on
+# the meta device (the dry run prices the H100's launches)
+H100_SMS = 132
 
 
 def sm_count(device) -> int:
-    """The SMs of a CUDA device (the launch planners' input), read once."""
+    """The SMs of a CUDA device (the launch planners' input), read once;
+    ``H100_SMS`` for the meta device."""
+    if device.type == "meta":
+        return H100_SMS
     i = device.index if device.index is not None \
         else torch.cuda.current_device()
     if i not in _SM_COUNT:

@@ -201,8 +201,9 @@ def check_backward_head_dim(D: int, Dv: Optional[int] = None) -> None:
 
 def _check_operand(name: str, t: torch.Tensor,
                    dtypes=(torch.bfloat16,)) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name} must be a CUDA tensor (or meta), got "
+                         f"{t.device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} must be "
                         f"{' or '.join(str(d)[6:] for d in dtypes)}, got "
@@ -243,7 +244,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     and with ``return_lse`` also the fp32 logsumexp [B, H, Sq] (serving
     asks for none, and the kernel then writes none).  ``o32``: a
     contiguous fp32 [B, Sq, H, Dv] tensor on q's device that receives
-    the output before its bf16 rounding (training's backward reads it)."""
+    the output before its bf16 rounding (training's backward reads it).
+    On meta tensors (the dry run's) it allocates what it would and
+    launches nothing."""
     _check_qkv(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -257,6 +260,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
+    if q.is_meta:
+        return (o, lse) if return_lse else o
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  B, H, KV, Sq, Sk, D, Dv, *q.stride()[:3], *k.stride()[:3],
@@ -278,7 +283,8 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     dQ).  q/o/do: [B, Sq, H, D]; k/v: [B, Sk, KV, D], bf16 CUDA tensors,
     but o, the forward's output, in fp32 (``flash_attention_cuda``'s
     ``o32``, for an exact rowsum) or bf16; D = 64 or 80; lse: the
-    forward's fp32 [B, H, Sq].  Returns (dq, dk, dv) bf16, contiguous."""
+    forward's fp32 [B, H, Sq].  Returns (dq, dk, dv) bf16, contiguous.
+    On meta tensors it allocates what it would and launches nothing."""
     _check_qkv(q, k, v)
     check_backward_head_dim(q.shape[-1], v.shape[-1])
     _check_operand("o", o, (torch.bfloat16, torch.float32))
@@ -298,6 +304,8 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     dk = torch.empty((B, Sk, KV, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Sk, KV, D), dtype=v.dtype, device=q.device)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        return dq, dk, dv
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
     err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -319,11 +327,14 @@ class FlashAttention(torch.autograd.Function):
     keeps (q, k, v, the output, lse), the output in fp32 where the
     attention is not causal (the module's docstring says why), and the
     backward recomputes P from lse.  Both directions launch the kernels
-    on CUDA tensors and run the plain versions on CPU tensors."""
+    on CUDA tensors (on meta tensors they take the kernels' shape rules)
+    and run the plain versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        if q.is_cuda:     # refuse before the forward, not in the backward
+        # the card (and the dry run's meta tensors): refuse before the
+        # forward, not in the backward
+        if q.is_cuda or q.is_meta:
             check_backward_head_dim(q.shape[-1], v.shape[-1])
             o32 = None if causal else torch.empty(
                 q.shape[:3] + v.shape[3:], dtype=torch.float32,
@@ -344,7 +355,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_cuda if do.is_cuda \
+        bwd = flash_attention_bwd_cuda if do.is_cuda or do.is_meta \
             else flash_attention_bwd_plain
         dq, dk, dv = bwd(q, k, v, o, do.contiguous(), lse,
                          causal=ctx.causal, window=ctx.window)

@@ -99,8 +99,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _check(name: str, t: torch.Tensor, shape, *, contiguous: bool = True):
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name} must be a CUDA tensor (or meta), got "
+                         f"{t.device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -125,7 +126,9 @@ def mamba1_scan_cuda(x, dt, b_s, c_s, A, h0):
     (x and dt are copied first unless they start on 16-byte boundaries);
     b_s/c_s: [B, S, ds] with a contiguous last axis; h0: [B, di, ds]
     contiguous; all fp32 CUDA tensors, di a multiple of 4 and ds in
-    ``MAMBA1_STATES``.  Returns (y [B, S, di], h_last [B, di, ds]) fp32."""
+    ``MAMBA1_STATES``.  Returns (y [B, S, di], h_last [B, di, ds]) fp32.
+    On meta tensors (the dry run's) it allocates what it would and
+    launches nothing (a meta tensor has no address: no copy for one)."""
     B, S, di = x.shape
     ds = b_s.shape[-1]
     if ds not in MAMBA1_STATES:
@@ -144,6 +147,8 @@ def mamba1_scan_cuda(x, dt, b_s, c_s, A, h0):
     y = torch.empty_like(x)
     h_last = torch.empty_like(h0)
     lanes = mamba1_plan(B, di, ds, _build.sm_count(x.device))
+    if x.is_meta:
+        return y, h_last
     fn = _fn("mamba1_scan", "mamba1_scan_fp32",
              [_P] * 8 + [_I] * 5 + [_L] * 4 + [_P])
     err = fn(x.data_ptr(), dt.data_ptr(), b_s.data_ptr(), c_s.data_ptr(),
@@ -166,7 +171,9 @@ def ssd_scan_cuda(xh, dt, b_s, c_s, a, h0, *, chunk: int):
     unless their rows start on 16-byte boundaries); a:
     [nh]; h0: [B, nh, hd, ds] contiguous; all fp32 CUDA tensors, (hd, ds)
     in ``SSD_SHAPES`` and 1 <= chunk <= 64.  Returns (y [B, S, nh, hd],
-    h_last [B, nh, hd, ds]) fp32."""
+    h_last [B, nh, hd, ds]) fp32.  On meta tensors (the dry run's) it
+    allocates what it would and launches nothing (a meta tensor has no
+    address: its rows count as aligned when its strides are)."""
     B, S, nh, hd = xh.shape
     ds = b_s.shape[-1]
     if (hd, ds) not in SSD_SHAPES:
@@ -180,10 +187,11 @@ def ssd_scan_cuda(xh, dt, b_s, c_s, a, h0, *, chunk: int):
             ("c_s", c_s, (B, S, ds), False), ("a", a, (nh,), True),
             ("h0", h0, (B, nh, hd, ds), True)):
         _check(name, t, shape, contiguous=contig)
-    if not dt.is_cuda or dt.dtype != torch.float32 \
+    if dt.device.type not in ("cuda", "meta") or dt.dtype != torch.float32 \
             or tuple(dt.shape) != (B, S, nh):
-        raise ValueError(f"dt must be a float32 CUDA tensor of shape "
-                         f"{(B, S, nh)}, got {dt.dtype} {tuple(dt.shape)}")
+        raise ValueError(f"dt must be a float32 CUDA tensor (or meta) of "
+                         f"shape {(B, S, nh)}, got {dt.dtype} "
+                         f"{tuple(dt.shape)}")
     if h0.data_ptr() % 16:
         raise ValueError("h0 must start on a 16-byte boundary")
     # the kernel moves rows of x, B and C as 16-byte bulk copies: a view
@@ -198,6 +206,8 @@ def ssd_scan_cuda(xh, dt, b_s, c_s, a, h0, *, chunk: int):
     scores = torch.empty((B, n_chunks, SSD_MAX_CHUNK, SSD_MAX_CHUNK),
                          dtype=torch.float32, device=xh.device)
     stages = ssd_plan(B, nh, _build.sm_count(xh.device), n_chunks)
+    if xh.is_meta:
+        return y, h_last
     fn = _fn("ssd_scan", "ssd_scan_fp32",
              [_P] * 9 + [_I] * 7 + [_L] * 10 + [_P])
     err = fn(xh.data_ptr(), dt.data_ptr(), b_s.data_ptr(), c_s.data_ptr(),

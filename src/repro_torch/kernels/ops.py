@@ -5,8 +5,14 @@ attention, ``[B, S, channels]`` and ``[B, S, heads, hd]`` for the scans,
 plain ``[M, K] x [K, N]`` for the int8 matmul, ``[..., d]`` for the
 RMSNorm).
 A tensor on the CPU takes the kernel's plain PyTorch version; a CUDA
-tensor launches the hand-written kernel or raises.  There is no fallback
-between the two: the wrapper decides by the device of its input alone.
+tensor launches the hand-written kernel or raises; a meta tensor (the
+dry run's, ``launch/dryrun.py``) takes the kernel's shape rule: the
+CUDA function's checks and the tensors it allocates (outputs, what the
+training forward saves, scratch at the H100's launch plan), and no
+launch, so that the dry run prices what the card runs and not the plain
+version.  There is no fallback between the three: the wrapper decides by
+the device of its input alone, and a meta tensor computes nothing, so no
+real run reaches a shape rule.
 The reference's padding (head_dim to 128, S to the chunk, both TPU tile
 artifacts) is gone: the kernels take the shapes as they are.  Unlike the
 reference's scan adapters, both scans take the initial state ``h0``.
@@ -53,7 +59,10 @@ KERNELS = {
 
 
 def _on_card(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
+    """Whether ``x`` takes the kernel: True on the card (and on the meta
+    device, where the kernel's function allocates and launches nothing),
+    False on the CPU (the plain version)."""
+    if x.device.type in ("cuda", "meta"):
         return True
     if x.device.type == "cpu":
         return False
@@ -61,8 +70,8 @@ def _on_card(x: torch.Tensor) -> bool:
 
 
 def _refuse_grad(name: str, *tensors) -> None:
-    """On the card: raise when a gradient is being taken of any input of
-    a kernel that has no backward."""
+    """On the card (and on meta): raise when a gradient is being taken of
+    any input of a kernel that has no backward."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

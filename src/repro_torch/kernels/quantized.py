@@ -165,12 +165,15 @@ def int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale, valid, *,
     contiguous CUDA tensors; D = 64, 96 or 128.  Returns [B, 1, H, D] bf16;
     ``with_lse`` also the fp32 [B, H] log-sum-exp of each (row, head)'s
     live scores, natural-log units (-inf for a row with no live key),
-    as ``int8kv_attention_plain`` gives it."""
+    as ``int8kv_attention_plain`` gives it.  On meta tensors (the dry
+    run's) it allocates what it would, at the H100's split count, and
+    launches nothing."""
     tensors = (("q", q), ("k_q", k_q), ("k_scale", k_scale), ("v_q", v_q),
                ("v_scale", v_scale), ("valid", valid))
     for name, t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device.type not in ("cuda", "meta"):
+            raise ValueError(f"{name} must be a CUDA tensor (or meta), got "
+                             f"{t.device}")
     if q.dtype != torch.bfloat16 or q.dim() != 4 or q.shape[1] != 1 \
             or q.shape[-1] not in HEAD_DIMS or q.stride(-1) != 1 \
             or q.stride(0) % 2 or q.stride(2) % 2:
@@ -198,13 +201,15 @@ def int8kv_attention_cuda(q, k_q, k_scale, v_q, v_scale, valid, *,
     o = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch = ()
     if splits > 1:       # each split's (max, sum) and accumulator, fp32
         scratch = (torch.empty((B, H, splits, 2), dtype=torch.float32,
                                device=q.device),
                    torch.empty((B, H, splits, D), dtype=torch.float32,
                                device=q.device))
+    if q.is_meta:
+        return (o, lse) if with_lse else o
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [t.data_ptr() for t in scratch] or [None] * 2
     err = _lib()(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
                  v_q.data_ptr(), v_scale.data_ptr(), valid.data_ptr(),
@@ -284,7 +289,11 @@ def int8_matmul_cuda(xq, xs, wq, ws, *, block_m: int, block_k: int,
     [K, N] int8, ws: [K/bk, N/bn] fp32, contiguous CUDA tensors whose
     shapes are block multiples.  Returns fp32 [M, N].  The kernel first
     writes w transposed into a scratch this allocates (K * N bytes), then
-    runs the products; a rerun gives the same bits."""
+    runs the products; a rerun gives the same bits.  Only calibration
+    runs it, so a meta tensor (the dry run's) has no shape rule here."""
+    if xq.is_meta:
+        raise NotImplementedError("kernel 5 runs in calibration only: the "
+                                  "dry run has no shape rule for it")
     check_blocks(block_m, block_k, block_n)
     M, K = xq.shape
     N = wq.shape[1]

@@ -74,10 +74,12 @@ def rmsnorm_cuda(x, weight, *, eps: float = 1e-5):
     """Launch kernel 6.  x: [..., d] bf16 or fp32 CUDA tensor whose
     leading axes flatten to rows with one stride and whose last axis is
     contiguous; weight: [d] fp32, contiguous, on the same card.  Returns
-    y with x's shape and dtype, contiguous."""
-    if not (x.is_cuda and weight.is_cuda) or weight.device != x.device:
-        raise ValueError(f"x and weight must be CUDA tensors on one card, "
-                         f"got {x.device} and {weight.device}")
+    y with x's shape and dtype, contiguous.  On meta tensors (the dry
+    run's) it allocates what it would and launches nothing."""
+    if x.device.type not in ("cuda", "meta") or weight.device != x.device:
+        raise ValueError(f"x and weight must be CUDA tensors on one card "
+                         f"(or meta tensors), got {x.device} and "
+                         f"{weight.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
     d = x.shape[-1]
@@ -98,6 +100,8 @@ def rmsnorm_cuda(x, weight, *, eps: float = 1e-5):
         raise ValueError(f"x's leading axes do not flatten to rows of one "
                          f"stride: {tuple(x.shape)} {x.stride()}") from None
     plan = rmsnorm_plan(rows, d, _build.sm_count(x.device))
+    if x.is_meta:
+        return y
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib()(x2.data_ptr(), weight.data_ptr(), y.data_ptr(), rows, d,
                  x2.stride(0), d, float(eps),

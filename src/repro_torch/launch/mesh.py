@@ -15,6 +15,14 @@ reference's ``devices=``: after a site fails, its survivors' ranks,
 ``("stage", "data", "model")`` by ``core.pipeline.pipeline_mesh``
 (``make_pipeline_mesh``, ``placement_pipeline_mesh``): the stage axis
 absorbs the pod axis, in the placement's stage order, then splits data.
+
+``make_production_mesh`` lays the reference's production meshes, (16, 16)
+over ``("data", "model")`` and (2, 16, 16) over ``("pod", "data",
+"model")``, over a *fake* world of 256 or 512 ranks (``torch.distributed``'s
+``"fake"`` backend, which moves no data): the dry run
+(``launch/dryrun.py``) prices a plan on them without a card.  A real
+launch never uses it.  Beside it, the H100's roofline constants
+(``launch/roofline.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +33,45 @@ import torch.distributed as dist
 
 from repro_torch.core.sharding import Mesh
 from repro_torch.core.topology import Topology
+
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def init_fake_world(world: int, rank: int = 0) -> None:
+    """Join a fake ``torch.distributed`` world of ``world`` ranks as
+    ``rank``: the ``"fake"`` backend's collectives return at once and
+    move nothing, and meta tensors carry no data to move.  For the dry
+    run only; a real launch joins NCCL (``init_world``)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    # the meta device named too: a pipeline's batched handoffs look their
+    # backend up by the tensors' device
+    dist.init_process_group("cpu:fake,meta:fake", store=FakeStore(),
+                            rank=rank, world_size=world)
+
+
+def in_fake_world() -> bool:
+    """Whether this process joined a fake world (``init_fake_world``)."""
+    return dist.is_initialized() and "fake" in str(dist.get_backend())
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """The reference's production mesh, (16, 16) over (data, model) or,
+    ``multi_pod``, (2, 16, 16) over (pod, data, model), the pod axis the
+    slow inter-site one, over a fake world of 256 or 512 ranks: the one
+    this process joined, or, when it joined none, one it joins now as
+    ``rank`` (``init_fake_world``).  A real launch never uses it."""
+    shape, axes = PRODUCTION_SHAPES[multi_pod]
+    world = int(np.prod(shape))
+    if not dist.is_initialized():
+        init_fake_world(world, rank)
+    if not in_fake_world() or dist.get_world_size() != world:
+        raise RuntimeError(f"the production mesh {shape} is the dry run's: "
+                           f"it takes a fake world of {world} ranks, not "
+                           f"{dist.get_backend()!r} of "
+                           f"{dist.get_world_size()}")
+    return make_host_mesh(shape, axes)
 
 
 def make_host_mesh(shape: Sequence[int], axes: Sequence[str], *,
@@ -143,6 +190,11 @@ def placement_mesh(topo: Topology, plan, placement, *,
 PEAK_FLOPS_BF16 = 989e12      # FLOP/s, dense bf16 tensor cores
 HBM_BW = 3.35e12              # bytes/s, HBM3
 NVLINK_BW = 450e9             # bytes/s each way (NVLink 4, 18 links)
+HBM_BYTES = 80e9              # bytes of HBM3 (the data sheet's 80 GB)
+# a collective whose group crosses sites runs at the WAN's rate: the
+# paper's site-to-site link as ``core.topology.two_site`` prices it
+# (``wan_gbps`` = 3.0 GB/s, NCCL over TCP), not a property of the card
+WAN_BW = 3.0e9                # bytes/s
 
 
 def init_world(device: str = "cuda"):

@@ -83,7 +83,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if use_kernels and q_positions is None and kv_positions is None:
         return kernel_ops.flash_attention(q, k, v, causal=causal,
                                           window=window)
-    if use_kernels and q.is_cuda:
+    if use_kernels and q.device.type != "cpu":      # the card, or meta
         raise ValueError(
             "flash kernel A masks by sequence index; explicit "
             "positions are not supported on the kernel path (pass "
@@ -506,7 +506,7 @@ def attention_decode(x, params, cfg: ModelConfig, *, cache,
     lse = blocks.group is not None
     if not isinstance(cache, QuantKVCache):
         o = decode_attention(q, cache.k, cache.v, valid, with_lse=lse)
-    elif use_kernels and q.is_cuda:
+    elif use_kernels and q.device.type != "cpu":    # the card, or meta
         o = kernel_ops.flash_attention_int8kv(
             q, cache.k_q, cache.k_scale, cache.v_q, cache.v_scale, valid,
             with_lse=lse)

@@ -57,6 +57,15 @@ class Dispatch:
     whole: bool
 
 
+def _counts(experts, E: int):
+    """How many of ``experts`` (int64 ids in [0, E)) name each expert:
+    ``torch.bincount(experts, minlength=E)``'s values, whose length does
+    not depend on the ids (an exact integer sum, so a meta tensor, the
+    dry run's, has a shape for it too)."""
+    return torch.zeros(E, dtype=torch.long, device=experts.device) \
+        .index_add_(0, experts, torch.ones_like(experts))
+
+
 def init_moe(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
     m, d = cfg.moe, cfg.d_model
     eff = m.expert_d_ff or cfg.d_ff
@@ -120,7 +129,7 @@ def moe_forward(x, params, cfg: ModelConfig, *,
     if whole:
         # counts of every batch rank's choices [ranks, E]; this rank's
         # share of the aux of their tokens together
-        every = all_gather(torch.bincount(flat_expert, minlength=E)[None],
+        every = all_gather(_counts(flat_expert, E)[None],
                            dispatch.group, 0)
         below = every[:dispatch.rank].sum(0)
         T_all = T * dispatch.size
@@ -147,7 +156,7 @@ def moe_forward(x, params, cfg: ModelConfig, *,
     sorted_token = flat_token[order]
     sorted_gate = flat_gate[order]
     # rank within expert = running index - offset of the expert's first
-    counts = torch.bincount(sorted_expert, minlength=E)
+    counts = _counts(sorted_expert, E)
     offsets = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * k, device=dev) - offsets[sorted_expert]
     # a token's place in its expert's queue over the whole batch: after

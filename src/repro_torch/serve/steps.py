@@ -188,43 +188,45 @@ class ServePlan:
             return t
         return all_gather(t, self.mesh.group(axes), 0)
 
-    def init_cache(self, batch_size: int, *, kv_dtype: str = "fp32",
-                   slots: bool = False) -> Cache:
-        """This rank's rows, block, SSM channels and (under pipeshard)
-        stage layers of a fresh cache of ``batch_size`` rows (``slots``:
-        ``Model.init_slot_cache``'s per-slot cache).  Raises where
-        ``cache_spec`` takes another dim for the batch (it finds the
-        batch dim by size, so a stack as deep as the batch is cut in its
-        place), and where it would cut an SSM conv state's window over
-        ``model``: neither has a layout of the runtime's own."""
+    def cache_refusal(self, batch_size: int, *, kv_dtype: str = "fp32",
+                      slots: bool = False) -> Optional[Exception]:
+        """The error ``init_cache`` raises for a cache of ``batch_size``
+        rows, or None where it builds one: ``cache_spec`` takes another
+        dim for the batch (it finds the batch dim by size, so a stack as
+        deep as the batch is cut in its place), or it would cut an SSM
+        conv state's window over ``model``: neither has a layout of the
+        runtime's own (ROADMAP queue 3)."""
         m = self.model
         init = m.init_slot_cache if slots else m.init_cache
         kw = dict(window=self.window, kv_dtype=kv_dtype)
         shapes = init(batch_size, self.max_len, device="meta", **kw)
         wider = init(batch_size + 1, self.max_len, device="meta", **kw)
         specs = self.plan.cache_spec(shapes, m.cfg, self.mesh, batch_size)
-        cut = self.blocks is not None and self.blocks.group is not None
+        cut = self._ring_cut()
         n = self.mesh.shape.get(MODEL_AXIS, 1)
+        refused = []
 
         def check(name, leaf, other, spec):
-            if name == "index":
+            if name == "index" or refused:
                 return
             at = next(i for i, s in enumerate(leaf.shape) if s == batch_size)
             want = next(i for i, (a, b) in enumerate(zip(leaf.shape,
                                                          other.shape))
                         if a != b)
             if at != want:
-                raise ValueError(
+                refused.append(ValueError(
                     f"cache_spec takes dim {at} of the cache leaf {name!r} "
                     f"{tuple(leaf.shape)} for the batch of {batch_size} (it "
                     f"finds the batch dim by size); serve another batch "
-                    f"size than the stack depth (ROADMAP queue 3)")
+                    f"size than the stack depth (ROADMAP queue 3)"))
+                return
             on_model = len(spec) > at + 1 and spec[at + 1] == MODEL_AXIS
             if name == "conv" and on_model and n > 1:
-                raise NotImplementedError(
+                refused.append(NotImplementedError(
                     f"cache_spec cuts the SSM conv state's window "
                     f"{tuple(leaf.shape)} over a model axis of {n}, which "
-                    f"no rank's computation follows (ROADMAP queue 3)")
+                    f"no rank's computation follows (ROADMAP queue 3)"))
+                return
             if name == "h" and n > 1 and on_model != \
                     (self.channel_blocks > 1):
                 raise AssertionError(f"h: cache_spec {spec} against the "
@@ -234,11 +236,29 @@ class ServePlan:
                                      f"the ring's blocks {self.blocks}")
 
         map_cache(check, shapes, wider, specs)
+        return refused[0] if refused else None
+
+    def _ring_cut(self) -> bool:
+        """Whether a rank holds a block of the ring (not the whole)."""
+        return self.blocks is not None and self.blocks.group is not None
+
+    def init_cache(self, batch_size: int, *, kv_dtype: str = "fp32",
+                   slots: bool = False) -> Cache:
+        """This rank's rows, block, SSM channels and (under pipeshard)
+        stage layers of a fresh cache of ``batch_size`` rows (``slots``:
+        ``Model.init_slot_cache``'s per-slot cache).  Raises where
+        ``cache_refusal`` finds no layout of the runtime's own."""
+        refused = self.cache_refusal(batch_size, kv_dtype=kv_dtype,
+                                     slots=slots)
+        if refused is not None:
+            raise refused
+        init = self.model.init_slot_cache if slots else self.model.init_cache
         return init(batch_size, self.max_len, rows=self.rows(batch_size)[1],
-                    seq_blocks=self.blocks.size if cut else 1,
+                    seq_blocks=self.blocks.size if self._ring_cut() else 1,
                     channel_blocks=self.channel_blocks,
                     depth=None if self.stage_rows is None
-                    else len(self.stage_rows), **kw)
+                    else len(self.stage_rows), window=self.window,
+                    kv_dtype=kv_dtype)
 
     # ------------------------------------------------------------- #
     def prefill(self, params, batch, cache: Cache, *, window: int,

@@ -124,7 +124,11 @@ def test_ops_flash_on_cpu_is_the_plain_version():
 
 
 def test_ops_reject_other_devices():
-    q = torch.zeros((1, 4, 4, 64), device="meta")
+    """A tensor on neither the CPU, a card nor the meta device (where the
+    dry run takes each kernel's shape rule) has no version to run: a
+    stand-in on an XLA device, which this build cannot allocate."""
+    from types import SimpleNamespace
+    q = SimpleNamespace(device=torch.device("xla"))
     with pytest.raises(ValueError, match="no kernel or plain version"):
         tops.flash_attention(q, q, q)
 

@@ -40,6 +40,11 @@ pipeshard.
 * Every plan builds for every family; the families the port does not
   have raise with their ROADMAP item; the staged specs of the families
   equal the reference's.
+* The dry run (``launch/dryrun.py``, meta tensors over a fake world of 4)
+  counts each rank's collectives of one step of reduced gpt2m in bf16
+  under data, zero2, shard (mesh (1, 2, 2)) and pipeshard (two stages of
+  a data axis of two), call for call and byte for byte as the world of
+  4 counts them (``sharding.collective_counts``).
 """
 from __future__ import annotations
 
@@ -510,3 +515,23 @@ def test_moe_pipeshard_routes_each_global_microbatch(worlds,
     for k in ("loss", "ce", "aux"):
         assert got[k] == pytest.approx(want[k], rel=LOSS_RTOL), k
     assert got["tokens"] == want["tokens"]
+
+
+@pytest.mark.parametrize("plan", worker.DRY_PLANS)
+def test_dry_run_counts_the_collectives_of_a_gloo_world(request, plan):
+    """The dry run's collectives of every rank, traced on meta tensors
+    while the worlds run, against the world of 4's counts of one
+    step."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    cfg = worker.dry_config()
+    shape = ShapeConfig("gloo", plan_worker.SEQ, plan_worker.BATCH, "train")
+    mesh = worker.PIPE[4] if plan == "pipeshard" else worker.FLAT[4]
+    rec = dryrun.run_one(cfg, shape, plan, mesh_shape=mesh,
+                         ranks=range(4), verbose=False,
+                         tcfg=worker.train_config(microbatches=worker.MICRO))
+    assert rec["status"] == "ok" and rec["use_kernels"]
+    real = request.getfixturevalue("worlds")[4]["dry_counts"][plan]
+    for rank in range(4):
+        assert rec["ranks"][str(rank)]["collectives"] == real[rank], rank
+    assert any(v["calls"] for v in real[0].values())

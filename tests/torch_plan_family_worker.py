@@ -79,6 +79,11 @@ DROP_FACTOR, DROP_SEQ, DROP_MICRO = 0.5, 32, 4
 DROP_PLANS = ("data", "shard")
 # fsdp's gathers: gpt2m at two depths that cut alike, one step
 COUNT_LAYERS = (2, 4)
+# the collectives a step of each rank counts, for the dry run's
+# (``launch/dryrun.py``) to equal: reduced gpt2m in bf16 (its kernel
+# path on the meta device takes bf16), on the world of 4's flat mesh and
+# its two stages
+DRY_PLANS = ("data", "zero2", "shard", "pipeshard")
 CKPT_STEPS = 2
 
 
@@ -386,6 +391,38 @@ def fsdp_layout(mesh):
     return out
 
 
+def dry_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("gpt2m").reduced(),
+                               dtype="bfloat16")
+
+
+def dry_counts(flat, staged):
+    """Every rank's ``collective_counts()`` of one step of each of
+    ``DRY_PLANS`` (pipeshard on the staged mesh, ``MICRO``
+    microbatches)."""
+    from repro_torch.core import sharding
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.models import Model
+    cfg = dry_config()
+    batch = plan_worker.make_batch(cfg.vocab_size)
+    out = {}
+    for plan in DRY_PLANS:
+        model = Model(cfg, device="cpu")
+        step = build_train_step(
+            model, train_config(microbatches=MICRO), plan=plan,
+            mesh=staged if plan == "pipeshard" else flat)
+        params = step.shard_params(plan_worker.init_params(model))
+        opt = step.init_opt_state()
+        sharding.reset_collective_counts()
+        step(params, opt, batch)
+        mine = sharding.collective_counts()
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        out[plan] = every
+    return out
+
+
 def fsdp_checkpoint(mesh, root: str):
     """gpt2m trains ``CKPT_STEPS`` steps under fsdp and writes a
     checkpoint (gathered, the one-device layout), which shard restores
@@ -428,6 +465,7 @@ def run(rank: int, world: int, init: str, out: str) -> None:
         staged = make_pipeline_mesh(PIPE[world], AXES, 2)
         res["pipe"] = pipe_cases(staged)
     if world == 4:
+        res["dry_counts"] = dry_counts(flat, staged)
         res["drops"] = drop_cases(flat, staged)
         res["fsdp"] = fsdp_layout(flat)
         res["fsdp_ckpt"] = fsdp_checkpoint(flat, os.path.dirname(out))
