@@ -29,7 +29,8 @@ it serves five models at full width with random weights from a seed:
 Then the Multi-head Latent Attention models and phi4-mini, one at a
 time: minicpm3-4b (62 layers, d_model 2560, 40 heads, q/k of 96 over v
 of 64) at full size through both engines (``mla-engine``,
-``mla-continuous``, bf16 cache); deepseek-v2-236b (d_model 5120, 128
+``mla-continuous``, bf16 cache; the latter one wave of 8 requests, one
+a slot); deepseek-v2-236b (d_model 5120, 128
 heads at (192, 128), top-6 of 160 experts and 2 shared) at full width,
 cut to 2 of its 60 layers (``dsv2-engine``; the top-6 combine run twice
 for the same bits); phi4-mini-3.8b at full size with the int8 cache
@@ -122,8 +123,9 @@ flat phase).  Then, once each after
 its one-device yardstick: gpt2L under pipeshard on one stage of two
 chunks (16 and 14 layers) through ``Engine`` (fp32 KV) and
 ``ContinuousEngine`` (int8; ``serve-pipeshard``,
-``serve-pipeshard-continuous``), and phi3.5-MoE (7 of 32 layers, int8
-KV), falcon-mamba-7b and zamba2-2.7b (chunks of 5 and 4 of its 9
+``serve-pipeshard-continuous``), and phi3.5-MoE (8 of 32 layers, as
+deep as the batch of 8, int8 KV), falcon-mamba-7b and zamba2-2.7b
+(chunks of 5 and 4 of its 9
 groups) at full width under shard and under pipeshard
 (``serve-moe-shard``, ..., ``serve-hybrid-pipeshard``): kernels A, B,
 3, 4 and 6 as the families use them.  Then elasticity, gpt2m at full
@@ -152,6 +154,12 @@ one rank over a fake world of one; the predicted peak must lie within
 step's measured time at or above the roofline's max(compute, memory)
 (the H100 data sheet's constants), and the dry run's collectives equal,
 call for call and byte for byte, to one step of plan-shard's.
+
+Last, the static analysis of the port (``analysis``): the four passes
+of ``repro_torch.analysis`` (planlint, schedlint, donatecheck,
+conventions) run in this process over this checkout, each pass's stats
+and seconds printed; any finding that
+``tools/analysis_baseline_torch.json`` does not accept fails the run.
 
 For each model it checks that the kernel path's first-step logits agree
 with the plain path's on the card (the MoE model's against the fp32
@@ -358,17 +366,22 @@ SERVE_PHASES = tuple((f"serve-{p}", PLAN_ARCH, p, "fp32", "engine")
     ("serve-llama-shard", "llama3.2-3b", "shard", "int8", "engine"))
 # gpt2L under pipeshard: one stage of two chunks, the uneven (16, 14)
 SERVE_PIPE_SPLIT = (16, 14)
+# the slice-5 models: llama3.2-3b at full width and depth; phi3.5-MoE at
+# full width, cut to MOE_LAYERS of its 32 layers (10.7 B parameters, 43
+# GB in fp32; all 32 would need ~167 GB in fp32, 84 GB in bf16)
+LLAMA, MOE, MOE_LAYERS = "llama3.2-3b", "phi3.5-moe-42b-a6.6b", 8
 # the families under the serving plans, at a world of one: each model
 # built once, its one-device Engine (``serve-one-<tag>-engine-<kv>``),
 # then under shard and under pipeshard (one stage; zamba2 two chunks of
 # its 9 groups), one run each, their tokens held to the one-device
-# engine's as the gpt2L phases' are.  phi3.5-MoE keeps 7 of its 32
-# layers: at 8 the stack would be as deep as the batch of 8, which
-# ``cache_spec`` takes for the batch (it finds the batch by size) and
-# the serving plans refuse.  (tag, arch, layers kept or None, KV dtype,
-# kernels each phase must launch, pipeline split or None)
+# engine's as the gpt2L phases' are.  phi3.5-MoE keeps 8 of its 32
+# layers, as its one-device phases do: a stack as deep as the batch of
+# 8, whose layer dim ``cache_spec`` takes for the batch (it finds the
+# batch by size), while the serving runtime lays out its own cache.
+# (tag, arch, layers kept or None, KV dtype, kernels each phase must
+# launch, pipeline split or None)
 SERVE_FAMILIES = (
-    ("moe", "phi3.5-moe-42b-a6.6b", 7, "int8",
+    ("moe", "phi3.5-moe-42b-a6.6b", MOE_LAYERS, "int8",
      ("rmsnorm", "flash_attn_fwd", "int8kv_decode"), None),
     ("ssm", "falcon-mamba-7b", None, "fp32", ("mamba1_scan", "rmsnorm"),
      None),
@@ -390,18 +403,14 @@ CAL_FLASH_HEADS, CAL_FLASH_BS = (4, 2, 64), (1, 128)
 # largest output (the mean of squares sums in another order; rsqrtf is
 # within 2 ulps); bf16 within one ulp of each value (the output's
 # rounding may fall either side of an fp32 difference).  Shapes: the
-# widths of zamba2 (2560), llama3.2 (3072) and phi3.5-MoE and
-# falcon-mamba (4096), at decode (8 rows), a ragged prefill and the
-# Engine prefill (8 x 64)
+# widths of zamba2 (2560), llama3.2 (3072), phi3.5-MoE and falcon-mamba
+# (4096) and llama3-405b (16384: two groups of 8 elements a thread), at
+# decode (8 rows), a ragged prefill and the Engine prefill (8 x 64)
 RMS_FP32_RTOL = 1e-5
-RMS_DS, RMS_ROWS = (2560, 3072, 4096), (8, 257, 512)
+RMS_DS, RMS_ROWS = (2560, 3072, 4096, 16384), (8, 257, 512)
 # ...and the MLA latents' widths: kv_norm's 256 and q_norm's 768
 # (minicpm3-4b), kv_norm's 512 and q_norm's 1536 (deepseek-v2-236b)
 RMS_MLA_DS = (256, 512, 768, 1536)
-# the slice-5 models: llama3.2-3b at full width and depth; phi3.5-MoE at
-# full width, cut to MOE_LAYERS of its 32 layers (10.7 B parameters, 43
-# GB in fp32; all 32 would need ~167 GB in fp32, 84 GB in bf16)
-LLAMA, MOE, MOE_LAYERS = "llama3.2-3b", "phi3.5-moe-42b-a6.6b", 8
 NORM_ATTN = ("rmsnorm", "flash_attn_fwd")
 # the MLA phases: minicpm3-4b at full width and depth through both
 # engines (the bf16 cache: MLA's latent cache is not quantized);
@@ -1557,13 +1566,16 @@ def mla_phases(torch, np, ops, card):
             log_profile("mla-engine, prefill + 7 decode steps", prof)
             out["profile_mla_engine"] = prof
             del eng
+            # one wave, a request a slot: the script's phases keep within
+            # their time with the analysis phase
             rec = continuous_phase(
                 torch, np, ops, "mla-continuous", model, params, rng,
-                CONT_LENS[1] + CONT_GEN + 8, NORM_ATTN, card, kv_dtype=kv)
+                CONT_LENS[1] + CONT_GEN + 8, NORM_ATTN, card,
+                requests=CONT_SLOTS, kv_dtype=kv)
             # one forward pass a request's prefill and a decode step
-            passes = CONT_REQUESTS + rec["decode_steps"]
+            passes = CONT_SLOTS + rec["decode_steps"]
             want = {"rmsnorm": norms * passes,
-                    "flash_attn_fwd": L * CONT_REQUESTS}
+                    "flash_attn_fwd": L * CONT_SLOTS}
             for kname, n in want.items():
                 if rec["launches"][kname] != n:
                     fail(f"phase mla-continuous: {rec['launches'][kname]} "
@@ -2066,11 +2078,11 @@ def engine_phase(torch, np, ops, name, model, params, batch, needs, card,
 
 
 def continuous_phase(torch, np, ops, name, model, params, rng, max_len,
-                     needs, card, **kw):
+                     needs, card, requests=CONT_REQUESTS, **kw):
     from repro_torch.serve import ContinuousEngine, Request
 
     cfg = model.cfg
-    lens = rng.integers(CONT_LENS[0], CONT_LENS[1] + 1, CONT_REQUESTS)
+    lens = rng.integers(CONT_LENS[0], CONT_LENS[1] + 1, requests)
     reqs = [Request(i, rng.integers(4, cfg.vocab_size, (int(n),),
                                     dtype=np.int64))
             for i, n in enumerate(lens)]
@@ -2087,7 +2099,7 @@ def continuous_phase(torch, np, ops, name, model, params, rng, max_len,
         f"{st.tokens_per_s:.1f} tok/s, TTFT p50 "
         f"{np.percentile(ttft, 50) * 1e3:.1f} ms, occupancy "
         f"{st.mean_occupancy:.2f}/{CONT_SLOTS} on {card}")
-    return {"slots": CONT_SLOTS, "requests": CONT_REQUESTS,
+    return {"slots": CONT_SLOTS, "requests": requests,
             "prompt_lens": [int(n) for n in lens], "gen": CONT_GEN,
             "max_len": max_len, "exact_prefill": ce.exact_prefill,
             "ttft_p50_s": float(np.percentile(ttft, 50)),
@@ -3317,6 +3329,42 @@ def family_phases(torch, np, ops, card):
     return out
 
 
+def analysis_phase(torch, ops):
+    """Phase ``analysis``: ``repro_torch.analysis.run_passes`` over this
+    checkout, one pass at a time, timed.  Fails on a finding
+    ``tools/analysis_baseline_torch.json`` does not accept, on a stale
+    entry there, and on any kernel launch (the passes trace on meta
+    tensors)."""
+    from repro_torch.analysis import PASSES, Baseline, run_passes
+
+    seconds, results = {}, []
+
+    def passes():
+        for name in PASSES:
+            t0 = time.perf_counter()
+            results.extend(run_passes(ROOT, [name]))
+            seconds[name] = time.perf_counter() - t0
+
+    _, counts = run_phase(torch, ops, "analysis", passes, [])
+    if any(counts.values()):
+        fail(f"analysis: kernels launched {counts}")
+    baseline = Baseline.load(os.path.join(ROOT, "tools",
+                                          "analysis_baseline_torch.json"))
+    new, accepted, stale = baseline.split(
+        [f for r in results for f in r.findings])
+    out = {}
+    for r in results:
+        log(f"analysis {r.name}: {len(r.findings)} finding(s) in "
+            f"{seconds[r.name]:.2f}s; " + " ".join(
+                f"{k}={v}" for k, v in sorted(r.stats.items())))
+        out[r.name] = {"findings": len(r.findings), "stats": r.stats,
+                       "seconds": seconds[r.name]}
+    if new or stale:
+        fail("analysis: findings not baselined: "
+             + "; ".join(f.render() for f in new + stale))
+    return {"passes": out, "baselined": len(accepted), "launches": counts}
+
+
 def log_profile(name, prof):
     if prof is None:
         log(f"profile {name}: the trace holds no device events (not "
@@ -3627,6 +3675,8 @@ def main() -> None:
     e2e["dryrun_vs_card"] = dryrun_phase(torch, ops, card, training, plans)
     add(e2e["dryrun_vs_card"]["launches"])
     stage("the dry run against the card")
+    e2e["analysis"] = analysis_phase(torch, ops)
+    stage("the static analysis of the port")
     e2e["vlm_params"] = vlm_info["params"]
     e2e["profile_vlm_int8"] = vlm_info["profile_vlm_int8"]
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
@@ -3723,6 +3773,10 @@ def main() -> None:
               mla_widths={d: summary(rms_rows, {"rows": 512, "d": d,
                                                 "dtype": "bfloat16"})
                           for d in RMS_MLA_DS},
+              llama3_405b_width={
+                  f"{dt}-{r}": summary(rms_rows, {"rows": r, "d": 16384,
+                                                  "dtype": dt})
+                  for dt in ("bfloat16", "float32") for r in RMS_ROWS},
               launch_floor_ms=floor_ms),
     ]
     details = os.environ.get("SMOKE_DETAILS")

@@ -11,7 +11,8 @@ versions of one function over ``[..., d]``:
     holds the kernel against it on the card.
   * ``rmsnorm_cuda`` — the CUDA C++ kernel in ``csrc/rmsnorm.cu`` (the
     row in registers, x and w loaded together; a CTA per row on a grid
-    sized to the SMs; x bf16 or fp32, weight fp32).
+    sized to the SMs; x bf16 or fp32, weight fp32; rows of up to
+    ``MAX_D`` = 32768, so llama3-405b's 16384 too).
     ``rmsnorm_plan`` picks the launch shape.  The source
     says what bounds it (bytes) and how its design answers that.
 
@@ -27,12 +28,14 @@ import torch
 
 from repro_torch.kernels import _build
 
-# the launch shape (EPT and MAX_THREADS in csrc/rmsnorm.cu): a row takes
-# one thread per EPT elements (one bf16 vector, two fp32 ones), held in
-# registers, so that each thread's chain of loads and stores is short;
-# a CTA, one row at a time, has at most MAX_THREADS threads
-EPT, MAX_THREADS = 8, 1024
-MAX_D = EPT * MAX_THREADS
+# the launch shape (EPT, MAX_K and MAX_THREADS in csrc/rmsnorm.cu): a row
+# takes one thread per K * EPT elements (K = 1: one bf16 vector, two fp32
+# ones), held in registers, so that each thread's chain of loads and
+# stores is short; a CTA, one row at a time, has at most MAX_THREADS
+# threads, and K, the least of 1, 2, 4 that lets them hold the row, is 1
+# for every d <= EPT * MAX_THREADS
+EPT, MAX_K, MAX_THREADS = 8, 4, 1024
+MAX_D = EPT * MAX_K * MAX_THREADS
 # the grid holds this many threads an SM; its CTAs walk the rows
 ROWS_THREADS_PER_SM = 2048
 
@@ -42,14 +45,24 @@ class RmsPlan(NamedTuple):
     grid: int        # CTAs that walk the rows
 
 
+def rmsnorm_groups(d: int) -> int:
+    """K: the EPT groups of a row that a thread holds, the least of 1, 2
+    and 4 for which ``MAX_THREADS`` threads hold ``d``."""
+    k = 1
+    while EPT * k * MAX_THREADS < d:
+        k *= 2
+    return k
+
+
 def rmsnorm_plan(rows: int, d: int, n_sm: int) -> RmsPlan:
     """Kernel 6's launch shape for ``rows`` rows of ``d`` on a card of
     ``n_sm`` SMs: one CTA per row at a time, thread t taking the row's
-    vectors t, t + threads, ... (at most ``EPT`` elements)."""
+    vectors t, t + threads, ... (at most ``rmsnorm_groups(d) * EPT``
+    elements)."""
     if not (rows > 0 and 0 < d <= MAX_D and n_sm > 0):
         raise ValueError(f"rmsnorm_plan: rows={rows}, d={d}, n_sm={n_sm} "
                          f"(need rows, n_sm > 0 and 0 < d <= {MAX_D})")
-    threads = 32 * -(-d // (32 * EPT))
+    threads = 32 * -(-d // (32 * EPT * rmsnorm_groups(d)))
     per_sm = max(1, ROWS_THREADS_PER_SM // threads)
     return RmsPlan(threads, min(rows, n_sm * per_sm))
 

@@ -33,9 +33,7 @@ differ.
 Multi-head Latent Attention and the encoder-decoder run on one device
 only (``core.steps.plan_refusal``), so under a plan their records say
 ``"status": "not_ported"`` with the ROADMAP item, beside the reference's
-own skips (``skip_reason``); so does a serving shape whose cache the
-plan's runtime refuses (``serve.steps.ServePlan.cache_refusal``: a batch
-as large as the stack is deep, ROADMAP queue 3).
+own skips (``skip_reason``).
 
     python -m repro_torch.launch.dryrun --arch gpt2m --shape train_4k
 
@@ -90,9 +88,7 @@ def _bytes(tree) -> int:
 
 def build_step(model, plan, mesh, cfg, shape, tcfg):
     """(step fn, its args on the meta device, the analytic cost, the
-    state's bytes by part).  ``plan`` None: one device, no mesh.  A
-    string where the serving plan has no cache layout for the shape: the
-    runtime's refusal (``ServePlan.cache_refusal``)."""
+    state's bytes by part).  ``plan`` None: one device, no mesh."""
     import torch
 
     from repro_torch.core.steps import build_train_step
@@ -125,9 +121,6 @@ def build_step(model, plan, mesh, cfg, shape, tcfg):
     if plan is not None:
         sp = ServePlan(model, plan, mesh, max_len=shape.seq_len,
                        window=window)
-        refused = sp.cache_refusal(shape.global_batch)
-        if refused is not None:
-            return str(refused)
         params = sp.shard_params(full)
         cache = sp.init_cache(shape.global_batch)
     else:
@@ -272,10 +265,8 @@ def run_one(arch, shape_name, plan_name: Optional[str], *,
                 _fake_world(world, r)
                 mesh = _mesh(plan, mesh_shape, multi_pod)
             model = build_model(cfg, use_kernels=kernels, device="meta")
-            built = build_step(model, plan, mesh, cfg, shape, tcfg)
-            if isinstance(built, str):
-                return dict(rec, status="not_ported", reason=built)
-            step, args, cost, state = built
+            step, args, cost, state = build_step(model, plan, mesh, cfg,
+                                                 shape, tcfg)
             got = trace(step, args)
             del step, args
             runs.append((r, got, state))

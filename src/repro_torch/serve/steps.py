@@ -79,7 +79,14 @@ class ServePlan:
         keeps the conv state whole;
       * under pipeshard a rank holds its stage's layers' rows of the
         cache, where ``cache_spec`` keeps the layer dim whole over
-        ``stage``.
+        ``stage``;
+      * at a batch as large as a stack dim is deep ``cache_spec``, which
+        finds the batch dim by size, cuts that stack dim in the batch's
+        place, where a rank holds its rows of the batch as at any other
+        size;
+      * where ``model`` divides the SSM conv state's window (d_conv - 1
+        rows: a model axis of 3) ``cache_spec`` cuts the window, where a
+        rank holds every row of it for the channels it computes.
 
     ``stage_layers`` (pipeshard): the layers (the hybrid family's groups)
     of each chunk, ``v`` chunks a stage for ``v * stages`` entries; None
@@ -188,14 +195,18 @@ class ServePlan:
             return t
         return all_gather(t, self.mesh.group(axes), 0)
 
-    def cache_refusal(self, batch_size: int, *, kv_dtype: str = "fp32",
-                      slots: bool = False) -> Optional[Exception]:
-        """The error ``init_cache`` raises for a cache of ``batch_size``
-        rows, or None where it builds one: ``cache_spec`` takes another
-        dim for the batch (it finds the batch dim by size, so a stack as
-        deep as the batch is cut in its place), or it would cut an SSM
-        conv state's window over ``model``: neither has a layout of the
-        runtime's own (ROADMAP queue 3)."""
+    def check_cache_layout(self, batch_size: int, *, kv_dtype: str = "fp32",
+                           slots: bool = False) -> None:
+        """Hold the layout ``init_cache`` builds for ``batch_size`` rows
+        to ``cache_spec``'s where the two speak of the same dims: on each
+        leaf whose batch dim ``cache_spec`` finds (it finds the batch dim
+        by size; the true one is the dim that differs between the caches
+        of B and B + 1 rows), the ring's cut over ``model`` and the SSM
+        state's ``h`` cut with its channels.  Where ``cache_spec`` takes
+        another dim for the batch (a stack as deep as the batch) or cuts
+        the SSM conv state's window over ``model``, the runtime keeps its
+        own layout: the two differ in memory, not in numbers (ROADMAP
+        queue 3, "Facts")."""
         m = self.model
         init = m.init_slot_cache if slots else m.init_cache
         kw = dict(window=self.window, kv_dtype=kv_dtype)
@@ -204,29 +215,17 @@ class ServePlan:
         specs = self.plan.cache_spec(shapes, m.cfg, self.mesh, batch_size)
         cut = self._ring_cut()
         n = self.mesh.shape.get(MODEL_AXIS, 1)
-        refused = []
 
         def check(name, leaf, other, spec):
-            if name == "index" or refused:
+            if name == "index" or name == "conv":
                 return
             at = next(i for i, s in enumerate(leaf.shape) if s == batch_size)
             want = next(i for i, (a, b) in enumerate(zip(leaf.shape,
                                                          other.shape))
                         if a != b)
             if at != want:
-                refused.append(ValueError(
-                    f"cache_spec takes dim {at} of the cache leaf {name!r} "
-                    f"{tuple(leaf.shape)} for the batch of {batch_size} (it "
-                    f"finds the batch dim by size); serve another batch "
-                    f"size than the stack depth (ROADMAP queue 3)"))
                 return
             on_model = len(spec) > at + 1 and spec[at + 1] == MODEL_AXIS
-            if name == "conv" and on_model and n > 1:
-                refused.append(NotImplementedError(
-                    f"cache_spec cuts the SSM conv state's window "
-                    f"{tuple(leaf.shape)} over a model axis of {n}, which "
-                    f"no rank's computation follows (ROADMAP queue 3)"))
-                return
             if name == "h" and n > 1 and on_model != \
                     (self.channel_blocks > 1):
                 raise AssertionError(f"h: cache_spec {spec} against the "
@@ -236,7 +235,6 @@ class ServePlan:
                                      f"the ring's blocks {self.blocks}")
 
         map_cache(check, shapes, wider, specs)
-        return refused[0] if refused else None
 
     def _ring_cut(self) -> bool:
         """Whether a rank holds a block of the ring (not the whole)."""
@@ -246,12 +244,9 @@ class ServePlan:
                    slots: bool = False) -> Cache:
         """This rank's rows, block, SSM channels and (under pipeshard)
         stage layers of a fresh cache of ``batch_size`` rows (``slots``:
-        ``Model.init_slot_cache``'s per-slot cache).  Raises where
-        ``cache_refusal`` finds no layout of the runtime's own."""
-        refused = self.cache_refusal(batch_size, kv_dtype=kv_dtype,
-                                     slots=slots)
-        if refused is not None:
-            raise refused
+        ``Model.init_slot_cache``'s per-slot cache), at every batch size
+        and on every model axis (``check_cache_layout``)."""
+        self.check_cache_layout(batch_size, kv_dtype=kv_dtype, slots=slots)
         init = self.model.init_slot_cache if slots else self.model.init_cache
         return init(batch_size, self.max_len, rows=self.rows(batch_size)[1],
                     seq_blocks=self.blocks.size if self._ring_cut() else 1,

@@ -867,11 +867,13 @@ def test_rmsnorm_kernel_strided_rows(cuda_device, rows, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [6144, 8192])
+@pytest.mark.parametrize("d", [6144, 8192, 12290, 16384, 32768])
 @pytest.mark.parametrize("rows", [1, 8, 300])
 def test_rmsnorm_kernel_wide_rows(cuda_device, rows, d, dtype):
-    """Rows past the served widths, up to MAX_D (8192): CTAs of 768 and
-    1024 threads, 8 elements each; the same gates."""
+    """Rows past the served widths, up to MAX_D (32768): CTAs of 768 and
+    1024 threads, 8 elements each, then 2 groups of 8 a thread (12290 on
+    single elements, llama3-405b's 16384 on vectors) and 4 (32768); the
+    same gates."""
     from repro_torch.kernels import rmsnorm as trn
 
     g = torch.Generator(device=cuda_device).manual_seed(rows + d)

@@ -344,6 +344,69 @@ def test_rmsnorm_plain_matches_reference(rows, d, dtype):
             assert np.all(np.abs(gf - wf) <= tol), (gname, wname)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_matches_reference_at_llama3_405b_width(dtype):
+    """At llama3-405b's d_model of 16384, past the 8192 a CTA held before
+    kernel 6 took K groups a thread: the plain version (what the CPU and
+    the meta rule run) against the reference's ``ref.rmsnorm_ref``, to the
+    tolerances above."""
+    rng = np.random.default_rng(16384)
+    x = (_rand(rng, (8, 16384)) * 3.0 + 0.5).astype(np.float32)
+    w = (1.0 + 0.1 * _rand(rng, (16384,))).astype(np.float32)
+    want = np.asarray(jref.rmsnorm_ref(jnp.asarray(x).astype(dtype),
+                                       jnp.asarray(w), eps=1e-5)
+                      .astype(jnp.float32))
+    tops.reset_launch_counts()
+    got = tops.rmsnorm(_t(x).to(getattr(torch, dtype)), _t(w), eps=1e-5)
+    assert tops.launch_counts()["rmsnorm"] == 0
+    tol = 1e-5 if dtype == "float32" else _bf16_ulp(want)
+    assert np.all(np.abs(got.float().numpy() - want) <= tol)
+
+
+# the widths chip_smoke.py holds kernel 6 to at d <= 8192 (RMS_DS and
+# RMS_MLA_DS) and its rows: the launch shape there is the one of a
+# thread per 8 elements, as before K groups a thread
+_RMS_SERVED = [(r, d) for d in (256, 512, 768, 1536, 2560, 3072, 4096,
+                                6144, 8192) for r in (1, 8, 257, 512)]
+
+
+@pytest.mark.parametrize("rows,d", _RMS_SERVED)
+def test_rmsnorm_plan_keeps_its_shape_up_to_8192(rows, d):
+    threads = 32 * -(-d // (32 * trn.EPT))
+    want = trn.RmsPlan(threads, min(rows, 132 * max(1, 2048 // threads)))
+    assert trn.rmsnorm_groups(d) == 1
+    assert trn.rmsnorm_plan(rows, d, 132) == want
+
+
+@pytest.mark.parametrize("d,groups", [(8193, 2), (12288, 2), (16384, 2),
+                                      (24576, 4), (trn.MAX_D, 4)])
+@pytest.mark.parametrize("rows", [8, 257, 512])
+def test_rmsnorm_plan_past_8192_holds_each_element_once(rows, d, groups):
+    """Past 8192 a thread holds K = 2 or 4 groups of EPT elements (K in
+    csrc/rmsnorm.cu: the least with threads * EPT * K >= d, which the
+    kernel works out from the plan's threads); every element is held by
+    one thread within them, for 16-byte vectors of bf16 and fp32 and for
+    single elements (the kernel's vectors where they divide d); MAX_D is
+    32768 and past it the planner raises."""
+    assert trn.MAX_D == 32768 and trn.rmsnorm_groups(d) == groups
+    plan = trn.rmsnorm_plan(rows, d, 132)
+    assert plan.threads % 32 == 0 and plan.threads <= trn.MAX_THREADS
+    k = 1
+    while plan.threads * trn.EPT * k < d:
+        k *= 2
+    assert k == groups
+    if d == 16384:
+        assert plan == trn.RmsPlan(1024, min(rows, 264))
+    for vec in (v for v in (8, 4, 1) if d % v == 0):
+        held = np.zeros(d, dtype=int)
+        for v in range(d // vec):
+            assert (v // plan.threads) * vec < groups * trn.EPT
+            held[v * vec:(v + 1) * vec] += 1
+        assert (held == 1).all()
+    with pytest.raises(ValueError, match="32768"):
+        trn.rmsnorm_plan(rows, trn.MAX_D + 1, 132)
+
+
 def test_apply_norm_routes_rmsnorm_through_ops():
     """``use_kernels`` sends RMSNorm through ``ops.rmsnorm`` (on the CPU,
     the plain version: the same values); LayerNorm keeps its own path."""

@@ -579,12 +579,25 @@ def test_skips_and_not_ported_are_apart():
             ("gpt2m", "long_500k", "skip", "no sub-quadratic"),
             ("minicpm3-4b", "train_4k", "not_ported", "item 13"),
             ("deepseek-v2-236b", "prefill_32k", "not_ported", "item 13"),
-            ("whisper-small", "train_4k", "not_ported", "item 14"),
-            # a batch of 32 as deep as the stack: ServePlan refuses it
-            ("phi3.5-moe-42b-a6.6b", "prefill_32k", "not_ported",
-             "queue 3")):
+            ("whisper-small", "train_4k", "not_ported", "item 14")):
         rec = dryrun.run_one(arch, shape, "shard", verbose=False)
         assert rec["status"] == status and words in rec["reason"], rec
+    # a batch of 32 as deep as the stack: ServePlan lays out its own cache
+    rec = dryrun.run_one("phi3.5-moe-42b-a6.6b", "prefill_32k", "shard",
+                         verbose=False)
+    assert rec["status"] == "ok" and "reason" not in rec, rec
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
+def test_llama3_405b_serving_dry_runs_end_ok(shape):
+    """llama3-405b's d_model of 16384 goes through kernel 6's meta rule
+    (rows of up to ``MAX_D`` = 32768) under shard on 16 x 16."""
+    from repro_torch.kernels import rmsnorm as trn
+    assert tconfigs.get_config("llama3-405b").d_model <= trn.MAX_D
+    rec = dryrun.run_one("llama3-405b", shape, "shard", verbose=False)
+    assert rec["status"] == "ok", rec
+    assert (rec["plan"], rec["n_devices"]) == ("shard", 256)
+    assert rec["memory_per_device_bytes"] > 0
 
 
 @pytest.mark.parametrize("name", sorted(FULL_RUNS))

@@ -27,9 +27,11 @@ SSM, hybrid and vision-language families.
 * Structure: the collectives of a decode step a layer under shard, and
   under pipeshard each stage's collectives, handoffs and the logits'
   broadcast; each rank's cache leaves against ``cache_spec``, with the
-  differences that change memory only; the refusals that stay (a config
-  not ported, a model axis that would cut the SSM conv window); the
-  launcher under ``torch.distributed.run``.
+  differences that change memory only, among them a batch as deep as
+  the stack and a model axis of 3 that ``cache_spec`` would have cut the
+  SSM conv window over, both served with one device's tokens; the
+  refusal that stays (a config not ported); the launcher under
+  ``torch.distributed.run``.
 """
 from __future__ import annotations
 
@@ -282,19 +284,29 @@ def test_pipeshard_stage_rows_and_chunks(one_rank):
 
 
 @pytest.mark.parametrize("family", list(worker.CASES))
-def test_a_batch_as_deep_as_the_stack_raises_for_every_family(one_rank,
+def test_a_batch_as_deep_as_the_stack_raises_for_every_family(worlds,
                                                               family):
-    """``cache_spec`` finds the batch dim by size: a batch as deep as the
-    stack (4 layers; the hybrid's 4 groups) takes the stack dim, and the
-    runtime raises; a batch unlike every stack dim does not."""
-    from repro_torch.serve.steps import ServePlan
-    model = TModel(worker.case_config(family), device="cpu")
-    for plan in ("shard", "pipeshard"):
-        sp = ServePlan(model, plan, _port_mesh(one_rank, plan),
-                       max_len=worker.MAX_LEN)
-        sp.init_cache(worker.BATCH)
-        with pytest.raises(ValueError, match="finds the batch dim by size"):
-            sp.init_cache(4)
+    """``cache_spec`` finds the batch dim by size: at a batch as deep as
+    the stack (4 layers; the hybrid's 4 groups) it takes the stack dim,
+    while the runtime lays out its own cache.  Under shard on (1, 1, 2)
+    and pipeshard on (2, 1, 1) the Engine gives one device's tokens at
+    that batch, every step's logits within ``FP32_LOGIT_ATOL``.  (Named
+    for the refusal it held until the runtime laid out its own cache.)"""
+    want = worlds[1]["one_device"][(family, "deep", "fp32")]
+    plans = []
+    for m in _meshes(worlds, 2):
+        if "deep" not in m:
+            continue
+        got = m["deep"][family]
+        plans.append(worker.DEEP_PLANS[m["shape"]])
+        assert got["tokens"].shape == (worker.DEEP, worker.GEN)
+        _close(got, want, "fp32", f"deep {family} {m['shape']}")
+        for leaf, (mine, whole, spec) in got["layout"].items():
+            # the true batch dim is this rank's rows of every stack row
+            if leaf.endswith("index"):
+                continue
+            assert worker.DEEP in mine, (leaf, mine)
+    assert sorted(plans) == ["pipeshard", "shard"]
 
 
 def test_a_config_not_ported_is_refused():
@@ -309,13 +321,22 @@ def test_a_config_not_ported_is_refused():
 
 def test_a_model_axis_that_cuts_the_conv_window_is_refused(worlds):
     """On a model axis of 3, ``cache_spec`` cuts the SSM conv state's 3
-    rows of window (the dim after the batch) over ``model``; no rank's
-    computation follows that cut, so the runtime raises, naming ROADMAP
-    queue 3, for the SSM and the hybrid family."""
-    got = worlds[3]["refused"]
-    assert set(got) == {"ssm", "hybrid"}
-    for msg in got.values():
-        assert "conv state's window" in msg and "queue 3" in msg
+    rows of window (the dim after the batch) over ``model``; a rank keeps
+    the whole window for the channels it computes, and the SSM and
+    hybrid families give one device's tokens, every step's logits within
+    ``FP32_LOGIT_ATOL``.  (Named for the refusal it held until the
+    runtime laid out its own cache.)"""
+    got = worlds[3]["conv_window"]
+    assert set(got) == set(worker.CONV_CASES) == {"ssm", "hybrid"}
+    one = worlds[1]["one_device"]
+    for name, run in got.items():
+        _close(run, one[(name, "engine", "fp32")], "fp32",
+               f"conv window {name}")
+        conv = [v for k, v in run["layout"].items() if k.endswith("conv")]
+        assert conv, run["layout"]
+        for mine, whole, spec in conv:
+            at = spec.index("model")
+            assert whole[at] == 3 and mine[at] == 3, (mine, whole, spec)
 
 
 # ------------------------------------------------------------------ #

@@ -312,18 +312,40 @@ def test_a_plan_without_a_mesh_is_refused():
                          device="cpu", mesh=object())
 
 
-def test_a_batch_as_deep_as_the_stack_raises(one_rank):
+def test_a_batch_as_deep_as_the_stack_raises(worlds, one_rank):
     """``cache_spec`` finds the batch dim by size: at a batch equal to
-    the stack's depth (2 layers) it takes the layer dim, and the runtime
-    raises instead of choosing a layout of its own."""
+    the stack's depth (2 layers) it takes the layer dim, while the
+    runtime lays out its own cache, a rank's rows of every layer.  Under
+    shard on (1, 1, 2) and data on (1, 2, 1) the Engine (fp32 KV) and the
+    ContinuousEngine (int8 KV, 2 slots) give one device's tokens, the
+    Engine's logits within ``FP32_LOGIT_ATOL``.  (Named for the refusal
+    it held until the runtime laid out its own cache there.)"""
     from repro_torch.serve.steps import ServePlan
     _, tcfg = _configs()
     sp = ServePlan(TModel(tcfg, device="cpu"), "shard", one_rank, max_len=16)
-    assert sp.init_cache(4).k.shape[1] == 4
-    with pytest.raises(ValueError, match="finds the batch dim by size"):
-        sp.init_cache(tcfg.n_layers)
-    with pytest.raises(ValueError, match="finds the batch dim by size"):
-        sp.init_cache(tcfg.n_layers, kv_dtype="int8", slots=True)
+    shapes = sp.init_cache(tcfg.n_layers).k.shape
+    spec = sp.plan.cache_spec(TModel(tcfg, device="cpu").init_cache(
+        tcfg.n_layers, 16, device="meta"), tcfg, one_rank, tcfg.n_layers)
+    assert spec.k[0] is not None             # the layer dim, taken by size
+    assert (shapes[0], shapes[1]) == (tcfg.n_layers, tcfg.n_layers)
+    assert sp.init_cache(tcfg.n_layers, kv_dtype="int8", slots=True) \
+        .index.shape == (tcfg.n_layers, tcfg.n_layers)
+    want = worlds[1]["deep"][None]
+    got = worlds[2]["deep"]
+    assert sorted(got) == [("data", (1, 2, 1)), ("shard", (1, 1, 2))]
+    for key, run in got.items():
+        eng = run["engine"]
+        np.testing.assert_array_equal(eng["tokens"], want["engine"]["tokens"],
+                                      err_msg=str(key))
+        assert eng["tokens"].shape == (worker.DEEP, worker.GEN)
+        for a, b in zip(eng["logits"], want["engine"]["logits"]):
+            assert np.abs(a - b).max() <= FP32_LOGIT_ATOL, key
+        rows = worker.DEEP // key[1][1]
+        assert eng["shapes"]["k"][:2] == (worker.DEEP, rows), key
+        assert run["cont"].keys() == want["cont"].keys()
+        for uid, w in want["cont"].items():
+            np.testing.assert_array_equal(run["cont"][uid], w,
+                                          err_msg=f"{key} request {uid}")
 
 
 # ------------------------------------------------------------------ #

@@ -63,6 +63,17 @@ CONTINUOUS = ("dense", "moe", "ssm", "hybrid")
 # layers a group) and the conv window (d_conv - 1 = 3), so that
 # ``cache_spec`` finds the batch; a data axis of 2 cuts them in 3
 BATCH, SLOTS, PROMPT, MAX_LEN, GEN = 6, 6, 7, 16, 5
+# a batch as deep as the stack (4 layers; the hybrid's 4 groups), whose
+# stack dim ``cache_spec`` takes for the batch (it finds the batch by
+# size) while the runtime lays out its own cache: every family's Engine
+# (fp32 KV) under the plan of each of these meshes of the world of 2
+DEEP = 4
+DEEP_PLANS = {(1, 1, 2): "shard", (2, 1, 1): "pipeshard"}
+# a model axis of 3, which divides the SSM conv state's window of 3 rows,
+# so that ``cache_spec`` cuts it while a rank keeps every row of it for
+# its channels: these families' Engine (fp32 KV, BATCH rows) under shard
+# on (1, 1, 3), in the world of 3
+CONV_CASES = ("ssm", "hybrid")
 # the vision-language family's patches, x 0.02 from their own seed
 PATCH_SEED = 2
 CONT_LEN, BUCKETS = 32, (8, 16)
@@ -256,6 +267,8 @@ def one_device():
     for name in CASES:
         model = Model(case_config(name), device="cpu")
         params = init_params(model)
+        out[(name, "deep", "fp32")] = engine_run(model, params, "fp32",
+                                                 batch=DEEP)
         for kv in KV_DTYPES[name]:
             out[(name, "engine", kv)] = engine_run(model, params, kv)
             if name in CONTINUOUS:
@@ -272,21 +285,28 @@ def one_device():
     return out
 
 
-def refusals(world: int):
-    """The messages of the SSM and hybrid ``init_cache`` on a model axis
-    of ``world`` (3 cuts the conv window of 3 rows)."""
+def conv_window_runs(world: int):
+    """The SSM and hybrid Engine under shard on a model axis of
+    ``world`` (3 divides the conv window of 3 rows)."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import Model
-    from repro_torch.serve.steps import ServePlan
     mesh = make_host_mesh((1, 1, world), AXES)
     out = {}
-    for name in ("ssm", "hybrid"):
-        sp = ServePlan(Model(case_config(name), device="cpu"), "shard", mesh,
-                       max_len=MAX_LEN)
-        try:
-            sp.init_cache(BATCH)
-        except NotImplementedError as e:
-            out[name] = str(e)
+    for name in CONV_CASES:
+        model = Model(case_config(name), device="cpu")
+        out[name] = engine_run(model, init_params(model), "fp32", "shard",
+                               mesh)
+    return out
+
+
+def deep_runs(plan, mesh):
+    """Every family's Engine at a batch as deep as the stack."""
+    from repro_torch.models import Model
+    out = {}
+    for name in CASES:
+        model = Model(case_config(name), device="cpu")
+        out[name] = engine_run(model, init_params(model), "fp32", plan, mesh,
+                               batch=DEEP)
     return out
 
 
@@ -374,7 +394,7 @@ def run(rank: int, world: int, init: str, out: str) -> None:
     if world == 1:
         res["one_device"] = one_device()
     if world == 3:
-        res["refused"] = refusals(world)
+        res["conv_window"] = conv_window_runs(world)
     for turn, (kind, shape, stages, split_name) in enumerate(MESHES[world]):
         mesh = mesh_of(kind, shape, stages)
         rec = {"kind": kind, "shape": shape, "stages": stages,
@@ -382,6 +402,8 @@ def run(rank: int, world: int, init: str, out: str) -> None:
                "runs": under_plans(kind, mesh, split_name, turn)}
         if kind == PIPE or shape == (1, 1, 2):
             rec["counts"] = decode_counts(kind, mesh, split_name)
+        if world == 2 and shape in DEEP_PLANS:
+            rec["deep"] = deep_runs(DEEP_PLANS[shape], mesh)
         # every rank's cache layouts and counts (the ranks' rows, blocks
         # and stages differ)
         mine = {"coord": dict(mesh.coord), "counts": rec.get("counts"),

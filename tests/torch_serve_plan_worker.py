@@ -59,6 +59,13 @@ REQUEST_LENS = (3, 9, 12, 7, 14)
 SPLIT = ({"engine": "fp32", "cont": ("int8", "divides")},
          {"engine": "int8", "cont": ("fp32", "ragged")})
 COUNT_LAYERS = (2, 3)
+# a batch (and slots) as deep as the stack (reduced gpt2m's 2 layers),
+# whose layer dim ``cache_spec`` takes for the batch (it finds the batch
+# by size): the runtime lays out its own cache; served by the Engine
+# (fp32 KV) and the ContinuousEngine (int8 KV) under each plan of
+# DEEP_PLANS on the mesh of the same index of the world of 2
+DEEP = 2
+DEEP_PLANS = ("shard", "data")
 
 
 def case_config(name: str, **extra):
@@ -72,9 +79,9 @@ def init_params(model):
     return model.init(torch.Generator().manual_seed(0))
 
 
-def prompts(vocab: int, layout: str):
+def prompts(vocab: int, layout: str, batch: int = BATCH):
     rng = np.random.default_rng(0)
-    return {"tokens": rng.integers(4, vocab, (BATCH, LAYOUTS[layout][2]))}
+    return {"tokens": rng.integers(4, vocab, (batch, LAYOUTS[layout][2]))}
 
 
 def requests(vocab: int):
@@ -108,23 +115,25 @@ class Recorder:
             setattr(self.engine, name, fn)
 
 
-def engine_run(model, params, layout, kv, plan=None, mesh=None):
+def engine_run(model, params, layout, kv, plan=None, mesh=None,
+               batch=BATCH):
     """(tokens, logits of each step, this rank's cache leaf shapes)."""
     from repro_torch.serve import Engine
     max_len, window, _ = LAYOUTS[layout]
-    eng = Engine(model, batch_size=BATCH, max_len=max_len, window=window,
+    eng = Engine(model, batch_size=batch, max_len=max_len, window=window,
                  kv_dtype=kv, device="cpu", plan=plan, mesh=mesh)
     with Recorder() as rec:
         out = eng.generate(eng.shard_params(params),
-                           prompts(model.cfg.vocab_size, layout), GEN)
-    cache = eng._init_cache(BATCH)
+                           prompts(model.cfg.vocab_size, layout, batch), GEN)
+    cache = eng._init_cache(batch)
     shapes = {f: tuple(getattr(cache, f).shape) for f in cache._fields}
     return {"tokens": out["tokens"], "logits": rec.logits, "shapes": shapes}
 
 
-def continuous_run(model, params, layout, kv, plan=None, mesh=None):
+def continuous_run(model, params, layout, kv, plan=None, mesh=None,
+                   slots=SLOTS):
     from repro_torch.serve import ContinuousEngine
-    ce = ContinuousEngine(model, slots=SLOTS, max_len=CONT_LAYOUTS[layout],
+    ce = ContinuousEngine(model, slots=slots, max_len=CONT_LAYOUTS[layout],
                           buckets=(8, 16), kv_dtype=kv, device="cpu",
                           plan=plan, mesh=mesh)
     res = ce.run(ce.shard_params(params), requests(model.cfg.vocab_size),
@@ -147,6 +156,19 @@ def one_device():
                 out[(name, "cont", kv, layout)] = continuous_run(
                     model, params, layout, kv)
     return out
+
+
+def deep_runs(plan=None, mesh=None):
+    """The Engine and the ContinuousEngine at a batch and slots as deep as
+    the stack (``DEEP``)."""
+    from repro_torch.models import Model
+    model = Model(case_config("gpt2m"), device="cpu")
+    assert model.cfg.n_layers == DEEP
+    params = init_params(model)
+    return {"engine": engine_run(model, params, "divides", "fp32", plan,
+                                 mesh, batch=DEEP),
+            "cont": continuous_run(model, params, "divides", "int8", plan,
+                                   mesh, slots=DEEP)}
 
 
 def rotated(case: int, plan: int, turn: int):
@@ -203,12 +225,16 @@ def run(rank: int, world: int, init: str, out: str) -> None:
     res = {"world": world, "meshes": []}
     if world == 1:
         res["one_device"] = one_device()
+        res["deep"] = {None: deep_runs()}
     for turn, (shape, split) in enumerate(zip(MESHES[world], SPLIT)):
         mesh = make_host_mesh(shape, AXES)
         res["meshes"].append({"shape": shape, "split": split,
                               "runs": under_plans(
                                   mesh, split, None if world == 1 else turn),
                               "counts": decode_counts(mesh)})
+        if world == 2:
+            plan = DEEP_PLANS[turn]
+            res.setdefault("deep", {})[(plan, shape)] = deep_runs(plan, mesh)
     if rank == 0:
         torch.save(res, out)
     dist.destroy_process_group()

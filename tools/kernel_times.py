@@ -46,13 +46,14 @@ A run records, each printed as it goes:
     of falcon-mamba-7b and one of zamba2-2.7b; for ``int8mm`` one
     ``ops.int8_matmul`` (pad, quantize, kernel 5) at 1024^3 and 4096^3,
     blocks of 64, as the calibration micro-bench calls it.
-``--compare`` prints each shape's mean time per label, each traced
-kernel's device time, and where two greedy decodes first part (kernel
-against plain path in every run, and each label's kernel path against
-the others').
+``--compare`` prints each shape's mean time per label and whether every
+run gave the same bits there, each traced kernel's device time, and
+where two greedy decodes first part (kernel against plain path in every
+run, and each label's kernel path against the others').
 """
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import sys
@@ -109,20 +110,33 @@ def scan_held(torch, smoke, plain):
     return check
 
 
+def digest(torch, out) -> str:
+    """sha256 of the bytes of a result (a tensor or a tuple of them)."""
+    h = hashlib.sha256()
+    for t in out if isinstance(out, (tuple, list)) else (out,):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
 def time_cases(torch, smoke, cases, suffix=""):
-    """Rows {key, ms, bound_ms} of ``(key, fn, check, bound_ms)`` cases,
-    each checked before it is timed."""
+    """Rows {key, ms, bound_ms, digest} of ``(key, fn, check, bound_ms)``
+    cases, each checked before it is timed; ``digest`` is the result's
+    bits, so that ``--compare`` tells whether two trees agree bit for
+    bit."""
     rows = []
     for key, fn, check, bound_ms in cases:
         key += suffix
         bad = check(fn)
         if bad:
             raise SystemExit(f"{key}: {bad}")
+        bits = digest(torch, fn())
         ms = smoke.time_ms(torch, fn)
         tail = f" (bound {bound_ms:.5f}, {ms / bound_ms:.2f}x)" \
             if bound_ms else ""
         print(f"{key}: {ms:.4f} ms{tail}", flush=True)
-        rows.append({"key": key, "ms": ms, "bound_ms": bound_ms})
+        rows.append({"key": key, "ms": ms, "bound_ms": bound_ms,
+                     "digest": bits})
     return rows
 
 
@@ -173,6 +187,8 @@ def decode_cases(torch, smoke):
                 x = (torch.randn((n, d), generator=g, device="cuda") * 3
                      + 0.5).to(dtype)
                 w = 1 + 0.1 * torch.randn((d,), generator=g, device="cuda")
+                if d > rn.MAX_D:     # a tree whose rows are narrower
+                    continue         # (its inputs drawn all the same)
                 out.append((f"rmsnorm {str(dtype)[6:]} rows={n} d={d}",
                             lambda x=x, w=w: rn.rmsnorm_cuda(x, w),
                             close_to(torch, smoke, rn.rmsnorm_plain(x, w)),
@@ -513,16 +529,22 @@ def compare(paths) -> None:
     print(runs[0]["card"])
     for part in ("times", "sweep"):
         ms, bounds = defaultdict(lambda: defaultdict(list)), {}
+        bits = defaultdict(set)
         for r in runs:
             for row in r.get(part, ()):
                 ms[row["key"]][r["label"]].append(row["ms"])
                 bounds[row["key"]] = row.get("bound_ms")
+                if row.get("digest"):
+                    bits[row["key"]].add(row["digest"])
         for key, by in ms.items():
             cells = "  ".join(
                 f"{lab} {sum(by[lab]) / len(by[lab]):.4f}" for lab in labels
                 if by.get(lab))
             tail = f" (bound {bounds[key]:.5f})" if bounds[key] else ""
-            print(f"{key}: {cells} ms{tail}")
+            same = "" if not bits[key] else "; the same bits in every run" \
+                if len(bits[key]) == 1 else \
+                f"; {len(bits[key])} different results"
+            print(f"{key}: {cells} ms{tail}{same}")
     for lab in labels:
         for r in (r for r in runs if r["label"] == lab):
             for name, prof in (r.get("traces") or {}).items():
