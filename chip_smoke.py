@@ -105,21 +105,22 @@ step (remat), losses held to ``train-gpt2L``'s, the three phases
 bit-equal to each other, 1F1B's peak memory over a forward and backward
 of the batch below GPipe's.  Then the MoE, SSM and hybrid families at
 full width, depth cut (phi3.5-MoE 2 of 32 layers, falcon-mamba 4 of 64,
-zamba2 12 of 54), three steps of batch 4 of 512 random tokens through
-the kernels' plain versions (their kernels have no backward on the
-card), on one device, then under shard (``fam-moe-shard``, ...,
-bit-equal to one device) and under pipeshard with 1F1B and four
+zamba2 12 of 54), three steps of batch 4 of 512 random tokens (two in
+zamba2's accumulated and pipelined phases) through the kernels' plain
+versions (their kernels have no backward on the card), on one device,
+then under shard (``fam-moe-shard``, ..., bit-equal to one device) and
+under pipeshard with 1F1B and four
 microbatches (``fam-moe-pipe``, ..., held to one device with four
 accumulated microbatches), each step updating its state in place.
 Then it serves under the flat plans in the same process group: gpt2L at
 full size through ``Engine`` (batch 8, prompt 64, 32 new tokens) under
 data, zero2, shard, shard_zero and fsdp with the fp32 cache, under
 shard with the int8 cache (kernel B with its log-sum-exp, the merge of
-the ring's blocks) and through ``ContinuousEngine`` (int8, 8 slots, 16
-requests), and llama3.2-3b at full size with the int8 cache under shard
-(``serve-*``): each phase's tokens held to the one-device engine's on
-the same weights and prompts, one run timed (``SERVE_ONE_RUN``: every
-flat phase).  Then, once each after
+the ring's blocks) and through ``ContinuousEngine`` (int8, 8 slots, one
+wave of 8 requests), and llama3.2-3b at full size with the int8 cache
+under shard (``serve-*``): each phase's tokens held to the one-device
+engine's on the same weights and prompts, one run timed
+(``SERVE_ONE_RUN``: every flat phase).  Then, once each after
 its one-device yardstick: gpt2L under pipeshard on one stage of two
 chunks (16 and 14 layers) through ``Engine`` (fp32 KV) and
 ``ContinuousEngine`` (int8; ``serve-pipeshard``,
@@ -144,6 +145,18 @@ checkpoint without the reshard code; kernel A launches 24 forward and 12
 backward a microbatch of a step; each phase prints its checkpoint
 writes and restores (seconds, GB), its step times before and after, and
 its peak memory.
+
+After the VLM, in the same process group, whisper-small at full size
+under the plans, on its one-device phases' weights, prompts, frames
+and batches: ``Engine`` under shard and under pipeshard on one stage of
+two chunks of 7 and 5 decoder layers (``serve-whisper-shard``,
+``serve-whisper-pipeshard``: the cross cache cut as ``cache_spec`` cuts
+it, the encoder's output broadcast to every stage at prefill; tokens
+equal to ``whisper-engine``'s), and three training steps under shard
+(``plan-whisper-shard``) and under pipeshard, four microbatches, 1F1B
+(``fam-whisper-pipe``: the encoder once a microbatch, its output carried
+with the hidden states), held to ``train-whisper``'s losses as
+``fam-vlm-pipe`` is held to ``train-vlm``'s.
 
 Then the dry run against the card (``dryrun-vs-card``, no second
 training step): ``repro_torch.launch.dryrun`` traces one gpt2m training
@@ -301,6 +314,10 @@ FAM_MODELS = (("moe", "phi3.5-moe-42b-a6.6b", 2),
               ("ssm", "falcon-mamba-7b", 4),
               ("hybrid", "zamba2-2.7b", 12))
 FAM_BATCH, FAM_SEQ, FAM_STEPS, FAM_MICRO = 4, 512, 3, 4
+# the hybrid's accumulated and pipelined phases, the longest two of the
+# family phases (zamba2's plain per-token scans, four microbatches), run
+# two steps: the second step's loss still reads the first update
+FAM_SHORT, FAM_SHORT_STEPS = ("fam-hybrid-accum", "fam-hybrid-pipe"), 2
 FAM_LOSS1_RTOL, FAM_LOSS_RTOL = 1e-5, 1e-3
 # the pipe phases: gpt2L under pipeshard on a (stage, data, model) mesh
 # of (1, 1, 1), the batch of 8 cut into PIPE_MICRO microbatches, under
@@ -337,7 +354,8 @@ ELASTIC_GPUS, ELASTIC_DEAD, ELASTIC_WINNER = "A30;A30", (1,), ("data", (0,))
 # prompt 64, 32 new tokens) under each flat plan over NCCL at a world of
 # one, fp32 KV (``serve-<plan>``), under shard with the int8 cache
 # (``serve-shard-int8``) and through ``ContinuousEngine`` (int8, 8 slots,
-# 16 requests of 16 to 256 tokens, ``serve-shard-continuous``), and
+# one wave of 8 requests of 16 to 256 tokens, ``serve-shard-continuous``),
+# and
 # llama3.2-3b at full size with the int8 cache under shard
 # (``serve-llama-shard``): kernels A and B at head_dim 128 and kernel 6.
 # Each phase serves SERVE_RUNS times (TTFT and tokens/s as the median
@@ -450,6 +468,11 @@ WHISPER_FWD = tuple((ENGINE_BATCH, sq, 1500) for sq in (64, 448, 1500, 1))
 WHISPER_BWD = tuple((ENGINE_BATCH, sq, 1500) + WHISPER_HEADS
                     for sq in (448, 1500))
 WHISPER_SEQ, WHISPER_STEPS = 448, 3
+# whisper-small under the plans at a world of one (``whisper_plan_phases``):
+# pipeshard serves on one stage of two chunks of its 12 decoder layers
+WHISPER_PIPE_SPLIT = (7, 5)
+WHISPER_PLAN_KEYS = ("serve_whisper_shard", "serve_whisper_pipeshard",
+                     "plan_whisper_shard", "fam_whisper_pipe")
 # the vision-language model: phi-3-vision-4.2b at full size (32 layers,
 # d_model 3072, 32 heads of 96 over 32 KV heads, 576 patches of 1024
 # features, random patches x 0.02 from the seed), one model on the card;
@@ -476,6 +499,9 @@ VLM_INT8_CASES = ((ENGINE_BATCH, VLM_LEN, (VLM_PATCHES + ENGINE_PROMPT,
                   (ENGINE_BATCH, VLM_LEN, "mixed"))
 TRAIN_VLM_LAYERS, TRAIN_VLM_SEQ, TRAIN_VLM_STEPS = 8, 448, 3
 CONT_SLOTS, CONT_REQUESTS, CONT_LENS, CONT_GEN = 8, 16, (16, 256), 32
+# the continuous phases under the plans and their yardstick serve one
+# wave of requests, one a slot
+SERVE_CONT_REQUESTS = CONT_SLOTS
 # the scans' shapes: Engine prefill (8 x 64), ContinuousEngine's one
 # request at a time at its prompt's length (1 x 16 to 256), a ragged
 # 257; for kernel 3 also dt up to 4 with A down to -16, which sums to
@@ -1646,6 +1672,29 @@ def train_mla_phase(torch, np, ops, card):
     return rec
 
 
+def whisper_data(np, cfg):
+    """whisper-small's serving batch (prompts of ``ENGINE_PROMPT`` tokens
+    over frames [8, 1500, 768] x 0.02, as ``launch/serve.py`` makes them)
+    and ``WHISPER_STEPS + 1`` training batches of ``ENGINE_BATCH`` x
+    ``WHISPER_SEQ`` tokens over their own frames, numpy, from the seed:
+    the one-device phases and the plan phases take the same ones."""
+    rng = np.random.default_rng(SEED + 8)
+    F, d = cfg.enc_seq_len, cfg.d_model
+
+    def frames():
+        return np.asarray(rng.standard_normal((ENGINE_BATCH, F, d)) * 0.02,
+                          np.float32)
+
+    batch = {"tokens": rng.integers(4, cfg.vocab_size,
+                                    (ENGINE_BATCH, ENGINE_PROMPT),
+                                    dtype=np.int64), "frames": frames()}
+    train = []
+    for _ in range(WHISPER_STEPS + 1):
+        t = rng.integers(0, cfg.vocab_size, (ENGINE_BATCH, WHISPER_SEQ))
+        train.append({"tokens": t, "labels": t, "frames": frames()})
+    return batch, train
+
+
 def whisper_phases(torch, np, ops, card):
     """Phases ``whisper-engine`` and ``train-whisper``: whisper-small at
     full size.  ``Engine`` (batch 8, prompt 64, 32 new tokens, the cache
@@ -1687,12 +1736,7 @@ def whisper_phases(torch, np, ops, card):
         f"param_count, {n_params / 1e6:.1f} M leaves (biases, norms and "
         f"the position tables), "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
-    rng = np.random.default_rng(SEED + 8)
-    batch = {"tokens": rng.integers(4, cfg.vocab_size,
-                                    (ENGINE_BATCH, ENGINE_PROMPT),
-                                    dtype=np.int64),
-             "frames": np.asarray(rng.standard_normal(
-                 (ENGINE_BATCH, F, cfg.d_model)) * 0.02, np.float32)}
+    batch, train = whisper_data(np, cfg)
     out, logits = {"whisper_params": n_params}, {}
     k = first_step(torch, model, params, batch, "fp32")
     p = first_step(torch, Model(cfg, device="cuda", use_kernels=False),
@@ -1719,15 +1763,8 @@ def whisper_phases(torch, np, ops, card):
 
     # training: random text over random frames, one batch a step
     B, S = ENGINE_BATCH, WHISPER_SEQ
-
-    def train_batch():
-        t = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
-                            device="cuda")
-        f = torch.as_tensor(np.asarray(rng.standard_normal(
-            (B, F, cfg.d_model)) * 0.02, np.float32), device="cuda")
-        return {"tokens": t, "labels": t, "frames": f}
-
-    batches = [train_batch() for _ in range(WHISPER_STEPS + 1)]
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+               for b in train]
     tcfg = TrainConfig()
     step = build_train_step(model, tcfg, donate=True)
     state = [model.init(torch.Generator(device="cuda").manual_seed(SEED))]
@@ -2010,6 +2047,138 @@ def vlm_phases(torch, np, ops, card, mesh):
     return out, logits, {"params": n_params, "profile_vlm_int8": prof}
 
 
+def whisper_plan_phases(torch, np, ops, card, mesh, yard):
+    """Phases ``serve-whisper-shard``, ``serve-whisper-pipeshard``,
+    ``plan-whisper-shard`` and ``fam-whisper-pipe`` in the process group
+    of ``plan_phases`` on its mesh of one rank: whisper-small at full
+    size under the plans, on the weights, prompts, frames and batches of
+    its one-device phases (``whisper_data``) and held to them (``yard``:
+    ``whisper-engine``'s tokens, ``train-whisper``'s losses).  The
+    ``Engine`` (batch 8, prompt 64, 32 new tokens, the cache in the
+    compute dtype) under shard, and under pipeshard on one stage of two
+    chunks (``WHISPER_PIPE_SPLIT``): kernel A 36 times a prefill, the
+    tokens equal to ``whisper-engine``'s, the first steps' logits
+    compared (``compare_served``).  Training, ``WHISPER_STEPS`` steps of
+    the one-device phase's batches: under shard (kernel A as
+    ``train-whisper``'s, the losses within ``PLAN_LOSS_RTOL``), and under
+    pipeshard on one stage, ``PIPE_MICRO`` microbatches, 1F1B (the
+    encoder once a microbatch on the first stage, its output carried
+    with the hidden states: kernel A 60 and its backward 36 times a
+    microbatch; held as ``fam-vlm-pipe`` is)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import sharding
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+    from repro_torch.serve import steps
+    from repro_torch.train import model_flops_per_step
+
+    t_all = time.perf_counter()
+    cfg = get_config(WHISPER)
+    A = cfg.n_enc_layers + 2 * cfg.n_layers
+    batch, train = whisper_data(np, cfg)
+    model = Model(cfg, device="cuda")
+    axes = ("pod", "data", "model")
+    max_len = ENGINE_PROMPT + ENGINE_GEN + 8
+    out = {}
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    for plan, on, split in (
+            ("shard", mesh, None),
+            ("pipeshard", make_pipeline_mesh((1, 1, 1), axes, 1),
+             WHISPER_PIPE_SPLIT)):
+        name = f"serve-whisper-{plan}"
+        eng = Engine(model, batch_size=ENGINE_BATCH, max_len=max_len,
+                     plan=plan, mesh=on, stage_layers=split)
+        local = eng.shard_params(params)
+        rec, tokens = serve_runs(torch, np, ops, name, model, local, batch,
+                                 [], "fp32", "engine", ["flash_attn_fwd"],
+                                 card, A, max_len, 0, eng=eng, runs=1)
+        rec.update(compare_served(torch, steps, sharding, name, model,
+                                  (params, local), batch, [], "fp32",
+                                  "engine", eng, np.asarray(yard["tokens"]),
+                                  tokens))
+        if not rec["tokens_bit_equal"]:
+            fail(f"{name}: tokens differ from whisper-engine's")
+        out[name.replace("-", "_")] = rec
+        del eng, local
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    log(f"whisper serving under the plans: "
+        f"{time.perf_counter() - t_all:.1f}s")
+
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+               for b in train[:WHISPER_STEPS]]
+    one = yard["losses"]
+    tokens = ENGINE_BATCH * WHISPER_SEQ
+    flops = model_flops_per_step(cfg, tokens)
+    # a microbatch: the encoder's, and each decoder layer's two
+    # attentions twice (remat); the backward once an attention
+    per_micro = {"flash_attn_fwd": A + 2 * cfg.n_layers,
+                 "flash_attn_bwd": A}
+
+    def run_steps(name, step, micro, rtol1, rtol):
+        state = [step.shard_params(model.init(
+            torch.Generator(device="cuda").manual_seed(SEED)))]
+        state.append(step.init_opt_state())
+
+        def go():
+            losses, times = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                p_, o_, metrics = step(*state, b)
+                state[:] = p_, o_
+                losses.append(float(metrics["loss"]))
+                times.append(time.perf_counter() - t0)
+            return losses, times
+
+        sharding.reset_collective_counts()
+        (losses, times), counts = run_phase(
+            torch, ops, name, go, ["flash_attn_fwd", "flash_attn_bwd"])
+        want = {k: n * micro * WHISPER_STEPS for k, n in per_micro.items()}
+        if any(counts[k] != n for k, n in want.items()):
+            fail(f"phase {name}: launches {counts}, want {want}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, one)]
+        step_s = float(np.mean(times[1:]))
+        rec = {"losses": losses, "loss_rel_diff": rel, "step_s": times,
+               "avg_step_s_steps_2_to_3": step_s,
+               "tokens_per_s": tokens / step_s,
+               "model_tflops": flops / step_s / 1e12,
+               "peak_bytes": PHASES[name]["peak_bytes"], "launches": counts,
+               "collectives_a_step": collectives_a_step(torch,
+                                                        WHISPER_STEPS)}
+        log(f"{name}: losses {losses}; step {step_s * 1e3:.1f} ms (steps 2 "
+            f"to {WHISPER_STEPS}), {tokens / step_s:.0f} text tokens/s, 6ND "
+            f"{rec['model_tflops']:.2f} TFLOP/s, peak memory "
+            f"{rec['peak_bytes'] / 2**30:.2f} GiB, on {card}")
+        log(f"{name}: held to train-whisper ({one}) within {rtol1} at step "
+            f"1 and {rtol} after: relative differences {rel}")
+        if not (np.all(np.isfinite(losses)) and rel[0] <= rtol1
+                and max(rel) <= rtol):
+            fail(f"{name}: losses {losses} vs train-whisper's {one}")
+        del state
+        torch.cuda.empty_cache()
+        return rec
+
+    out["plan_whisper_shard"] = run_steps(
+        "plan-whisper-shard", build_train_step(
+            model, TrainConfig(), plan="shard", mesh=mesh, donate=True),
+        1, PLAN_LOSS_RTOL, PLAN_LOSS_RTOL)
+    step = build_train_step(
+        model, TrainConfig(microbatches=PIPE_MICRO), plan="pipeshard",
+        mesh=make_pipeline_mesh((1, 1, 1), axes, 1, schedule="1f1b"),
+        schedule="1f1b", donate=True)
+    rec = run_steps("fam-whisper-pipe", step, PIPE_MICRO, PIPE_LOSS1_RTOL,
+                    PIPE_LOSS_RTOL)
+    rec["peak_in_flight"] = step.runner.peak_in_flight
+    out["fam_whisper_pipe"] = rec
+    del step, model, batches
+    torch.cuda.empty_cache()
+    log(f"the whisper plan stage: {time.perf_counter() - t_all:.1f}s")
+    return out
+
+
 def check_ssm_layer(torch, cfg, params):
     """Layer 0 of an SSM or hybrid model at full width in fp32 (its
     parameters are fp32; so is x), kernel path against plain path on the
@@ -2074,7 +2243,8 @@ def engine_phase(torch, np, ops, name, model, params, batch, needs, card,
     return {"batch": ENGINE_BATCH, "prompt": ENGINE_PROMPT,
             "gen": ENGINE_GEN, "ttft_s": st.prefill_s,
             "decode_steps_per_s": st.steps_per_s,
-            "tokens_per_s": st.tokens_per_s, "launches": counts}
+            "tokens_per_s": st.tokens_per_s, "launches": counts,
+            "tokens": out["tokens"].tolist()}
 
 
 def continuous_phase(torch, np, ops, name, model, params, rng, max_len,
@@ -2476,16 +2646,17 @@ def train_phases(torch, np, ops, card):
     return out
 
 
-def plan_phases(torch, np, ops, card):
+def plan_phases(torch, np, ops, card, whisper):
     """Phases ``train-gpt2L`` and ``plan-<name>`` for each flat plan:
     gpt2L trains ``PLAN_STEPS`` steps through ``train()`` on one device
     and under each plan on a mesh of one rank over NCCL, then the pipe
     phases (``pipe_phases``), the family phases (``family_phases``), the
     serve, elastic and VLM phases (``vlm_phases``; its logit checks and
-    trace under ``vlm_logits`` and ``vlm_info``) in the same process
-    group.  One more step of the one device, of
-    shard_zero (the plan with the most layout work) and of fsdp is traced
-    after its counted phase."""
+    trace under ``vlm_logits`` and ``vlm_info``) and whisper-small under
+    the plans (``whisper_plan_phases``, held to ``whisper``, its
+    one-device yardsticks) in the same process group.  One more step of
+    the one device, of shard_zero (the plan with the most layout work)
+    and of fsdp is traced after its counted phase."""
     import torch.distributed as dist
 
     from repro_torch.configs import TrainConfig, get_config
@@ -2594,6 +2765,7 @@ def plan_phases(torch, np, ops, card):
         vlm, out["vlm_logits"], out["vlm_info"] = vlm_phases(
             torch, np, ops, card, mesh)
         out.update(vlm)
+        out.update(whisper_plan_phases(torch, np, ops, card, mesh, whisper))
     finally:
         dist.destroy_process_group()
     del ref_params
@@ -2702,7 +2874,8 @@ def serve_phases(torch, np, ops, card, mesh):
         batch = {"tokens": rng.integers(4, cfg.vocab_size,
                                         (ENGINE_BATCH, ENGINE_PROMPT),
                                         dtype=np.int64)}
-        lens = rng.integers(CONT_LENS[0], CONT_LENS[1] + 1, CONT_REQUESTS)
+        lens = rng.integers(CONT_LENS[0], CONT_LENS[1] + 1,
+                            SERVE_CONT_REQUESTS)
         reqs = [Request(i, rng.integers(4, cfg.vocab_size, (int(n),),
                                         dtype=np.int64))
                 for i, n in enumerate(lens)]
@@ -2860,7 +3033,7 @@ def serve_runs(torch, np, ops, name, model, params, batch, reqs, kv, kind,
     res, counts = run_phase(torch, ops, name,
                             lambda: [once() for _ in range(runs)], needs)
     if kind == "continuous":
-        prefills = runs * CONT_REQUESTS
+        prefills = runs * len(reqs)
         steps_ = sum(len(r["stats"].occupancy) for r in res)
         ttft = [float(np.median(list(r["stats"].ttft_s.values())))
                 for r in res]
@@ -3266,12 +3439,14 @@ def family_phases(torch, np, ops, card):
         flops = model_flops_per_step(cfg, tokens)
 
         def run(name, tcfg, keep=False, **kw):
-            """One phase of FAM_STEPS steps; with ``keep``, also the final
-            params on the host."""
+            """One phase of FAM_STEPS steps (``FAM_SHORT``: of
+            FAM_SHORT_STEPS); with ``keep``, also the final params on the
+            host."""
+            steps = FAM_SHORT_STEPS if name in FAM_SHORT else FAM_STEPS
             sharding.reset_collective_counts()
             res, counts = run_phase(
                 torch, ops, name,
-                lambda: train(model, tcfg, loader, steps=FAM_STEPS,
+                lambda: train(model, tcfg, loader, steps=steps,
                               log_every=0, donate=True, **kw), [])
             if not all(np.isfinite(res.losses)):
                 fail(f"{name}: non-finite losses {res.losses}")
@@ -3282,12 +3457,11 @@ def family_phases(torch, np, ops, card):
                    "model_tflops": flops / step_s / 1e12,
                    "peak_bytes": PHASES[name]["peak_bytes"],
                    "launches": counts,
-                   "collectives_a_step": collectives_a_step(torch,
-                                                            FAM_STEPS)}
+                   "collectives_a_step": collectives_a_step(torch, steps)}
             params = [t.cpu() for t in tree_leaves(res.params)] if keep \
                 else None
             log(f"{name}: losses {res.losses}; step {step_s * 1e3:.1f} ms "
-                f"(steps 2 to {FAM_STEPS}), {tokens / step_s:.0f} tokens/s, "
+                f"(steps 2 to {steps}), {tokens / step_s:.0f} tokens/s, "
                 f"6ND {rec['model_tflops']:.2f} TFLOP/s, peak memory "
                 f"{rec['peak_bytes'] / 2**30:.2f} GiB, on {card}")
             log(f"{name}: collectives a step: " + ", ".join(
@@ -3655,9 +3829,11 @@ def main() -> None:
         add(training[key]["launches"])
     add(training["train_parity_launches"])
     e2e.update(training)
-    plans = plan_phases(torch, np, ops, card)
+    plans = plan_phases(torch, np, ops, card, {
+        "tokens": whisper["whisper_engine"]["tokens"],
+        "losses": whisper["train_whisper"]["losses"]})
     stage("gpt2L under the plans and the pipeline, serving under the "
-          "plans, elasticity and the VLM")
+          "plans, elasticity, the VLM and whisper under the plans")
     logit_err.update(plans.pop("vlm_logits"))
     vlm_info = plans.pop("vlm_info")
     for rec in plans.values():
@@ -3734,14 +3910,18 @@ def main() -> None:
               whisper_launches=sum(
                   whisper[key]["launches"]["flash_attn_fwd"]
                   for key in ("whisper_engine", "train_whisper"))
-              + whisper["whisper_parity_launches"]["flash_attn_fwd"]),
+              + whisper["whisper_parity_launches"]["flash_attn_fwd"]
+              + sum(plans[key]["launches"]["flash_attn_fwd"]
+                    for key in WHISPER_PLAN_KEYS)),
         entry("flash_attn_bwd", "src/repro_torch/csrc/flash_attn_bwd.cu",
               "src/repro/kernels/flash_attention.py:77", bwd_rows, bwd_err,
               TRAIN_AT, differentiates="src/repro/models/attention.py:36",
               noncausal=noncausal(cross_bwd_rows),
               whisper_launches=whisper["train_whisper"]["launches"][
                   "flash_attn_bwd"]
-              + whisper["whisper_parity_launches"]["flash_attn_bwd"]),
+              + whisper["whisper_parity_launches"]["flash_attn_bwd"]
+              + sum(plans[key]["launches"]["flash_attn_bwd"]
+                    for key in WHISPER_PLAN_KEYS)),
         entry("int8kv_decode", "src/repro_torch/csrc/int8kv_attn.cu",
               "src/repro/kernels/quantized.py:145", int8_rows, int8_err,
               {"B": 8, "Sk": 1024, "D": 64,

@@ -40,6 +40,16 @@ backwards explicitly, in the order its schedule gives:
   * the hybrid family's stack is its groups, and every stage runs the
     shared block at the head of each of its groups: each chunk
     accumulates its own gradient of it, added in chunk order;
+  * the encoder-decoder's first stage holds the encoder's stack whole
+    (the others none of it: ``held_rows``) and runs the encoder once a
+    microbatch at chunk 0; its output travels with the hidden states to
+    every chunk (each chunk's carriers hold the b S rows of the hidden
+    states and then the b F of the encoder's output), and its gradient
+    comes back on the same carriers, each chunk adding its layers'
+    share to the next chunk's as one graph adds a layer's uses, so the
+    encoder's backward reads the same sum under every schedule (under a
+    cut of the heads the sum is partial over the model axis until the
+    first stage's f, ``Model.encoder_output``, adds it over the axis);
   * the MoE family's aux: each chunk's forward adds its layers' aux
     divided by the microbatch count to the objective its backward
     differentiates (the reference's sum over stages and microbatches
@@ -301,6 +311,25 @@ def stage_rows(split, n_stages: int, virt: int, stage: int) -> np.ndarray:
     return idx[sl][valid[sl]]
 
 
+# the stacked params a pipeline stage holds rows of: the decoder's (the
+# hybrid family's groups), and the encoder-decoder's encoder stack
+STACKS = ("layers/", "encoder/layers/")
+
+
+def held_rows(path: str, rows, stage: int, length: int):
+    """The rows of a params leaf's first dim a pipeline stage holds: of
+    the stack (``layers/``) its chunks' ``rows`` (``stage_rows``); of
+    the encoder-decoder's encoder stack (``encoder/layers/``, ``length``
+    rows) every row on the first stage, which runs the encoder, and none
+    on the others; None for a leaf outside the stacks, which every stage
+    holds whole."""
+    if path.startswith(STACKS[0]):
+        return rows
+    if path.startswith(STACKS[1]):
+        return np.arange(length if stage == 0 else 0)
+    return None
+
+
 Action = Optional[Tuple[str, int, int]]     # ("F" | "B", local chunk, mb)
 
 
@@ -429,7 +458,8 @@ class StageRunner:
     stage's share: its chunks' aux, and the rest on the last stage) and
     the fp32 gradients in the local layout (zeros for the leaves the
     stage does not use).  ``peak_in_flight``:
-    the most (chunk, microbatch) graphs the last ``run`` held at once.
+    the most (chunk, microbatch) graphs the last ``run`` held at once
+    (an encoder-decoder's hold their microbatch's encoder output).
     """
 
     def __init__(self, model, schedule: str, n_micro: int, split,
@@ -460,10 +490,12 @@ class StageRunner:
         # the hybrid's shared block: each chunk's own leaves of it
         shared = [live(params["shared"]) if "shared" in params else None
                   for _ in chunks]
-        # the embedding's (with the position table and the VLM's
-        # projector) and the head's own leaves (one table twice when
-        # tied), so that each accumulates its own gradient
-        emb = live({k: params[k] for k in ("embed", "pos_embed", "projector")
+        # the embedding's (with the position table, the VLM's projector
+        # and the encoder-decoder's encoder) and the head's own leaves
+        # (one table twice when tied), so that each accumulates its own
+        # gradient
+        emb = live({k: params[k] for k in ("embed", "pos_embed", "projector",
+                                           "encoder")
                     if k in params}) if s == 0 else None
         head = live({"final_norm": params["final_norm"],
                      head_key: params[head_key]}) if s == S - 1 else None
@@ -482,7 +514,12 @@ class StageRunner:
         d = cfg.d_model
         # the hidden states' length: the VLM's patches stand before the
         # text
-        S_len = batch["tokens"].shape[1] + n_prefix(cfg, batch)
+        S_txt = batch["tokens"].shape[1] + n_prefix(cfg, batch)
+        # an encoder-decoder's carriers hold the hidden states' b S rows
+        # and then the encoder output's b F, each part contiguous, so
+        # that a chunk's gradients reduce as one graph's would
+        F_len = batch["frames"].shape[1] if "frames" in batch else 0
+        carrier = (b, S_txt, d) if not F_len else (b * (S_txt + F_len), d)
         dev = model.device
         cdt = model.compute_dtype
         sums = torch.zeros(5, dtype=torch.float32, device=dev)
@@ -498,20 +535,30 @@ class StageRunner:
             mb = mbs[i]
             if c == 0:
                 x, pos = model.embed_stage(emb, mb)
+                if F_len:
+                    x = torch.cat([x.flatten(0, 1), model.encoder_output(
+                        emb, mb).flatten(0, 1)])
                 x_in, h = None, x.to(self.carrier).to(cdt)
             else:
                 pos = mb.get("positions")
                 x_in = inbox_act.pop((k, i)).requires_grad_(True)
                 h = x_in.to(cdt)
+            # the encoder's output, the same on every chunk of the
+            # microbatch (its gradient comes back on the carrier)
+            enc = None
+            if F_len:
+                n = b * S_txt
+                h, enc = h[:n].view(b, S_txt, d), h[n:].view(b, F_len, d)
             y, aux = model.run_layers(chunks[k], h, positions=pos,
-                                      remat=self.remat, shared=shared[k])
+                                      remat=self.remat, shared=shared[k],
+                                      enc_out=enc)
             # this chunk's part of the step's aux: its layers' over m
             aux = aux / self.m if aux.requires_grad else None
             if aux is not None:
                 sums = sums + torch.stack([aux.detach(), zero, aux.detach(),
                                            zero, zero])
-            out = y.to(self.carrier)
             if c == self.last:
+                out = y.to(self.carrier)
                 loss, met = model.head_loss(head, out.to(cdt), mb,
                                             denom=denom)
                 saved[(k, i)] = (x_in, loss if aux is None else loss + aux,
@@ -520,6 +567,9 @@ class StageRunner:
                     [loss.detach()] + [met[n].detach().float() for n in
                                        ("ce", "aux", "zloss", "accuracy")])
                 return None
+            if enc is not None:
+                y = torch.cat([y.flatten(0, 1), enc.flatten(0, 1)])
+            out = y.to(self.carrier)
             saved[(k, i)] = (x_in, out, aux)
             return ((s + 1) % S, (k + (s == S - 1), i), inbox_act,
                     out.detach())
@@ -580,7 +630,7 @@ class StageRunner:
                         key, box = (k - (src == 0), i), inbox_grad
                     else:
                         continue
-                    buf = torch.empty((b, S_len, d), dtype=self.carrier,
+                    buf = torch.empty(carrier, dtype=self.carrier,
                                       device=dev)
                     recvs.append((self.ranks[src], buf))
                     box[key] = buf
@@ -639,7 +689,10 @@ class StageServer:
     compute dtype, to the next chunk's stage (a copy: counted ``send``
     and ``recv``, or local within a rank); the last stage runs the final
     norm and the head, and its logits of this rank's rows reach every
-    stage by one counted ``broadcast``."""
+    stage by one counted ``broadcast``.  An encoder-decoder's first stage
+    runs the encoder at prefill, and its output of this rank's rows
+    reaches every stage by one counted ``broadcast`` too: each stage
+    fills its layers' rows of the cross cache from it."""
 
     def __init__(self, model, split, stage: int, ranks: Sequence[int],
                  group):
@@ -665,9 +718,25 @@ class StageServer:
         # the VLM's patches stand before the prompt
         rows_seq = (tokens.shape[0],
                     tokens.shape[1] + n_prefix(model.cfg, batch))
-        return self._run(params, cache, embed, rows_seq,
-                         dict(window=window, positions=positions,
-                              blocks=blocks), last_pos)
+        kw = dict(window=window, positions=positions, blocks=blocks)
+        if "frames" in batch:
+            kw["enc_out"] = self._encode(params, batch)
+        return self._run(params, cache, embed, rows_seq, kw, last_pos)
+
+    def _encode(self, params, batch):
+        """The encoder's output [B_r, F, d] of this rank's rows on every
+        stage: the first stage's, broadcast over the stage axis."""
+        from repro_torch.core.sharding import broadcast
+        model = self.model
+        if self.s == 0:
+            enc = model.encoder_output(params, batch)
+        else:
+            f = batch["frames"]
+            enc = torch.empty(tuple(f.shape[:2]) + (model.cfg.d_model,),
+                              dtype=model.compute_dtype, device=model.device)
+        if self.S > 1:
+            broadcast(enc, self.group, self.ranks[0])
+        return enc
 
     def decode(self, params, cache, tokens, *, window: int = 0,
                blocks=None):

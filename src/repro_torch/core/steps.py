@@ -1,7 +1,7 @@
 """Train steps: on one device, and under every plan of ``PLANS`` (data,
 zero2, shard, shard_zero, fsdp, pipeshard) on ``torch.distributed``, for
-the dense, vision-language, MoE, SSM and hybrid families (port of
-``repro/core/steps.py:build_train_step``).
+the dense, vision-language, MoE, SSM, hybrid and encoder-decoder
+families (port of ``repro/core/steps.py:build_train_step``).
 
 ``build_train_step`` returns ``step(params, opt_state, batch) -> (params,
 opt_state, metrics)`` with the reference's metric keys.  Gradients are
@@ -76,10 +76,25 @@ every model rank computes the projector whole on the whole residual
 gradient (the layers' f sums it over the axis), so its gradient is one
 device's, reduced over the data axes as ``pos_embed``'s is where its
 table stays whole; under pipeshard the first stage holds its gradient
-and the others add zeros.  Multi-head Latent Attention (MiniCPM3,
-DeepSeek-V2) and the encoder-decoder (whisper) run on one device only:
-under a plan they raise (``refuse_under_plans``; ROADMAP queue 1, items
-13 and 14).
+and the others add zeros.
+
+The encoder-decoder family (whisper): a batch carries ``frames`` [B, F,
+d], cut with the tokens as ``patch_embeds`` are.  The encoder's layers
+and every decoder layer's cross-attention take the dense blocks' cut of
+the heads and the MLP (``_model_axis``), the encoder's output entering
+the decoder layers through one f (``Model.encoder_output``), so its
+gradient is summed over the layers, then over the model axis; the
+encoder's position table is cut over no model axis (the copied axis map
+has no ``embed_d``).  Under pipeshard the
+first stage holds the encoder's stack whole and the others none of it
+(``core.pipeline.held_rows``); it runs the encoder once a microbatch
+and its output travels with the hidden states to every chunk
+(``core.pipeline.StageRunner``); the encoder's gradients are reduced
+over the data axes (its stack) or, as the embedding's, over the stage
+and data axes (its norm and position table, which every stage holds).
+Multi-head Latent Attention (MiniCPM3, DeepSeek-V2) runs on one device
+only: under a plan it raises (``refuse_mla``; ROADMAP queue 1, item
+13).
 """
 from __future__ import annotations
 
@@ -91,10 +106,13 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.costmodel import parse_schedule
+from repro_torch.core.pipeline import (
+    STACKS, StageRunner, held_rows, pipeline_split, stage_rows,
+)
 from repro_torch.core.plans import MODEL_AXIS, STAGE_AXIS, Plan, get_plan
 from repro_torch.core.sharding import (
     FsdpGather, Mesh, ModelAxis, all_gather, all_reduce, gather_leaf,
-    gather_tree, reduce_scatter, shard_tree, slice_leaf, spec_axes,
+    gather_tree, reduce_scatter, shard_tree, slice_leaf, spec_axes, subtree,
     tree_map_with_path,
 )
 from repro_torch.models.model import Model, scored_labels
@@ -152,25 +170,18 @@ def _grad_fn(model: Model, tcfg: TrainConfig, loss_fn) -> Callable:
 
 
 MLA_UNDER_PLANS = "ROADMAP queue 1, item 13: MLA under the plans"
-ENCDEC_UNDER_PLANS = ("ROADMAP queue 1, item 14: the encoder-decoder "
-                      "under the plans")
 
 
 def plan_refusal(cfg, plan) -> str:
     """Why a model of ``cfg`` has no step under ``plan`` yet, naming the
     ROADMAP item that brings it ("" where it has one): MLA, whose latent
     cache has no ``cache_spec`` and its heads no cut over the ``model``
-    axis, and the encoder-decoder, whose encoder, frames and
-    cross-attention cache have no cut over a mesh yet."""
+    axis."""
     name = plan if isinstance(plan, str) else plan.name
     if cfg.mla is not None:
         return (f"{cfg.name} attends by Multi-head Latent Attention, which "
                 f"runs on one device only; under plan {name!r} it waits for "
                 f"{MLA_UNDER_PLANS}")
-    if cfg.family == "encdec":
-        return (f"{cfg.name} is an encoder-decoder, which runs on one device "
-                f"only; under plan {name!r} it waits for "
-                f"{ENCDEC_UNDER_PLANS}")
     return ""
 
 
@@ -178,14 +189,6 @@ def refuse_mla(model: Model, plan) -> None:
     """Raise for an MLA model under a plan (``plan_refusal``)."""
     if model.cfg.mla is not None:
         raise NotImplementedError(plan_refusal(model.cfg, plan))
-
-
-def refuse_under_plans(model: Model, plan) -> None:
-    """Raise for a model that runs on one device only, under a plan
-    (``plan_refusal``)."""
-    reason = plan_refusal(model.cfg, plan)
-    if reason:
-        raise NotImplementedError(reason)
 
 
 def build_train_step(model: Model, tcfg: TrainConfig, *,
@@ -206,7 +209,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, *,
     model.model_axis = model.fsdp = model.dispatch = None
     if plan is None:
         return _one_device_step(model, tcfg, donate)
-    refuse_under_plans(model, plan)
+    refuse_mla(model, plan)
     plan = get_plan(plan) if isinstance(plan, str) else plan
     if mesh is None:
         raise ValueError(f"plan {plan.name!r} needs a mesh "
@@ -244,9 +247,10 @@ def _cut_dim(spec) -> Tuple[Optional[int], Tuple[str, ...]]:
 def _model_axis(mesh: Mesh, specs, cfg) -> Optional[ModelAxis]:
     """What the specs cut over the ``model`` axis, family by family: the
     dense blocks' heads and MLP (the layers', or the hybrid's shared
-    block's), the MoE experts and shared experts, and the SSM leaves
-    (``d_inner``: the channels cut whole, which for Mamba2 needs the
-    heads to divide the axis too)."""
+    block's; the encoder-decoder's self-attention, whose cut its
+    cross-attention and its encoder's layers share), the MoE experts and
+    shared experts, and the SSM leaves (``d_inner``: the channels cut
+    whole, which for Mamba2 needs the heads to divide the axis too)."""
     if MODEL_AXIS not in mesh.shape:
         return None
     M = mesh.shape[MODEL_AXIS]
@@ -257,9 +261,10 @@ def _model_axis(mesh: Mesh, specs, cfg) -> Optional[ModelAxis]:
     layers = specs["layers"]
     dense = specs.get("shared", layers)
     kw = {}
-    if "attn" in dense:
-        kw.update(heads=cut(dense["attn"]["wq"]),
-                  kv_heads=cut(dense["attn"]["wk"]))
+    attn = "self_attn" if "self_attn" in dense else "attn"
+    if attn in dense:
+        kw.update(heads=cut(dense[attn]["wq"]),
+                  kv_heads=cut(dense[attn]["wk"]))
     if "mlp" in dense:
         kw["mlp"] = cut(dense["mlp"]["w_up"])
     if "moe" in layers:
@@ -462,17 +467,19 @@ class PlanStep:
         return new_params, new_opt, dict(metrics, loss=loss, **stats)
 
 
-def _is_layer(path: str) -> bool:
-    return path.startswith("layers/")
+def _is_stacked(path: str) -> bool:
+    """A leaf of a stack whose rows a pipeline stage holds
+    (``core.pipeline.held_rows``)."""
+    return path.startswith(STACKS)
 
 
 def stage_local_specs(param_specs):
     """A pipeline's local layout's cuts: the plan's specs with no stack
-    dim cut over the stage axis (a stage holds its rows of the first)."""
+    dim cut over the stage axis (a stage holds its rows of the first:
+    ``core.pipeline.held_rows``)."""
     return tree_map_with_path(
-        lambda path, spec: tuple(None if e == STAGE_AXIS else e
-                                 for e in spec)
-        if _is_layer(path) else spec, param_specs)
+        lambda _, spec: tuple(None if e == STAGE_AXIS else e for e in spec),
+        param_specs)
 
 
 class PipelineStep:
@@ -481,7 +488,9 @@ class PipelineStep:
 
     ``params`` are this rank's in the local layout: the ``layers``
     leaves hold the rows of this stage's chunks back to back
-    (``core.pipeline.stage_rows``), every leaf cut over ``model`` by
+    (``core.pipeline.stage_rows``), an encoder-decoder's encoder stack
+    is whole on the first stage and empty on the others
+    (``core.pipeline.held_rows``), every leaf cut over ``model`` by
     ``param_specs`` (the reference's ``PartitionSpec``s, whose stack
     dims the local layout replaces by the stage's rows).  ``batch`` is
     the global batch cut into ``tcfg.microbatches``, of each of which
@@ -495,8 +504,6 @@ class PipelineStep:
     def __init__(self, model: Model, tcfg: TrainConfig, plan: Plan,
                  mesh: Mesh, *, stage_layers=None, schedule: str = "gpipe",
                  carrier_dtype=torch.float32, donate: bool = False):
-        from repro_torch.core.pipeline import (
-            StageRunner, pipeline_split, stack_length, stage_rows)
         if STAGE_AXIS not in mesh.shape:
             raise ValueError(f"plan {plan.name!r} needs a mesh with a "
                              f"{STAGE_AXIS!r} axis (launch.mesh"
@@ -508,7 +515,6 @@ class PipelineStep:
         _, v = parse_schedule(schedule)
         self._shapes = model.init(torch.Generator(), device="meta")
         # the stack: layers, or the hybrid family's groups
-        self.length = stack_length(cfg, self._shapes["layers"])
         self.split = pipeline_split(cfg, self._shapes["layers"], S,
                                     stage_layers, schedule)
         self.rows = [stage_rows(self.split, S, v, s) for s in range(S)]
@@ -520,7 +526,7 @@ class PipelineStep:
         self.local_specs = stage_local_specs(self.param_specs)
         self.update_specs = tree_map_with_path(
             lambda path, spec: (STAGE_AXIS,) + tuple(spec[1:])
-            if _is_layer(path) else spec, self.local_specs)
+            if _is_stacked(path) else spec, self.local_specs)
         model.model_axis = _model_axis(mesh, self.param_specs, cfg) \
             if plan.shards_weights else None
         ranks = mesh.members(STAGE_AXIS)
@@ -530,12 +536,20 @@ class PipelineStep:
                                   carrier_dtype=carrier_dtype)
 
     # ------------------------------------------------------------- #
+    def _held(self, path: str, stage: int):
+        """The rows of the leaf at ``path`` that ``stage`` holds, or None
+        (``core.pipeline.held_rows``)."""
+        if not _is_stacked(path):
+            return None
+        return held_rows(path, self.rows[stage], stage,
+                         subtree(self._shapes, path).shape[0])
+
     def _local(self, tree):
         """Full leaves -> this rank's, in the local layout."""
-        rows = self.rows[self.stage]
 
         def cut(path, t, spec):
-            if _is_layer(path):
+            rows = self._held(path, self.stage)
+            if rows is not None:
                 t = t.index_select(0, torch.as_tensor(
                     rows, dtype=torch.long, device=t.device))
             return slice_leaf(t, spec, self.mesh)
@@ -548,18 +562,20 @@ class PipelineStep:
         group = mesh.group(STAGE_AXIS)
         order = [mesh.coord_of(r)[STAGE_AXIS]
                  for r in dist.get_process_group_ranks(group)]
-        most = max(len(r) for r in self.rows)
 
         def whole(path, t, spec):
             t = gather_leaf(t, spec, mesh)
-            if not _is_layer(path) or len(order) == 1:
+            if not _is_stacked(path) or len(order) == 1:
                 return t
+            held = [self._held(path, s) for s in range(len(order))]
+            most = max(len(r) for r in held)
             pad = t.new_zeros((most - t.shape[0],) + tuple(t.shape[1:]))
             blocks = all_gather(torch.cat([t, pad]), group, 0).view(
                 (len(order), most) + tuple(t.shape[1:]))
-            out = t.new_empty((self.length,) + tuple(t.shape[1:]))
+            out = t.new_empty((subtree(self._shapes, path).shape[0],)
+                              + tuple(t.shape[1:]))
             for j, s in enumerate(order):
-                rows = torch.as_tensor(self.rows[s], dtype=torch.long,
+                rows = torch.as_tensor(held[s], dtype=torch.long,
                                        device=t.device)
                 out.index_copy_(0, rows, blocks[j, :len(rows)])
             return out
@@ -597,7 +613,13 @@ class PipelineStep:
     def local_batch(self, batch) -> Dict[str, torch.Tensor]:
         """This rank's rows of the global ``batch``: its part of each
         microbatch, the reference's microbatch i being the global rows
-        ``[i B/m, (i+1) B/m)`` (``_local_rows``)."""
+        ``[i B/m, (i+1) B/m)`` (``_local_rows``).  Only the first stage
+        runs the encoder: the others take the ``frames``' shape alone
+        (``[rows, F, 0]``), which sizes their carriers."""
+        if self.stage and "frames" in batch:
+            f = batch["frames"]
+            batch = dict(batch, frames=torch.empty(tuple(f.shape[:2])
+                                                   + (0,)))
         return _local_rows(batch, self.plan.batch_spec(batch, self.mesh),
                            self.mesh, self.tcfg.microbatches,
                            self.model.device)
@@ -619,7 +641,7 @@ class PipelineStep:
         every = (STAGE_AXIS,) + axes
 
         def reduce(path, g):
-            over = axes if _is_layer(path) else every
+            over = axes if _is_stacked(path) else every
             return all_reduce(g, mesh.group(over)) if over else g
 
         grads = tree_map_with_path(reduce, grads)

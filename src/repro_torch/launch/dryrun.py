@@ -30,8 +30,8 @@ carved out of pod x data) one rank of each stage is traced and the
 largest peak is reported: a roofline is per device, and the stages
 differ.
 
-Multi-head Latent Attention and the encoder-decoder run on one device
-only (``core.steps.plan_refusal``), so under a plan their records say
+Multi-head Latent Attention runs on one device only
+(``core.steps.plan_refusal``), so under a plan its records say
 ``"status": "not_ported"`` with the ROADMAP item, beside the reference's
 own skips (``skip_reason``).
 

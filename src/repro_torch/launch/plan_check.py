@@ -36,6 +36,11 @@ its params and optimizer state in place (``donate``).
         --arch gpt2L --full --seq 1024 --steps 3     # four cards
     PYTHONPATH=src python -m repro_torch.launch.plan_check --device cpu \\
         --world 4 --arch zamba2-2.7b --layers 4 --plans shard,fsdp
+    PYTHONPATH=src python -m repro_torch.launch.plan_check --device cpu \\
+        --world 2 --mesh 1,1,2 --arch whisper-small --plans shard,pipeshard
+
+An encoder-decoder's batch carries ``frames`` [batch, enc_seq_len,
+d_model] x 0.02 from the seed, as ``launch.serve`` makes them.
 """
 import argparse
 import dataclasses
@@ -104,6 +109,10 @@ def _rank(rank: int, args, store: str) -> None:
         if cfg.family == "vlm":
             batch["patch_embeds"] = np.asarray(rng.standard_normal(
                 (args.batch, cfg.n_patches, cfg.vision_dim)) * 0.02,
+                np.float32)
+        if cfg.family == "encdec":
+            batch["frames"] = np.asarray(rng.standard_normal(
+                (args.batch, cfg.enc_seq_len, cfg.d_model)) * 0.02,
                 np.float32)
 
         def fresh(model):
@@ -201,7 +210,7 @@ def main(argv=None) -> None:
                          "world of 4, else 1,world,1")
     ap.add_argument("--arch", default="gpt2m", choices=sorted(ARCH_CONFIGS),
                     help="any ported architecture: dense, MoE, SSM, hybrid, "
-                         "VLM")
+                         "VLM, encoder-decoder")
     ap.add_argument("--plans", default=",".join(PLANS),
                     help="comma-separated repro_torch.core.plans.PLANS keys "
                          "(default all)")

@@ -4,8 +4,8 @@ falcon-mamba-7b, zamba2-2.7b, whisper-small, ...) on one device,
 fixed-batch by default, continuous batching with ``--continuous``.
 Weights are random, from seed 0; whisper-small's frames too, [batch,
 1500, 768] x 0.02 from the prompts' generator, as the reference's
-launcher makes them (fixed-batch and one device only: the
-encoder-decoder has no continuous batching and no plan), and
+launcher makes them (fixed-batch: the encoder-decoder has no continuous
+batching), and
 phi-3-vision-4.2b's patch embeddings, [batch, 576, 1024] x 0.02
 (fixed-batch; its cache holds the 576 patches beside the prompt and the
 new tokens, where the reference's launcher sizes it for the text alone).
@@ -43,6 +43,10 @@ stage).  Rank 0 prints.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch whisper-small --reduced --device cpu --batch 2 --gen 8
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc_per_node 2 -m repro_torch.launch.serve --arch whisper-small \\
+        --reduced --device cpu --plan shard --mesh 1,1,2 --check
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch phi-3-vision-4.2b --reduced --device cpu --kv-dtype int8

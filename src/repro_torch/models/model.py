@@ -69,7 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sharding import (
-    FsdpGather, ModelAxis, all_gather, all_reduce, map_cache,
+    FsdpGather, ModelAxis, all_gather, all_reduce, copy_to_model, map_cache,
     reduce_from_model,
 )
 from repro_torch.models import attention as attn_mod
@@ -297,25 +297,48 @@ class Model:
         """Whisper's encoder over the batch's precomputed frame
         embeddings ``frames`` [B, F, d] (a stub frontend): the learned
         positions, the encoder layers (bidirectional attention through
-        kernel A), the final norm.  [B, F, d] in the compute dtype."""
+        kernel A), the final norm.  [B, F, d] in the compute dtype.
+        ``params`` needs ``encoder`` only.  Under a plan the layers run
+        tensor-parallel over ``model_axis`` as the decoder's do, and
+        under fsdp each leaf cut over the data axes is gathered at its
+        use, a layer's inside the loop (the position table is cut over
+        no model axis: the copied axis map has no ``embed_d``)."""
         cfg, dt = self.cfg, self.compute_dtype
         enc = params["encoder"]
         x = torch.as_tensor(batch["frames"], device=self.device).to(dt)
-        x = x + enc["pos"]["table"][: x.shape[1]].to(dt)
-        for p in unstack(enc["layers"]):
-            x = blocks.encoder_block_forward(x, p, cfg,
-                                             use_kernels=self.use_kernels)
-        return apply_norm(x, enc["norm"], cfg.norm, cfg.norm_eps,
+        table = self._use("encoder/pos", enc["pos"])["table"]
+        x = x + table[: x.shape[1]].to(dt)
+        path = "encoder/layers"
+        for p in unstack(self._use(path, enc["layers"], 0, 1)):
+            x = blocks.encoder_block_forward(x, self._use(path, p, 1), cfg,
+                                             use_kernels=self.use_kernels,
+                                             model_axis=self.model_axis)
+        return apply_norm(x, self._use("encoder/norm", enc["norm"]),
+                          cfg.norm, cfg.norm_eps,
                           use_kernels=self.use_kernels)
+
+    def encoder_output(self, params, batch) -> torch.Tensor:
+        """``_encode``'s output as the decoder layers read it: where the
+        plan cuts the heads, through one f (``copy_to_model``), so that
+        its gradient, partial over the heads, is summed over every layer
+        first, in the order one device sums it, then over the model axis
+        once (a pipeline's chunks pass the partial sum back to the
+        first stage's f)."""
+        enc = self._encode(params, batch)
+        axis = self.model_axis
+        if axis is not None and axis.heads:
+            enc = copy_to_model(enc, axis)
+        return enc
 
     def _encoder_kw(self, params, batch) -> Dict[str, Any]:
         """The block functions' ``enc_out`` of the encoder-decoder family:
-        the encoder's output of ``batch``, computed here once for every
-        decoder layer, so a layer's recompute under remat reads it and
-        does not rerun the encoder; none for the other families."""
+        the encoder's output of ``batch`` (``encoder_output``), computed
+        here once for every decoder layer, so a layer's recompute under
+        remat reads it and does not rerun the encoder; none for the other
+        families."""
         if self.cfg.family != "encdec":
             return {}
-        return {"enc_out": self._encode(params, batch)}
+        return {"enc_out": self.encoder_output(params, batch)}
 
     def _run(self, params, x, cache, step: int, kw, remat: bool = False):
         """One pass over the layers with the family's block function
@@ -433,16 +456,20 @@ class Model:
         return self._embed_inputs(params, batch, self.model_axis)
 
     def run_layers(self, layers, x, *, positions=None, remat: bool = False,
-                   shared=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   shared=None, enc_out=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(x, aux)`` after the layers of a sub-stack ``layers``
         (leaves ``[n, ...]``; the hybrid family's groups, with the
-        ``shared`` block at the head of each), as ``_run`` runs the whole
+        ``shared`` block at the head of each; an encoder-decoder's over
+        the encoder's output ``enc_out``), as ``_run`` runs the whole
         stack."""
         params = {"layers": layers}
         if shared is not None:
             params["shared"] = shared
-        x, _, aux = self._run(params, x, None, _FORWARD,
-                              self._plan_kw(positions, 0), remat=remat)
+        kw = self._plan_kw(positions, 0)
+        if enc_out is not None:
+            kw["enc_out"] = enc_out
+        x, _, aux = self._run(params, x, None, _FORWARD, kw, remat=remat)
         return x, aux
 
     def head_loss(self, params, x, batch, *, denom
@@ -470,7 +497,8 @@ class Model:
     def init_cache(self, batch: int, capacity: int, *, window: int = 0,
                    kv_dtype: str = "fp32", rows: Optional[int] = None,
                    seq_blocks: int = 1, channel_blocks: int = 1,
-                   depth: Optional[int] = None, device=None) -> Cache:
+                   frame_blocks: int = 1, depth: Optional[int] = None,
+                   device=None) -> Cache:
         """Decode cache, leaves stacked on the layer axis (``[G, ...]``
         and ``[G, k, ...]`` for the hybrid family; the latent
         ``MLACache`` for an MLA config; for the encoder-decoder the
@@ -486,9 +514,11 @@ class Model:
         Under a serving plan a rank holds ``rows`` of the ``batch`` rows,
         one of ``seq_blocks`` blocks of the ring's slots, its part of the
         SSM states of layers whose ``d_inner`` is cut into
-        ``channel_blocks`` (``ssm.init_ssm_state``) and, under a
-        pipeline, the ``depth`` entries of the stack (layers, or the
-        hybrid family's groups) of its stage (``serve.steps.ServePlan``).
+        ``channel_blocks`` (``ssm.init_ssm_state``), one of
+        ``frame_blocks`` blocks of the cross cache's frames (every head's)
+        and, under a pipeline, the ``depth`` entries of the stack (layers,
+        or the hybrid family's groups) of its stage
+        (``serve.steps.ServePlan``).
         ``device`` (default the model's): "meta" gives the shapes
         alone."""
         cfg, dt = self.cfg, self.compute_dtype
@@ -515,8 +545,12 @@ class Model:
                                           lead=(depth or cfg.n_layers,),
                                           **ssm_kw)
         if cfg.family == "encdec":
-            shape = (depth or cfg.n_layers, batch, cfg.enc_seq_len,
-                     cfg.n_heads, cfg.head_dim)
+            if cfg.enc_seq_len % frame_blocks:
+                raise ValueError(f"{cfg.enc_seq_len} frames do not cut into "
+                                 f"{frame_blocks} blocks")
+            shape = (depth or cfg.n_layers, batch,
+                     cfg.enc_seq_len // frame_blocks, cfg.n_heads,
+                     cfg.head_dim)
             return {
                 "self": attn_mod.init_kv_cache(
                     batch, cap, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim,

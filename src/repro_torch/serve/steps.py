@@ -2,10 +2,12 @@
 ``build_serve_step``, ``build_insert_step`` and
 ``build_decode_slots_step`` (``repro/core/steps.py``), on one device and
 under every plan of ``core.plans.PLANS`` (``ServePlan``), for the dense,
-vision-language, MoE, SSM and hybrid families.  A vision-language
-batch's ``patch_embeds`` are cut with its rows, and its cache, whose
-``max_len`` covers the patches too, takes ``cache_spec``'s layout as any
-KV cache does.
+vision-language, MoE, SSM, hybrid and encoder-decoder families.  A
+vision-language batch's ``patch_embeds`` are cut with its rows, and its
+cache, whose ``max_len`` covers the patches too, takes ``cache_spec``'s
+layout as any KV cache does; an encoder-decoder batch's ``frames`` are
+cut with its rows, and its cross cache's frames over ``model`` as the
+ring's slots are (``models.blocks.frame_blocks``).
 
 PyTorch runs eagerly, so each step is a plain function rather than a
 compiled one, and the caches the reference donates are updated in place
@@ -37,20 +39,22 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.core.pipeline import (
-    StageServer, stack_length, stage_rows, validate_stages,
+    StageServer, held_rows, stack_length, stage_rows, validate_stages,
 )
 from repro_torch.core.plans import MODEL_AXIS, STAGE_AXIS, Plan, get_plan
 from repro_torch.core.sharding import (
     FsdpGather, Mesh, all_gather, shard_tree, slice_leaf, tree_map_with_path,
 )
 from repro_torch.core.steps import (
-    _dispatch, _local_rows, _model_axis, refuse_under_plans,
+    _dispatch, _local_rows, _model_axis, refuse_mla, stage_local_specs,
 )
 from repro_torch.models.attention import WHOLE_RING, RingBlocks
 from repro_torch.models.model import Cache, Model, map_cache
 
-# the SSM state's leaves (``models.ssm.SSMState``)
+# the SSM state's leaves (``models.ssm.SSMState``) and the
+# encoder-decoder's cross cache
 _SSM_LEAVES = ("conv", "h")
+_CROSS_LEAVES = ("cross_k", "cross_v")
 
 
 class ServePlan:
@@ -88,15 +92,19 @@ class ServePlan:
         rows: a model axis of 3) ``cache_spec`` cuts the window, where a
         rank holds every row of it for the channels it computes.
 
+    An encoder-decoder's cross cache (``cross_k``, ``cross_v`` [L, B, F,
+    H, D]) follows ``cache_spec``: under the plans that shard weights,
+    when ``model`` divides the frames, a rank holds a block of the
+    frames of every head (``frame_blocks``).
+
     ``stage_layers`` (pipeshard): the layers (the hybrid family's groups)
     of each chunk, ``v`` chunks a stage for ``v * stages`` entries; None
-    is the even split, one chunk a stage.  An MLA model and an
-    encoder-decoder raise (``core.steps.refuse_under_plans``: ROADMAP
-    queue 1, items 13 and 14)."""
+    is the even split, one chunk a stage.  An MLA model raises
+    (``core.steps.refuse_mla``: ROADMAP queue 1, item 13)."""
 
     def __init__(self, model: Model, plan: Union[str, Plan], mesh: Mesh, *,
                  max_len: int, window: int = 0, stage_layers=None):
-        refuse_under_plans(model, plan)
+        refuse_mla(model, plan)
         plan = get_plan(plan) if isinstance(plan, str) else plan
         cfg = model.cfg
         self.model, self.plan, self.mesh = model, plan, mesh
@@ -119,6 +127,11 @@ class ServePlan:
                 if cap >= n and cap % n == 0 else WHOLE_RING
         self.channel_blocks = n if cfg.ssm is not None and \
             self.model_axis is not None and self.model_axis.d_inner else 1
+        # the cross cache's frames cut over ``model`` (in one block on a
+        # model axis of one), as ``cache_spec`` cuts them
+        self.frames_cut = cfg.family == "encdec" and \
+            self.model_axis is not None and cfg.enc_seq_len % n == 0
+        self.frame_blocks = n if self.frames_cut else 1
         self.server = None
         self.stage_rows = None
         if plan.pipeline:
@@ -150,10 +163,7 @@ class ServePlan:
             or (stack_length(cfg, stack) // S,) * S
         self.stage_rows = stage_rows(split, S, v, mesh.coord[STAGE_AXIS])
         # the local layout: a stage holds its rows of every stack dim
-        self.local_specs = tree_map_with_path(
-            lambda path, spec: tuple(None if e == STAGE_AXIS else e
-                                     for e in spec)
-            if path.startswith("layers/") else spec, self.param_specs)
+        self.local_specs = stage_local_specs(self.param_specs)
         self.server = StageServer(self.model, split, mesh.coord[STAGE_AXIS],
                                   mesh.members(STAGE_AXIS),
                                   mesh.group(STAGE_AXIS))
@@ -161,17 +171,19 @@ class ServePlan:
     # ------------------------------------------------------------- #
     def shard_params(self, params):
         """This rank's blocks of the full params (under pipeshard, of its
-        stage's layers and of every leaf outside the stack)."""
+        stage's rows of the stacks, ``core.pipeline.held_rows``, and of
+        every leaf outside them)."""
         if self.stage_rows is None:
             return shard_tree(params, self.param_specs, self.mesh)
-        rows = torch.as_tensor(self.stage_rows, dtype=torch.long)
-        # one stage holds every row: the leaves themselves, as a flat
-        # plan's blocks on a mesh of one are the params
-        every = len(rows) == stack_length(self.model.cfg, params["layers"])
+        stage = self.mesh.coord[STAGE_AXIS]
 
         def cut(path, t, spec):
-            if path.startswith("layers/") and not every:
-                t = t.index_select(0, rows.to(t.device))
+            rows = held_rows(path, self.stage_rows, stage, t.shape[0])
+            # one stage holds every row: the leaf itself, as a flat
+            # plan's blocks on a mesh of one are the params
+            if rows is not None and len(rows) < t.shape[0]:
+                t = t.index_select(0, torch.as_tensor(
+                    rows, dtype=torch.long, device=t.device))
             return slice_leaf(t, spec, self.mesh)
 
         return tree_map_with_path(cut, params, self.local_specs)
@@ -201,8 +213,9 @@ class ServePlan:
         to ``cache_spec``'s where the two speak of the same dims: on each
         leaf whose batch dim ``cache_spec`` finds (it finds the batch dim
         by size; the true one is the dim that differs between the caches
-        of B and B + 1 rows), the ring's cut over ``model`` and the SSM
-        state's ``h`` cut with its channels.  Where ``cache_spec`` takes
+        of B and B + 1 rows), the ring's cut over ``model``, the SSM
+        state's ``h`` cut with its channels and the cross cache's frames
+        cut over ``model``.  Where ``cache_spec`` takes
         another dim for the batch (a stack as deep as the batch) or cuts
         the SSM conv state's window over ``model``, the runtime keeps its
         own layout: the two differ in memory, not in numbers (ROADMAP
@@ -230,7 +243,10 @@ class ServePlan:
                     (self.channel_blocks > 1):
                 raise AssertionError(f"h: cache_spec {spec} against the "
                                      f"channels' cut {self.channel_blocks}")
-            if name not in _SSM_LEAVES and on_model != cut:
+            if name in _CROSS_LEAVES and on_model != self.frames_cut:
+                raise AssertionError(f"{name}: cache_spec {spec} against "
+                                     f"the frames' cut {self.frame_blocks}")
+            if name not in _SSM_LEAVES + _CROSS_LEAVES and on_model != cut:
                 raise AssertionError(f"{name}: cache_spec {spec} against "
                                      f"the ring's blocks {self.blocks}")
 
@@ -242,15 +258,16 @@ class ServePlan:
 
     def init_cache(self, batch_size: int, *, kv_dtype: str = "fp32",
                    slots: bool = False) -> Cache:
-        """This rank's rows, block, SSM channels and (under pipeshard)
-        stage layers of a fresh cache of ``batch_size`` rows (``slots``:
-        ``Model.init_slot_cache``'s per-slot cache), at every batch size
-        and on every model axis (``check_cache_layout``)."""
+        """This rank's rows, block, SSM channels, frames and (under
+        pipeshard) stage layers of a fresh cache of ``batch_size`` rows
+        (``slots``: ``Model.init_slot_cache``'s per-slot cache), at every
+        batch size and on every model axis (``check_cache_layout``)."""
         self.check_cache_layout(batch_size, kv_dtype=kv_dtype, slots=slots)
         init = self.model.init_slot_cache if slots else self.model.init_cache
         return init(batch_size, self.max_len, rows=self.rows(batch_size)[1],
                     seq_blocks=self.blocks.size if self._ring_cut() else 1,
                     channel_blocks=self.channel_blocks,
+                    frame_blocks=self.frame_blocks,
                     depth=None if self.stage_rows is None
                     else len(self.stage_rows), window=self.window,
                     kv_dtype=kv_dtype)

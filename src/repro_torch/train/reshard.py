@@ -38,8 +38,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.costmodel import parse_schedule
-from repro_torch.core.pipeline import (pipeline_split, stage_gather_index,
-                                       stage_rows)
+from repro_torch.core.pipeline import (held_rows, pipeline_split,
+                                       stage_gather_index, stage_rows)
 from repro_torch.core.plans import STAGE_AXIS, Placement, Plan
 from repro_torch.core.sharding import slice_leaf, tree_map_with_path
 from repro_torch.core.steps import stage_local_specs
@@ -271,6 +271,12 @@ def reshard_state(params_host, opt_host, plan: Plan, cfg: ModelConfig,
         tree = dict(tree)
         if staged_rows is not None:
             tree["layers"] = staged_rows(tree["layers"])
+            if "encoder" in tree:
+                # the first stage holds the encoder's stack whole, the
+                # others none of it (``core.pipeline.held_rows``)
+                n = None if mesh.coord[STAGE_AXIS] == 0 else 0
+                tree["encoder"] = dict(tree["encoder"], layers=tree_map(
+                    lambda a: _numpy(a)[:n], tree["encoder"]["layers"]))
         return tree_map_with_path(
             lambda _, leaf, spec: torch.from_numpy(np.ascontiguousarray(
                 _host_block(_numpy(leaf), spec, mesh))).to(device),
@@ -290,8 +296,7 @@ def _blocks(path, flat, prefix, like, specs, layout, mesh, device,
     """This rank's blocks of the checkpoint's ``prefix`` leaves (``flat``,
     by key), in the step's layout: a pipeline stage's rows, then the
     step's cut, each block alone moved to ``device``."""
-    rows = None if layout.rows is None else \
-        torch.as_tensor(layout.rows, dtype=torch.long)
+    stage = None if layout.rows is None else mesh.coord[STAGE_AXIS]
 
     def one(key, leaf, spec):
         full = f"{prefix}/{key}" if prefix else key
@@ -307,8 +312,10 @@ def _blocks(path, flat, prefix, like, specs, layout, mesh, device,
                 f"{full}: checkpoint dtype {t.dtype} != template "
                 f"{leaf.dtype}; a silent cast would lose master-weight "
                 f"precision — pass allow_cast=True to convert deliberately")
-        if rows is not None and key.startswith("layers/"):
-            t = t.index_select(0, rows)
+        rows = None if stage is None else \
+            held_rows(key, layout.rows, stage, t.shape[0])
+        if rows is not None:
+            t = t.index_select(0, torch.as_tensor(rows, dtype=torch.long))
         return slice_leaf(t, spec, mesh).to(device=device, dtype=leaf.dtype,
                                             copy=True)
 

@@ -16,7 +16,9 @@ reference.
   reduced gpt2m in fp32): the four place scenarios of
   ``test_reshard.py`` bit-exact against ``reshard_state`` and the
   destination step's own cut, gathered back to the checkpoint, and one
-  further step equal to the control; the chaos drill (site V2 killed at
+  further step equal to the control; a reduced whisper-small state
+  resharded from shard to pipeshard and back, bit-exact, the encoder's
+  stack on the first stage only; the chaos drill (site V2 killed at
   step 3) with the reference's technique, the state bit-exact, the
   resumed losses equal to the control, and the dead rank out at exit 0
   having written nothing.
@@ -563,6 +565,33 @@ def test_reshard_place_scenario(worlds, name):
         # ranks: fsdp its params and moments, zero2 its moments
         assert res["dst_ranks"] == 2
         assert all(n >= SPLIT_ACROSS[name] for n in res["split_leaves"])
+
+
+def test_whisper_reshards_shard_to_pipeshard_and_back(worlds):
+    """The world of 2 reshards a reduced whisper-small state (params and
+    AdamW moments) from a checkpoint onto shard (a model axis of 2),
+    onto pipeshard (2 stages) and onto shard again, each leg's
+    checkpoint written from the last leg's gathered state
+    (``worker.whisper_reshard``): every leg bit-exact against
+    ``reshard_state`` and against the step's own cut, and gathered back
+    to the checkpoint it came from; shard cuts the encoder's heads as the
+    decoder's; the first stage holds the encoder's stack whole and the
+    second none of it; the round trip gives the first leg's blocks."""
+    for rank, res in enumerate(worlds[2]):
+        rep = res["reports"]["whisper"]
+        legs = rep["legs"]
+        assert [leg["plan"] for leg in legs] == ["shard", "pipeshard",
+                                                 "shard"]
+        for leg in legs:
+            for key in ("params_bitexact", "opt_bitexact",
+                        "layout_bitexact", "gathered_bitexact"):
+                assert leg[key], (rank, key, leg)
+        assert legs[2]["round_trip_bitexact"], rank
+        H, L, E = rep["heads"], rep["n_layers"], rep["n_enc"]
+        assert legs[0]["encoder_wq"][0] == E
+        assert legs[0]["encoder_wq"][2] == legs[0]["decoder_wq"][2] == H // 2
+        assert legs[1]["encoder_wq"][0] == (E if rank == 0 else 0), rank
+        assert legs[1]["decoder_wq"][0] == L // 2
 
 
 def _chaos_workload():

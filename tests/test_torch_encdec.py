@@ -6,8 +6,9 @@ unequal lengths (the cross-attention's shape) against the reference's
 against ``jax.grad``, the encoder's output, forward logits, ``Model.loss``
 and every gradient leaf, prefill and decode logits with the
 cross-attention cache, the greedy tokens of the port's ``Engine``
-against the reference's, and the refusals (an int8 cache,
-``ContinuousEngine``, the training launcher, every plan).  Weights are
+against the reference's, the refusals (an int8 cache,
+``ContinuousEngine``, the training launcher), and every plan at a gloo
+world of one against the reference.  Weights are
 the reference's, carried across by ``repro_torch.convert``; inputs are
 made with numpy from a seed.  Reduced config (2 encoder and 2 decoder
 layers, 32 frames, d_model 256, 4 heads of 64), fp32 unless said.
@@ -411,16 +412,50 @@ def test_continuous_engine_and_train_launcher_are_refused(pair):
                      "--steps", "1", "--seq", "16", "--batch", "2"])
 
 
-@pytest.mark.parametrize("plan", sorted(PLANS))
-def test_every_plan_raises_naming_item_14(pair, plan):
-    """Training (``build_train_step``) and serving (``ServePlan``, which
-    both engines build under a plan) refuse every plan before any mesh
-    is read, naming ROADMAP queue 1, item 14."""
-    from repro_torch.serve.steps import ServePlan
+@pytest.fixture(scope="module")
+def one_rank():
+    """A gloo world of one rank in this process: its flat mesh and its
+    staged mesh of one stage."""
+    import torch.distributed as dist
 
-    _, _, tm, _ = pair
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        build_train_step(tm, TrainConfig(), plan=plan)
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        ServePlan(tm, plan, None, max_len=32)
+    from repro_torch.launch.mesh import make_host_mesh, make_pipeline_mesh
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    axes = ("pod", "data", "model")
+    yield {"flat": make_host_mesh((1, 1, 1), axes),
+           "staged": make_pipeline_mesh((1, 1, 1), axes, 1)}
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("plan", sorted(PLANS))
+def test_every_plan_raises_naming_item_14(pair, one_rank, plan):
+    """Every plan trains and serves the encoder-decoder (named for the
+    refusal it held until the family ran under the plans: ROADMAP queue
+    1, item 14, done).  At a gloo world of one, the step-1 loss of
+    ``build_train_step`` under the plan (pipeshard: two microbatches)
+    is the reference's ``Model.loss`` within ``LOSS_RTOL``, and the
+    ``Engine`` under the plan (``ServePlan``) gives the reference's
+    greedy tokens: the one-device ``Engine``'s, held to them above."""
+    jm, jp, tm, tp = pair
+    mesh = one_rank["staged" if PLANS[plan].pipeline else "flat"]
+    batch = _batch(tm.cfg, B=4, seed=6)
+    step = build_train_step(tm, TrainConfig(microbatches=2), plan=plan,
+                            mesh=mesh)
+    loss, metrics, _ = step.grads(step.shard_params(tp), batch)
+    want, _ = jax.jit(jm.loss)(jp, _jbatch(batch))
+    assert float(loss) == pytest.approx(float(want), rel=LOSS_RTOL)
+    assert float(metrics["tokens"]) == (batch["labels"][:, 1:] >= 0).sum()
+    prompts = {"tokens": batch["tokens"][:, :9], "frames": batch["frames"]}
+    one = Engine(tm, batch_size=4, max_len=16, device="cpu")
+    eng = Engine(tm, batch_size=4, max_len=16, device="cpu", plan=plan,
+                 mesh=mesh)
+    np.testing.assert_array_equal(
+        eng.generate(eng.shard_params(tp), prompts, n_tokens=5)["tokens"],
+        one.generate(tp, prompts, n_tokens=5)["tokens"])
+    assert tuple(eng._init_cache(4)["cross_k"].shape) == (
+        tm.cfg.n_layers, 4, tm.cfg.enc_seq_len, tm.cfg.n_heads,
+        tm.cfg.head_dim)
     assert build_train_step(tm, TrainConfig(), plan=None) is not None

@@ -13,7 +13,9 @@ one-device port and the JAX reference's unsharded loss.
   ``test_pipeline_schedules.py``).
 * Numerics: gloo worlds of 2, 3 and 4 ranks, one spawn each
   (``tests/torch_pipeline_worker.py``), run reduced gpt2m in fp32 at
-  seq 16 with ragged positions under GPipe, 1F1B and interleaved:
+  seq 16 with ragged positions under GPipe, 1F1B and interleaved (and,
+  on two stages, reduced whisper-small at 4 decoder layers, its encoder
+  on the first stage and its output carried with the hidden states):
   losses over 3 steps within 1e-5 relative of the one-device port; the
   step-1 loss within 1e-5 relative of the JAX reference's unsharded
   ``Model.loss``; step-1 gradients leaf by leaf within 1e-5 of the
@@ -22,7 +24,8 @@ one-device port and the JAX reference's unsharded loss.
   interleaved in its step-1 loss and gradients (its chunks put other
   layers on a stage, so AdamW's norm adds the stages' squares in
   another grouping); explicit even splits bit-equal to the default;
-  sends a step ``2 m (S v - 1)``; a pipeshard checkpoint restored on one
+  sends a step ``2 m (S v - 1)``; the encoder's stack on the first
+  stage only; a pipeshard checkpoint restored on one
   device; the launcher under ``torch.distributed.run`` and
   ``launch.pipeline_check`` on two ranks.
 """
@@ -50,7 +53,7 @@ from repro.core.sharding import _path_str  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.configs import TrainConfig  # noqa: E402
-from repro_torch.convert import flatten  # noqa: E402
+from repro_torch.convert import flatten, unflatten  # noqa: E402
 from repro_torch.core import pipeline as tpipe  # noqa: E402
 from repro_torch.core import plans as tplans  # noqa: E402
 from repro_torch.core.steps import build_train_step  # noqa: E402
@@ -63,7 +66,10 @@ import torch_plan_worker as plan_worker  # noqa: E402
 
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-5
 LEAF_FLOOR = 1e-3
-ZERO_LEAF, ZERO_LEAVES = 1e-6, ("layers/attn/bk",)
+# the key biases' gradients (whisper's three attentions' too)
+ZERO_LEAF, ZERO_LEAVES = 1e-6, ("layers/attn/bk", "layers/self_attn/bk",
+                                "layers/cross_attn/bk",
+                                "encoder/layers/attn/bk")
 SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("interleaved", 2),
              ("interleaved3", 3))
 LAUNCHER = ["torch.distributed.run", "--nproc_per_node", "2",
@@ -119,13 +125,13 @@ def jax_losses():
     out = {}
     for scs in worker.SCENARIOS.values():
         for name, sc in scs.items():
-            layers = sc["layers"]
-            cfg = worker.config(layers)
-            jcfg = dataclasses.replace(jconfigs.get_config("gpt2m").reduced(),
-                                       dtype="float32", n_layers=layers)
+            cfg = worker.scenario_config(sc)
+            jcfg = dataclasses.replace(
+                jconfigs.get_config(sc.get("arch", "gpt2m")).reduced(),
+                dtype="float32", n_layers=sc["layers"])
             params = plan_worker.init_params(TModel(cfg, device="cpu"))
             jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), params)
-            batch = worker.make_batch(cfg.vocab_size, sc["batch"])
+            batch = worker.make_batch(cfg.vocab_size, sc["batch"], cfg)
             loss, _ = jax.jit(JModel(jcfg).loss)(
                 jp, {k: jnp.asarray(v) for k, v in batch.items()})
             out[name] = float(loss)
@@ -340,7 +346,8 @@ def _ref_specs(tree):
     return {_path_str(path): tuple(spec) for path, spec in leaves}
 
 
-@pytest.mark.parametrize("arch", ["gpt2m", "llama3.2-3b", "gpt2L"])
+@pytest.mark.parametrize("arch", ["gpt2m", "llama3.2-3b", "whisper-small",
+                                  "gpt2L"])
 def test_staged_specs_equal_reference(arch):
     jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
     if arch != "gpt2L":
@@ -359,17 +366,46 @@ def test_staged_specs_equal_reference(arch):
             _ref_specs(jp.opt_specs(jshapes, jcfg, jm)), shape
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("deepseek-v2-236b", "item 13"), ("whisper-small", "item 14")])
+@pytest.mark.parametrize("arch,item", [("deepseek-v2-236b", "item 13")])
 def test_pipeshard_refuses_with_its_roadmap_item(arch, item):
-    """pipeshard runs every family the port has (the MoE, SSM and hybrid
-    ones in ``test_torch_plan_families.py``) but the ones that run on one
-    device only: the MLA models (item 13) and the encoder-decoder (item
-    14) raise."""
+    """pipeshard runs every family the port has (the MoE, SSM, hybrid,
+    vision-language and encoder-decoder ones in
+    ``test_torch_plan_families.py``) but the one that runs on one device
+    only: the MLA models (item 13) raise."""
     with pytest.raises(NotImplementedError, match=item):
         build_train_step(TModel(tconfigs.get_config(arch).reduced(),
                                 device="cpu"), TrainConfig(),
                          plan="pipeshard")
+
+
+def test_encoder_stack_lies_on_the_first_stage():
+    """The copied rules cut the encoder's stack over ``stage`` as the
+    decoder's; the local layout cuts neither, and a stage holds its
+    chunks' rows of the decoder's stack and, on the first stage only,
+    every row of the encoder's (``held_rows``); every other leaf is
+    whole on every stage."""
+    from repro_torch.core.steps import stage_local_specs
+    cfg = tconfigs.get_config("whisper-small")
+    shapes = flatten(TModel(cfg, device="cpu").init(torch.Generator(),
+                                                    device="meta"))
+    specs = flatten(tplans.PLANS["pipeshard"].param_specs(
+        unflatten(shapes), cfg,
+        tplans.MeshSpec.of((2, 1, 2), tpipe.STAGED_AXES)))
+    assert specs["encoder/layers/attn/wq"] == ("stage", None, "model")
+    local = flatten(stage_local_specs(unflatten(specs)))
+    assert all("stage" not in s for s in local.values())
+    assert local["encoder/layers/attn/wq"] == (None, None, "model")
+    rows = tpipe.stage_rows((6, 6), 2, 1, 1)
+    for path, leaf in shapes.items():
+        first = tpipe.held_rows(path, rows, 0, leaf.shape[0])
+        other = tpipe.held_rows(path, rows, 1, leaf.shape[0])
+        if path.startswith("encoder/layers/"):
+            assert list(first) == list(range(cfg.n_enc_layers)), path
+            assert len(other) == 0, path
+        elif path.startswith("layers/"):
+            assert list(other) == list(range(6, 12)), path
+        else:
+            assert first is None and other is None, path
 
 
 # ------------------------------------------------------------------ #
@@ -402,8 +438,9 @@ def test_pipeline_matches_one_device(worlds, world, sc, run):
                                       for sc in scs])
 def test_step1_loss_matches_jax_reference(jax_losses, worlds, world, sc):
     rec = worlds[world]["scenarios"][sc]
-    for k, v in worker.make_batch(worker.config(rec["layers"]).vocab_size,
-                                  len(rec["batch"]["tokens"])).items():
+    cfg = worker.scenario_config(worker.SCENARIOS[world][sc])
+    for k, v in worker.make_batch(cfg.vocab_size,
+                                  len(rec["batch"]["tokens"]), cfg).items():
         assert np.array_equal(rec["batch"][k], v), k
     for run, got in rec["runs"].items():
         assert got["loss1"] == pytest.approx(jax_losses[sc],

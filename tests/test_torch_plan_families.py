@@ -1,6 +1,6 @@
 """Every plan of ``PLANS`` for every family the port has: fsdp, and the
-MoE, SSM, hybrid and vision-language families under the flat plans and
-pipeshard.
+MoE, SSM, hybrid, vision-language and encoder-decoder families under the
+flat plans and pipeshard.
 
 * Numerics: gloo worlds of 1, 2 and 4 ranks, one spawn each
   (``tests/torch_plan_family_worker.py``; flat meshes (1,1,1), (1,1,2),
@@ -13,13 +13,17 @@ pipeshard.
   Mamba2 heads, which a model axis of two cannot cut, under shard);
   phi-3-vision, its batch carrying patch embeddings, under data, zero2,
   shard, shard_zero and fsdp (the projector whole on every model rank,
-  gathered at its use under fsdp); falcon-mamba, zamba2, phi3.5-MoE and
-  phi-3-vision under pipeshard with GPipe and 1F1B. Each is held to the
+  gathered at its use under fsdp); whisper-small, its batch carrying
+  frames, under the same five (the encoder and every cross-attention
+  cut as the decoder's self-attention); falcon-mamba, zamba2,
+  phi3.5-MoE, phi-3-vision and whisper-small under pipeshard with GPipe
+  and 1F1B (whisper's encoder on the first stage, its output carried
+  with the hidden states). Each is held to the
   one-device port, which the other port tests hold to the JAX reference,
   as ``test_torch_plans.py`` holds the dense family: losses over 3 steps
   within 1e-5 relative, step-1 gradients leaf by leaf within 1e-5 of the
   leaf's largest value (floored at ``LEAF_FLOOR`` of the largest
-  gradient; the key bias's gradient, 0 in exact arithmetic, within
+  gradient; the key biases' gradients, 0 in exact arithmetic, within
   ``ZERO_LEAF``), the param norm within 1e-6 relative, and bit-equality
   at world 1.  The MoE
   family routes each batch rank's tokens on their own under the flat
@@ -83,10 +87,14 @@ import torch_plan_worker as plan_worker  # noqa: E402
 
 LOSS_RTOL, GRAD_RTOL, NORM_RTOL = 1e-5, 1e-5, 1e-6
 LEAF_FLOOR = 1e-3
-ZERO_LEAF, ZERO_LEAVES = 1e-6, ("layers/attn/bk",)
+# the key biases' gradients (whisper's three attentions' too)
+ZERO_LEAF, ZERO_LEAVES = 1e-6, ("layers/attn/bk", "layers/self_attn/bk",
+                                "layers/cross_attn/bk",
+                                "encoder/layers/attn/bk")
 WORLDS = (1, 2, 4)
 MOE = "phi3.5-moe-42b-a6.6b"
-FAMILY_ARCHS = (MOE, "falcon-mamba-7b", "zamba2-2.7b", "phi-3-vision-4.2b")
+FAMILY_ARCHS = (MOE, "falcon-mamba-7b", "zamba2-2.7b", "phi-3-vision-4.2b",
+                "whisper-small")
 
 
 # ------------------------------------------------------------------ #
@@ -263,14 +271,11 @@ def test_the_groupings_drop_other_tokens(drop_reference):
 
 @pytest.mark.parametrize("arch,plan,item", [
     ("deepseek-v2-236b", "fsdp", "item 13"),
-    ("whisper-small", "shard", "item 14"),
-    ("whisper-small", "pipeshard", "item 14"),
     ("minicpm3-4b", "data", "item 13")])
 def test_families_not_ported_raise_with_their_roadmap_item(arch, plan, item):
-    """The encoder-decoder under any plan (item 14: it runs on one device
-    only), and the MLA models under any plan (item 13: they run on one
-    device only); the vision-language family runs under every plan (the
-    worlds' "vlm" cases)."""
+    """The MLA models under any plan (item 13: they run on one device
+    only); the vision-language and encoder-decoder families run under
+    every plan (the worlds' "vlm" and "whisper" cases)."""
     with pytest.raises(NotImplementedError, match=item):
         build_train_step(TModel(tconfigs.get_config(arch).reduced(),
                                 device="cpu"), TrainConfig(), plan=plan)
@@ -319,7 +324,7 @@ def test_donated_steps_repeat_the_bits(worlds):
 
 def test_every_plan_builds_for_every_family(worlds):
     built = worlds[1]["builds"]
-    assert len(built) == 5 * len(tplans.PLANS)
+    assert len(built) == 6 * len(tplans.PLANS)
     assert all(v is True for v in built.values()), \
         {k: v for k, v in built.items() if v is not True}
 
@@ -369,6 +374,11 @@ def test_model_axis_describes_each_family(worlds, world):
     vlm = flat["vlm"]["shard"]["model_axis"]
     assert vlm["heads"] and vlm["kv_heads"] and vlm["mlp"] and vlm["vocab"]
     assert not vlm["positions"] and not vlm["experts"]
+    # whisper: the self-attention's cut, which its cross-attention and
+    # its encoder's layers share; the decoder's position table by rows
+    enc = flat["whisper"]["fsdp"]["model_axis"]
+    assert enc["heads"] and enc["kv_heads"] and enc["mlp"]
+    assert enc["vocab"] and enc["positions"] and not enc["experts"]
     if world == 2:
         assert not flat["moe_e3"]["shard"]["model_axis"]["experts"]
         shared = flat["moe_shared"]["shard"]["model_axis"]

@@ -1,7 +1,7 @@
 """The port's execution plans against the reference's specs and against
 the one-device port.
 
-* Specs: for every plan of ``PLANS``, the reduced configs of the five
+* Specs: for every plan of ``PLANS``, the reduced configs of six
   ported families and full gpt2L (the port's shapes on the meta device,
   the reference's from ``jax.eval_shape``), on three meshes, the port's
   ``param_specs``, ``opt_specs`` and ``batch_spec`` equal the
@@ -22,7 +22,8 @@ the one-device port.
   held to ``ZERO_LEAF`` (1e-6) of the largest gradient on both sides.
 * ZeRO memory, the collectives a layer under shard, a shard checkpoint
   restored on one device, the launcher under ``torch.distributed.run``
-  and ``launch.plan_check``, and the refusals.
+  and ``launch.plan_check``, the refusals, and an encoder-decoder
+  batch's frames cut with its tokens on every rank of a mesh.
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ LAUNCHER = ["torch.distributed.run", "--nproc_per_node", "2",
 PLAN_CHECK = ["repro_torch.launch.plan_check", "--device", "cpu", "--world",
               "1", "--steps", "2"]
 SPEC_ARCHS = ("gpt2m", "llama3.2-3b", "phi3.5-moe-42b-a6.6b",
-              "falcon-mamba-7b", "zamba2-2.7b", "gpt2L")
+              "falcon-mamba-7b", "zamba2-2.7b", "whisper-small", "gpt2L")
 
 
 # ------------------------------------------------------------------ #
@@ -367,18 +368,76 @@ def test_plan_check_prints_every_plan_beside_one_device(_started):
 @pytest.mark.parametrize("arch,plan,item", [
     ("deepseek-v2-236b", "pipeshard", "item 13"),
     ("minicpm3-4b", "fsdp", "item 13"),
-    ("whisper-small", "data", "item 14"),
-    ("whisper-small", "zero2", "item 14"),
     ("minicpm3-4b", "shard_zero", "item 13"),
 ])
 def test_plans_not_ported_raise_with_their_roadmap_item(arch, plan, item):
-    """Every plan runs every family but two (the vision-language one
-    since it was ported: ``test_torch_plan_families.py``); what remains
-    refused is Multi-head Latent Attention (item 13) and the
-    encoder-decoder (item 14), which run on one device only."""
+    """Every plan runs every family (the vision-language and the
+    encoder-decoder ones: ``test_torch_plan_families.py``); what remains
+    refused is Multi-head Latent Attention (item 13), which runs on one
+    device only."""
     with pytest.raises(NotImplementedError, match=item):
         build_train_step(TModel(tconfigs.get_config(arch).reduced(),
                                 device="cpu"), TrainConfig(), plan=plan)
+
+
+class _RankView:
+    """A mesh of ``shape`` over ``axes`` seen from the rank at ``coord``:
+    what ``Plan.batch_spec`` and ``core.steps._local_rows`` read of a
+    ``core.sharding.Mesh``, without a process group."""
+
+    def __init__(self, shape, axes, coord):
+        self.axis_names, self.shape = axes, dict(zip(axes, shape))
+        self.coord = dict(zip(axes, coord))
+
+    def count(self, axes):
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def index(self, axes):
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + self.coord[a]
+        return i
+
+
+@pytest.mark.parametrize("plan", sorted(tplans.PLANS))
+def test_frames_are_the_rows_of_their_tokens(plan):
+    """An encoder-decoder batch's ``frames`` [B, F, d] are cut with its
+    tokens over the plan's batch axes, in each of the step's microbatches
+    (``grad_accum``'s, or a pipeline's): on every rank of a mesh with a
+    data axis, the frames it holds are those of the rows of the tokens
+    it holds, and over the batch ranks each row is held once a
+    microbatch."""
+    from repro_torch.core.steps import _local_rows
+    B, F, d, groups = 8, 3, 2, 2
+    rows = np.arange(B)
+    batch = {"tokens": np.repeat(rows[:, None], 5, 1),
+             "labels": np.repeat(rows[:, None], 5, 1),
+             "frames": np.broadcast_to(rows[:, None, None].astype(np.float32),
+                                       (B, F, d)).copy()}
+    p = tplans.PLANS[plan]
+    axes = ("stage", "data", "model") if p.pipeline \
+        else ("pod", "data", "model")
+    for shape in ((2, 2, 1), (1, 2, 2)):
+        held = []
+        for coord in np.ndindex(*shape):
+            view = _RankView(shape, axes, coord)
+            spec = p.batch_spec(batch, view)
+            assert spec["frames"] == spec["tokens"], (plan, shape)
+            local = _local_rows(batch, spec, view, groups, "cpu")
+            got = local["frames"][:, 0, 0].long()
+            assert torch.equal(got, local["tokens"][:, 0]), (plan, coord)
+            assert torch.equal(local["frames"],
+                               got[:, None, None].float().expand(-1, F, d))
+            held.append(got.view(groups, -1))
+        # each microbatch's rows, [i B/m, (i+1) B/m), over the batch ranks
+        n = view.count(p.batch_axes(view, B)) if p.batch_axes(view, B) \
+            else 1
+        assert n > 1 or not p.batch_axes(view, B)
+        for i in range(groups):
+            mine = torch.cat([h[i] for h in held]).tolist()
+            want = list(range(i * B // groups, (i + 1) * B // groups))
+            assert sorted(set(mine)) == want, (plan, shape, i)
+            assert len(mine) == len(want) * len(held) // n, (plan, shape)
 
 
 def test_one_device_step_clears_the_model_axis():

@@ -1,8 +1,10 @@
 """Serving under every plan for every family: the MoE, SSM and hybrid
 families under the flat plans (data, zero2, shard, shard_zero, fsdp),
 the vision-language family (its batch carrying patch embeddings, its
-cache the patches too) under shard, and pipeshard for the dense, MoE,
-SSM, hybrid and vision-language families.
+cache the patches too) and the encoder-decoder (its batch carrying
+frames, its cross cache a rank's block of the frames) under shard, and
+pipeshard for the dense, MoE, SSM, hybrid, vision-language and
+encoder-decoder families.
 
 * Reference parity: at a world of one, every family under every plan of
   ``PLANS`` gives the JAX reference ``Engine``'s tokens under the same
@@ -14,7 +16,8 @@ SSM, hybrid and vision-language families.
   meshes (1,1,2), (1,2,1), (1,2,2) and (1,1,4) over (pod, data, model),
   and pipeshard at 2 stages (2,1,1), at 3 stages with an uneven split,
   at (2,1,2) and (2,2,1), and at one stage of two chunks.  Both engines
-  (the vision-language family: ``Engine``, as the reference) give the
+  (the vision-language and encoder-decoder families: ``Engine``, as the
+  reference) give the
   one-device port's greedy tokens in both KV dtypes where the family
   has a KV cache, every step's logits within ``FP32_LOGIT_ATOL``
   (fp32 KV) or ``INT8_LOGIT_RTOL`` of the largest (int8 KV), and
@@ -82,7 +85,8 @@ BF16_LOGIT_RTOL = 5e-2
 AXES = ("pod", "data", "model")
 # the reference's Engine runs in the background beside the worlds, in
 # processes of this module's ``__main__``, each over these families
-REFERENCE_SPLIT = (("dense", "vlm"), ("moe",), ("ssm",), ("hybrid",))
+REFERENCE_SPLIT = (("dense", "vlm"), ("moe",), ("ssm",), ("hybrid",),
+                   ("encdec",))
 
 
 # ------------------------------------------------------------------ #
@@ -488,11 +492,15 @@ def test_moe_routes_as_the_reference_with_drops(worlds):
 # the shared block for the hybrid) under shard on a model axis of 2:
 # attention gathers q, k and v over the heads and the blocks' partials
 # (2 all-gathers) and adds its output and the MLP's or the experts'
-# (2 all-reduces); Mamba1 gathers in_proj whole for use and adds x_proj's
-# and out_proj's partial sums; Mamba2 gathers in_proj, conv_w and conv_b
-# and adds the gated norm's mean square and out_proj's partial sums
+# (2 all-reduces); the encoder-decoder's cross-attention gathers q over
+# the heads and the frames' blocks' partials and adds its output (2
+# all-gathers, 1 all-reduce more); Mamba1 gathers in_proj whole for use
+# and adds x_proj's and out_proj's partial sums; Mamba2 gathers in_proj,
+# conv_w and conv_b and adds the gated norm's mean square and out_proj's
+# partial sums
 PER_LAYER = {"dense": (2, 2), "moe": (2, 2), "ssm": (2, 1),
-             "hybrid": (2 + 2 * 2, 2 + 2 * 3), "vlm": (2, 2)}
+             "hybrid": (2 + 2 * 2, 2 + 2 * 3), "vlm": (2, 2),
+             "encdec": (3, 4)}
 
 
 def _shard_counts(worlds):
@@ -516,10 +524,10 @@ def test_shard_decode_collectives_a_layer(worlds):
     counts = _shard_counts(worlds)
     for name, (ar, ag, emb, head) in counts.items():
         assert (ar, ag) == PER_LAYER[name], (name, counts[name])
-        # the embedding's lookup (and gpt2m's position table's; the
-        # VLM's projector, whole on every rank, adds none); the vocab-cut
-        # logits' gather
-        assert emb == (2 if name == "dense" else 1), name
+        # the embedding's lookup (and the position table's of gpt2m and
+        # whisper's decoder; the VLM's projector, whole on every rank,
+        # adds none); the vocab-cut logits' gather
+        assert emb == (2 if name in ("dense", "encdec") else 1), name
         assert head == 1, name
 
 

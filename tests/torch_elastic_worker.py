@@ -3,8 +3,10 @@
 Every rank of a world runs ``repro_torch.launch.reshard_check`` on the
 world's scenarios in turn (reduced gpt2m in fp32, 4 layers unless the
 scenario says otherwise, seq 16, batch 8, 4 microbatches), recording
-every checkpoint it writes; each world ends with a chaos drill, after
-which its dead and spare ranks take part in nothing.  Each rank saves its
+every checkpoint it writes; the world of 2 also reshards a reduced
+whisper-small state from shard to pipeshard and back
+(``whisper_reshard``); each world ends with a chaos drill, after which
+its dead and spare ranks take part in nothing.  Each rank saves its
 reports and records to ``OUT.<rank>`` (``torch.save`` of plain Python).
 Imports no JAX.
 
@@ -57,6 +59,85 @@ SCENARIOS = {
 }
 
 
+def whisper_reshard(root: str):
+    """A reduced whisper-small state (fp32 params from seed 0, AdamW
+    moments drawn from seed 1, step 3) written as a checkpoint, resharded
+    onto shard over a model axis of 2, gathered and written again,
+    resharded onto pipeshard over 2 stages (the first holds the encoder's
+    stack, the second none of it), gathered and written again, and
+    resharded onto shard once more.  Each reshard is held to the
+    host-side reference re-placement (``reshard_state``) and to the
+    step's own cut of the state; each gather to the state written.
+    Returns, per leg, whether each held bit for bit, and this rank's
+    shapes of the encoder's and the decoder's stacks."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.plans import Placement, get_plan
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.launch.mesh import make_host_mesh, make_pipeline_mesh
+    from repro_torch.launch.reshard_check import host_state, leaves_equal
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWState, init_adamw
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import (reshard_checkpoint, reshard_state,
+                                   save_checkpoint)
+    cfg = dataclasses.replace(get_config("whisper-small").reduced(),
+                              dtype="float32")
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    opt = init_adamw(params)
+    opt = AdamWState(step=torch.tensor(3, dtype=torch.int32),
+                     m=tree_map(lambda t: torch.randn(t.shape, generator=g),
+                                opt.m),
+                     v=tree_map(lambda t: torch.rand(t.shape, generator=g),
+                                opt.v))
+    axes = ("pod", "data", "model")
+    legs = (("shard", make_host_mesh((1, 1, 2), axes), None),
+            ("pipeshard", make_pipeline_mesh((2, 1, 1), axes, 2),
+             Placement((0, 1))),
+            ("shard", make_host_mesh((1, 1, 2), axes), None))
+    out, first = [], None
+    if dist.get_rank() == 0:
+        save_checkpoint(root, 0, params, opt)
+    dist.barrier()
+    for i, (name, mesh, place) in enumerate(legs):
+        ckpt = os.path.join(root, f"step_{i:08d}")
+        plan = get_plan(name)
+        got_p, got_o, _ = reshard_checkpoint(ckpt, model, plan, mesh,
+                                             placement=place)
+        host_p, host_o = host_state(ckpt, model)
+        ref_p, ref_o = reshard_state(host_p, host_o, plan, cfg, mesh,
+                                     placement=place, device="cpu")
+        step = build_train_step(model, TrainConfig(), plan=name, mesh=mesh)
+        own = step.shard_params(host_p)
+        rec = {"plan": name,
+               "params_bitexact": leaves_equal(got_p, ref_p)[0],
+               "opt_bitexact": leaves_equal(got_o.m, ref_o.m)[0]
+               and leaves_equal(got_o.v, ref_o.v)[0],
+               "layout_bitexact": leaves_equal(got_p, own)[0],
+               "encoder_wq": tuple(got_p["encoder"]["layers"]["attn"]["wq"]
+                                   .shape),
+               "decoder_wq": tuple(got_p["layers"]["self_attn"]["wq"]
+                                   .shape)}
+        whole_p = step.gather_params(got_p)
+        whole_o = step.gather_opt_state(got_o)
+        rec["gathered_bitexact"] = leaves_equal(whole_p, host_p)[0] \
+            and leaves_equal(whole_o.m, host_o.m)[0] \
+            and leaves_equal(whole_o.v, host_o.v)[0]
+        if first is None:
+            first = got_p
+        elif name == "shard":
+            rec["round_trip_bitexact"] = leaves_equal(got_p, first)[0]
+        out.append(rec)
+        if dist.get_rank() == 0:
+            save_checkpoint(root, i + 1, whole_p, whole_o)
+        dist.barrier()
+    return {"legs": out, "n_enc": cfg.n_enc_layers,
+            "n_layers": cfg.n_layers, "heads": cfg.n_heads}
+
+
 def run(rank: int, world: int, init: str, out: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank,
@@ -91,6 +172,9 @@ def run(rank: int, world: int, init: str, out: str) -> None:
 
     train_pkg.train_elastic = train_elastic
     reports = {}
+    if world == 2:
+        root = os.path.join(os.path.dirname(out), "whisper")
+        reports["whisper"] = whisper_reshard(root)
     for name, argv in SCENARIOS[world]:
         reports[name] = reshard_check.check(
             reshard_check.parse(COMMON + argv), torch.device("cpu"))

@@ -1,7 +1,8 @@
 """One rank of the gloo worlds of ``tests/test_torch_pipeline.py``.
 
 Every rank of a world runs the pipeline plan of the port on reduced
-fp32 gpt2m models, under several schedules and layer splits, and rank 0
+fp32 gpt2m models (and, in the world of 2, whisper-small's), under
+several schedules and layer splits, and rank 0
 runs the one-device port beside it on the same params and batch; rank 0
 saves what the tests compare (``torch.save`` of plain Python and
 numpy).  Imports no JAX.
@@ -36,12 +37,17 @@ CKPT_STEPS = 2
 # searched split (``PlanSearch`` over ``gpus``, TFLOP-weighted) as the
 # reference's ``pipeline_check`` does; ``legacy`` is no split, ``even``
 # the even split spelled out.  Mesh scenarios: (pod, data, model) shapes
-# cut into 2 stages.
+# cut into 2 stages; ``arch`` other than gpt2m: the encoder-decoder, its
+# batch carrying frames, its encoder on the first stage.
 SCENARIOS = {
     2: {"A30,T4": dict(gpus="A30,T4", layers=6, micro=4, batch=8,
                        runs=(("gpipe", "searched"), ("gpipe", "legacy"),
                              ("gpipe", "even"), ("1f1b", "searched"),
-                             ("interleaved", "searched")))},
+                             ("interleaved", "searched"))),
+        "whisper": dict(arch="whisper-small", shape=(2, 1, 1), layers=4,
+                        micro=4, batch=8,
+                        runs=(("gpipe", "legacy"), ("1f1b", "legacy"),
+                              ("interleaved", "even")))},
     3: {"A30,A30,T4": dict(gpus="A30,A30,T4", layers=7, micro=4, batch=8,
                            runs=(("gpipe", "searched"),
                                  ("1f1b", "searched"),
@@ -57,8 +63,10 @@ SCENARIOS = {
 }
 
 
-def config(layers: int):
-    return plan_worker.case_config("gpt2m", n_layers=layers)
+def config(layers: int, arch: str = "gpt2m"):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                               n_layers=layers)
 
 
 def train_config(micro: int):
@@ -66,17 +74,26 @@ def train_config(micro: int):
                                microbatches=micro)
 
 
-def make_batch(vocab: int, batch: int):
+def make_batch(vocab: int, batch: int, cfg=None):
     """Tokens, labels (a tenth masked, so the microbatches hold different
     token counts) and ragged positions (``arange + b % 3``, as in
-    ``pipeline_check``), from a seed."""
+    ``pipeline_check``), from a seed; an encoder-decoder's ``frames``
+    [batch, F, d] x 0.02 (``cfg``, either package's config) too."""
     rng = np.random.default_rng(0)
     labels = rng.integers(0, vocab, (batch, SEQ))
     labels[rng.random((batch, SEQ)) < 0.1] = -1
-    return {"tokens": rng.integers(0, vocab, (batch, SEQ)),
-            "labels": labels,
-            "positions": np.arange(SEQ)[None]
-            + (np.arange(batch)[:, None] % 3)}
+    out = {"tokens": rng.integers(0, vocab, (batch, SEQ)),
+           "labels": labels,
+           "positions": np.arange(SEQ)[None]
+           + (np.arange(batch)[:, None] % 3)}
+    if cfg is not None and cfg.family == "encdec":
+        out["frames"] = np.asarray(rng.standard_normal(
+            (batch, cfg.enc_seq_len, cfg.d_model)) * 0.02, np.float32)
+    return out
+
+
+def scenario_config(sc):
+    return config(sc["layers"], sc.get("arch", "gpt2m"))
 
 
 def line_topology(gpus: str):
@@ -144,7 +161,7 @@ def run_one(sc, schedule, split_name, batch, ref_grads):
     from repro_torch.launch.mesh import (
         make_pipeline_mesh, placement_pipeline_mesh)
     from repro_torch.models import Model
-    cfg, tcfg = config(sc["layers"]), train_config(sc["micro"])
+    cfg, tcfg = scenario_config(sc), train_config(sc["micro"])
     _, v = parse_schedule(schedule)
     if "gpus" in sc:
         placement = searched_placement(sc["gpus"], sc["layers"],
@@ -198,8 +215,8 @@ def run(rank: int, world: int, init: str, out: str) -> None:
     from repro_torch.train import train
     res = {"world": world, "scenarios": {}}
     for name, sc in SCENARIOS[world].items():
-        cfg = config(sc["layers"])
-        batch = make_batch(cfg.vocab_size, sc["batch"])
+        cfg = scenario_config(sc)
+        batch = make_batch(cfg.vocab_size, sc["batch"], cfg)
         rec = {"runs": {}, "batch": batch, "layers": sc["layers"]}
         ref_grads = None
         if rank == 0:

@@ -2,7 +2,8 @@
 
 Every rank of a world runs the flat plans of each case on the mesh of
 its world, and on worlds 2 and 4 the pipeline plan of the SSM, hybrid,
-MoE and vision-language families on two stages; the world of one also runs the
+MoE, vision-language and encoder-decoder families on two stages; the
+world of one also runs the
 one-device port of every case on the same params and batch, the
 yardstick of every world (one device computes the same bits in every
 process).  Rank 0 saves what the tests compare (``torch.save`` of plain
@@ -43,7 +44,8 @@ SSM_PLANS = ("shard", "shard_zero", "fsdp")
 # zamba2 with three heads of 128, which a model axis of two cannot cut,
 # so each rank computes its Mamba2 layers whole (the last three on the
 # world of 2 alone, a model axis of two); the vision-language family,
-# its batch carrying patch embeddings (``with_patches``)
+# its batch carrying patch embeddings, and the encoder-decoder, its
+# batch carrying frames (``with_extras``)
 CASES = {
     "gpt2m": ("gpt2m", {}, ("fsdp",)),
     "moe": ("phi3.5-moe-42b-a6.6b", {}, FLAT_PLANS),
@@ -55,6 +57,7 @@ CASES = {
     "zamba2_nh3": ("zamba2-2.7b", {"d_model": 192, "head_dim": 128},
                    ("shard",)),
     "vlm": ("phi-3-vision-4.2b", {}, FLAT_PLANS),
+    "whisper": ("whisper-small", {}, FLAT_PLANS),
 }
 # the MoE cases route each batch rank's tokens on their own: their
 # yardstick is the one-device port with grad_accum = the batch ranks
@@ -66,7 +69,8 @@ ONLY_ON = {"moe_e3": 2, "moe_shared": 2, "zamba2_nh3": 2}
 PIPE_CASES = {"falcon": ("falcon-mamba-7b", {}),
               "zamba2": ("zamba2-2.7b", {"n_layers": 4}),
               "moe": ("phi3.5-moe-42b-a6.6b", {}),
-              "vlm": ("phi-3-vision-4.2b", {})}
+              "vlm": ("phi-3-vision-4.2b", {}),
+              "whisper": ("whisper-small", {})}
 SCHEDULES = ("gpipe", "1f1b")
 # two microbatches: 1F1B's stage 1 alternates (F B F B) where GPipe
 # runs both forwards first
@@ -122,16 +126,20 @@ def drop_batch(vocab: int):
             "labels": labels}
 
 
-def with_patches(cfg, batch):
+def with_extras(cfg, batch):
     """``batch`` with a vision-language model's ``patch_embeds`` [B, P,
-    vision_dim] (x 0.02, from a seed), as its launcher makes them; the
-    batch itself for the other families."""
-    if cfg.family != "vlm":
-        return batch
+    vision_dim], or an encoder-decoder's ``frames`` [B, F, d] (x 0.02,
+    from a seed), as their launchers make them; the batch itself for the
+    other families."""
     rng = np.random.default_rng(4)
     B = batch["tokens"].shape[0]
-    return dict(batch, patch_embeds=np.asarray(rng.standard_normal(
-        (B, cfg.n_patches, cfg.vision_dim)) * 0.02, np.float32))
+    if cfg.family == "vlm":
+        return dict(batch, patch_embeds=np.asarray(rng.standard_normal(
+            (B, cfg.n_patches, cfg.vision_dim)) * 0.02, np.float32))
+    if cfg.family == "encdec":
+        return dict(batch, frames=np.asarray(rng.standard_normal(
+            (B, cfg.enc_seq_len, cfg.d_model)) * 0.02, np.float32))
+    return batch
 
 
 def unmasked(batch):
@@ -220,7 +228,7 @@ def under_plan(cfg, tcfg, batch, plan, mesh, **kw):
 
 
 def case_batch(name: str, vocab: int):
-    batch = with_patches(case_config(name), plan_worker.make_batch(vocab))
+    batch = with_extras(case_config(name), plan_worker.make_batch(vocab))
     return unmasked(batch) if name in MOE_ACCUM else batch
 
 
@@ -244,7 +252,7 @@ def pipe_case(name: str):
     hold equal token counts."""
     arch, kw = PIPE_CASES[name]
     cfg = config(arch, **kw)
-    batch = with_patches(cfg, plan_worker.make_batch(cfg.vocab_size))
+    batch = with_extras(cfg, plan_worker.make_batch(cfg.vocab_size))
     if cfg.family == "moe":
         return cfg, unmasked(batch), MICRO
     return cfg, batch, 1
@@ -351,7 +359,7 @@ def builds():
     from repro_torch.models import Model
     out = {}
     for arch in ("gpt2m", "phi3.5-moe-42b-a6.6b", "falcon-mamba-7b",
-                 "zamba2-2.7b", "phi-3-vision-4.2b"):
+                 "zamba2-2.7b", "phi-3-vision-4.2b", "whisper-small"):
         for name, plan in PLANS.items():
             mesh = make_pipeline_mesh((1, 1, 1), AXES, 1) if plan.pipeline \
                 else make_host_mesh((1, 1, 1), AXES)

@@ -1,11 +1,12 @@
 """One rank of the gloo worlds of ``tests/test_torch_serve_families.py``.
 
 Every rank of a world serves reduced fp32 models of the dense, MoE, SSM,
-hybrid and vision-language families through ``Engine`` and (but the
-vision-language one, which it refuses) ``ContinuousEngine`` on each mesh
-of its world: the MoE, SSM and hybrid families under the flat plans
-(data, zero2, shard, shard_zero, fsdp), the vision-language one under
-shard, every family under pipeshard.  The world of one also runs the
+hybrid, vision-language and encoder-decoder families through ``Engine``
+and (but the vision-language and encoder-decoder ones, which it refuses)
+``ContinuousEngine`` on each mesh of its world: the MoE, SSM and hybrid
+families under the flat plans (data, zero2, shard, shard_zero, fsdp),
+the vision-language and encoder-decoder ones under shard, every family
+under pipeshard.  The world of one also runs the
 one-device engines on the same params and prompts, the yardstick of
 every world (one device computes the same bits in every process), and
 for the MoE drop case one device on each group of rows the plans route
@@ -45,19 +46,24 @@ CASES = {"dense": ("gpt2m", {"n_layers": 4}),
          "moe": ("phi3.5-moe-42b-a6.6b", {"n_layers": 4}),
          "ssm": ("falcon-mamba-7b", {"n_layers": 4}),
          "hybrid": ("zamba2-2.7b", {"n_layers": 8}),
-         "vlm": ("phi-3-vision-4.2b", {"n_layers": 4})}
+         "vlm": ("phi-3-vision-4.2b", {"n_layers": 4}),
+         "encdec": ("whisper-small", {"n_layers": 4})}
 # the families with a KV cache serve both KV dtypes
 KV_DTYPES = {"dense": ("fp32", "int8"), "moe": ("fp32", "int8"),
              "ssm": ("fp32",), "hybrid": ("fp32",),
-             "vlm": ("fp32", "int8")}
+             "vlm": ("fp32", "int8"), "encdec": ("fp32",)}
 # the families under every flat plan; and each family's flat plans (the
-# vision-language one's batch carries patches, which shard cuts with the
-# rows; the plans' cut of the dense stack is the dense family's, held by
+# vision-language one's batch carries patches, the encoder-decoder's
+# frames, which shard cuts with the rows, and the encoder-decoder's
+# cross cache holds a rank's block of the frames; the plans' cut of the
+# dense stack is the dense family's, held by
 # tests/test_torch_serve_plans.py)
 FLAT_CASES = ("moe", "ssm", "hybrid")
-FLAT_RUNS = {**{n: FLAT_PLANS for n in FLAT_CASES}, "vlm": ("shard",)}
-# the families ContinuousEngine serves: a vision-language request would
-# need its own patches beside its prompt
+FLAT_RUNS = {**{n: FLAT_PLANS for n in FLAT_CASES}, "vlm": ("shard",),
+             "encdec": ("shard",)}
+# the families ContinuousEngine serves: a vision-language or an
+# encoder-decoder request would need its own patches or frames beside
+# its prompt
 CONTINUOUS = ("dense", "moe", "ssm", "hybrid")
 # batch and slots: 6, unlike every stack depth (4 layers, 4 groups, 2
 # layers a group) and the conv window (d_conv - 1 = 3), so that
@@ -74,7 +80,8 @@ DEEP_PLANS = {(1, 1, 2): "shard", (2, 1, 1): "pipeshard"}
 # its channels: these families' Engine (fp32 KV, BATCH rows) under shard
 # on (1, 1, 3), in the world of 3
 CONV_CASES = ("ssm", "hybrid")
-# the vision-language family's patches, x 0.02 from their own seed
+# the vision-language family's patches and the encoder-decoder's frames,
+# x 0.02 from their own seed
 PATCH_SEED = 2
 CONT_LEN, BUCKETS = 32, (8, 16)
 REQUEST_LENS = (3, 9, 12, 7, 14)
@@ -86,9 +93,10 @@ FLAT = "flat"
 PIPE = "pipeshard"
 SPLITS = {"even": None,
           "uneven3": {"dense": (2, 1, 1), "moe": (1, 2, 1), "ssm": (1, 1, 2),
-                      "hybrid": (2, 1, 1), "vlm": (1, 1, 2)},
+                      "hybrid": (2, 1, 1), "vlm": (1, 1, 2),
+                      "encdec": (1, 2, 1)},
           "chunks2": {"dense": (3, 1), "moe": (1, 3), "ssm": (2, 2),
-                      "hybrid": (1, 3), "vlm": (3, 1)}}
+                      "hybrid": (1, 3), "vlm": (3, 1), "encdec": (1, 3)}}
 MESHES = {1: ((PIPE, (1, 1, 1), 1, "chunks2"),),
           2: ((FLAT, (1, 1, 2), 0, None), (FLAT, (1, 2, 1), 0, None),
               (PIPE, (2, 1, 1), 2, "even")),
@@ -107,7 +115,7 @@ DROP_PLANS = ("data", "shard")
 # the collectives of one decode step: each family under shard at two
 # depths on a model axis of 2, and under pipeshard on every staged mesh
 COUNT_DEPTHS = {"dense": (4, 5), "moe": (4, 5), "ssm": (4, 5),
-                "hybrid": (8, 10), "vlm": (4, 5)}
+                "hybrid": (8, 10), "vlm": (4, 5), "encdec": (4, 5)}
 
 
 def case_config(name: str, **extra):
@@ -135,13 +143,16 @@ def max_len(cfg) -> int:
 
 def prompts(cfg, batch: int = BATCH):
     """The prompts of a batch of ``cfg``'s model (either package's
-    config), with a vision-language model's patch embeddings."""
+    config), with a vision-language model's patch embeddings or an
+    encoder-decoder's frames."""
     rng = np.random.default_rng(0)
     out = {"tokens": rng.integers(4, cfg.vocab_size, (batch, PROMPT))}
-    if cfg.family == "vlm":
-        out["patch_embeds"] = np.asarray(np.random.default_rng(
-            PATCH_SEED).standard_normal((batch, cfg.n_patches,
-                                         cfg.vision_dim)) * 0.02,
+    extra = {"vlm": ("patch_embeds", (cfg.n_patches, cfg.vision_dim)),
+             "encdec": ("frames", (cfg.enc_seq_len, cfg.d_model))}
+    if cfg.family in extra:
+        key, shape = extra[cfg.family]
+        out[key] = np.asarray(np.random.default_rng(
+            PATCH_SEED).standard_normal((batch,) + shape) * 0.02,
             np.float32)
     return out
 
