@@ -126,8 +126,8 @@ chunks (16 and 14 layers) through ``Engine`` (fp32 KV) and
 ``ContinuousEngine`` (int8; ``serve-pipeshard``,
 ``serve-pipeshard-continuous``), and phi3.5-MoE (8 of 32 layers, as
 deep as the batch of 8, int8 KV), falcon-mamba-7b and zamba2-2.7b
-(chunks of 5 and 4 of its 9
-groups) at full width under shard and under pipeshard
+(3 of its 9 groups, in chunks of 2 and 1) at full width under shard and
+under pipeshard
 (``serve-moe-shard``, ..., ``serve-hybrid-pipeshard``): kernels A, B,
 3, 4 and 6 as the families use them.  Then elasticity, gpt2m at full
 width cut to 12 of its 24 layers (batch 8 of 1024 tokens,
@@ -157,6 +157,23 @@ equal to ``whisper-engine``'s), and three training steps under shard
 (``fam-whisper-pipe``: the encoder once a microbatch, its output carried
 with the hidden states), held to ``train-whisper``'s losses as
 ``fam-vlm-pipe`` is held to ``train-vlm``'s.
+
+Then, in the same process group, Multi-head Latent Attention under the
+plans: minicpm3-4b at full width cut to 8 of its 62 layers through
+``Engine`` on one device (``serve-one-mla-engine-fp32``), then under
+shard and under pipeshard on one stage of two chunks of 5 and 3 layers
+(``serve-mla-shard``, ``serve-mla-pipeshard``: the heads of ``w_uq``,
+``w_uk``, ``w_uv`` and ``wo`` cut, the latent cache's ring cut over
+``model``), their tokens and first steps' logits bit-equal to the
+yardstick's, kernel A at (96, 64) L times a prefill and kernel 6 4L + 1
+times a forward pass; minicpm3 training at ``train-mla``'s shape and
+batches under shard (``plan-mla-shard``, losses bit-equal to
+``train-mla``'s) and under pipeshard, four microbatches, 1F1B
+(``fam-mla-pipe``, step 1 within 1e-4), through the plain versions; and
+deepseek-v2-236b at full width, 2 layers, under shard on
+``dsv2-engine``'s weights and prompts (``serve-dsv2-shard``: kernel A at
+(192, 128), the top-6 combine in one device's order), its tokens equal
+to ``dsv2-engine``'s.
 
 Then the dry run against the card (``dryrun-vs-card``, no second
 training step): ``repro_torch.launch.dryrun`` traces one gpt2m training
@@ -390,8 +407,11 @@ SERVE_PIPE_SPLIT = (16, 14)
 LLAMA, MOE, MOE_LAYERS = "llama3.2-3b", "phi3.5-moe-42b-a6.6b", 8
 # the families under the serving plans, at a world of one: each model
 # built once, its one-device Engine (``serve-one-<tag>-engine-<kv>``),
-# then under shard and under pipeshard (one stage; zamba2 two chunks of
-# its 9 groups), one run each, their tokens held to the one-device
+# then under shard and under pipeshard (one stage; zamba2 cut to 3 of its
+# 9 groups, 18 of 54 layers, in two chunks of 2 and 1: its serving phases
+# under the plans were the script's longest, 14 s each at 9 groups, the
+# SSM leaves gathered at every decode step), one run each, their tokens
+# held to the one-device
 # engine's as the gpt2L phases' are.  phi3.5-MoE keeps 8 of its 32
 # layers, as its one-device phases do: a stack as deep as the batch of
 # 8, whose layer dim ``cache_spec`` takes for the batch (it finds the
@@ -403,8 +423,8 @@ SERVE_FAMILIES = (
      ("rmsnorm", "flash_attn_fwd", "int8kv_decode"), None),
     ("ssm", "falcon-mamba-7b", None, "fp32", ("mamba1_scan", "rmsnorm"),
      None),
-    ("hybrid", "zamba2-2.7b", None, "fp32",
-     ("ssd_scan", "flash_attn_fwd", "rmsnorm"), (5, 4)))
+    ("hybrid", "zamba2-2.7b", 18, "fp32",
+     ("ssd_scan", "flash_attn_fwd", "rmsnorm"), (2, 1)))
 # the dry run against the card (``dryrun-vs-card``): gpt2m's predicted
 # peak of one training step at train-gpt2m's shape (the meta device's,
 # ``launch/dryrun.py``) within DRYRUN_PEAK_RTOL of the peak the card
@@ -444,6 +464,11 @@ MINICPM, DSV2, DSV2_LAYERS = "minicpm3-4b", "deepseek-v2-236b", 2
 PHI4 = "phi4-mini-3.8b"
 TRAIN_MLA_LAYERS, TRAIN_MLA_STEPS = 8, 3
 MLA_FLASH_SHAPES = ((8, 64), (1, 256))
+# MLA under the plans (``mla_plan_phases``): minicpm3-4b served at
+# ``train-mla``'s depth, under pipeshard on one stage of two chunks
+MLA_PLAN_LAYERS, MLA_PIPE_SPLIT = TRAIN_MLA_LAYERS, (5, 3)
+MLA_PLAN_KEYS = ("serve_one_mla_engine_fp32", "serve_mla_shard",
+                 "serve_mla_pipeshard")
 
 # ~1 ms at the H100's clocks: longer than the host takes to enqueue any
 # one function timed here
@@ -1582,6 +1607,9 @@ def mla_phases(torch, np, ops, card):
             if rec["launches"][kname] != n:
                 fail(f"phase {name}: {rec['launches'][kname]} {kname} "
                      f"launches, want {n}")
+        if tag == "dsv2":
+            # the prompts ``serve-dsv2-shard`` serves (``mla_plan_phases``)
+            rec["prompts"] = batch["tokens"].tolist()
         out[f"{tag}_engine"] = rec
         if tag == "mla":
             eng = Engine(model, batch_size=ENGINE_BATCH,
@@ -1625,7 +1653,6 @@ def train_mla_phase(torch, np, ops, card):
     import dataclasses
 
     from repro_torch.configs import TrainConfig, get_config
-    from repro_torch.data import Loader, PackedDataset
     from repro_torch.models import Model, trains_through_kernels
     from repro_torch.train import model_flops_per_step, train
 
@@ -1640,11 +1667,7 @@ def train_mla_phase(torch, np, ops, card):
         f"params; batch {FAM_BATCH} x {FAM_SEQ} random tokens, "
         f"{TRAIN_MLA_STEPS} steps; the kernels' plain versions")
     model = Model(cfg, device="cuda", use_kernels=trains_through_kernels(cfg))
-    rng = np.random.default_rng(SEED + 3)
-    ds = PackedDataset(rng.integers(
-        0, cfg.vocab_size, (TRAIN_MLA_STEPS * FAM_BATCH, FAM_SEQ + 1))
-        .astype(np.int32), FAM_SEQ)
-    loader = Loader(ds, global_batch=FAM_BATCH, seed=SEED)
+    loader = mla_loader(np, cfg)
     tokens = FAM_BATCH * FAM_SEQ
     flops = model_flops_per_step(cfg, tokens)
     res, counts = run_phase(
@@ -1670,6 +1693,19 @@ def train_mla_phase(torch, np, ops, card):
     del res, model
     torch.cuda.empty_cache()
     return rec
+
+
+def mla_loader(np, cfg):
+    """``train-mla``'s batches, ``TRAIN_MLA_STEPS`` of ``FAM_BATCH`` x
+    ``FAM_SEQ`` random tokens from the seed: the MLA plan phases train on
+    the same ones."""
+    from repro_torch.data import Loader, PackedDataset
+
+    rng = np.random.default_rng(SEED + 3)
+    ds = PackedDataset(rng.integers(
+        0, cfg.vocab_size, (TRAIN_MLA_STEPS * FAM_BATCH, FAM_SEQ + 1))
+        .astype(np.int32), FAM_SEQ)
+    return Loader(ds, global_batch=FAM_BATCH, seed=SEED)
 
 
 def whisper_data(np, cfg):
@@ -2179,6 +2215,165 @@ def whisper_plan_phases(torch, np, ops, card, mesh, yard):
     return out
 
 
+def mla_plan_phases(torch, np, ops, card, mesh, yard):
+    """Multi-head Latent Attention under the plans, in the process group
+    of ``plan_phases`` on its mesh of one rank.  minicpm3-4b at full width
+    cut to ``MLA_PLAN_LAYERS`` layers: its one-device ``Engine`` (batch 8,
+    prompt 64, 32 new tokens, the cache in the compute dtype;
+    ``serve-one-mla-engine-fp32``), then under shard and under pipeshard
+    on one stage of two chunks (``MLA_PIPE_SPLIT``; ``serve-mla-shard``,
+    ``serve-mla-pipeshard``), whose tokens and first steps' logits must
+    be bit-equal to it (``compare_served``), kernel A at (96, 64) L times
+    a prefill and kernel 6 4L + 1 times a forward pass.  Training at
+    ``train-mla``'s shape and batches (``mla_loader``), through the
+    plain versions: under shard (``plan-mla-shard``), its losses
+    bit-equal to ``train-mla``'s, and under pipeshard on one stage,
+    ``PIPE_MICRO`` microbatches, 1F1B (``fam-mla-pipe``), within
+    ``PIPE_LOSS1_RTOL`` at step 1 and ``PIPE_LOSS_RTOL`` after.
+    deepseek-v2-236b at full width, ``DSV2_LAYERS`` layers, under shard
+    on ``dsv2-engine``'s weights and prompts (``serve-dsv2-shard``:
+    kernel A at (192, 128)), its tokens equal to ``dsv2-engine``'s
+    (``yard``, with ``train-mla``'s losses)."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import sharding
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    from repro_torch.models import Model, trains_through_kernels
+    from repro_torch.serve import Engine
+    from repro_torch.serve import steps
+    from repro_torch.train import model_flops_per_step, train
+
+    t_all = time.perf_counter()
+    axes = ("pod", "data", "model")
+    max_len = ENGINE_PROMPT + ENGINE_GEN + 8
+    needs = list(NORM_ATTN)
+    out = {}
+
+    def norms(name, rec, L):
+        """Kernel 6 once for each of a layer's four norms (the block's
+        two, ``q_norm`` and ``kv_norm``) and the final norm, a forward
+        pass: the prefill and each decode step."""
+        want = (4 * L + 1) * ENGINE_GEN
+        if rec["launches"]["rmsnorm"] != want:
+            fail(f"phase {name}: {rec['launches']['rmsnorm']} rmsnorm "
+                 f"launches, want {want} ((4 L + 1) a forward pass)")
+
+    def served(name, model, params, batch, ref, plan, m, split=None):
+        eng = Engine(model, batch_size=ENGINE_BATCH, max_len=max_len,
+                     plan=plan, mesh=m, stage_layers=split)
+        local = eng.shard_params(params)
+        L = model.cfg.n_layers
+        rec, tokens = serve_runs(torch, np, ops, name, model, local, batch,
+                                 [], "fp32", "engine", needs, card, L,
+                                 max_len, 0, eng=eng, runs=1)
+        norms(name, rec, L)
+        rec.update(compare_served(torch, steps, sharding, name, model,
+                                  (params, local), batch, [], "fp32",
+                                  "engine", eng, ref, tokens))
+        if not (rec["tokens_bit_equal"]
+                and rec["logits_first_steps_bit_equal"]):
+            fail(f"{name}: tokens or first steps' logits differ from one "
+                 f"device's")
+        del eng, local
+        torch.cuda.empty_cache()
+        return rec
+
+    full = get_config(MINICPM)
+    cfg = dataclasses.replace(full, n_layers=MLA_PLAN_LAYERS)
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 15)
+    batch = {"tokens": rng.integers(4, cfg.vocab_size,
+                                    (ENGINE_BATCH, ENGINE_PROMPT),
+                                    dtype=np.int64)}
+    log(f"MLA under the plans: {MINICPM} at full width, {MLA_PLAN_LAYERS} "
+        f"of {full.n_layers} layers, {cfg.n_heads} heads at (96, 64); "
+        f"weights after {time.perf_counter() - t_all:.1f}s")
+    one = "serve-one-mla-engine-fp32"
+    rec, ref = serve_runs(torch, np, ops, one, model, params, batch, [],
+                          "fp32", "engine", needs, card, cfg.n_layers,
+                          max_len, 0, runs=1)
+    norms(one, rec, cfg.n_layers)
+    out[one.replace("-", "_")] = rec
+    staged = make_pipeline_mesh((1, 1, 1), axes, 1)
+    out["serve_mla_shard"] = served("serve-mla-shard", model, params, batch,
+                                    ref, "shard", mesh)
+    out["serve_mla_pipeshard"] = served(
+        "serve-mla-pipeshard", model, params, batch, ref, "pipeshard",
+        staged, MLA_PIPE_SPLIT)
+    del model, params
+    torch.cuda.empty_cache()
+
+    tcfg_model = dataclasses.replace(cfg, max_seq_len=max(full.max_seq_len,
+                                                          FAM_SEQ))
+    loader = mla_loader(np, tcfg_model)
+    want = yard["train_losses"]
+    tokens = FAM_BATCH * FAM_SEQ
+    flops = model_flops_per_step(tcfg_model, tokens)
+
+    def trained(name, rtol1, rtol, tc, **kw):
+        model = Model(tcfg_model, device="cuda",
+                      use_kernels=trains_through_kernels(tcfg_model))
+        sharding.reset_collective_counts()
+        res, counts = run_phase(
+            torch, ops, name,
+            lambda: train(model, tc, loader, steps=TRAIN_MLA_STEPS,
+                          log_every=0, donate=True, **kw), [])
+        if any(counts.values()):
+            fail(f"{name}: the plain path launched kernels {counts}")
+        losses = res.losses
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        step_s = res.avg_step_time
+        rec = {"losses": losses, "loss_rel_diff": rel,
+               "bit_equal": losses == want, "step_s": res.step_times,
+               "avg_step_s_steps_2_to_3": step_s,
+               "tokens_per_s": tokens / step_s,
+               "model_tflops": flops / step_s / 1e12,
+               "peak_bytes": PHASES[name]["peak_bytes"], "launches": counts,
+               "collectives_a_step": collectives_a_step(torch,
+                                                        TRAIN_MLA_STEPS)}
+        log(f"{name}: losses {losses}; step {step_s * 1e3:.1f} ms (steps 2 "
+            f"to {TRAIN_MLA_STEPS}), {tokens / step_s:.0f} tokens/s, 6ND "
+            f"{rec['model_tflops']:.2f} TFLOP/s, peak memory "
+            f"{rec['peak_bytes'] / 2**30:.2f} GiB, on {card}")
+        log(f"{name}: held to train-mla ({want}) within {rtol1} at step 1 "
+            f"and {rtol} after: relative differences {rel}; bit-equal "
+            f"{rec['bit_equal']}")
+        if not (np.all(np.isfinite(losses)) and rel[0] <= rtol1
+                and max(rel) <= rtol):
+            fail(f"{name}: losses {losses} vs train-mla's {want}")
+        del res, model
+        torch.cuda.empty_cache()
+        return rec
+
+    out["plan_mla_shard"] = rec = trained(
+        "plan-mla-shard", PLAN_LOSS_RTOL, PLAN_LOSS_RTOL, TrainConfig(),
+        plan="shard", mesh=mesh)
+    if not rec["bit_equal"]:
+        fail("plan-mla-shard: losses not bit-equal to train-mla's")
+    out["fam_mla_pipe"] = trained(
+        "fam-mla-pipe", PIPE_LOSS1_RTOL, PIPE_LOSS_RTOL,
+        TrainConfig(microbatches=PIPE_MICRO), plan="pipeshard",
+        mesh=make_pipeline_mesh((1, 1, 1), axes, 1, schedule="1f1b"),
+        schedule="1f1b")
+
+    dcfg = dataclasses.replace(get_config(DSV2), n_layers=DSV2_LAYERS)
+    model = Model(dcfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    batch = {"tokens": np.asarray(yard["dsv2_prompts"], dtype=np.int64)}
+    log(f"serve-dsv2-shard: {DSV2} at full width, {DSV2_LAYERS} layers, "
+        f"{dcfg.n_heads} heads at (192, 128), top-{dcfg.moe.top_k} of "
+        f"{dcfg.moe.n_experts} experts; dsv2-engine's weights and prompts")
+    out["serve_dsv2_shard"] = served(
+        "serve-dsv2-shard", model, params, batch,
+        np.asarray(yard["dsv2_tokens"]), "shard", mesh)
+    del model, params
+    torch.cuda.empty_cache()
+    log(f"the MLA plan stage: {time.perf_counter() - t_all:.1f}s")
+    return out
+
+
 def check_ssm_layer(torch, cfg, params):
     """Layer 0 of an SSM or hybrid model at full width in fp32 (its
     parameters are fp32; so is x), kernel path against plain path on the
@@ -2646,7 +2841,7 @@ def train_phases(torch, np, ops, card):
     return out
 
 
-def plan_phases(torch, np, ops, card, whisper):
+def plan_phases(torch, np, ops, card, whisper, mla):
     """Phases ``train-gpt2L`` and ``plan-<name>`` for each flat plan:
     gpt2L trains ``PLAN_STEPS`` steps through ``train()`` on one device
     and under each plan on a mesh of one rank over NCCL, then the pipe
@@ -2654,7 +2849,8 @@ def plan_phases(torch, np, ops, card, whisper):
     serve, elastic and VLM phases (``vlm_phases``; its logit checks and
     trace under ``vlm_logits`` and ``vlm_info``) and whisper-small under
     the plans (``whisper_plan_phases``, held to ``whisper``, its
-    one-device yardsticks) in the same process group.  One more step of
+    one-device yardsticks) and MLA under the plans (``mla_plan_phases``,
+    held to ``mla``) in the same process group.  One more step of
     the one device, of shard_zero (the plan with the most layout work)
     and of fsdp is traced after its counted phase."""
     import torch.distributed as dist
@@ -2766,6 +2962,7 @@ def plan_phases(torch, np, ops, card, whisper):
             torch, np, ops, card, mesh)
         out.update(vlm)
         out.update(whisper_plan_phases(torch, np, ops, card, mesh, whisper))
+        out.update(mla_plan_phases(torch, np, ops, card, mesh, mla))
     finally:
         dist.destroy_process_group()
     del ref_params
@@ -3831,9 +4028,12 @@ def main() -> None:
     e2e.update(training)
     plans = plan_phases(torch, np, ops, card, {
         "tokens": whisper["whisper_engine"]["tokens"],
-        "losses": whisper["train_whisper"]["losses"]})
+        "losses": whisper["train_whisper"]["losses"]}, {
+        "dsv2_tokens": mla["dsv2_engine"]["tokens"],
+        "dsv2_prompts": mla["dsv2_engine"]["prompts"],
+        "train_losses": mla["train_mla"]["losses"]})
     stage("gpt2L under the plans and the pipeline, serving under the "
-          "plans, elasticity, the VLM and whisper under the plans")
+          "plans, elasticity, the VLM, whisper and MLA under the plans")
     logit_err.update(plans.pop("vlm_logits"))
     vlm_info = plans.pop("vlm_info")
     for rec in plans.values():
@@ -3847,6 +4047,11 @@ def main() -> None:
                 "serve_moe_pipeshard"):
         for k in at128:
             at128[k] += plans[key]["launches"][k]
+    # kernel A's launches at MLA's split head dims under the plans
+    at_split["96x64"] += sum(plans[k]["launches"]["flash_attn_fwd"]
+                             for k in MLA_PLAN_KEYS)
+    at_split["192x128"] += plans["serve_dsv2_shard"]["launches"][
+        "flash_attn_fwd"]
     e2e.update(plans)
     e2e["dryrun_vs_card"] = dryrun_phase(torch, ops, card, training, plans)
     add(e2e["dryrun_vs_card"]["launches"])

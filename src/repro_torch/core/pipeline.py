@@ -53,7 +53,10 @@ backwards explicitly, in the order its schedule gives:
   * the MoE family's aux: each chunk's forward adds its layers' aux
     divided by the microbatch count to the objective its backward
     differentiates (the reference's sum over stages and microbatches
-    over ``m``).
+    over ``m``), and writes each layer's share at its (layer,
+    microbatch) place of a [layers, m] table, which ``PipelineStep``
+    sums over the stages (one value and zeros an entry) and then in one
+    fixed order, so that every schedule reports the same loss.
 
 ``core.steps.PipelineStep`` drives it, reduces the gradients over the
 mesh and updates the params.  ``StageServer`` runs a stage's part of a
@@ -455,9 +458,11 @@ class StageRunner:
     model axis), this rank's slice of the batch as tensors on the
     model's device and the whole batch's token count, and returns the
     sums over its microbatches of (loss, ce, aux, zloss, accuracy) (the
-    stage's share: its chunks' aux, and the rest on the last stage) and
-    the fp32 gradients in the local layout (zeros for the leaves the
-    stage does not use).  ``peak_in_flight``:
+    last stage's, without the MoE family's aux), the MoE family's
+    [layers, m] table of each layer's aux over m (its chunks' entries,
+    zeros elsewhere; None for the other families) and the fp32
+    gradients in the local layout (zeros for the leaves the stage does
+    not use).  ``peak_in_flight``:
     the most (chunk, microbatch) graphs the last ``run`` held at once
     (an encoder-decoder's hold their microbatch's encoder output).
     """
@@ -472,6 +477,10 @@ class StageRunner:
         self.s, self.ranks = stage, tuple(ranks)
         self.last = self.S * self.v - 1
         self.spans = chunk_spans(split, self.S, stage)
+        # the stack's entry at which each of this stage's chunks starts
+        self.firsts = [int(sum(split[:k * self.S + stage]))
+                       for k in range(self.v)]
+        self.depth = int(sum(split))
         self.timeline = pipeline_timeline(schedule, self.S, n_micro)
 
     # ---------------------------------------------------------------- #
@@ -523,7 +532,8 @@ class StageRunner:
         dev = model.device
         cdt = model.compute_dtype
         sums = torch.zeros(5, dtype=torch.float32, device=dev)
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        layer_aux = torch.zeros((self.depth, self.m), dtype=torch.float32,
+                                device=dev) if cfg.family == "moe" else None
         inbox_act: Dict[tuple, torch.Tensor] = {}
         inbox_grad: Dict[tuple, torch.Tensor] = {}
         saved: Dict[tuple, tuple] = {}
@@ -553,10 +563,13 @@ class StageRunner:
                                       remat=self.remat, shared=shared[k],
                                       enc_out=enc)
             # this chunk's part of the step's aux: its layers' over m
-            aux = aux / self.m if aux.requires_grad else None
-            if aux is not None:
-                sums = sums + torch.stack([aux.detach(), zero, aux.detach(),
-                                           zero, zero])
+            if layer_aux is not None:
+                first = self.firsts[k]
+                layer_aux[first:first + aux.shape[0], i] = \
+                    aux.detach() / self.m
+                aux = aux.sum() / self.m
+            else:
+                aux = None
             if c == self.last:
                 out = y.to(self.carrier)
                 loss, met = model.head_loss(head, out.to(cdt), mb,
@@ -666,7 +679,7 @@ class StageRunner:
             mine = [p[key] for p in parts if key in p] or [total([], leaf)]
             grads[key] = mine[0] if len(mine) == 1 else tree_map(
                 lambda *ts: functools.reduce(torch.add, ts), *mine)
-        return sums, grads
+        return sums, layer_aux, grads
 
 
 # --------------------------------------------------------------------- #

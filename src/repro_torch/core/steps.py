@@ -92,9 +92,12 @@ and its output travels with the hidden states to every chunk
 (``core.pipeline.StageRunner``); the encoder's gradients are reduced
 over the data axes (its stack) or, as the embedding's, over the stage
 and data axes (its norm and position table, which every stage holds).
-Multi-head Latent Attention (MiniCPM3, DeepSeek-V2) runs on one device
-only: under a plan it raises (``refuse_mla``; ROADMAP queue 1, item
-13).
+Multi-head Latent Attention (MiniCPM3, DeepSeek-V2) cuts its heads as
+the dense blocks do: ``w_uq``, ``w_uk``, ``w_uv`` and ``wo`` on the
+heads, the latent's leaves (``w_dq``, ``q_norm``, ``w_dkv``,
+``kv_norm``, ``w_kr``) whole on every rank, entering through f
+(``models.attention``); DeepSeek-V2's top-6 combine adds each token's
+contributions in one device's order on every rank (``models.moe``).
 """
 from __future__ import annotations
 
@@ -169,28 +172,6 @@ def _grad_fn(model: Model, tcfg: TrainConfig, loss_fn) -> Callable:
     return grad_fn
 
 
-MLA_UNDER_PLANS = "ROADMAP queue 1, item 13: MLA under the plans"
-
-
-def plan_refusal(cfg, plan) -> str:
-    """Why a model of ``cfg`` has no step under ``plan`` yet, naming the
-    ROADMAP item that brings it ("" where it has one): MLA, whose latent
-    cache has no ``cache_spec`` and its heads no cut over the ``model``
-    axis."""
-    name = plan if isinstance(plan, str) else plan.name
-    if cfg.mla is not None:
-        return (f"{cfg.name} attends by Multi-head Latent Attention, which "
-                f"runs on one device only; under plan {name!r} it waits for "
-                f"{MLA_UNDER_PLANS}")
-    return ""
-
-
-def refuse_mla(model: Model, plan) -> None:
-    """Raise for an MLA model under a plan (``plan_refusal``)."""
-    if model.cfg.mla is not None:
-        raise NotImplementedError(plan_refusal(model.cfg, plan))
-
-
 def build_train_step(model: Model, tcfg: TrainConfig, *,
                      plan: Union[None, str, Plan] = None,
                      mesh: Optional[Mesh] = None, stage_layers=None,
@@ -209,7 +190,6 @@ def build_train_step(model: Model, tcfg: TrainConfig, *,
     model.model_axis = model.fsdp = model.dispatch = None
     if plan is None:
         return _one_device_step(model, tcfg, donate)
-    refuse_mla(model, plan)
     plan = get_plan(plan) if isinstance(plan, str) else plan
     if mesh is None:
         raise ValueError(f"plan {plan.name!r} needs a mesh "
@@ -248,7 +228,8 @@ def _model_axis(mesh: Mesh, specs, cfg) -> Optional[ModelAxis]:
     """What the specs cut over the ``model`` axis, family by family: the
     dense blocks' heads and MLP (the layers', or the hybrid's shared
     block's; the encoder-decoder's self-attention, whose cut its
-    cross-attention and its encoder's layers share), the MoE experts and
+    cross-attention and its encoder's layers share; MLA's heads, those of
+    ``w_uq``, with no kv heads to cut), the MoE experts and
     shared experts, and the SSM leaves (``d_inner``: the channels cut
     whole, which for Mamba2 needs the heads to divide the axis too)."""
     if MODEL_AXIS not in mesh.shape:
@@ -265,6 +246,9 @@ def _model_axis(mesh: Mesh, specs, cfg) -> Optional[ModelAxis]:
     if attn in dense:
         kw.update(heads=cut(dense[attn]["wq"]),
                   kv_heads=cut(dense[attn]["wk"]))
+    elif "mla" in dense:
+        # MLA's heads: w_uq's, which w_uk, w_uv and wo share
+        kw["heads"] = cut(dense["mla"]["w_uq"])
     if "mlp" in dense:
         kw["mlp"] = cut(dense["mlp"]["w_up"])
     if "moe" in layers:
@@ -637,7 +621,7 @@ class PipelineStep:
         if axes:
             count = all_reduce(count, mesh.group(axes))
         denom = torch.clamp(count, min=1)
-        sums, grads = self.runner.run(params, local, denom)
+        sums, layer_aux, grads = self.runner.run(params, local, denom)
         every = (STAGE_AXIS,) + axes
 
         def reduce(path, g):
@@ -646,14 +630,23 @@ class PipelineStep:
 
         grads = tree_map_with_path(reduce, grads)
         # the whole batch's token count, once: from the last stage's
-        # first batch rank (the sum runs over the data axes too)
+        # first batch rank (the sum runs over the data axes too); the
+        # MoE family's aux table beside it
         once = self.stage == mesh.shape[STAGE_AXIS] - 1 and \
             (not axes or mesh.index(axes) == 0)
-        sums = all_reduce(torch.cat([sums, (denom if once else 0 * denom)
-                                     .float()[None]]), mesh.group(every))
+        parts = [sums, (denom if once else 0 * denom).float()[None]]
+        if layer_aux is not None:
+            parts.append(layer_aux.flatten())
+        sums = all_reduce(torch.cat(parts), mesh.group(every))
+        loss = sums[0]
         metrics = dict(zip(("ce", "aux", "zloss", "accuracy", "tokens"),
-                           sums[1:]))
-        return sums[0], metrics, grads
+                           sums[1:6]))
+        if layer_aux is not None:
+            # each (layer, microbatch) entry one stage's value and zeros,
+            # summed in one order: the same loss under every schedule
+            aux = sums[6:].sum()
+            loss, metrics["aux"] = loss + aux, metrics["aux"] + aux
+        return loss, metrics, grads
 
     def apply(self, params, opt_state, loss, metrics, grads):
         """The AdamW update of ``grads`` (from ``grads``): the step's

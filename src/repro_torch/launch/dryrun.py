@@ -30,10 +30,9 @@ carved out of pod x data) one rank of each stage is traced and the
 largest peak is reported: a roofline is per device, and the stages
 differ.
 
-Multi-head Latent Attention runs on one device only
-(``core.steps.plan_refusal``), so under a plan its records say
-``"status": "not_ported"`` with the ROADMAP item, beside the reference's
-own skips (``skip_reason``).
+Every architecture runs under every plan, Multi-head Latent Attention
+too; a record says ``"status": "skip"`` for the reference's own skips
+(``skip_reason``).
 
     python -m repro_torch.launch.dryrun --arch gpt2m --shape train_4k
 
@@ -223,7 +222,6 @@ def run_one(arch, shape_name, plan_name: Optional[str], *,
 
     from repro_torch.configs import TrainConfig, get_config, get_shape
     from repro_torch.core.plans import get_plan
-    from repro_torch.core.steps import plan_refusal
     from repro_torch.launch import roofline as rl
     from repro_torch.launch.mesh import PRODUCTION_SHAPES
     from repro_torch.models import trains_through_kernels
@@ -240,9 +238,6 @@ def run_one(arch, shape_name, plan_name: Optional[str], *,
     reason = skip_reason(cfg, shape)
     if reason:
         return dict(rec, status="skip", reason=reason)
-    reason = plan_refusal(cfg, plan_name) if plan_name is not None else ""
-    if reason:
-        return dict(rec, status="not_ported", reason=reason)
 
     tcfg = tcfg or TrainConfig(grad_accum=grad_accum)
     kernels = trains_through_kernels(cfg) if shape.kind == "train" \
@@ -337,7 +332,7 @@ def main() -> int:
                                "reason", "error", "memory_per_device_bytes",
                                "collective_bytes_per_device",
                                "dcn_bytes_per_device")}))
-    return 0 if rec["status"] in ("ok", "skip", "not_ported") else 1
+    return 0 if rec["status"] in ("ok", "skip") else 1
 
 
 if __name__ == "__main__":

@@ -38,6 +38,9 @@ its params and optimizer state in place (``donate``).
         --world 4 --arch zamba2-2.7b --layers 4 --plans shard,fsdp
     PYTHONPATH=src python -m repro_torch.launch.plan_check --device cpu \\
         --world 2 --mesh 1,1,2 --arch whisper-small --plans shard,pipeshard
+    PYTHONPATH=src python -m repro_torch.launch.plan_check --world 4 \\
+        --mesh 1,1,4 --arch minicpm3-4b --full --layers 8 \\
+        --plans shard,pipeshard                      # four cards
 
 An encoder-decoder's batch carries ``frames`` [batch, enc_seq_len,
 d_model] x 0.02 from the seed, as ``launch.serve`` makes them.

@@ -50,8 +50,19 @@ stage).  Rank 0 prints.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch phi-3-vision-4.2b --reduced --device cpu --kv-dtype int8
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc_per_node 2 -m repro_torch.launch.serve \\
+        --arch deepseek-v2-236b --reduced --device cpu --plan pipeshard \\
+        --mesh 2,1,1 --stages 2 --layers 4 --check
+
+``--layers`` keeps the first N layers at full width (deepseek-v2-236b's
+60 layers hold ~958 GB in fp32); ``--plain-fp32`` computes in fp32
+through the kernels' plain versions (``tools/moe_ties.py`` reads where
+an MoE model's bf16 routing parts across cards).
 """
 import argparse
+import dataclasses
 import zlib
 
 from repro_torch.configs import ARCH_CONFIGS
@@ -85,8 +96,16 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="gpt2m", choices=sorted(ARCH_CONFIGS))
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth: the first N layers of the architecture "
+                         "(its width unchanged), e.g. a model whose every "
+                         "layer does not fit")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain PyTorch versions)")
+    ap.add_argument("--plain-fp32", action="store_true",
+                    help="compute in fp32 through the kernels' plain "
+                         "versions, no kernel (A takes bf16 only): the "
+                         "plan's sums held tighter than bf16's envelope")
     ap.add_argument("--batch", type=int, default=4,
                     help="fixed batch rows / continuous decode slots")
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -184,7 +203,12 @@ def _serve(args, device=None, mesh=None, where: str = "", main=True):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = Model(cfg, device=device or args.device)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.plain_fp32:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    model = Model(cfg, device=device or args.device,
+                  use_kernels=not args.plain_fp32)
 
     def init_params():
         return model.init(torch.Generator(device=model.device).manual_seed(0))
@@ -199,7 +223,8 @@ def _serve(args, device=None, mesh=None, where: str = "", main=True):
     max_len = args.prompt_len + args.gen + 8 + (
         cfg.n_patches if cfg.family == "vlm" else 0)
     header = (f"{cfg.name} [{cfg.family}] device={model.device} "
-              f"batch={args.batch} kv={args.kv_dtype}{where}")
+              f"batch={args.batch} kv={args.kv_dtype}"
+              f"{' fp32, plain versions' if args.plain_fp32 else ''}{where}")
     log = print if main else (lambda *a: None)
 
     if args.continuous:

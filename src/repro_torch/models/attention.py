@@ -39,7 +39,11 @@ Serving under such a plan (``RingBlocks``, the layout of
 head.  Prefill attends over this rank's heads and fills the rank's block
 from the whole-head k and v; decode gathers every head's q, k and v,
 writes the token where its slot lies, attends over the block and merges
-the ranks' partials by their log-sum-exp (``merge_blocks``).
+the ranks' partials by their log-sum-exp (``merge_blocks``).  MLA
+takes the same cuts: a rank runs its heads of ``w_uq``, ``w_uk``,
+``w_uv`` and ``wo`` with the latent whole, its latent cache holds a
+block of the ring's slots, and its decode merges the latent contexts of
+the blocks before ``W_uv``.
 """
 from __future__ import annotations
 
@@ -414,28 +418,22 @@ def attention_prefill(x, params, cfg: ModelConfig, *,
             cache._replace(index=torch.full_like(cache.index, S)))
 
 
-def _append_block(cache, k_new, v_new, blocks: RingBlocks):
-    """Append one token (whole-head k_new/v_new: [B, 1, KV, D]) at its
-    ring slot, index % capacity, in place: the rank whose block holds a
-    row's slot writes it (one block: every row, as ``_append_token``
-    writes it).  Returns (cache with index + 1, [B, c] fill mask of this
-    rank's block)."""
-    c = cache.capacity
+def _append_rows(writes, index, c: int, blocks: RingBlocks):
+    """Write one token's rows at its ring slot, index % (``blocks.size``
+    c), in place: ``writes`` pairs this rank's block ``buf`` [B, c, ...]
+    of a ring leaf with the token's whole row ``new`` [B, 1, ...].  The
+    rank whose block holds a row's slot writes it (one block: every row,
+    as ``_append_token`` writes it).  Returns (index + 1, [B, c] fill
+    mask of this rank's block)."""
     lo, cap = blocks.rank * c, blocks.size * c
-    slot = torch.remainder(cache.index, cap)
-    if isinstance(cache, QuantKVCache):
-        (kq, ks), (vq, vs) = _quant_kv(k_new), _quant_kv(v_new)
-        writes = ((cache.k_q, kq), (cache.k_scale, ks), (cache.v_q, vq),
-                  (cache.v_scale, vs))
-    else:
-        writes = ((cache.k, k_new), (cache.v, v_new))
+    B = writes[0][1].shape[0]
+    slot = torch.remainder(index, cap)
     if blocks.size == 1:
         for buf, new in writes:
             _append_token(buf, new, slot)
     else:
         # the rows whose slot lies in [lo, lo + c); the others keep what
         # their slot held
-        B = k_new.shape[0]
         rows = torch.arange(B, device=slot.device)
         local = (slot - lo).expand(B)
         own = (local >= 0) & (local < c)
@@ -444,9 +442,23 @@ def _append_block(cache, k_new, v_new, blocks: RingBlocks):
             keep = own.view((B,) + (1,) * (buf.dim() - 2))
             buf[rows, at] = torch.where(keep, new[:, 0].to(buf.dtype),
                                         buf[rows, at])
-    index = cache.index + 1
-    valid = _ring_valid(index, k_new.shape[0], cap)[:, lo:lo + c]
-    return cache._replace(index=index), valid.contiguous()
+    index = index + 1
+    valid = _ring_valid(index, B, cap)[:, lo:lo + c]
+    return index, valid.contiguous()
+
+
+def _append_block(cache, k_new, v_new, blocks: RingBlocks):
+    """Append one token (whole-head k_new/v_new: [B, 1, KV, D]) at its
+    ring slot (``_append_rows``).  Returns (cache with index + 1, [B, c]
+    fill mask of this rank's block)."""
+    if isinstance(cache, QuantKVCache):
+        (kq, ks), (vq, vs) = _quant_kv(k_new), _quant_kv(v_new)
+        writes = ((cache.k_q, kq), (cache.k_scale, ks), (cache.v_q, vq),
+                  (cache.v_scale, vs))
+    else:
+        writes = ((cache.k, k_new), (cache.v, v_new))
+    index, valid = _append_rows(writes, cache.index, cache.capacity, blocks)
+    return cache._replace(index=index), valid
 
 
 def merge_partials(o, lse):
@@ -521,14 +533,16 @@ def attention_decode(x, params, cfg: ModelConfig, *, cache,
 
 
 # --------------------------------------------------------------------- #
-# Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2), one device: the
-# plans refuse it (ROADMAP queue 1, item 13)
+# Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2): on one device,
+# and under a plan that shards weights over this rank's heads
 # --------------------------------------------------------------------- #
 
 class MLACache(NamedTuple):
     """Ring-buffered latent cache: per token the ``kv_lora_rank`` latent
     and the decoupled rope key, shared by every head (MLA's memory
-    win over a KV cache of ``2 * n_heads * head_dim`` a token)."""
+    win over a KV cache of ``2 * n_heads * head_dim`` a token).  Under a
+    serving plan a rank holds a block of the ring's slots of both
+    (``RingBlocks``)."""
     c_kv: torch.Tensor       # [B, S, R] latent
     k_rope: torch.Tensor     # [B, S, rope_head_dim]
     index: torch.Tensor      # int32 next write position: scalar or [B]
@@ -583,8 +597,35 @@ def init_mla(generator, cfg: ModelConfig, *, lead=(), device="cpu"):
     return p
 
 
+# the MLA leaves every rank holds whole under a plan that cuts the heads
+# (the copied rules cut ``w_uq``, ``w_uk``, ``w_uv`` and ``wo`` on them)
+MLA_WHOLE = ("w_dq", "q_norm", "w_dkv", "kv_norm", "w_kr")
+
+
+def _mla_axis(model_axis: Optional[ModelAxis]) -> Optional[ModelAxis]:
+    """The model axis where the plan cuts the heads, else None (every
+    rank computes them all)."""
+    return model_axis if model_axis is not None and model_axis.heads \
+        else None
+
+
+def _mla_cut(x, params, axis: Optional[ModelAxis]):
+    """(x, params) as this rank's heads take them: under ``axis`` x and
+    the whole leaves (``MLA_WHOLE``) enter through f, so that their
+    gradients, which each rank has only for its heads, are summed over
+    the axis, as ``_qkv_cut``'s whole kv weights are."""
+    if axis is None:
+        return x, params
+    p = dict(params)
+    for name in MLA_WHOLE:
+        if name in p:
+            p[name] = copy_to_model(p[name], axis)
+    return copy_to_model(x, axis), p
+
+
 def _mla_q(x, params, cfg: ModelConfig, positions, use_kernels: bool):
-    """(q_nope [B, S, H, nope], q_rope [B, S, H, rope] rotated)."""
+    """(q_nope [B, S, H, nope], q_rope [B, S, H, rope] rotated) of the
+    heads of ``w_uq``."""
     m, dt = cfg.mla, x.dtype
     if "w_dq" in params:
         cq = apply_norm(x @ params["w_dq"].to(dt), {"scale": params["q_norm"]},
@@ -608,16 +649,19 @@ def _mla_latent(x, params, cfg: ModelConfig, positions, use_kernels: bool):
 
 
 def _mla_full(x, params, cfg: ModelConfig, positions, window: int,
-              use_kernels: bool):
+              use_kernels: bool, axis: Optional[ModelAxis] = None):
     """(output, c_kv, k_rope) of full-sequence MLA: each head's k and v
     decompressed from the latent, k with the shared rope key, causal
     attention at (Dk, Dv) = (nope + rope, v_head_dim), kernel A on the
     card, then ``wo``.  ``positions`` None means arange, the index masks
-    kernel A takes."""
+    kernel A takes.  Under ``axis`` (a plan that cuts the heads) the
+    heads are this rank's (``_mla_cut``), the latent is whole on every
+    rank, and ``wo``'s partial sums are added over the axis (g)."""
     pos = torch.arange(x.shape[1], device=x.device)[None] \
         if positions is None else positions
-    q_nope, q_rope = _mla_q(x, params, cfg, pos, use_kernels)
-    c_kv, k_rope = _mla_latent(x, params, cfg, pos, use_kernels)
+    xin, p = _mla_cut(x, params, axis)
+    q_nope, q_rope = _mla_q(xin, p, cfg, pos, use_kernels)
+    c_kv, k_rope = _mla_latent(xin, p, cfg, pos, use_kernels)
     dt = x.dtype
     B, S, H, _ = q_nope.shape
     k_nope = torch.einsum("bsr,hrk->bshk", c_kv, params["w_uk"].to(dt))
@@ -628,50 +672,75 @@ def _mla_full(x, params, cfg: ModelConfig, positions, window: int,
     o = chunked_attention(q, k, v, causal=True, window=window,
                           q_positions=positions, kv_positions=positions,
                           use_kernels=use_kernels)
-    return _out(o, params), c_kv, k_rope
+    return _out(o, params, axis), c_kv, k_rope
 
 
 def mla_forward(x, params, cfg: ModelConfig, *,
                 positions: Optional[torch.Tensor] = None, window: int = 0,
-                use_kernels: bool = True):
-    """Full-sequence MLA (training)."""
-    return _mla_full(x, params, cfg, positions, window, use_kernels)[0]
+                use_kernels: bool = True,
+                model_axis: Optional[ModelAxis] = None):
+    """Full-sequence MLA (training).  ``model_axis``: the heads are cut
+    over it when its ``heads`` is set; otherwise every rank computes
+    them all."""
+    return _mla_full(x, params, cfg, positions, window, use_kernels,
+                     _mla_axis(model_axis))[0]
 
 
 def mla_prefill(x, params, cfg: ModelConfig, *,
                 positions: Optional[torch.Tensor] = None, cache: MLACache,
-                window: int = 0, use_kernels: bool = True):
+                window: int = 0, use_kernels: bool = True,
+                model_axis: Optional[ModelAxis] = None,
+                blocks: RingBlocks = WHOLE_RING):
     """``mla_forward``, and the prompt's latent and rope key fill the
     cache in place (the last ``capacity`` of them in slot = pos %
     capacity layout when the prompt is longer, as the reference rolls
     them).  The latent is computed once, where the reference computes it
-    again for the cache: the same values, and one ``kv_norm`` a layer."""
+    again for the cache: the same values, and one ``kv_norm`` a layer.
+    Under a serving plan the prompt attends over this rank's heads
+    (``model_axis``), as the training forward does, and the latent,
+    whole on every rank, fills this rank's block of the ring
+    (``blocks``)."""
     out, c_kv, k_rope = _mla_full(x, params, cfg, positions, window,
-                                  use_kernels)
+                                  use_kernels, _mla_axis(model_axis))
     S = x.shape[1]
-    _ring_fill(cache.c_kv, c_kv, S, WHOLE_RING)
-    _ring_fill(cache.k_rope, k_rope, S, WHOLE_RING)
+    _ring_fill(cache.c_kv, c_kv, S, blocks)
+    _ring_fill(cache.k_rope, k_rope, S, blocks)
     return out, cache._replace(index=torch.full_like(cache.index, S))
 
 
 def mla_decode(x, params, cfg: ModelConfig, *, cache: MLACache,
-               window: int = 0, use_kernels: bool = True):
+               window: int = 0, use_kernels: bool = True,
+               model_axis: Optional[ModelAxis] = None,
+               blocks: RingBlocks = WHOLE_RING):
     """Absorbed-matmul decode of one token x [B, 1, d]: its latent and
     rope key are written at its ring slot (in place), and the scores are
     computed in latent space, ``(q_nope W_uk) c_kv^T + q_rope k_rope^T``
     in fp32 over the filled slots, so no head's k or v is ever
     decompressed; the context comes back through ``W_uv`` and ``wo``.
-    ``window`` is the ring's: the cache's capacity."""
+    ``window`` is the ring's: the cache's capacity.
+
+    Under a serving plan each rank projects its heads' ``q_nope W_uk``
+    and ``q_rope`` (``model_axis``) and the ranks gather every head's
+    (one all-gather); the rank whose block (``blocks``) holds a row's
+    slot writes its latent and rope key (the same on every rank); each
+    rank scores every head over its block's filled slots, and the
+    latent contexts merge by their log-sum-exp before ``W_uv``, which is
+    linear (``merge_blocks``; one block is its own answer); a rank keeps
+    its heads for ``W_uv`` and ``wo``."""
     m, dt = cfg.mla, x.dtype
     B = x.shape[0]
+    axis = _mla_axis(model_axis)
     pos = _decode_positions(cache.index)
-    q_nope, q_rope = _mla_q(x, params, cfg, pos, use_kernels)    # [B,1,H,*]
+    q_nope, q_rope = _mla_q(x, params, cfg, pos, use_kernels)    # [B,1,h,*]
     c_new, r_new = _mla_latent(x, params, cfg, pos, use_kernels)
-    slot = torch.remainder(cache.index, cache.capacity)
-    _append_token(cache.c_kv, c_new, slot)
-    _append_token(cache.k_rope, r_new, slot)
-    cache = cache._replace(index=cache.index + 1)
     q_lat = torch.einsum("bqhk,hrk->bqhr", q_nope, params["w_uk"].to(dt))
+    h_local, R = q_lat.shape[2], q_lat.shape[3]
+    if axis is not None:
+        (q,) = _gather_heads([torch.cat([q_lat, q_rope.to(dt)], -1)], axis)
+        q_lat, q_rope = q[..., :R], q[..., R:]
+    index, valid = _append_rows(((cache.c_kv, c_new), (cache.k_rope, r_new)),
+                                cache.index, cache.capacity, blocks)
+    cache = cache._replace(index=index)
     # a host scalar: a tensor made on the host here would cost a copy to
     # the card, and a wait for its stream, every layer of every step
     scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
@@ -679,8 +748,13 @@ def mla_decode(x, params, cfg: ModelConfig, *, cache: MLACache,
     s = torch.einsum("bqhr,bsr->bhqs", q_lat.float(), c_kv)
     s = s + torch.einsum("bqhk,bsk->bhqs", q_rope.float(),
                          cache.k_rope.float())
-    s = (s * scale).masked_fill(~cache.valid(B)[:, None, None, :], NEG_INF)
+    s = (s * scale).masked_fill(~valid[:, None, None, :], NEG_INF)
     w = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhqs,bsr->bqhr", w, c_kv)
+    # a ring whole on every rank is one block: its partial is the answer
+    if blocks.group is not None:
+        ctx = merge_blocks(ctx, live_lse(s[:, :, 0], valid), blocks)
+    if axis is not None:
+        ctx = ctx[:, :, axis.rank * h_local:(axis.rank + 1) * h_local]
     o = torch.einsum("bqhr,hrk->bqhk", ctx.to(dt), params["w_uv"].to(dt))
-    return _out(o, params), cache
+    return _out(o, params, axis), cache

@@ -52,7 +52,8 @@ def _attention_forward(h, p, cfg: ModelConfig, *, positions, window,
                        use_kernels, model_axis):
     if cfg.mla is not None:
         return attn.mla_forward(h, p["mla"], cfg, positions=positions,
-                                window=window, use_kernels=use_kernels)
+                                window=window, use_kernels=use_kernels,
+                                model_axis=model_axis)
     return attn.attention_forward(h, p["attn"], cfg, positions=positions,
                                   window=window, use_kernels=use_kernels,
                                   model_axis=model_axis)
@@ -63,7 +64,8 @@ def _attention_prefill(h, p, cfg: ModelConfig, *, positions, cache, window,
     if cfg.mla is not None:
         return attn.mla_prefill(h, p["mla"], cfg, positions=positions,
                                 cache=cache, window=window,
-                                use_kernels=use_kernels)
+                                use_kernels=use_kernels,
+                                model_axis=model_axis, blocks=blocks)
     return attn.attention_prefill(h, p["attn"], cfg, positions=positions,
                                   cache=cache, window=window,
                                   use_kernels=use_kernels,
@@ -74,7 +76,8 @@ def _attention_decode(h, p, cfg: ModelConfig, *, cache, window, use_kernels,
                       model_axis, blocks):
     if cfg.mla is not None:
         return attn.mla_decode(h, p["mla"], cfg, cache=cache, window=window,
-                               use_kernels=use_kernels)
+                               use_kernels=use_kernels,
+                               model_axis=model_axis, blocks=blocks)
     return attn.attention_decode(h, p["attn"], cfg, cache=cache,
                                  window=window, use_kernels=use_kernels,
                                  model_axis=model_axis, blocks=blocks)

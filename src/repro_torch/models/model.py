@@ -346,8 +346,8 @@ class Model:
         ``_DECODE``); a hybrid group first applies the shared dense block
         and its gate, ``h + gate * (y - h)``.  ``remat`` recomputes each
         block's activations in the backward instead of keeping them.
-        Returns (x, cache, aux): aux is the sum of the MoE blocks'
-        load-balance losses over a forward pass, else 0.
+        Returns (x, cache, aux): aux holds each MoE block's load-balance
+        loss over a forward pass, [n] (empty for the other families).
 
         Under fsdp (``self.fsdp``) each layer's leaves are gathered
         inside the block function, so a rank holds one layer whole at a
@@ -387,8 +387,8 @@ class Model:
         if not hybrid:
             x, cache = run_stack(x, self._use(path, params["layers"], 0,
                                               depth), cache)
-            aux = torch.stack(auxs).sum() if auxs \
-                else torch.zeros((), device=x.device)
+            aux = torch.stack(auxs) if auxs \
+                else torch.zeros(0, device=x.device)
             return x, cache, aux
         stacked = self._use("layers", params["layers"], 0, depth)
         gates = stacked["gates"].unbind(0)
@@ -403,7 +403,7 @@ class Model:
             x = x + gates[g].to(x.dtype) * (y - x)
             x, _ = run_stack(x, group, None if cache is None
                              else _cache_layer(cache["ssm"], g))
-        aux = torch.zeros((), device=x.device)
+        aux = torch.zeros(0, device=x.device)
         if cache is None:
             return x, None, aux
         return x, {"ssm": cache["ssm"],
@@ -419,7 +419,7 @@ class Model:
         kw = self._plan_kw(positions, window)
         kw.update(self._encoder_kw(params, batch))
         x, _, aux = self._run(params, x, None, _FORWARD, kw, remat=remat)
-        return self._head(params, x, axis), aux
+        return self._head(params, x, axis), aux.sum()
 
     def _plan_kw(self, positions, window: int) -> Dict[str, Any]:
         """The block functions' keywords of a training forward: the
@@ -462,7 +462,7 @@ class Model:
         (leaves ``[n, ...]``; the hybrid family's groups, with the
         ``shared`` block at the head of each; an encoder-decoder's over
         the encoder's output ``enc_out``), as ``_run`` runs the whole
-        stack."""
+        stack; aux holds the MoE family's aux of each layer, [n]."""
         params = {"layers": layers}
         if shared is not None:
             params["shared"] = shared

@@ -198,19 +198,24 @@ def moe_forward(x, params, cfg: ModelConfig, *,
     # then 0 + c_0 + c_1 + ... in the model dtype, the same bits on the
     # card and the CPU in every run (an unordered index_add_ would round
     # in another order at top_k > 2: DeepSeek-V2's 6).  Cut over the
-    # model axis, another rank's experts add zeros, exactly, and the sum
-    # over the axis adds the ranks' partial sums: at top_k = 2 (phi3.5-
-    # MoE) a token's two experts sit on one rank (0 + a + b there, zeros
-    # elsewhere) or on two (a on one, b on the other), so the bits of one
-    # device hold; at a larger top_k the partial sums may round apart
-    # from one device's order (no plan runs such a model yet)
+    # model axis, another rank's experts add zeros, exactly.  At top_k =
+    # 2 (phi3.5-MoE) a token's two experts sit on one rank (0 + a + b
+    # there, zeros elsewhere) or on two (a on one, b on the other), so
+    # the sum of the ranks' partial sums is one device's bits.  At a
+    # larger top_k the partial sums would round apart from one device's
+    # order, so the ranks sum the [T, k, d] contributions first (each
+    # entry one rank's value and zeros elsewhere: exact, as the dispatch
+    # is) and every rank adds them in the fixed order: k times the
+    # bytes of the partial sums' all-reduce
     at = torch.empty_like(order)
     at[order] = torch.arange(T * k, device=dev)
     parts = contrib[torch.sort(at.view(T, k), dim=-1).values]   # [T, k, d]
+    if cut and k > 2:
+        parts = reduce_from_model(parts, model_axis)
     out = torch.zeros((T, d), dtype=dt, device=dev)
     for j in range(k):
         out = out + parts[:, j]
-    if cut:
+    if cut and k <= 2:
         out = reduce_from_model(out, model_axis)
 
     # ---- shared (always-on) experts ---------------------------------- #

@@ -2,7 +2,8 @@
 ``build_serve_step``, ``build_insert_step`` and
 ``build_decode_slots_step`` (``repro/core/steps.py``), on one device and
 under every plan of ``core.plans.PLANS`` (``ServePlan``), for the dense,
-vision-language, MoE, SSM, hybrid and encoder-decoder families.  A
+vision-language, MoE, SSM, hybrid and encoder-decoder families, MLA's
+latent cache included.  A
 vision-language batch's ``patch_embeds`` are cut with its rows, and its
 cache, whose ``max_len`` covers the patches too, takes ``cache_spec``'s
 layout as any KV cache does; an encoder-decoder batch's ``frames`` are
@@ -46,7 +47,7 @@ from repro_torch.core.sharding import (
     FsdpGather, Mesh, all_gather, shard_tree, slice_leaf, tree_map_with_path,
 )
 from repro_torch.core.steps import (
-    _dispatch, _local_rows, _model_axis, refuse_mla, stage_local_specs,
+    _dispatch, _local_rows, _model_axis, stage_local_specs,
 )
 from repro_torch.models.attention import WHOLE_RING, RingBlocks
 from repro_torch.models.model import Cache, Model, map_cache
@@ -70,7 +71,8 @@ class ServePlan:
     The caches hold ``max_len`` positions (a ring of ``window`` when it
     is set); under the plans that shard weights, when ``model`` divides
     that capacity, a rank holds the block ``[r c, (r + 1) c)`` of every
-    KV head's ring (``blocks``), else the whole ring.  Where the layout
+    KV head's ring, or of an MLA model's latent and rope key
+    (``blocks``), else the whole ring.  Where the layout
     a rank holds differs from ``cache_spec``'s, it changes memory, not
     numbers:
 
@@ -99,12 +101,10 @@ class ServePlan:
 
     ``stage_layers`` (pipeshard): the layers (the hybrid family's groups)
     of each chunk, ``v`` chunks a stage for ``v * stages`` entries; None
-    is the even split, one chunk a stage.  An MLA model raises
-    (``core.steps.refuse_mla``: ROADMAP queue 1, item 13)."""
+    is the even split, one chunk a stage."""
 
     def __init__(self, model: Model, plan: Union[str, Plan], mesh: Mesh, *,
                  max_len: int, window: int = 0, stage_layers=None):
-        refuse_mla(model, plan)
         plan = get_plan(plan) if isinstance(plan, str) else plan
         cfg = model.cfg
         self.model, self.plan, self.mesh = model, plan, mesh

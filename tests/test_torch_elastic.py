@@ -16,7 +16,8 @@ reference.
   reduced gpt2m in fp32): the four place scenarios of
   ``test_reshard.py`` bit-exact against ``reshard_state`` and the
   destination step's own cut, gathered back to the checkpoint, and one
-  further step equal to the control; a reduced whisper-small state
+  further step equal to the control; a reduced whisper-small state and
+  a reduced deepseek-v2 state
   resharded from shard to pipeshard and back, bit-exact, the encoder's
   stack on the first stage only; the chaos drill (site V2 killed at
   step 3) with the reference's technique, the state bit-exact, the
@@ -592,6 +593,33 @@ def test_whisper_reshards_shard_to_pipeshard_and_back(worlds):
         assert legs[0]["encoder_wq"][2] == legs[0]["decoder_wq"][2] == H // 2
         assert legs[1]["encoder_wq"][0] == (E if rank == 0 else 0), rank
         assert legs[1]["decoder_wq"][0] == L // 2
+
+
+def test_dsv2_reshards_shard_to_pipeshard_and_back(worlds):
+    """The world of 2 takes a reduced deepseek-v2 state (MLA and the MoE
+    family, 4 layers) through the same legs
+    (``worker.dsv2_reshard``): every leg bit-exact against
+    ``reshard_state`` and the step's own cut, gathered back to its
+    checkpoint, and the round trip gives the first leg's blocks; shard
+    cuts MLA's heads (``w_uq``) and the experts and keeps the latent's
+    down-projection whole, pipeshard holds a stage's layers of each."""
+    for rank, res in enumerate(worlds[2]):
+        rep = res["reports"]["dsv2"]
+        legs = rep["legs"]
+        assert [leg["plan"] for leg in legs] == ["shard", "pipeshard",
+                                                 "shard"]
+        for leg in legs:
+            for key in ("params_bitexact", "opt_bitexact",
+                        "layout_bitexact", "gathered_bitexact"):
+                assert leg[key], (rank, key, leg)
+        assert legs[2]["round_trip_bitexact"], rank
+        H, L, E = rep["heads"], rep["n_layers"], rep["experts"]
+        uq, dkv, up = (legs[0]["shapes"][k] for k in worker.DSV2_LEAVES)
+        assert (uq[0], uq[2], dkv[0], up[0], up[1]) == (L, H // 2, L, L,
+                                                        E // 2), rank
+        uq, dkv, up = (legs[1]["shapes"][k] for k in worker.DSV2_LEAVES)
+        assert (uq[0], uq[2], dkv[0], up[0], up[1]) == (L // 2, H, L // 2,
+                                                        L // 2, E), rank
 
 
 def _chaos_workload():

@@ -578,8 +578,13 @@ def test_skips_and_not_ported_are_apart():
     for arch, shape, status, words in (
             ("whisper-small", "long_500k", "skip", "out of scope"),
             ("gpt2m", "long_500k", "skip", "no sub-quadratic"),
-            ("minicpm3-4b", "train_4k", "not_ported", "item 13"),
-            ("deepseek-v2-236b", "prefill_32k", "not_ported", "item 13"),
+            # MLA under a plan (ROADMAP queue 1, item 13): traced, each
+            # kernel through its shape rule, the roofline's status; its
+            # training step at a short sequence (train_4k's takes ~2 min)
+            ("minicpm3-4b", "decode_32k", "ok", None),
+            ("deepseek-v2-236b", "prefill_32k", "ok", None),
+            ("minicpm3-4b", tconfigs.ShapeConfig("train_64", 64, 16, "train"),
+             "ok", None),
             ("whisper-small", "train_4k", "ok", None)):
         rec = dryrun.run_one(arch, shape, "shard", verbose=False)
         assert rec["status"] == status, rec

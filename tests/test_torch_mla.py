@@ -7,9 +7,9 @@ trees, forward, prefill and decode logits, the latent cache (a prompt
 longer than the ring included), the greedy tokens of the port's
 ``Engine`` against the JAX ``Engine``, the port's ``ContinuousEngine``
 bit-identical to its ``Engine`` on the reference's contract, one
-training step's loss and gradients against ``jax.grad``, and the
-refusals (an int8 cache, and any plan).  Reduced configs, fp32 unless
-said.
+training step's loss and gradients against ``jax.grad``, the refusal
+of an int8 cache, and every plan at a gloo world of one against one
+device.  Reduced configs, fp32 unless said.
 
 Cases beyond the reduced configs: ``reduced()`` sets ``q_lora_rank`` to
 0, so "minicpm3-qlora" restores a low-rank query (24) to reach ``w_dq``
@@ -24,6 +24,8 @@ orders), held to ``LOGIT_ATOL`` 1e-4; the MoE layer to ``MOE_ATOL``
 largest entry, with a floor of 1e-3 of the model's largest gradient.
 """
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -38,14 +40,15 @@ from repro.models import Model as JModel  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import TrainConfig  # noqa: E402
-from repro_torch.core.steps import build_train_step  # noqa: E402
 from repro_torch.core.steps import value_and_grad  # noqa: E402
 from repro_torch.kernels.flash_attention import FWD_HEAD_DIMS  # noqa: E402
 from repro_torch.models import Model as TModel  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.serve import ContinuousEngine, Engine, Request  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_plan_worker as plan_worker  # noqa: E402
 
 LOGIT_ATOL = 1e-4
 MOE_ATOL = 1e-5
@@ -422,26 +425,39 @@ def test_continuous_bit_exact_vs_fixed():
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-236b"])
 @pytest.mark.parametrize("plan", ["data", "shard", "fsdp", "pipeshard"])
 def test_mla_under_a_plan_raises_naming_its_item(arch, plan):
-    """MLA runs on one device only: training (``build_train_step``) and
-    serving (``ServePlan``, which both engines build under a plan) refuse
-    every plan, naming ROADMAP queue 1, item 13, before any mesh is
-    read."""
-    from repro_torch.serve.steps import ServePlan
-
-    model = TModel(tconfigs.get_config(arch).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        build_train_step(model, TrainConfig(), plan=plan)
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        ServePlan(model, plan, None, max_len=32)
-    assert build_train_step(model, TrainConfig(), plan=None) is not None
+    """MLA runs under every plan since ROADMAP queue 1, item 13: at a
+    gloo world of one, training (``build_train_step``) gives one device's
+    losses over two steps, bit for bit under the flat plans, and serving
+    (``ServePlan``, which both engines build under a plan) gives one
+    device's greedy tokens.  The gloo worlds of several ranks hold the
+    cuts (``test_torch_plan_families.py``, ``test_torch_pipeline.py``,
+    ``test_torch_serve_families.py``).  (Named for the refusal it held
+    until then.)"""
+    cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
+                              dtype="float32")
+    got, want, same = plan_worker.steps_at_world_of_one(cfg, plan)
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    if plan != "pipeshard":
+        assert got == want and same
+    model = TModel(cfg, device="cpu")
+    params = plan_worker.init_params(model)
+    prompts = {"tokens": np.random.default_rng(3).integers(4, 400, (3, 9))}
+    with plan_worker.world_of_one():
+        eng = Engine(model, batch_size=3, max_len=32, device="cpu",
+                     plan=plan, mesh=plan_worker.mesh_of_one(plan))
+        tokens = eng.generate(eng.shard_params(params), prompts,
+                              MAX_NEW)["tokens"]
+    one = Engine(model, batch_size=3, max_len=32, device="cpu")
+    np.testing.assert_array_equal(
+        tokens, one.generate(params, prompts, MAX_NEW)["tokens"])
 
 
 def test_dense_configs_without_mla_are_not_refused_by_plans():
-    """phi4-mini and llama3-405b are llama3.2's blocks: the MLA refusal
-    does not touch them (their plan runs are the dense family's, held in
-    ``test_torch_plans.py``)."""
-    from repro_torch.core.steps import refuse_mla
-
+    """phi4-mini and llama3-405b are llama3.2's blocks, which every plan
+    runs (``test_torch_plans.py``): under shard at a gloo world of one
+    two steps repeat one device's bits."""
     for arch in ("phi4-mini-3.8b", "llama3-405b"):
-        refuse_mla(TModel(tconfigs.get_config(arch).reduced(),
-                          device="cpu"), "shard")
+        cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
+                                  dtype="float32")
+        got, want, same = plan_worker.steps_at_world_of_one(cfg, "shard")
+        assert got == want and same, arch

@@ -15,7 +15,11 @@ one-device port and the JAX reference's unsharded loss.
   (``tests/torch_pipeline_worker.py``), run reduced gpt2m in fp32 at
   seq 16 with ragged positions under GPipe, 1F1B and interleaved (and,
   on two stages, reduced whisper-small at 4 decoder layers, its encoder
-  on the first stage and its output carried with the hidden states):
+  on the first stage and its output carried with the hidden states, and
+  the MLA models at 4 layers: deepseek-v2 on two stages, each microbatch
+  routed as one, against one device with ``grad_accum`` = m and the
+  reference's loss over the microbatches; minicpm3 on two stages of a
+  model axis of 2, its heads cut):
   losses over 3 steps within 1e-5 relative of the one-device port; the
   step-1 loss within 1e-5 relative of the JAX reference's unsharded
   ``Model.loss``; step-1 gradients leaf by leaf within 1e-5 of the
@@ -31,6 +35,7 @@ one-device port and the JAX reference's unsharded loss.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -52,11 +57,9 @@ from repro.core import plans as jplans  # noqa: E402
 from repro.core.sharding import _path_str  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
-from repro_torch.configs import TrainConfig  # noqa: E402
 from repro_torch.convert import flatten, unflatten  # noqa: E402
 from repro_torch.core import pipeline as tpipe  # noqa: E402
 from repro_torch.core import plans as tplans  # noqa: E402
-from repro_torch.core.steps import build_train_step  # noqa: E402
 from repro_torch.models import Model as TModel  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -121,7 +124,6 @@ def jax_losses():
     """Each scenario's batch and weights (the port's init, converted)
     through the JAX reference's unsharded ``Model.loss``, computed while
     the worlds run."""
-    import dataclasses
     out = {}
     for scs in worker.SCENARIOS.values():
         for name, sc in scs.items():
@@ -132,9 +134,21 @@ def jax_losses():
             params = plan_worker.init_params(TModel(cfg, device="cpu"))
             jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), params)
             batch = worker.make_batch(cfg.vocab_size, sc["batch"], cfg)
-            loss, _ = jax.jit(JModel(jcfg).loss)(
-                jp, {k: jnp.asarray(v) for k, v in batch.items()})
-            out[name] = float(loss)
+            loss = jax.jit(JModel(jcfg).loss)
+            if cfg.family != "moe":
+                out[name] = float(loss(jp, {k: jnp.asarray(v)
+                                            for k, v in batch.items()})[0])
+                continue
+            # the MoE family routes each microbatch as one: the batch's
+            # ce and z-loss over its tokens (equal counts a microbatch),
+            # the mean of the microbatches' auxes
+            m = sc["micro"]
+            b = sc["batch"] // m
+            mets = [loss(jp, {k: jnp.asarray(v[i * b:(i + 1) * b])
+                              for k, v in batch.items()})[1]
+                    for i in range(m)]
+            out[name] = sum(float(x["ce"]) + 1e-4 * float(x["zloss"])
+                            + float(x["aux"]) for x in mets) / m
     return out
 
 
@@ -370,12 +384,14 @@ def test_staged_specs_equal_reference(arch):
 def test_pipeshard_refuses_with_its_roadmap_item(arch, item):
     """pipeshard runs every family the port has (the MoE, SSM, hybrid,
     vision-language and encoder-decoder ones in
-    ``test_torch_plan_families.py``) but the one that runs on one device
-    only: the MLA models (item 13) raise."""
-    with pytest.raises(NotImplementedError, match=item):
-        build_train_step(TModel(tconfigs.get_config(arch).reduced(),
-                                device="cpu"), TrainConfig(),
-                         plan="pipeshard")
+    ``test_torch_plan_families.py``), and since ROADMAP queue 1,
+    ``item``, the MLA models (the "mla" and "dsv2" scenarios): two steps
+    on one stage of a gloo world of one give one device's losses.
+    (Named for the refusal it held until then.)"""
+    cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
+                              dtype="float32")
+    got, want, _ = plan_worker.steps_at_world_of_one(cfg, "pipeshard")
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL, err_msg=item)
 
 
 def test_encoder_stack_lies_on_the_first_stage():

@@ -15,10 +15,14 @@ flat plans and pipeshard.
   shard, shard_zero and fsdp (the projector whole on every model rank,
   gathered at its use under fsdp); whisper-small, its batch carrying
   frames, under the same five (the encoder and every cross-attention
-  cut as the decoder's self-attention); falcon-mamba, zamba2,
-  phi3.5-MoE, phi-3-vision and whisper-small under pipeshard with GPipe
-  and 1F1B (whisper's encoder on the first stage, its output carried
-  with the hidden states). Each is held to the
+  cut as the decoder's self-attention); the MLA models, minicpm3-4b and
+  deepseek-v2-236b, under the same five (a rank's heads of ``w_uq``,
+  ``w_uk``, ``w_uv`` and ``wo``, the latent's leaves whole), and under
+  shard with a low-rank query (``q_lora_rank`` 32: ``w_dq``, ``q_norm``)
+  and at top-6 of 8 experts; falcon-mamba, zamba2, phi3.5-MoE,
+  phi-3-vision, whisper-small, minicpm3 and deepseek-v2 under pipeshard
+  with GPipe and 1F1B (whisper's encoder on the first stage, its output
+  carried with the hidden states). Each is held to the
   one-device port, which the other port tests hold to the JAX reference,
   as ``test_torch_plans.py`` holds the dense family: losses over 3 steps
   within 1e-5 relative, step-1 gradients leaf by leaf within 1e-5 of the
@@ -41,6 +45,9 @@ flat plans and pipeshard.
   written from fsdp blocks restores onto shard.
 * The SSM leaves whose cut does not follow the channels: their gradient
   blocks equal the one-device gradients' blocks.
+* deepseek-v2's top-6 combine over a model axis of 2 gives one device's
+  output bit for bit, where the ranks' partial sums (the control) do
+  not.
 * Every plan builds for every family; the families the port does not
   have raise with their ROADMAP item; the staged specs of the families
   equal the reference's.
@@ -73,11 +80,9 @@ from repro.core.sharding import _path_str  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import TrainConfig  # noqa: E402
 from repro_torch.core import pipeline as tpipe  # noqa: E402
 from repro_torch.core import plans as tplans  # noqa: E402
 from repro_torch.core.sharding import spec_axes  # noqa: E402
-from repro_torch.core.steps import build_train_step  # noqa: E402
 from repro_torch.models import Model as TModel  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -267,18 +272,20 @@ def test_the_groupings_drop_other_tokens(drop_reference):
 
 
 # ------------------------------------------------------------------ #
-# refusals: the families the port does not have, and MLA under a plan
+# the families the port does not have, and MLA under a plan
 
 @pytest.mark.parametrize("arch,plan,item", [
     ("deepseek-v2-236b", "fsdp", "item 13"),
     ("minicpm3-4b", "data", "item 13")])
 def test_families_not_ported_raise_with_their_roadmap_item(arch, plan, item):
-    """The MLA models under any plan (item 13: they run on one device
-    only); the vision-language and encoder-decoder families run under
-    every plan (the worlds' "vlm" and "whisper" cases)."""
-    with pytest.raises(NotImplementedError, match=item):
-        build_train_step(TModel(tconfigs.get_config(arch).reduced(),
-                                device="cpu"), TrainConfig(), plan=plan)
+    """The MLA models run under every plan since ROADMAP queue 1,
+    ``item`` (the worlds' "mla" and "dsv2" cases): two steps at a gloo
+    world of one repeat one device's bits.  (Named for the refusal it
+    held until then.)"""
+    cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
+                              dtype="float32")
+    got, want, same = plan_worker.steps_at_world_of_one(cfg, plan)
+    assert got == want and same, item
 
 
 @pytest.mark.parametrize("family", ["mla", "encdec", "vlm"])
@@ -324,7 +331,7 @@ def test_donated_steps_repeat_the_bits(worlds):
 
 def test_every_plan_builds_for_every_family(worlds):
     built = worlds[1]["builds"]
-    assert len(built) == 6 * len(tplans.PLANS)
+    assert len(built) == 8 * len(tplans.PLANS)
     assert all(v is True for v in built.values()), \
         {k: v for k, v in built.items() if v is not True}
 
@@ -379,6 +386,13 @@ def test_model_axis_describes_each_family(worlds, world):
     enc = flat["whisper"]["fsdp"]["model_axis"]
     assert enc["heads"] and enc["kv_heads"] and enc["mlp"]
     assert enc["vocab"] and enc["positions"] and not enc["experts"]
+    # MLA: w_uq's heads, no kv heads; minicpm3's MLP, deepseek-v2's
+    # experts and shared expert
+    mla = flat["mla"]["fsdp"]["model_axis"]
+    assert mla["heads"] and not mla["kv_heads"] and mla["mlp"]
+    dsv2 = flat["dsv2"]["shard"]["model_axis"]
+    assert dsv2["heads"] and not dsv2["kv_heads"] and not dsv2["mlp"]
+    assert dsv2["experts"] and dsv2["shared_experts"]
     if world == 2:
         assert not flat["moe_e3"]["shard"]["model_axis"]["experts"]
         shared = flat["moe_shared"]["shard"]["model_axis"]
@@ -425,6 +439,23 @@ def test_pipeline_matches_one_device(worlds, world, name):
     assert a["losses"] == b["losses"]
     for key, w in a["params"].items():
         assert np.array_equal(b["params"][key], w), key
+
+
+def test_top6_combine_over_the_model_axis_is_one_devices(worlds):
+    """deepseek-v2's top-6 of 8 experts cut over a model axis of 2: the
+    ranks sum each token's [k, d] contributions (one rank's value and
+    zeros elsewhere, exactly) and add them in one device's order, so
+    the layer's output is one device's bit for bit, on tokens whose six
+    experts lie on both ranks, several on one.  The control: the ranks'
+    partial sums added over the axis, as the combine added them at top-2,
+    round apart from one device's order."""
+    got = worlds[2]["top6"]
+    assert np.array_equal(got["cut"], got["whole"])
+    assert not np.array_equal(got["partial"], got["whole"])
+    np.testing.assert_allclose(got["partial"], got["whole"], rtol=1e-5,
+                               atol=1e-6)
+    a, b = got["per_rank"]
+    assert np.all(a + b == 6) and np.any((a >= 2) & (b >= 1))
 
 
 # ------------------------------------------------------------------ #

@@ -363,7 +363,7 @@ def test_plan_check_prints_every_plan_beside_one_device(_started):
 
 
 # ------------------------------------------------------------------ #
-# refusals
+# what the plans refused until MLA ran under them
 
 @pytest.mark.parametrize("arch,plan,item", [
     ("deepseek-v2-236b", "pipeshard", "item 13"),
@@ -372,12 +372,16 @@ def test_plan_check_prints_every_plan_beside_one_device(_started):
 ])
 def test_plans_not_ported_raise_with_their_roadmap_item(arch, plan, item):
     """Every plan runs every family (the vision-language and the
-    encoder-decoder ones: ``test_torch_plan_families.py``); what remains
-    refused is Multi-head Latent Attention (item 13), which runs on one
-    device only."""
-    with pytest.raises(NotImplementedError, match=item):
-        build_train_step(TModel(tconfigs.get_config(arch).reduced(),
-                                device="cpu"), TrainConfig(), plan=plan)
+    encoder-decoder ones: ``test_torch_plan_families.py``), and since
+    ROADMAP queue 1, ``item``, Multi-head Latent Attention too: two steps
+    at a gloo world of one give one device's losses, bit for bit under a
+    flat plan.  (Named for the refusal it held until then.)"""
+    cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
+                              dtype="float32")
+    got, want, same = worker.steps_at_world_of_one(cfg, plan)
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL, err_msg=item)
+    if plan != "pipeshard":
+        assert got == want and same, item
 
 
 class _RankView:

@@ -1,10 +1,12 @@
 """Serving under every plan for every family: the MoE, SSM and hybrid
 families under the flat plans (data, zero2, shard, shard_zero, fsdp),
-the vision-language family (its batch carrying patch embeddings, its
+the Multi-head Latent Attention models (minicpm3-4b, deepseek-v2-236b:
+a rank's heads, the latent cache's ring cut over the model axis) under
+shard, the vision-language family (its batch carrying patch embeddings, its
 cache the patches too) and the encoder-decoder (its batch carrying
 frames, its cross cache a rank's block of the frames) under shard, and
-pipeshard for the dense, MoE, SSM, hybrid, vision-language and
-encoder-decoder families.
+pipeshard for the dense, MoE, SSM, hybrid, vision-language,
+encoder-decoder and MLA models.
 
 * Reference parity: at a world of one, every family under every plan of
   ``PLANS`` gives the JAX reference ``Engine``'s tokens under the same
@@ -39,6 +41,7 @@ encoder-decoder families.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -73,20 +76,32 @@ INT8_LOGIT_RTOL = 1e-3
 # the entry point beside the worlds, in the reduced configs' bf16, each
 # rank's check against one device held to the bf16 envelope (5% of the
 # largest logit): gpt2m on two stages, and phi3.5-MoE under fsdp on a
-# model axis of two with the int8 cache
+# model axis of two with the int8 cache; and in fp32 (``--plain-fp32``,
+# the plain versions), the launcher itself holding the check to 1e-4:
+# deepseek-v2 (MLA, top-6 routing reduced to top-2) under shard on a
+# model axis of two
 LAUNCH = ["torch.distributed.run", "--nproc_per_node", "2", "--standalone",
           "-m", "repro_torch.launch.serve", "--reduced", "--device", "cpu",
           "--batch", "4", "--gen", "6", "--check"]
 LAUNCHES = {"pipeshard": ["--plan", "pipeshard", "--mesh", "2,1,1",
                           "--stages", "2"],
             "moe_fsdp": ["--arch", "phi3.5-moe-42b-a6.6b", "--plan", "fsdp",
-                         "--mesh", "1,1,2", "--kv-dtype", "int8"]}
+                         "--mesh", "1,1,2", "--kv-dtype", "int8"],
+            "dsv2_fp32": ["--arch", "deepseek-v2-236b", "--plan", "shard",
+                          "--mesh", "1,1,2", "--plain-fp32", "--check",
+                          "1e-4"]}
 BF16_LOGIT_RTOL = 5e-2
+# tools/moe_ties.py beside them: where reduced deepseek-v2's bf16 routing
+# parts under shard on a model axis of two, and the check with one
+# device's expert choices replayed
+TIES = [os.path.join(os.path.dirname(HERE), "tools", "moe_ties.py"),
+        "--arch", "deepseek-v2-236b", "--reduced", "--device", "cpu",
+        "--mesh", "1,1,2", "--gen", "6"]
 AXES = ("pod", "data", "model")
 # the reference's Engine runs in the background beside the worlds, in
 # processes of this module's ``__main__``, each over these families
 REFERENCE_SPLIT = (("dense", "vlm"), ("moe",), ("ssm",), ("hybrid",),
-                   ("encdec",))
+                   ("encdec",), ("mla", "dsv2"))
 
 
 # ------------------------------------------------------------------ #
@@ -117,6 +132,9 @@ def _started(tmp_path_factory, subproc_env):
         procs[name] = (None, subprocess.Popen(
             [sys.executable, "-m"] + LAUNCH + extra, env=env, cwd=root,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    procs["moe_ties"] = (None, subprocess.Popen(
+        [sys.executable, "-m"] + LAUNCH[:4] + TIES, env=env, cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     yield procs
     for _, p in procs.values():
         if p.poll() is None:
@@ -383,7 +401,7 @@ def test_pipeshard_with_a_model_axis_of_one_is_bit_equal(worlds, world):
         if m["kind"] != worker.PIPE or m["shape"][2] != 1:
             continue
         name, _, kv, _ = key
-        halves = m["shape"][1] > 1 and name != "moe"
+        halves = m["shape"][1] > 1 and name not in worker.ROUTED
         want = one[(name, "halves" if halves else "engine", kv)]
         np.testing.assert_array_equal(run["tokens"], want["tokens"])
         for a, b in zip(run["logits"], want["logits"]):
@@ -500,7 +518,7 @@ def test_moe_routes_as_the_reference_with_drops(worlds):
 # partial sums
 PER_LAYER = {"dense": (2, 2), "moe": (2, 2), "ssm": (2, 1),
              "hybrid": (2 + 2 * 2, 2 + 2 * 3), "vlm": (2, 2),
-             "encdec": (3, 4)}
+             "encdec": (3, 4), "mla": (2, 2), "dsv2": (3, 2)}
 
 
 def _shard_counts(worlds):
@@ -569,7 +587,7 @@ def test_pipeshard_decode_handoffs_and_collectives(worlds, world):
                 recvs = sum(1 for ch in range(1, chunks)
                             if ch % S == s and (ch - 1) % S != s)
                 ar, ag, emb, head = shard[name]
-                ag += name == "moe"
+                ag += name in worker.ROUTED
                 want = {"all_reduce": ar * n_s + (emb if s == 0 else 0),
                         "all_gather": ag * n_s
                         + (head if s == S - 1 else 0)
@@ -669,6 +687,20 @@ def test_launcher_serves_under_torchrun_on_gloo(_started, name):
     scale = float(words[words.index("|logit|") + 1])
     assert lines[2].startswith("against one device on each rank")
     assert 0 <= diff <= BF16_LOGIT_RTOL * scale, lines[2]
+
+
+def test_moe_ties_reads_the_parting_and_replays_the_routing(_started):
+    proc = _started["moe_ties"][1]
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, err[-3000:]
+    res = json.loads(out.strip().splitlines()[-1])
+    # a prefill and five decode steps, each over two MoE layers
+    assert len(res["free"]["parted_tokens_per_call"]) == 6 * 2
+    first = res["free"]["first_parting"]
+    assert first is None or all(t["one"]["experts"] != t["plan"]["experts"]
+                                for t in first["parted"])
+    assert 0 <= res["replayed"]["err"] \
+        <= BF16_LOGIT_RTOL * res["replayed"]["scale"]
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@ Every rank of a world runs ``repro_torch.launch.reshard_check`` on the
 world's scenarios in turn (reduced gpt2m in fp32, 4 layers unless the
 scenario says otherwise, seq 16, batch 8, 4 microbatches), recording
 every checkpoint it writes; the world of 2 also reshards a reduced
-whisper-small state from shard to pipeshard and back
-(``whisper_reshard``); each world ends with a chaos drill, after which
+whisper-small state and a reduced deepseek-v2 state from shard to
+pipeshard and back (``whisper_reshard``, ``dsv2_reshard``); each world
+ends with a chaos drill, after which
 its dead and spare ranks take part in nothing.  Each rank saves its
 reports and records to ``OUT.<rank>`` (``torch.save`` of plain Python).
 Imports no JAX.
@@ -59,21 +60,19 @@ SCENARIOS = {
 }
 
 
-def whisper_reshard(root: str):
-    """A reduced whisper-small state (fp32 params from seed 0, AdamW
+def reshard_legs(root: str, cfg, leaves):
+    """A reduced state of ``cfg`` (fp32 params from seed 0, AdamW
     moments drawn from seed 1, step 3) written as a checkpoint, resharded
     onto shard over a model axis of 2, gathered and written again,
-    resharded onto pipeshard over 2 stages (the first holds the encoder's
-    stack, the second none of it), gathered and written again, and
-    resharded onto shard once more.  Each reshard is held to the
+    resharded onto pipeshard over 2 stages, gathered and written again,
+    and resharded onto shard once more.  Each reshard is held to the
     host-side reference re-placement (``reshard_state``) and to the
     step's own cut of the state; each gather to the state written.
     Returns, per leg, whether each held bit for bit, and this rank's
-    shapes of the encoder's and the decoder's stacks."""
-    import dataclasses
-
-    from repro_torch.configs import TrainConfig, get_config
+    shapes of the ``leaves`` (paths)."""
+    from repro_torch.configs import TrainConfig
     from repro_torch.core.plans import Placement, get_plan
+    from repro_torch.core.sharding import subtree
     from repro_torch.core.steps import build_train_step
     from repro_torch.launch.mesh import make_host_mesh, make_pipeline_mesh
     from repro_torch.launch.reshard_check import host_state, leaves_equal
@@ -82,8 +81,6 @@ def whisper_reshard(root: str):
     from repro_torch.optim.adamw import tree_map
     from repro_torch.train import (reshard_checkpoint, reshard_state,
                                    save_checkpoint)
-    cfg = dataclasses.replace(get_config("whisper-small").reduced(),
-                              dtype="float32")
     model = Model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
@@ -117,10 +114,8 @@ def whisper_reshard(root: str):
                "opt_bitexact": leaves_equal(got_o.m, ref_o.m)[0]
                and leaves_equal(got_o.v, ref_o.v)[0],
                "layout_bitexact": leaves_equal(got_p, own)[0],
-               "encoder_wq": tuple(got_p["encoder"]["layers"]["attn"]["wq"]
-                                   .shape),
-               "decoder_wq": tuple(got_p["layers"]["self_attn"]["wq"]
-                                   .shape)}
+               "shapes": {k: tuple(subtree(got_p, k).shape)
+                          for k in leaves}}
         whole_p = step.gather_params(got_p)
         whole_o = step.gather_opt_state(got_o)
         rec["gathered_bitexact"] = leaves_equal(whole_p, host_p)[0] \
@@ -134,8 +129,43 @@ def whisper_reshard(root: str):
         if dist.get_rank() == 0:
             save_checkpoint(root, i + 1, whole_p, whole_o)
         dist.barrier()
-    return {"legs": out, "n_enc": cfg.n_enc_layers,
-            "n_layers": cfg.n_layers, "heads": cfg.n_heads}
+    return {"legs": out, "n_layers": cfg.n_layers, "heads": cfg.n_heads}
+
+
+def whisper_reshard(root: str):
+    """``reshard_legs`` of a reduced whisper-small state: under pipeshard
+    the first stage holds the encoder's stack, the second none of it.
+    Each leg also gives this rank's shapes of the encoder's and the
+    decoder's first attention's ``wq``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("whisper-small").reduced(),
+                              dtype="float32")
+    enc, dec = "encoder/layers/attn/wq", "layers/self_attn/wq"
+    rep = reshard_legs(root, cfg, (enc, dec))
+    for leg in rep["legs"]:
+        leg["encoder_wq"], leg["decoder_wq"] = (leg["shapes"][enc],
+                                                leg["shapes"][dec])
+    return dict(rep, n_enc=cfg.n_enc_layers)
+
+
+# deepseek-v2's leaves whose cuts the reshard moves: MLA's heads
+# (``w_uq``), its latent's down-projection (whole under shard) and the
+# routed experts
+DSV2_LEAVES = ("layers/mla/w_uq", "layers/mla/w_dkv", "layers/moe/w_up")
+
+
+def dsv2_reshard(root: str):
+    """``reshard_legs`` of a reduced deepseek-v2 state (MLA and the MoE
+    family), at 4 layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b").reduced(),
+                              dtype="float32", n_layers=4)
+    return dict(reshard_legs(root, cfg, DSV2_LEAVES),
+                experts=cfg.moe.n_experts)
 
 
 def run(rank: int, world: int, init: str, out: str) -> None:
@@ -175,6 +205,8 @@ def run(rank: int, world: int, init: str, out: str) -> None:
     if world == 2:
         root = os.path.join(os.path.dirname(out), "whisper")
         reports["whisper"] = whisper_reshard(root)
+        reports["dsv2"] = dsv2_reshard(os.path.join(os.path.dirname(out),
+                                                    "dsv2"))
     for name, argv in SCENARIOS[world]:
         reports[name] = reshard_check.check(
             reshard_check.parse(COMMON + argv), torch.device("cpu"))

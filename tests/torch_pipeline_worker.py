@@ -1,7 +1,8 @@
 """One rank of the gloo worlds of ``tests/test_torch_pipeline.py``.
 
 Every rank of a world runs the pipeline plan of the port on reduced
-fp32 gpt2m models (and, in the world of 2, whisper-small's), under
+fp32 gpt2m models (and, in the world of 2, whisper-small's and
+deepseek-v2's, in the world of 4 minicpm3's on a model axis of 2), under
 several schedules and layer splits, and rank 0
 runs the one-device port beside it on the same params and batch; rank 0
 saves what the tests compare (``torch.save`` of plain Python and
@@ -27,6 +28,7 @@ for p in (SRC, HERE):
     if p not in sys.path:
         sys.path.insert(0, p)
 
+import torch_plan_family_worker as family_worker  # noqa: E402
 import torch_plan_worker as plan_worker  # noqa: E402
 
 AXES = ("pod", "data", "model")
@@ -38,7 +40,10 @@ CKPT_STEPS = 2
 # reference's ``pipeline_check`` does; ``legacy`` is no split, ``even``
 # the even split spelled out.  Mesh scenarios: (pod, data, model) shapes
 # cut into 2 stages; ``arch`` other than gpt2m: the encoder-decoder, its
-# batch carrying frames, its encoder on the first stage.
+# batch carrying frames, its encoder on the first stage; MLA, dense
+# (minicpm3, its heads cut over the model axis) and MoE (deepseek-v2,
+# each microbatch routed as one: its batch's labels all live, and its
+# yardstick one device with ``grad_accum`` = the microbatches).
 SCENARIOS = {
     2: {"A30,T4": dict(gpus="A30,T4", layers=6, micro=4, batch=8,
                        runs=(("gpipe", "searched"), ("gpipe", "legacy"),
@@ -47,7 +52,11 @@ SCENARIOS = {
         "whisper": dict(arch="whisper-small", shape=(2, 1, 1), layers=4,
                         micro=4, batch=8,
                         runs=(("gpipe", "legacy"), ("1f1b", "legacy"),
-                              ("interleaved", "even")))},
+                              ("interleaved", "even"))),
+        "dsv2": dict(arch="deepseek-v2-236b", shape=(2, 1, 1), layers=4,
+                     micro=4, batch=8,
+                     runs=(("gpipe", "legacy"), ("1f1b", "legacy"),
+                           ("interleaved", "even")))},
     3: {"A30,A30,T4": dict(gpus="A30,A30,T4", layers=7, micro=4, batch=8,
                            runs=(("gpipe", "searched"),
                                  ("1f1b", "searched"),
@@ -59,7 +68,10 @@ SCENARIOS = {
                           runs=(("gpipe", "legacy"), ("1f1b", "legacy"))),
         "mesh2,2,1": dict(shape=(2, 2, 1), layers=8, micro=4, batch=8,
                           runs=(("gpipe", "legacy"),
-                                ("interleaved", "even")))},
+                                ("interleaved", "even"))),
+        "mla": dict(arch="minicpm3-4b", shape=(2, 1, 2), layers=4, micro=4,
+                    batch=8, runs=(("gpipe", "legacy"), ("1f1b", "legacy"),
+                                   ("interleaved", "even")))},
 }
 
 
@@ -78,10 +90,13 @@ def make_batch(vocab: int, batch: int, cfg=None):
     """Tokens, labels (a tenth masked, so the microbatches hold different
     token counts) and ragged positions (``arange + b % 3``, as in
     ``pipeline_check``), from a seed; an encoder-decoder's ``frames``
-    [batch, F, d] x 0.02 (``cfg``, either package's config) too."""
+    [batch, F, d] x 0.02 (``cfg``, either package's config) too.  An MoE
+    model's labels are all live: its microbatches, each routed as one,
+    then hold equal token counts, as ``grad_accum``'s do."""
     rng = np.random.default_rng(0)
     labels = rng.integers(0, vocab, (batch, SEQ))
-    labels[rng.random((batch, SEQ)) < 0.1] = -1
+    if cfg is None or cfg.family != "moe":
+        labels[rng.random((batch, SEQ)) < 0.1] = -1
     out = {"tokens": rng.integers(0, vocab, (batch, SEQ)),
            "labels": labels,
            "positions": np.arange(SEQ)[None]
@@ -219,9 +234,13 @@ def run(rank: int, world: int, init: str, out: str) -> None:
         batch = make_batch(cfg.vocab_size, sc["batch"], cfg)
         rec = {"runs": {}, "batch": batch, "layers": sc["layers"]}
         ref_grads = None
-        if rank == 0:
+        if rank == 0 and cfg.family == "moe":
+            one = family_worker.one_device(cfg, dataclasses.replace(
+                train_config(sc["micro"]), grad_accum=sc["micro"]), batch)
+        elif rank == 0:
             one = plan_worker.one_device(cfg, train_config(sc["micro"]),
                                          batch)
+        if rank == 0:
             ref_grads = one.pop("grads")
             one.pop("params")
             rec["one_device"] = one

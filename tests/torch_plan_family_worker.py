@@ -6,7 +6,8 @@ MoE, vision-language and encoder-decoder families on two stages; the
 world of one also runs the
 one-device port of every case on the same params and batch, the
 yardstick of every world (one device computes the same bits in every
-process).  Rank 0 saves what the tests compare (``torch.save`` of plain
+process); the world of 2 also runs deepseek-v2's top-6 combine over a
+model axis of 2.  Rank 0 saves what the tests compare (``torch.save`` of plain
 Python and numpy).  Imports no JAX.
 
     python tests/torch_plan_family_worker.py OUT WORLD
@@ -58,19 +59,27 @@ CASES = {
                    ("shard",)),
     "vlm": ("phi-3-vision-4.2b", {}, FLAT_PLANS),
     "whisper": ("whisper-small", {}, FLAT_PLANS),
+    "mla": ("minicpm3-4b", {}, FLAT_PLANS),
+    "mla_q": ("minicpm3-4b", {"q_lora_rank": 32}, ("shard",)),
+    "dsv2": ("deepseek-v2-236b", {}, FLAT_PLANS),
+    "dsv2_top6": ("deepseek-v2-236b", {"n_experts": 8, "top_k": 6},
+                  ("shard",)),
 }
 # the MoE cases route each batch rank's tokens on their own: their
 # yardstick is the one-device port with grad_accum = the batch ranks
 # (1, 2 or 4 over the worlds' plans), on a batch whose groups hold
 # equal token counts
-MOE_ACCUM = {"moe": (1, 2, 4), "moe_e3": (1,), "moe_shared": (1,)}
+MOE_ACCUM = {"moe": (1, 2, 4), "moe_e3": (1,), "moe_shared": (1,),
+             "dsv2": (1, 2, 4), "dsv2_top6": (1, 2)}
 ONLY_ON = {"moe_e3": 2, "moe_shared": 2, "zamba2_nh3": 2}
 # the pipeline's cases: zamba2 at 4 layers (2 groups, one a stage)
 PIPE_CASES = {"falcon": ("falcon-mamba-7b", {}),
               "zamba2": ("zamba2-2.7b", {"n_layers": 4}),
               "moe": ("phi3.5-moe-42b-a6.6b", {}),
               "vlm": ("phi-3-vision-4.2b", {}),
-              "whisper": ("whisper-small", {})}
+              "whisper": ("whisper-small", {}),
+              "mla": ("minicpm3-4b", {}),
+              "dsv2": ("deepseek-v2-236b", {})}
 SCHEDULES = ("gpipe", "1f1b")
 # two microbatches: 1F1B's stage 1 alternates (F B F B) where GPipe
 # runs both forwards first
@@ -98,10 +107,13 @@ def config(arch: str, **kw):
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     moe = {k: kw.pop(k) for k in ("n_experts", "n_shared_experts",
-                                  "capacity_factor") if k in kw}
+                                  "capacity_factor", "top_k") if k in kw}
     if moe:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                                **moe))
+    if "q_lora_rank" in kw:
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, q_lora_rank=kw.pop("q_lora_rank")))
     if "head_dim" in kw:
         cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
             cfg.ssm, head_dim=kw.pop("head_dim")))
@@ -359,7 +371,8 @@ def builds():
     from repro_torch.models import Model
     out = {}
     for arch in ("gpt2m", "phi3.5-moe-42b-a6.6b", "falcon-mamba-7b",
-                 "zamba2-2.7b", "phi-3-vision-4.2b", "whisper-small"):
+                 "zamba2-2.7b", "phi-3-vision-4.2b", "whisper-small",
+                 "minicpm3-4b", "deepseek-v2-236b"):
         for name, plan in PLANS.items():
             mesh = make_pipeline_mesh((1, 1, 1), AXES, 1) if plan.pipeline \
                 else make_host_mesh((1, 1, 1), AXES)
@@ -370,6 +383,45 @@ def builds():
             except NotImplementedError as e:
                 out[(arch, name)] = str(e)
     return out
+
+
+def top6_combine(mesh):
+    """deepseek-v2's routed experts at top-6 of 8 (no shared expert, so
+    that the combine is all the layer adds), the experts cut over the
+    model axis of ``mesh``, and on one device, on the same tokens: both
+    outputs, and of each token the experts on each model rank."""
+    from repro_torch.core.sharding import ModelAxis
+    from repro_torch.models import moe
+    cfg = case_config("dsv2_top6")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_shared_experts=0))
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (2, 16, cfg.d_model)), dtype=torch.float32)
+    M, r = mesh.shape["model"], mesh.coord["model"]
+    E = cfg.moe.n_experts // M
+    axis = ModelAxis(group=mesh.group("model"), size=M, rank=r, vocab=False,
+                     positions=False, heads=False, kv_heads=False, mlp=False,
+                     experts=True)
+    mine = {k: v[r * E:(r + 1) * E] if k != "router" else v
+            for k, v in p.items()}
+    cut, _ = moe.moe_forward(x, mine, cfg, model_axis=axis)
+    whole, _ = moe.moe_forward(x, p, cfg)
+    choices = moe.route(x.reshape(-1, cfg.d_model), p, cfg)[2]
+    # the control: each rank's partial sum, its experts' contributions
+    # added in order (another rank's experts, their weights zeroed, add
+    # zeros), then the ranks' sums added
+    partial = 0
+    for q in range(M):
+        other = torch.tensor([e for e in range(cfg.moe.n_experts)
+                              if e // E != q])
+        masked = {k: v if k == "router" else v.index_fill(0, other, 0.0)
+                  for k, v in p.items()}
+        partial = partial + moe.moe_forward(x, masked, cfg)[0]
+    return {"cut": cut.numpy(), "whole": whole.numpy(),
+            "partial": partial.numpy(),
+            "per_rank": [((choices // E) == q).sum(-1).numpy()
+                         for q in range(M)]}
 
 
 def fsdp_layout(mesh):
@@ -468,6 +520,8 @@ def run(rank: int, world: int, init: str, out: str) -> None:
         res["builds"] = builds()
         res["donated"] = donated()
         res["one_device"] = references()
+    if world == 2:
+        res["top6"] = top6_combine(flat)
     if world in PIPE:
         # two stages; GPipe's and 1F1B's meshes are one
         staged = make_pipeline_mesh(PIPE[world], AXES, 2)

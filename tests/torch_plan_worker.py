@@ -15,6 +15,7 @@ import dataclasses
 import os
 import sys
 import tempfile
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -140,6 +141,68 @@ def under_plan(cfg, tcfg, batch, plan, mesh):
                               if spec_axes(s) else 1)
                           for k, s in specs.items()}
     return out
+
+
+@contextmanager
+def world_of_one():
+    """A gloo world of one rank in this process, started (and ended)
+    here where there is none."""
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        yield
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def mesh_of_one(plan: str):
+    """The mesh of one rank a plan runs on: (pod, data, model), or one
+    stage of it for a pipeline."""
+    from repro_torch.core.plans import get_plan
+    from repro_torch.launch.mesh import make_host_mesh, make_pipeline_mesh
+    if get_plan(plan).pipeline:
+        return make_pipeline_mesh((1, 1, 1), AXES, 1)
+    return make_host_mesh((1, 1, 1), AXES)
+
+
+def steps_at_world_of_one(cfg, plan: str, steps: int = 2):
+    """``steps`` steps of ``plan`` at a gloo world of one in this process
+    (one microbatch under pipeshard, so that the MoE family routes the
+    batch as one device does) and of one device, from ``init_params``
+    on ``make_batch``: (the plan's losses, one device's, whether the
+    params after are bit-equal)."""
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.models import Model
+    tcfg = dataclasses.replace(train_config(), microbatches=1)
+    batch = {k: torch.as_tensor(v)
+             for k, v in make_batch(cfg.vocab_size).items()}
+    out = []
+    with world_of_one():
+        for p in (plan, None):
+            model = Model(cfg, device="cpu")
+            step = build_train_step(model, tcfg, plan=p,
+                                    mesh=None if p is None
+                                    else mesh_of_one(p))
+            params = init_params(model)
+            if p is not None:
+                params = step.shard_params(params)
+                opt = step.init_opt_state()
+            else:
+                from repro_torch.optim import init_adamw
+                opt = init_adamw(params)
+            losses = []
+            for _ in range(steps):
+                params, opt, metrics = step(params, opt, batch)
+                losses.append(float(metrics["loss"]))
+            if p is not None:
+                params = step.gather_params(params)
+            out.append((losses, numpy_tree(params)))
+    (got, got_p), (want, want_p) = out
+    return got, want, all(np.array_equal(got_p[k], v)
+                          for k, v in want_p.items())
 
 
 def layer_counts(mesh):

@@ -1,12 +1,13 @@
 """One rank of the gloo worlds of ``tests/test_torch_serve_families.py``.
 
 Every rank of a world serves reduced fp32 models of the dense, MoE, SSM,
-hybrid, vision-language and encoder-decoder families through ``Engine``
+hybrid, vision-language and encoder-decoder families and the two MLA
+models (minicpm3-4b, deepseek-v2-236b) through ``Engine``
 and (but the vision-language and encoder-decoder ones, which it refuses)
 ``ContinuousEngine`` on each mesh of its world: the MoE, SSM and hybrid
 families under the flat plans (data, zero2, shard, shard_zero, fsdp),
-the vision-language and encoder-decoder ones under shard, every family
-under pipeshard.  The world of one also runs the
+the vision-language, encoder-decoder and MLA ones under shard, every
+family under pipeshard.  The world of one also runs the
 one-device engines on the same params and prompts, the yardstick of
 every world (one device computes the same bits in every process), and
 for the MoE drop case one device on each group of rows the plans route
@@ -47,24 +48,32 @@ CASES = {"dense": ("gpt2m", {"n_layers": 4}),
          "ssm": ("falcon-mamba-7b", {"n_layers": 4}),
          "hybrid": ("zamba2-2.7b", {"n_layers": 8}),
          "vlm": ("phi-3-vision-4.2b", {"n_layers": 4}),
-         "encdec": ("whisper-small", {"n_layers": 4})}
+         "encdec": ("whisper-small", {"n_layers": 4}),
+         "mla": ("minicpm3-4b", {"n_layers": 4}),
+         "dsv2": ("deepseek-v2-236b", {"n_layers": 4})}
+# the MoE family's cases, which route tokens: a pipeline routes the whole
+# batch as one, so its yardstick is one device on the whole batch
+ROUTED = ("moe", "dsv2")
 # the families with a KV cache serve both KV dtypes
 KV_DTYPES = {"dense": ("fp32", "int8"), "moe": ("fp32", "int8"),
              "ssm": ("fp32",), "hybrid": ("fp32",),
-             "vlm": ("fp32", "int8"), "encdec": ("fp32",)}
+             "vlm": ("fp32", "int8"), "encdec": ("fp32",),
+             "mla": ("fp32",), "dsv2": ("fp32",)}
 # the families under every flat plan; and each family's flat plans (the
 # vision-language one's batch carries patches, the encoder-decoder's
 # frames, which shard cuts with the rows, and the encoder-decoder's
-# cross cache holds a rank's block of the frames; the plans' cut of the
-# dense stack is the dense family's, held by
+# cross cache holds a rank's block of the frames; the MLA models' heads
+# and latent cache are cut under shard, the plans that cut nothing more
+# are held at a world of one against the reference; the plans' cut of
+# the dense stack is the dense family's, held by
 # tests/test_torch_serve_plans.py)
 FLAT_CASES = ("moe", "ssm", "hybrid")
 FLAT_RUNS = {**{n: FLAT_PLANS for n in FLAT_CASES}, "vlm": ("shard",),
-             "encdec": ("shard",)}
+             "encdec": ("shard",), "mla": ("shard",), "dsv2": ("shard",)}
 # the families ContinuousEngine serves: a vision-language or an
 # encoder-decoder request would need its own patches or frames beside
 # its prompt
-CONTINUOUS = ("dense", "moe", "ssm", "hybrid")
+CONTINUOUS = ("dense", "moe", "ssm", "hybrid", "mla", "dsv2")
 # batch and slots: 6, unlike every stack depth (4 layers, 4 groups, 2
 # layers a group) and the conv window (d_conv - 1 = 3), so that
 # ``cache_spec`` finds the batch; a data axis of 2 cuts them in 3
@@ -94,9 +103,11 @@ PIPE = "pipeshard"
 SPLITS = {"even": None,
           "uneven3": {"dense": (2, 1, 1), "moe": (1, 2, 1), "ssm": (1, 1, 2),
                       "hybrid": (2, 1, 1), "vlm": (1, 1, 2),
-                      "encdec": (1, 2, 1)},
+                      "encdec": (1, 2, 1), "mla": (1, 2, 1),
+                      "dsv2": (2, 1, 1)},
           "chunks2": {"dense": (3, 1), "moe": (1, 3), "ssm": (2, 2),
-                      "hybrid": (1, 3), "vlm": (3, 1), "encdec": (1, 3)}}
+                      "hybrid": (1, 3), "vlm": (3, 1), "encdec": (1, 3),
+                      "mla": (2, 2), "dsv2": (3, 1)}}
 MESHES = {1: ((PIPE, (1, 1, 1), 1, "chunks2"),),
           2: ((FLAT, (1, 1, 2), 0, None), (FLAT, (1, 2, 1), 0, None),
               (PIPE, (2, 1, 1), 2, "even")),
@@ -115,7 +126,8 @@ DROP_PLANS = ("data", "shard")
 # the collectives of one decode step: each family under shard at two
 # depths on a model axis of 2, and under pipeshard on every staged mesh
 COUNT_DEPTHS = {"dense": (4, 5), "moe": (4, 5), "ssm": (4, 5),
-                "hybrid": (8, 10), "vlm": (4, 5), "encdec": (4, 5)}
+                "hybrid": (8, 10), "vlm": (4, 5), "encdec": (4, 5),
+                "mla": (4, 5), "dsv2": (4, 5)}
 
 
 def case_config(name: str, **extra):
@@ -284,7 +296,7 @@ def one_device():
             out[(name, "engine", kv)] = engine_run(model, params, kv)
             if name in CONTINUOUS:
                 out[(name, "cont", kv)] = continuous_run(model, params, kv)
-            if name != "moe":
+            if name not in ROUTED:
                 out[(name, "halves", kv)] = in_groups(
                     model, params, prompts(model.cfg), 2, kv)
     model = Model(drop_config(), device="cpu")

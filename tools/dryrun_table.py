@@ -3,8 +3,8 @@ production mesh under the default plans (shard_zero for training, shard
 for serving), one ``python -m repro_torch.launch.dryrun`` process a
 combination, a few at a time, on the host (no card).  Prints a markdown
 table: each row ``ok`` with its roofline terms, peak and trace seconds,
-``skip`` (the reference's own skips), ``not_ported`` (with the ROADMAP
-item) or ``fail`` (the error the port's step raised).  Every figure is
+``skip`` (the reference's own skips) or ``fail`` (the error the port's
+step raised).  Every figure is
 predicted from the H100 data sheet's constants.
 
     python tools/dryrun_table.py [--jobs 3] [--multi-pod] [--out DIR]
